@@ -1,0 +1,137 @@
+"""Update blocks: motion encoder, separable ConvGRU, flow/mask heads, OU heads.
+
+Port of ``mft_tpu/models/raft/update.py`` (reference MFT/RAFT/core/update.py)
+for the big model, NCHW:
+- BasicMotionEncoder: corr -> 256 (1x1) -> 192 (3x3), flow -> 128 (7x7) ->
+  64 (3x3), concat -> 126 (3x3), concat raw flow -> 128 channels;
+- SepConvGRU: a (1,5) then a (5,1) pass; z and r share their input and run
+  as one conv with the two kernels concatenated (same math as two convs);
+- BasicUpdateBlock: flow head 128->256->2, mask head 128->256->576 * 0.25;
+- OcclusionAndUncertaintyBlock ('simple' heads): input concat
+  [net, inp, corr, flow, delta_flow, motion] = 712 channels, both heads'
+  first convs run as one 712->256 conv.
+"""
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mft_tpu_torch.models.raft.layers import conv
+
+
+def _fused_pair(conv_a: nn.Conv2d, conv_b: nn.Conv2d, x):
+    """Two same-shape convs on one input as one conv; channels [a, b]."""
+    w = torch.cat([conv_a.weight, conv_b.weight], dim=0)
+    b = torch.cat([conv_a.bias, conv_b.bias], dim=0)
+    return F.conv2d(x, w, b, padding=conv_a.padding)
+
+
+class FlowHead(nn.Module):
+    def __init__(self, cin: int = 128, hidden_dim: int = 256, out_dim: int = 2):
+        super().__init__()
+        self.conv1 = conv(cin, hidden_dim, 3)
+        self.conv2 = conv(hidden_dim, out_dim, 3)
+
+    def forward(self, x):
+        return self.conv2(torch.relu(self.conv1(x)))
+
+
+class BasicMotionEncoder(nn.Module):
+    """Encode (corr window samples, flow) into 128 motion channels.
+
+    ``corr`` is either the (B, 324, H, W) lookup output or, on the fused
+    path, a callable ``corr(weight, bias) -> (B, 256, H, W)`` that computes
+    relu(convc1(lookup)) inside the lookup kernel.
+    """
+
+    def __init__(self, corr_channels: int = 324):
+        super().__init__()
+        self.convc1 = conv(corr_channels, 256, 1)
+        self.convc2 = conv(256, 192, 3)
+        self.convf1 = conv(2, 128, 7)
+        self.convf2 = conv(128, 64, 3)
+        self.conv = conv(256, 126, 3)
+
+    def forward(self, flow, corr):
+        dt = self.conv.weight.dtype
+        flow = flow.to(dt)
+        if callable(corr):
+            cor = corr(self.convc1.weight, self.convc1.bias).to(dt)
+        else:
+            cor = torch.relu(self.convc1(corr.to(dt)))
+        cor = torch.relu(self.convc2(cor))
+        flo = torch.relu(self.convf1(flow))
+        flo = torch.relu(self.convf2(flo))
+        out = torch.relu(self.conv(torch.cat([cor, flo], dim=1)))
+        return torch.cat([out, flow], dim=1)
+
+
+class SepConvGRU(nn.Module):
+    def __init__(self, hidden_dim: int = 128, input_dim: int = 256):
+        super().__init__()
+        cin = hidden_dim + input_dim
+        for suffix, k in (("1", (1, 5)), ("2", (5, 1))):
+            for gate in "zrq":
+                setattr(self, f"conv{gate}{suffix}", conv(cin, hidden_dim, k))
+
+    def forward(self, h, x):
+        hd = h.shape[1]
+        for suffix in ("1", "2"):
+            hx = torch.cat([h, x], dim=1)
+            zr = _fused_pair(getattr(self, f"convz{suffix}"),
+                             getattr(self, f"convr{suffix}"), hx)
+            z = torch.sigmoid(zr[:, :hd])
+            r = torch.sigmoid(zr[:, hd:])
+            q = torch.tanh(getattr(self, f"convq{suffix}")(
+                torch.cat([r * h, x], dim=1)))
+            h = (1.0 - z) * h + z * q
+        return h
+
+
+class BasicUpdateBlock(nn.Module):
+    """One RAFT refinement step: motion encoder -> GRU -> flow delta + up-mask."""
+
+    def __init__(self, hidden_dim: int = 128, corr_channels: int = 324):
+        super().__init__()
+        self.encoder = BasicMotionEncoder(corr_channels)
+        self.gru = SepConvGRU(hidden_dim, 128 + hidden_dim)
+        self.flow_head = FlowHead(hidden_dim, 256, 2)
+        self.mask_conv1 = conv(hidden_dim, 256, 3)
+        self.mask_conv2 = conv(256, 576, 1)
+
+    def forward(self, net, inp, corr, flow, need_mask: bool = True):
+        motion_features = self.encoder(flow, corr)
+        net = self.gru(net, torch.cat([inp, motion_features], dim=1))
+        delta_flow = self.flow_head(net)
+        up_mask = None
+        if need_mask:
+            # scaled 0.25 to balance gradients (reference update.py:237)
+            up_mask = 0.25 * self.mask_conv2(torch.relu(self.mask_conv1(net)))
+        return net, up_mask, delta_flow, motion_features
+
+
+class SimpleHead(nn.Module):
+    def __init__(self, cin: int, hidden_dim: int, out_dim: int):
+        super().__init__()
+        self.conv1 = conv(cin, hidden_dim, 3)
+        self.conv2 = conv(hidden_dim, out_dim, 3)
+
+
+class OcclusionAndUncertaintyBlock(nn.Module):
+    """Separate occlusion (2 logits) and uncertainty (1 log-variance) heads."""
+
+    def __init__(self, cin: int = 712, hidden_dim: int = 128):
+        super().__init__()
+        self.occl_head = SimpleHead(cin, hidden_dim, 2)
+        self.uncertainty_head = SimpleHead(cin, hidden_dim, 1)
+
+    def forward(self, net, inp, corr, flow, delta_flow, motion_features):
+        dt = self.occl_head.conv1.weight.dtype
+        x = torch.cat([t.to(dt) for t in (net, inp, corr, flow, delta_flow,
+                                           motion_features)], dim=1)
+        h = torch.relu(_fused_pair(self.occl_head.conv1,
+                                   self.uncertainty_head.conv1, x))
+        hd = self.occl_head.conv1.out_channels
+        occl = self.occl_head.conv2(h[:, :hd])
+        uncertainty = self.uncertainty_head.conv2(h[:, hd:])
+        return occl, uncertainty

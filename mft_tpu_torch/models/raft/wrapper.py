@@ -1,0 +1,170 @@
+"""RAFTFlow: the flow/occlusion/sigma service the MFT tracker uses.
+
+Port of ``mft_tpu/models/raft/wrapper.py``: owns the weights, pads inputs to
+a multiple of 8 (replicate padding, reference InputPadder), runs RAFT and
+turns the raw head outputs into occlusion = softmax(logits)[..., 1] and
+sigma = sqrt(exp(log-variance)).
+
+Weights: ``config.model`` naming an existing ``.pt``/``.pth`` file holding
+this port's state dict is loaded; otherwise the weights are random, made
+from ``config.init_seed`` (default 0) with a ``torch.Generator`` in the
+JAX package's init distributions (lecun-normal convs, zero biases, identity
+batch norm). JAX weights come across through
+:func:`mft_tpu_torch.models.raft.convert.params_from_flax` and
+:meth:`RAFTFlow.load_state_dict`.
+"""
+
+import logging
+import math
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mft_tpu_torch.config import cfg_value
+from mft_tpu_torch.core.device import resolve_device
+from mft_tpu_torch.models.raft.raft import RAFT, RAFTParams
+from mft_tpu_torch.models.raft.upsample import downsample_flow8
+
+logger = logging.getLogger(__name__)
+
+
+def pad_to_8(H: int, W: int):
+    """Sintel-mode padding amounts: ((top, bottom), (left, right))."""
+    pad_ht = (((H // 8) + 1) * 8 - H) % 8
+    pad_wd = (((W // 8) + 1) * 8 - W) % 8
+    return ((pad_ht // 2, pad_ht - pad_ht // 2),
+            (pad_wd // 2, pad_wd - pad_wd // 2))
+
+
+def raft_params_from_config(raft_kwargs) -> RAFTParams:
+    get = (raft_kwargs.get if hasattr(raft_kwargs, "get")
+           else lambda k, d=None: getattr(raft_kwargs, k, d))
+    if get("small", False):
+        raise NotImplementedError("the small RAFT is not ported")
+    module = get("occlusion_module", "separate_with_uncertainty")
+    if module != "separate_with_uncertainty":
+        raise NotImplementedError(f"occlusion_module={module!r}: only "
+                                  "'separate_with_uncertainty' is ported")
+    return RAFTParams(compute_dtype=str(get("compute_dtype", "auto")))
+
+
+def random_init(model: nn.Module, seed: int = 0):
+    """Deterministic init in the distributions flax's RAFT.init uses."""
+    gen = torch.Generator().manual_seed(int(seed))
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Conv2d):
+                fan_in = m.weight[0].numel()
+                # lecun_normal: truncated normal at 2 std, variance 1/fan_in
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                w = torch.empty(m.weight.shape)
+                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=gen)
+                m.weight.copy_(w)
+                m.bias.zero_()
+    return model
+
+
+class RAFTFlow:
+    """Flow/occlusion/sigma estimator (reference RAFTWrapper role)."""
+
+    def __init__(self, config, device="cuda"):
+        self.device = resolve_device(device)
+        self.cfg = raft_params_from_config(config.raft_params or {})
+        self.iters = int(config.flow_iters or 12)
+        if self.iters < 1:
+            raise ValueError(f"flow_iters must be >= 1, got {self.iters}")
+        self.plain_ops = False  # True: plain PyTorch lookups on the card too
+        model = RAFT(self.cfg)
+        path = Path(config.model) if config.model else None
+        if path is not None and path.exists():
+            if path.suffix not in (".pt", ".pth"):
+                raise ValueError(f"{path}: only a .pt/.pth state dict of this "
+                                 "port loads; convert flax weights with "
+                                 "convert.params_from_flax")
+            model.load_state_dict(torch.load(path, map_location="cpu",
+                                             weights_only=True))
+        else:
+            logger.warning("checkpoint %s not found - using random init", path)
+            random_init(model, cfg_value(config.init_seed, 0))
+        self.model = model.to(self.device).eval()
+        self.model.set_compute_dtype(self.cfg.dtype(self.device))
+        self.model.requires_grad_(False)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.model.dtype
+
+    def load_state_dict(self, state_dict):
+        """Load float32 weights (e.g. from params_from_flax); convs keep the
+        compute dtype."""
+        self.model.load_state_dict(state_dict)
+
+    # ------------------------------------------------------------------ #
+    def padded_encode(self, images, with_context: bool = True):
+        """(B, H, W, 3) RGB images in [0, 255] -> (fmap, cnet) at the padded
+        stride-8 resolution, NCHW in the compute dtype."""
+        (pt, pb), (pl, pr) = pad_to_8(images.shape[1], images.shape[2])
+        x = images.to(self.device).float().permute(0, 3, 1, 2)
+        if pt or pb or pl or pr:
+            x = F.pad(x, (pl, pr, pt, pb), mode="replicate")
+        with torch.no_grad():
+            return self.model.encode(x, with_context=with_context)
+
+    def features_forward(self, fmap1, fmap2, cnet1, H: int, W: int,
+                         init_flow=None):
+        """Flow, occlusion and sigma from encoder features of (H, W) images.
+
+        args: features from :meth:`padded_encode`; init_flow optional
+          (B, H, W, 2) full-resolution initial flow.
+        returns: flow (B, H, W, 2), occlusion (B, H, W), sigma (B, H, W),
+          float32, unpadded.
+        """
+        (pt, pb), (pl, pr) = pad_to_8(H, W)
+        flow_init = None
+        if init_flow is not None:
+            fi = init_flow.to(self.device).float().permute(0, 3, 1, 2)
+            fi = F.pad(fi, (pl, pr, pt, pb), mode="replicate")
+            flow_init = downsample_flow8(fi.permute(0, 2, 3, 1))
+        with torch.no_grad():
+            out = self.model.flow_from_features(fmap1, fmap2, cnet1, self.iters,
+                                                flow_init, plain=self.plain_ops)
+        Hp, Wp = H + pt + pb, W + pl + pr
+        unpad = lambda x: x[:, pt:Hp - pb, pl:Wp - pr]
+        flow = unpad(out["flow"]).contiguous()
+        occl = unpad(torch.softmax(out["occlusion"], dim=-1)[..., 1]).contiguous()
+        sigma = unpad(torch.sqrt(torch.exp(out["uncertainty"][..., 0]))).contiguous()
+        return flow, occl, sigma
+
+    def forward_batch(self, images1, images2, init_flow=None):
+        """Batched flow: (N, H, W, 3) RGB float [0, 255] -> (flow, occl, sigma)."""
+        N, H, W, _ = images1.shape
+        fmaps, _ = self.padded_encode(torch.cat([images1, images2]),
+                                      with_context=False)
+        _, cnet1 = self.padded_encode(images1)
+        return self.features_forward(fmaps[:N], fmaps[N:], cnet1, H, W,
+                                     init_flow)
+
+    def compute_flow(self, src_img, dst_img, mode="flow", init_flow=None,
+                     numpy_out=False):
+        """Single-pair API (reference MFT/raft.py:30-94), flow mode.
+
+        args: src_img, dst_img (H, W, 3) uint8 BGR images; init_flow optional
+          (H, W, 2).
+        returns: flow (H, W, 2), {'occlusion': (H, W), 'sigma': (H, W)}.
+        """
+        if mode != "flow":
+            raise NotImplementedError(f"mode={mode!r}: only 'flow' is ported")
+        to_t = lambda im: torch.from_numpy(
+            np.ascontiguousarray(im[:, :, ::-1]).astype(np.float32))[None]
+        fi = None
+        if init_flow is not None:
+            fi = torch.as_tensor(np.asarray(init_flow, np.float32))[None]
+        flow, occl, sigma = self.forward_batch(to_t(src_img), to_t(dst_img),
+                                               init_flow=fi)
+        flow, occl, sigma = flow[0], occl[0], sigma[0]
+        if numpy_out:
+            flow, occl, sigma = (t.cpu().numpy() for t in (flow, occl, sigma))
+        return flow, {"occlusion": occl, "sigma": sigma}

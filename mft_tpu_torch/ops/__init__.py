@@ -1,0 +1,33 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch version.
+
+| wrapper (kernel)                          | replaces (mft_tpu/ops)                              |
+|-------------------------------------------|-----------------------------------------------------|
+| corr_lookup_fused (mft_corr_lookup_conv)  | corr_lookup_pallas.py corr_lookup_pallas_fused       |
+| corr_lookup (mft_corr_lookup)             | corr_lookup_pallas.py corr_lookup_pallas             |
+| chain_select (mft_chain_select)           | warp_pallas.py bilinear_warp_blocked (+ chain/select) |
+
+A wrapper launches its kernel for CUDA tensors and uses the plain version for
+CPU tensors; it raises for anything else. Each wrapper counts its launches in
+its ``launches`` attribute (:func:`launch_counts`, :func:`reset_launch_counts`).
+"""
+
+from mft_tpu_torch.ops.chain_select import chain_select, chain_select_ref
+from mft_tpu_torch.ops.corr_lookup import (corr_lookup, corr_lookup_fused,
+                                           corr_lookup_fused_ref, corr_lookup_ref)
+
+KERNELS = (corr_lookup_fused, corr_lookup, chain_select)
+
+
+def launch_counts() -> dict:
+    """{wrapper name: kernel launches since the last reset}."""
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def reset_launch_counts():
+    for k in KERNELS:
+        k.launches = 0
+
+
+__all__ = ["chain_select", "chain_select_ref", "corr_lookup", "corr_lookup_ref",
+           "corr_lookup_fused", "corr_lookup_fused_ref", "KERNELS",
+           "launch_counts", "reset_launch_counts"]

@@ -1,0 +1,105 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``cuda`` and skips without an NVIDIA card. The file
+imports neither JAX nor the JAX package, so it also runs where only PyTorch
+is installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mft_tpu_torch import ops
+from mft_tpu_torch.config import default_config
+from mft_tpu_torch.tracker import MFT
+
+pytestmark = pytest.mark.cuda
+DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is False)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def np_rng():
+    return np.random.default_rng(0)
+
+
+def _lookup_inputs(np_rng, dtype, dev, B=2, H8=6, W8=10):
+    """P = 60 pixels: not a multiple of the fused kernel's 32-pixel tile."""
+    P = H8 * W8
+    levels = [(H8, W8), (H8 // 2, W8 // 2), (H8 // 4, W8 // 4), (1, 1)]
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    pyr = [t(np_rng.standard_normal((B, P, h, w))).to(DT[dtype]) for h, w in levels]
+    coords = t(np_rng.uniform(-6, W8 + 6, (B, P, 2)))
+    wc = t(np_rng.standard_normal((4 * 81, 256)) * 0.05)
+    bias = t(np_rng.standard_normal((256,)) * 0.1)
+    return pyr, coords, wc, bias
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lookup_kernel_matches_plain(np_rng, cuda, dtype):
+    """Same float ops in the same order: bit-identical samples expected."""
+    pyr, coords, _, _ = _lookup_inputs(np_rng, dtype, cuda)
+    got = ops.corr_lookup(pyr, coords, 4)
+    want = ops.corr_lookup_ref(pyr, coords, 4)
+    assert got.dtype == DT[dtype] and got.shape == want.shape
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_kernel_matches_plain(np_rng, cuda, dtype):
+    """f32: the 324-term sum in another order (1e-4); bf16: that difference
+    may move the output's rounding by one ulp (rtol 8e-3)."""
+    pyr, coords, wc, bias = _lookup_inputs(np_rng, dtype, cuda)
+    got = ops.corr_lookup_fused(pyr, coords, wc, bias, 4)
+    want = ops.corr_lookup_fused_ref(pyr, coords, wc, bias, 4)
+    assert got.dtype == DT[dtype] and got.shape == want.shape
+    atol, rtol = (1e-4, 1e-4) if dtype == "float32" else (1e-2, 8e-3)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_chain_select_kernel_matches_plain(np_rng, cuda):
+    """Exact f32 math in the same order: identical selections and values,
+    including exact ties (two identical candidates) and invalid candidates."""
+    N, H, W = 7, 40, 48
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    lflow = t(np_rng.uniform(-12, 12, (N, H, W, 2)))
+    locc = t(np_rng.uniform(0, 0.03, (N, H, W)))
+    lsig = t(np_rng.uniform(0.1, 2.0, (N, H, W)))
+    rflow = t(np_rng.uniform(-12, 12, (N, H, W, 2)))
+    rocc = t(np_rng.uniform(0, 0.03, (N, H, W)))
+    rsig = t(np_rng.uniform(0.1, 2.0, (N, H, W)))
+    for m in (lflow, locc, lsig, rflow, rocc, rsig):
+        m[1] = m[0]                       # candidates 0 and 1 tie exactly
+    valid = torch.tensor([True, True, True, False, True, True, False], device=cuda)
+    ops.reset_launch_counts()
+    got = ops.chain_select(lflow, locc, lsig, rflow, rocc, rsig, valid, 0.02)
+    assert ops.launch_counts()["chain_select"] == 1
+    want = ops.chain_select_ref(lflow, locc, lsig, rflow, rocc, rsig, valid, 0.02)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-6)
+
+
+def test_mft_main_path_launches_each_kernel(cuda):
+    """A small MFT run on the card goes through the three kernels: per frame
+    (iters - 1) fused lookups, one plain lookup, one chain + select."""
+    cfg = default_config()
+    cfg.flow_config.flow_iters = 3
+    tracker = MFT(cfg, device=cuda)
+    rng = np.random.default_rng(0)
+    tex = (rng.random((80, 80, 3)) * 255).astype(np.uint8)
+    ops.reset_launch_counts()
+    tracker.init(tex[:64, :64])
+    for k in range(1, 4):
+        res = tracker.track(np.ascontiguousarray(tex[k:k + 64, 2 * k:2 * k + 64])).result
+        assert res.flow.shape == (64, 64, 2) and bool(torch.isfinite(res.flow).all())
+    assert ops.launch_counts() == {"corr_lookup_fused": 6, "corr_lookup": 3,
+                                   "chain_select": 3}

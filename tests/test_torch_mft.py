@@ -1,0 +1,103 @@
+"""The port's MFT tracker against the JAX package's, frame by frame.
+
+Both trackers track the same 64x64 BGR clip (a random texture under a
+constant shift) with the default deltas {inf, 1, 2, 4, 8, 16, 32}, the same
+RAFT-OU weights (the JAX random init, carried over by ``params_from_flax``),
+2 GRU iterations and float32 compute. The JAX tracker runs its fused frame
+step with ``chain_select_ref`` on the CPU; the port its plain versions.
+"""
+
+import numpy as np
+import pytest
+import jax
+import torch
+
+from mft_tpu.config import Config as JaxConfig
+from mft_tpu.models.raft import RAFTFlow as JaxRAFTFlow
+from mft_tpu.tracker import MFT as JaxMFT
+from mft_tpu_torch.config import Config, default_config
+from mft_tpu_torch.models.raft import RAFTFlow
+from mft_tpu_torch.models.raft.convert import params_from_flax
+from mft_tpu_torch.tracker import MFT
+
+H = W = 64
+FRAMES = 5
+DELTAS = [np.inf, 1, 2, 4, 8, 16, 32]
+
+
+def _config(cls, flower_cls):
+    conf = cls()
+    flow = cls()
+    flow.of_class = flower_cls
+    flow.raft_params = {"occlusion_module": "separate_with_uncertainty",
+                        "compute_dtype": "float32"}
+    flow.model = None
+    flow.flow_iters = 2
+    conf.flow_config = flow
+    conf.deltas = DELTAS
+    conf.occlusion_threshold = 0.02
+    return conf
+
+
+def _clip(n, seed=0):
+    rng = np.random.default_rng(seed)
+    tex = (rng.random((H + 2 * n + 2, W + 2 * n + 2, 3)) * 255).astype(np.uint8)
+    return [np.ascontiguousarray(tex[k:k + H, 2 * k:2 * k + W]) for k in range(n + 1)]
+
+
+@pytest.fixture(scope="module")
+def both_runs():
+    frames = _clip(FRAMES)
+    jt = JaxMFT(_config(JaxConfig, JaxRAFTFlow))
+    tt = MFT(_config(Config, RAFTFlow), device="cpu")
+    tt.flower.load_state_dict(params_from_flax(
+        jax.tree.map(np.asarray, jt.flower.variables)))
+    jt.init(frames[0])
+    tt.init(frames[0])
+    out = []
+    for img in frames[1:]:
+        a = jt.track(img).result
+        b = tt.track(img).result
+        out.append(([np.asarray(x) for x in (a.flow, a.occlusion, a.sigma)],
+                    [x.numpy() for x in (b.flow, b.occlusion, b.sigma)]))
+    return out
+
+
+@pytest.mark.parametrize("frame", range(1, FRAMES + 1))
+def test_frame_matches_jax(both_runs, frame):
+    """float32, same math: 1e-4 on flow (px), occlusion and sigma at every
+    pixel, so every pixel selected the same candidate."""
+    want, got = both_runs[frame - 1]
+    for g, w, name in zip(got, want, ("flow", "occlusion", "sigma")):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g, w, atol=1e-4, rtol=1e-5,
+                                   err_msg=f"frame {frame} {name}")
+
+
+def test_default_config_is_the_main_path():
+    cfg = default_config()
+    assert cfg.deltas == DELTAS and cfg.occlusion_threshold == 0.02
+    flow = cfg.flow_config
+    assert flow.flow_iters == 12 and flow.of_class is RAFTFlow
+    assert flow.raft_params == {"occlusion_module": "separate_with_uncertainty",
+                                "small": False, "compute_dtype": "bfloat16"}
+
+
+def test_ring_slots_follow_the_frame_index():
+    """The template lives in slot ``ring``; frame t in slot t % ring;
+    candidates before the start are invalid and read the template."""
+    tt = MFT(_config(Config, RAFTFlow), device="cpu")
+    tt.start_frame_i, tt.time_direction = 0, 1
+    cands = tt._candidates(3)
+    assert [slot for slot, _ in cands] == [32, 2, 1, 32, 32, 32, 32]
+    assert [ok for _, ok in cands] == [True, True, True, False, False, False, False]
+    slots, valid, wslot = tt._step_indices(cands, 3)
+    assert slots.tolist() == [32, 2, 1, 32, 32, 32, 32] and wslot == 3
+    assert tt._step_indices(cands, 3)[0] is slots      # cached upload
+
+
+def test_tracker_raises_without_card_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        MFT(_config(Config, RAFTFlow))

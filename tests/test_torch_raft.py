@@ -1,0 +1,108 @@
+"""The port's RAFT-OU against the JAX package's, with the same weights.
+
+The JAX RAFTFlow makes its random weights with flax ``RAFT.init``; the port
+takes them through ``params_from_flax``. Both see the same uint8 BGR images
+(60x68, so both pad to 64x72 and the pyramid's odd 9-wide level pools with
+floor semantics) and 3 GRU iterations. On the CPU the port runs its kernels'
+plain versions.
+"""
+
+import numpy as np
+import pytest
+import jax
+import torch
+
+from mft_tpu.config import Config as JaxConfig
+from mft_tpu.models.raft import RAFTFlow as JaxRAFTFlow
+from mft_tpu_torch.config import Config
+from mft_tpu_torch.models.raft import RAFT, RAFTFlow
+from mft_tpu_torch.models.raft.convert import params_from_flax
+
+H, W, ITERS = 60, 68, 3
+
+
+def _flow_config(cls, dtype):
+    conf = cls()
+    conf.raft_params = {"occlusion_module": "separate_with_uncertainty",
+                        "compute_dtype": dtype}
+    conf.model = None
+    conf.flow_iters = ITERS
+    return conf
+
+
+@pytest.fixture(scope="module")
+def jax_variables():
+    """numpy copy of the JAX package's random-init RAFT-OU weights."""
+    flower = JaxRAFTFlow(_flow_config(JaxConfig, "float32"))
+    return jax.tree.map(np.asarray, flower.variables)
+
+
+def _images(seed=0):
+    rng = np.random.default_rng(seed)
+    tex = (rng.random((H + 8, W + 8, 3)) * 255).astype(np.uint8)
+    return tex[:H, :W].copy(), tex[3:H + 3, 2:W + 2].copy()
+
+
+def _both(jax_variables, dtype, init_flow=None):
+    jf = JaxRAFTFlow(_flow_config(JaxConfig, dtype))
+    jf.variables = jax.tree.map(np.asarray, jax_variables)
+    tf = RAFTFlow(_flow_config(Config, dtype), device="cpu")
+    tf.load_state_dict(params_from_flax(jax_variables))
+    img1, img2 = _images()
+    jflow, jextra = jf.compute_flow(img1, img2, mode="flow", numpy_out=True,
+                                    init_flow=init_flow)
+    tflow, textra = tf.compute_flow(img1, img2, mode="flow", numpy_out=True,
+                                    init_flow=init_flow)
+    return (jflow, jextra["occlusion"], jextra["sigma"]), (tflow, textra["occlusion"],
+                                                           textra["sigma"])
+
+
+def test_params_from_flax_covers_the_model(jax_variables):
+    """Every state-dict entry of the port's RAFT has a flax leaf of its shape."""
+    sd = params_from_flax(jax_variables)
+    want = RAFT().state_dict()
+    assert set(sd) == set(want)
+    for k, v in want.items():
+        assert tuple(sd[k].shape) == tuple(v.shape), k
+    # HWIO -> OIHW, values carried over unchanged
+    k = np.asarray(jax_variables["params"]["update_block"]["encoder"]["convc1"]["kernel"])
+    np.testing.assert_array_equal(sd["update_block.encoder.convc1.weight"].numpy(),
+                                  k.transpose(3, 2, 0, 1))
+
+
+@pytest.mark.parametrize("init", ["zero", "flow_init"])
+def test_compute_flow_matches_jax_f32(jax_variables, init):
+    """float32: convolution sum order only, through 3 iterations: 1e-4
+    absolute (flow in px, sigma ~3, occlusion in [0, 1]), 1e-5 relative.
+    ``flow_init``: a smooth full-resolution initial flow, padded and
+    downsampled to 1/8 by both wrappers."""
+    init_flow = None
+    if init == "flow_init":
+        ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
+        init_flow = np.stack([3.0 + 0.05 * ys, -2.0 + 0.03 * xs], axis=-1)
+    (jf, jo, js), (tf, to, ts) = _both(jax_variables, "float32", init_flow)
+    assert tf.shape == (H, W, 2) and to.shape == (H, W) and ts.shape == (H, W)
+    np.testing.assert_allclose(tf, jf, atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(to, jo, atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(ts, js, atol=1e-4, rtol=1e-5)
+
+
+def test_compute_flow_matches_jax_bf16(jax_variables):
+    """bfloat16: the two frameworks round at other places (JAX's CPU lookup
+    also rounds its tent weights to bf16), 8-bit mantissas, so compare in
+    relation to the outputs' scale: mean error under 2% of the mean
+    magnitude and 99% of pixels within 10% of it."""
+    (jf, jo, js), (tf, to, ts) = _both(jax_variables, "bfloat16")
+    for got, want, name in ((tf, jf, "flow"), (to, jo, "occlusion"), (ts, js, "sigma")):
+        scale = float(np.abs(want).mean()) + 1e-6
+        err = np.abs(got.astype(np.float32) - want.astype(np.float32))
+        assert np.isfinite(got).all(), name
+        assert err.mean() < 0.02 * scale, (name, err.mean(), scale)
+        assert np.quantile(err, 0.99) < 0.1 * scale, (name, np.quantile(err, 0.99), scale)
+
+
+def test_cuda_entry_point_raises_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        RAFTFlow(_flow_config(Config, "float32"))
