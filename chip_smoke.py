@@ -370,7 +370,7 @@ def run() -> int:
 
     t = time.perf_counter()
     card = card_line()
-    log(f"card: {card}")
+    log(card)   # as nvidia-smi prints it: name, power limit
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     log(f"phase 1 seconds {time.perf_counter() - t:.2f}")
