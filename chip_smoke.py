@@ -11,11 +11,20 @@ result line):
 2. build the CUDA kernels from ``mft_tpu_torch/ops/csrc`` (one bare nvcc);
 3. hold each kernel against its plain PyTorch version at the main path's
    shapes, in bf16 and f32, and time kernel and plain version (CUDA events);
+3b. the same for the window-correlation kernels of corr_method 'alt' and
+   'win' (no volume), on wild and on local coordinates;
 4. the main path: ``MFT(default_config())`` with random weights from a seed,
    ``init`` + ``track`` of synthetic 512x512 frames (a texture under a known
    shift); checks shapes, finiteness, ranges and that the kernels launched
    11, 1 and 1 times per tracked frame;
-5. one more frame with the plain versions forced, compared with the kernels'.
+5. one more frame with the plain versions forced, compared with the kernels';
+6. the same tracker with corr_method 'alt', then 'win', at 512x512: frame
+   times, 12 launches of the method's kernel and 1 chain + select per frame,
+   a frame against the plain versions, and (printed, not gated) a frame
+   against the volume path;
+7. both methods at 2160x3840, where the all-pairs volume would not fit on the
+   card: init + 2 tracked frames each, peak device memory, and the kernels
+   (K3-K5) against their plain versions on sampled pixels at that size.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Needs no network and imports nothing
@@ -32,6 +41,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FRAMES = 10          # tracked frames on the main path
+FEATURE_FRAMES = 10  # tracked frames of each feature-lookup method at 512x512
+UHD_FRAMES = 2       # tracked frames of each method at 2160x3840
 WARMUP = 2           # frames left out of the per-frame median
 SHIFT = (2, 1)       # (dx, dy) px per frame of the synthetic clip
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, NVIDIA data sheet
@@ -230,6 +241,110 @@ def check_chain_select(torch, ops, dev, card):
 
 
 # --------------------------------------------------------------------------- #
+# phase 3b: the window-correlation kernels of corr_method 'alt' and 'win'
+# --------------------------------------------------------------------------- #
+FEAT_C = 256                                       # fnet channels
+# stated tolerances |kernel - plain| <= atol + rtol*|plain|: kernels and plain
+# version do the same float ops in the same order (each dot in one fixed tree
+# order; built with -fmad=false), so identical results are expected and the
+# tolerance admits last-bit differences only
+ALT_TOL = {"float32": (1e-6, 1e-6), "bfloat16": (1e-6, 1e-6)}
+
+
+def feature_inputs(torch, dev, dtype, kind, H8, W8, seed):
+    """Random (B, H8, W8, C) source features, the pooled pyramid of random
+    target features, and coords: 'wild' uniform over the map and 10 px beyond
+    it, 'local' the pixel grid + U(-2, 2)."""
+    from mft_tpu_torch.models.raft.corr import build_feature_pyramid
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f1 = torch.randn((B, H8, W8, FEAT_C), device=dev, generator=gen).to(dtype)
+    f2 = torch.randn((B, FEAT_C, H8, W8), device=dev, generator=gen).to(dtype)
+    u = torch.empty((B, H8 * W8, 2), device=dev).uniform_(0.0, 1.0, generator=gen)
+    if kind == "wild":
+        lo = torch.tensor([-10.0, -10.0], device=dev)
+        coords = lo + u * torch.tensor([W8 + 20.0, H8 + 20.0], device=dev)
+    else:
+        ys, xs = torch.meshgrid(torch.arange(H8, device=dev), torch.arange(W8, device=dev),
+                                indexing="ij")
+        grid = torch.stack([xs, ys], -1).reshape(1, H8 * W8, 2).float()
+        coords = grid + 4.0 * u - 2.0
+    return f1, build_feature_pyramid(f2, len(LEVELS)), coords.contiguous()
+
+
+def feature_work(torch, f1, pyr, coords):
+    """(compulsory bytes, operations) of one window-correlation call: f1,
+    coords and the output once, plus each pyramid position some window's
+    taps touch once; 2*C operations per in-map tap dot (the bilinear
+    combination's 7 per sample, about 1%, not counted)."""
+    Bn, H8, W8, C = f1.shape
+    es = f1.element_size()
+    side = 2 * RADIUS + 2
+    dev = f1.device
+    nbytes = f1.numel() * es + coords.numel() * 4
+    nbytes += Bn * H8 * W8 * len(pyr) * (2 * RADIUS + 1) ** 2 * es
+    ops_n = 0
+    pair = torch.arange(Bn, device=dev)[:, None]
+    for lvl, f2 in enumerate(pyr):
+        h, w = f2.shape[1:3]
+        base = torch.floor(coords / 2.0 ** lvl).clamp(-1e6, 1e6).long() - RADIUS
+        nx = (base[..., 0] + side).clamp(0, w) - base[..., 0].clamp(0, w)
+        ny = (base[..., 1] + side).clamp(0, h) - base[..., 1].clamp(0, h)
+        ops_n += 2 * C * int((nx * ny).sum().item())
+        mask = torch.zeros(Bn * h * w, dtype=torch.bool, device=dev)
+        for ty in range(side):
+            y = base[..., 1] + ty
+            for tx in range(side):
+                x = base[..., 0] + tx
+                ok = (x >= 0) & (x < w) & (y >= 0) & (y < h)
+                mask[(pair * (h * w) + y * w + x)[ok]] = True
+        nbytes += int(mask.sum().item()) * C * es
+    return nbytes, ops_n
+
+
+def check_feature_kernels(torch, ops, dev, card):
+    """K4 (corr_lookup_alt) and K5 (corr_lookup_win) against their plain
+    version at the 512x512 slice's shapes: B=7, 64x64, C=256, 4 levels, r=4."""
+    H8, W8 = LEVELS[0]
+    stats = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for kind in ("wild", "local"):
+            f1, pyr, coords = feature_inputs(torch, dev, dtype, kind, H8, W8, seed=3)
+            plain = lambda: ops.corr_lookup_alt_ref(f1, pyr, coords, RADIUS)
+            want = plain()
+            plain_ms = cuda_ms(plain, reps=2, warmup=1)
+            nbytes, ops_n = feature_work(torch, f1, pyr, coords)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops_n / PEAK_OPS_PER_S[name] * 1e3
+            for kname in ("corr_lookup_alt", "corr_lookup_win"):
+                kernel = lambda: getattr(ops, kname)(f1, pyr, coords, RADIUS)
+                got = kernel()
+                torch.cuda.synchronize()
+                err = max_err(got, want)
+                atol, rtol = ALT_TOL[name]
+                ok = within(got, want, atol, rtol)
+                staged = ""
+                if kname == "corr_lookup_win":
+                    counters = torch.zeros(2, dtype=torch.int32, device=dev)
+                    ops.corr_lookup_win(f1, pyr, coords, RADIUS, stats=counters)
+                    n_st, n_un = counters.tolist()
+                    staged = f", staged (tile, level) boxes {n_st}/{n_st + n_un}"
+                log(f"check {kname} {name} {kind}: max_abs_err {err:.3e} (tolerance "
+                    f"atol {atol} + rtol {rtol}) {'ok' if ok else 'FAIL'}{staged}")
+                check(ok, f"{kname} {name} {kind} disagrees with its plain version")
+                ms = cuda_ms(kernel, reps=20)
+                log(f"time {kname} {name} {kind}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+                    f"bound {max(bytes_ms, ops_ms):.4f} ms ({nbytes / 1e6:.1f} MB, "
+                    f"{ops_n / 1e9:.2f} GFLOP) [{card}]")
+                stats[(kname, name, kind)] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=max(bytes_ms, ops_ms),
+                    bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+            del f1, pyr, coords, want
+    return stats
+
+
+# --------------------------------------------------------------------------- #
 # phases 4-5: the main path
 # --------------------------------------------------------------------------- #
 def synthetic_clip(n_frames, H=512, W=512, seed=0):
@@ -263,6 +378,78 @@ def restore(tracker, snap):
         getattr(tracker, k).copy_(v)
 
 
+def check_results(torch, results, H, W, label):
+    """Shapes, finiteness and ranges of tracked FlowOU results."""
+    for k, r in enumerate(results, start=1):
+        check(tuple(r.flow.shape) == (H, W, 2) and tuple(r.occlusion.shape) == (H, W)
+              and tuple(r.sigma.shape) == (H, W), f"{label} frame {k}: wrong shapes")
+        check(bool(torch.isfinite(r.flow).all() and torch.isfinite(r.occlusion).all()
+                   and torch.isfinite(r.sigma).all()), f"{label} frame {k}: non-finite output")
+        check(bool(((r.occlusion >= 0) & (r.occlusion <= 1)).all()),
+              f"{label} frame {k}: occlusion outside [0, 1]")
+        check(bool((r.sigma > 0).all()), f"{label} frame {k}: sigma not > 0")
+
+
+def median_after_warmup(frame_ms):
+    steady = sorted(frame_ms[WARMUP:])
+    return steady[len(steady) // 2] if len(steady) % 2 else 0.5 * (
+        steady[len(steady) // 2 - 1] + steady[len(steady) // 2])
+
+
+def track_frames(torch, tracker, frames):
+    """init on frames[0], track the rest; (results, host ms per tracked frame)."""
+    tracker.init(frames[0])
+    frame_ms, results = [], []
+    for img in frames[1:]:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        results.append(tracker.track(img).result)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t) * 1e3)
+    return results, frame_ms
+
+
+def frame_gap(a, b):
+    """Per-pixel differences of two FlowOU results of one frame."""
+    dflow = (a.flow - b.flow).norm(dim=-1)
+    docc = (a.occlusion - b.occlusion).abs()
+    dsig = (a.sigma - b.sigma).abs() / b.sigma
+    return dflow, docc, dsig
+
+
+def check_kernels_vs_plain(torch, tracker, nxt, label):
+    """The same next frame through the kernels and through the plain versions
+    (``plain_ops``), from the same tracker state."""
+    snap = snapshot(tracker)
+    a = tracker.track(nxt).result
+    restore(tracker, snap)
+    tracker.plain_ops = True
+    b = tracker.track(nxt).result
+    tracker.plain_ops = False
+    restore(tracker, snap)
+    torch.cuda.synchronize()
+    dflow, docc, dsig = frame_gap(a, b)
+    far = float((dflow > 0.5).float().mean())
+    # stated tolerance: bf16 rounding differences (the fused product's sum
+    # order) may move a few pixels' selection; the bulk must agree
+    ok = (far <= 0.01 and float(dflow.median()) <= 0.05
+          and float((docc > 0.05).float().mean()) <= 0.01
+          and float((dsig > 0.05).float().mean()) <= 0.01)
+    log(f"check {label} kernels vs plain, one frame: flow |d| median "
+        f"{float(dflow.median()):.3e} px, max {float(dflow.max()):.3e} px, share > 0.5 px "
+        f"{far:.4%}; occlusion |d| max {float(docc.max()):.3e}, share > 0.05 "
+        f"{float((docc > 0.05).float().mean()):.4%}; sigma rel |d| share > 5% "
+        f"{float((dsig > 0.05).float().mean()):.4%} (tolerance: share > 0.5 px <= 1%, "
+        f"median <= 0.05 px, occlusion/sigma shares <= 1%) {'ok' if ok else 'FAIL'}")
+    check(ok, f"{label}: the path with kernels disagrees with the plain versions")
+
+
+def expected_counts(ops, **counts):
+    want = {name: 0 for name in ops.launch_counts()}
+    want.update(counts)
+    return want
+
+
 def run_main_path(torch, ops, dev, card):
     from mft_tpu_torch.config import default_config
     from mft_tpu_torch.tracker import MFT
@@ -277,39 +464,22 @@ def run_main_path(torch, ops, dev, card):
         f"{frames[0].shape}, set-up {time.perf_counter() - t0:.2f} s")
 
     ops.reset_launch_counts()
-    tracker.init(frames[0])
-    frame_ms, results = [], []
-    for k in range(1, FRAMES + 1):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = tracker.track(frames[k]).result
-        torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t) * 1e3)
-        results.append(res)
+    results, frame_ms = track_frames(torch, tracker, frames[:FRAMES + 1])
     counts = ops.launch_counts()
 
     log(f"launches over {FRAMES} tracked frames: {counts}")
-    want = {"corr_lookup_fused": FRAMES * (iters - 1), "corr_lookup": FRAMES,
-            "chain_select": FRAMES}
+    want = expected_counts(ops, corr_lookup_fused=FRAMES * (iters - 1),
+                           corr_lookup=FRAMES, chain_select=FRAMES)
     check(counts == want, f"launch counts {counts} != {want} "
                           f"(11, 1 and 1 per tracked frame)")
     H, W = frames[0].shape[:2]
-    for k, r in enumerate(results, start=1):
-        check(tuple(r.flow.shape) == (H, W, 2) and tuple(r.occlusion.shape) == (H, W)
-              and tuple(r.sigma.shape) == (H, W), f"frame {k}: wrong shapes")
-        check(bool(torch.isfinite(r.flow).all() and torch.isfinite(r.occlusion).all()
-                   and torch.isfinite(r.sigma).all()), f"frame {k}: non-finite output")
-        check(bool(((r.occlusion >= 0) & (r.occlusion <= 1)).all()),
-              f"frame {k}: occlusion outside [0, 1]")
-        check(bool((r.sigma > 0).all()), f"frame {k}: sigma not > 0")
+    check_results(torch, results, H, W, "main path")
     last = results[-1]
     log(f"frame {FRAMES}: mean flow ({float(last.flow[..., 0].mean()):.3f}, "
         f"{float(last.flow[..., 1].mean()):.3f}) px (random weights; true "
         f"{-FRAMES * SHIFT[0]}, {-FRAMES * SHIFT[1]}), mean occlusion "
         f"{float(last.occlusion.mean()):.4f}, mean sigma {float(last.sigma.mean()):.4f}")
-    steady = sorted(frame_ms[WARMUP:])
-    median = steady[len(steady) // 2] if len(steady) % 2 else 0.5 * (
-        steady[len(steady) // 2 - 1] + steady[len(steady) // 2])
+    median = median_after_warmup(frame_ms)
     log(f"frame ms: {', '.join(f'{m:.2f}' for m in frame_ms)}")
     log(f"frame ms median after {WARMUP} warm-up frames: {median:.3f} ms "
         f"({1e3 / median:.2f} frames/s) [{card}]")
@@ -317,32 +487,142 @@ def run_main_path(torch, ops, dev, card):
 
     # phase 5: the same next frame through the kernels and the plain versions
     t5 = time.perf_counter()
-    nxt = synthetic_clip(FRAMES + 1)[-1]
-    snap = snapshot(tracker)
-    a = tracker.track(nxt).result
-    restore(tracker, snap)
-    tracker.plain_ops = True
-    b = tracker.track(nxt).result
-    tracker.plain_ops = False
-    torch.cuda.synchronize()
-    dflow = (a.flow - b.flow).norm(dim=-1)
-    docc = (a.occlusion - b.occlusion).abs()
-    dsig = (a.sigma - b.sigma).abs() / b.sigma
-    far = float((dflow > 0.5).float().mean())
-    # stated tolerance: bf16 rounding differences (the fused product's sum
-    # order) may move a few pixels' selection; the bulk must agree
-    ok = (far <= 0.01 and float(dflow.median()) <= 0.05
-          and float((docc > 0.05).float().mean()) <= 0.01
-          and float((dsig > 0.05).float().mean()) <= 0.01)
-    log(f"check kernels vs plain, one frame: flow |d| median "
-        f"{float(dflow.median()):.3e} px, max {float(dflow.max()):.3e} px, share > 0.5 px "
-        f"{far:.4%}; occlusion |d| max {float(docc.max()):.3e}, share > 0.05 "
-        f"{float((docc > 0.05).float().mean()):.4%}; sigma rel |d| share > 5% "
-        f"{float((dsig > 0.05).float().mean()):.4%} (tolerance: share > 0.5 px <= 1%, "
-        f"median <= 0.05 px, occlusion/sigma shares <= 1%) {'ok' if ok else 'FAIL'}")
-    check(ok, "main path with kernels disagrees with the plain versions")
+    check_kernels_vs_plain(torch, tracker, frames[FRAMES + 1], "main path")
     log(f"phase 5 seconds {time.perf_counter() - t5:.2f}")
+    return counts, median, tracker
+
+
+# --------------------------------------------------------------------------- #
+# phases 6-7: corr_method 'alt' and 'win' (no volume)
+# --------------------------------------------------------------------------- #
+KERNEL_OF = {"alt": "corr_lookup_alt", "win": "corr_lookup_win"}
+
+
+def feature_config(method):
+    from mft_tpu_torch.config import default_config
+    cfg = default_config()
+    cfg.flow_config.raft_params["corr_method"] = method
+    return cfg
+
+
+def run_feature_path(torch, ops, dev, card, method, volume_tracker, volume_median):
+    """Phase 6: the default tracker with corr_method ``method`` at 512x512."""
+    from mft_tpu_torch.tracker import MFT
+    tracker = MFT(feature_config(method), device=dev)
+    iters = tracker.flower.iters
+    frames = synthetic_clip(FEATURE_FRAMES + 1)
+    ops.reset_launch_counts()
+    results, frame_ms = track_frames(torch, tracker, frames[:FEATURE_FRAMES + 1])
+    counts = ops.launch_counts()
+    log(f"{method}: launches over {FEATURE_FRAMES} tracked frames: {counts}")
+    want = expected_counts(ops, **{KERNEL_OF[method]: FEATURE_FRAMES * iters},
+                           chain_select=FEATURE_FRAMES)
+    check(counts == want, f"{method}: launch counts {counts} != {want} "
+                          f"({iters} and 1 per tracked frame, no volume lookup)")
+    H, W = frames[0].shape[:2]
+    check_results(torch, results, H, W, method)
+    median = median_after_warmup(frame_ms)
+    log(f"{method} frame ms: {', '.join(f'{m:.2f}' for m in frame_ms)}")
+    log(f"{method} frame ms median after {WARMUP} warm-up frames: {median:.3f} ms, "
+        f"volume path (phase 4, same run) {volume_median:.3f} ms [{card}]")
+    check_kernels_vs_plain(torch, tracker, frames[FEATURE_FRAMES + 1], method)
+
+    # not gated: the volume path on the same inputs. In bf16 the volume is
+    # rounded before it is sampled, the feature lookups round the samples.
+    snap = snapshot(tracker)
+    a = tracker.track(frames[FEATURE_FRAMES + 1]).result
+    restore(volume_tracker, snap)
+    b = volume_tracker.track(frames[FEATURE_FRAMES + 1]).result
+    torch.cuda.synchronize()
+    dflow, docc, dsig = frame_gap(a, b)
+    log(f"{method} vs volume path, one frame (not gated): flow |d| median "
+        f"{float(dflow.median()):.3e} px, mean {float(dflow.mean()):.3e} px, max "
+        f"{float(dflow.max()):.3e} px, share > 0.5 px {float((dflow > 0.5).float().mean()):.4%}; "
+        f"occlusion |d| max {float(docc.max()):.3e}; sigma rel |d| share > 5% "
+        f"{float((dsig > 0.05).float().mean()):.4%}")
     return counts
+
+
+def volume_bytes(H8, W8, pairs=7, levels=4, itemsize=2):
+    """Bytes of the bf16 all-pairs pyramid of ``pairs`` pairs (floor pooling)."""
+    total, h, w = 0, H8, W8
+    for _ in range(levels):
+        total += h * w
+        h, w = h // 2, w // 2
+    return pairs * H8 * W8 * total * itemsize
+
+
+def check_kernels_uhd(torch, ops, dev, card, H8, W8, n_sample=4096):
+    """K4 and K5 on a whole (7, H8*W8) call, held against the plain version
+    on ``n_sample`` sampled pixels of each pair; K3 on 7 candidates at the
+    frame size against its plain version at every pixel."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for kind in ("local", "wild"):
+        f1, pyr, coords = feature_inputs(torch, dev, torch.bfloat16, kind, H8, W8, seed=4)
+        idx = torch.randperm(H8 * W8, device=dev, generator=gen)[:n_sample]
+        want = ops.corr_lookup_alt_ref(f1.reshape(B, H8 * W8, -1)[:, idx], pyr,
+                                       coords[:, idx].contiguous(), RADIUS)
+        atol, rtol = ALT_TOL["bfloat16"]
+        for kname in ("corr_lookup_alt", "corr_lookup_win"):
+            kernel = lambda: getattr(ops, kname)(f1, pyr, coords, RADIUS)
+            got = kernel()[:, idx]
+            torch.cuda.synchronize()
+            ok = within(got, want, atol, rtol)
+            ms = cuda_ms(kernel, reps=3, warmup=1)
+            log(f"check {kname} bfloat16 {kind} at {H8}x{W8} (7 pairs), {n_sample} sampled "
+                f"pixels per pair: max_abs_err {max_err(got, want):.3e} (tolerance atol "
+                f"{atol} + rtol {rtol}) {'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms [{card}]")
+            check(ok, f"{kname} {kind} disagrees with its plain version at {H8}x{W8}")
+        del f1, pyr, coords, want
+    torch.cuda.empty_cache()
+    maps = chain_select_inputs(torch, dev, N=7, H=8 * H8, W=8 * W8)
+    got = ops.chain_select(*maps)
+    torch.cuda.synchronize()
+    want = ops.chain_select_ref(*maps)
+    tols = (1e-4, 1e-5, 1e-5)
+    errs = [max_err(g, w) for g, w in zip(got, want)]
+    ok = all(within(g, w, a, 1e-6) for g, w, a in zip(got, want, tols))
+    ms = cuda_ms(lambda: ops.chain_select(*maps), reps=5, warmup=1)
+    log(f"check chain_select at {8 * H8}x{8 * W8} (7 candidates, every pixel): max_abs_err "
+        f"flow {errs[0]:.3e} occlusion {errs[1]:.3e} sigma {errs[2]:.3e} (tolerance atol "
+        f"{tols} + rtol 1e-6) {'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms [{card}]")
+    check(ok, "chain_select disagrees with its plain version at 2160x3840")
+    del maps, got, want
+    torch.cuda.empty_cache()
+
+
+def run_uhd(torch, ops, dev, card, H=2160, W=3840):
+    """Phase 7: both methods at 2160x3840, then the kernels at that size."""
+    from mft_tpu_torch.tracker import MFT
+    H8, W8 = H // 8, W // 8
+    need = volume_bytes(H8, W8)
+    frames = synthetic_clip(UHD_FRAMES, H=H, W=W)
+    for method in ("win", "alt"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tracker = MFT(feature_config(method), device=dev)
+        iters = tracker.flower.iters
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        results, frame_ms = track_frames(torch, tracker, frames)
+        seconds = time.perf_counter() - t
+        counts = ops.launch_counts()
+        want = expected_counts(ops, **{KERNEL_OF[method]: UHD_FRAMES * iters},
+                               chain_select=UHD_FRAMES)
+        check(counts == want, f"{method} {H}x{W}: launch counts {counts} != {want}")
+        check_results(torch, results, H, W, f"{method} {H}x{W}")
+        peak = torch.cuda.max_memory_allocated()
+        log(f"{method} at {H}x{W}: frame ms {', '.join(f'{m:.1f}' for m in frame_ms)} "
+            f"(init + {UHD_FRAMES} frames {seconds:.2f} s); launches {counts}; peak device "
+            f"memory {peak / 1e9:.2f} GB, against {need / 1e9:.1f} GB for the bf16 volume "
+            f"of 7 pairs [{card}]")
+        last = results[-1]
+        log(f"{method} at {H}x{W}: mean flow ({float(last.flow[..., 0].mean()):.3f}, "
+            f"{float(last.flow[..., 1].mean()):.3f}) px, mean occlusion "
+            f"{float(last.occlusion.mean()):.4f}, mean sigma {float(last.sigma.mean()):.4f}")
+        del tracker, results, last
+    torch.cuda.empty_cache()
+    check_kernels_uhd(torch, ops, dev, card, H8, W8)
 
 
 def main() -> int:
@@ -379,7 +659,10 @@ def run() -> int:
     path = _build.library_path()
     _build.library()
     log(f"build: {path.name} in {_build.build_seconds:.2f} s "
-        f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+        f"(one nvcc per source, started together: {' '.join(_build.NVCC_FLAGS)})")
+    for line in _build.build_log.splitlines():   # registers, spills per kernel
+        if any(key in line for key in ("Compiling entry", "Used", "spill")):
+            log(line.strip())
     log(f"phase 2 seconds {time.perf_counter() - t:.2f}")
 
     try:
@@ -388,9 +671,22 @@ def run() -> int:
         cs = check_chain_select(torch, ops, dev, card)
         log(f"phase 3 seconds {time.perf_counter() - t:.2f}")
         t = time.perf_counter()
-        counts = run_main_path(torch, ops, dev, card)
+        fk = check_feature_kernels(torch, ops, dev, card)
+        log(f"phase 3b seconds {time.perf_counter() - t:.2f}")
+        t = time.perf_counter()
+        counts, volume_median, volume_tracker = run_main_path(torch, ops, dev, card)
         log(f"phase 4-5 seconds {time.perf_counter() - t:.2f}")
-        for stats in (*lk.values(), cs):
+        t = time.perf_counter()
+        for method in ("alt", "win"):
+            c = run_feature_path(torch, ops, dev, card, method, volume_tracker,
+                                 volume_median)
+            counts[KERNEL_OF[method]] = c[KERNEL_OF[method]]
+        del volume_tracker
+        log(f"phase 6 seconds {time.perf_counter() - t:.2f}")
+        t = time.perf_counter()
+        run_uhd(torch, ops, dev, card)
+        log(f"phase 7 seconds {time.perf_counter() - t:.2f}")
+        for stats in (*lk.values(), cs, *fk.values()):
             check(all(math.isfinite(stats[k]) for k in
                       ("max_abs_err", "ms", "plain_ms", "bound_ms")),
                   f"non-finite measurement {stats}")
@@ -411,6 +707,14 @@ def run() -> int:
         dict(name="chain_select", route="cuda", source=src + "chain_select.cu",
              replaces="mft_tpu/ops/warp_pallas.py:432",
              launches=counts["chain_select"], **cs, library_ms=None),
+        dict(name="corr_lookup_alt", route="cuda", source=src + "corr_alt.cu",
+             replaces="mft_tpu/ops/alt_corr_pallas.py:118",
+             launches=counts["corr_lookup_alt"],
+             **fk[("corr_lookup_alt", "bfloat16", "local")], library_ms=None),
+        dict(name="corr_lookup_win", route="cuda", source=src + "corr_alt.cu",
+             replaces="mft_tpu/ops/alt_corr_pallas.py:281",
+             launches=counts["corr_lookup_win"],
+             **fk[("corr_lookup_win", "bfloat16", "local")], library_ms=None),
     ]
     log(f"total seconds {time.perf_counter() - t_all:.2f}")
     log(json.dumps({"kernels": kernels}))

@@ -9,6 +9,11 @@ Port of ``mft_tpu/models/raft/corr.py`` for the main path:
 - the pyramid is a list of (B, P, h_l, w_l) maps, P = H8*W8 source pixels in
   raster order, and coords are (B, P, 2) float32 (x, y) at level-0 scale.
 
+The low-memory methods 'alt' and 'win' keep no volume: the pyramid is one
+of pooled target features (:func:`build_feature_pyramid`) and every lookup
+recomputes the window correlations from the features
+(:func:`corr_lookup_features`).
+
 The lookup itself runs on the kernels of ``mft_tpu_torch.ops``;
 ``plain=True`` makes the caller's choice of their plain PyTorch versions
 explicit (for comparing the two on the card).
@@ -50,6 +55,36 @@ def build_corr_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor,
                              alpha=scale)
         pyramid.append(corr.view(B, H * W, h, w))
     return pyramid
+
+
+def build_feature_pyramid(fmap2: torch.Tensor, num_levels: int = 4) -> list:
+    """Pooled target features of the 'alt' and 'win' lookups.
+
+    args: fmap2 (B, C, H, W) stride-8 features.
+    returns: ``num_levels`` channel-last maps, level l: (B, h_l, w_l, C)
+      contiguous in C (the (B, h_l*w_l, C) rows of the JAX
+      ``build_feature_pyramid``), pooled as :func:`build_corr_pyramid` pools.
+    """
+    levels, f = [], fmap2
+    for lvl in range(num_levels):
+        if lvl > 0:
+            f = avg_pool2x2(f)
+        levels.append(f.permute(0, 2, 3, 1).contiguous())
+    return levels
+
+
+def corr_lookup_features(method: str, f1, f2_pyramid, coords, radius: int = 4,
+                         plain: bool = False):
+    """(B, P, L*(2r+1)^2) window samples from features, no volume.
+
+    args: method 'alt' or 'win' (which kernel); f1 (B, H8, W8, C)
+      channel-last source features; f2_pyramid from
+      :func:`build_feature_pyramid`; coords (B, P, 2) float32.
+    """
+    if plain:
+        return ops.corr_lookup_alt_ref(f1, f2_pyramid, coords, radius)
+    lookup = {"alt": ops.corr_lookup_alt, "win": ops.corr_lookup_win}[method]
+    return lookup(f1, f2_pyramid, coords, radius)
 
 
 def corr_lookup(pyramid, coords, radius: int = 4, plain: bool = False):

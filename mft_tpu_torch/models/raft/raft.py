@@ -9,7 +9,12 @@ Port of ``mft_tpu/models/raft/raft.py`` in test mode, big model only:
   the mask head, then one shared convex upsampling;
 - on iterations 1..iters-1 the lookup's only consumer is convc1, so it runs
   fused with it (kernel ``mft_corr_lookup_conv``); the last iteration's
-  samples also feed the OU heads and use the plain lookup kernel.
+  samples also feed the OU heads and use the plain lookup kernel;
+- ``corr_method`` 'alt' or 'win' keeps no volume: only the pooled target
+  features, from which every iteration's lookup (kernel ``mft_corr_alt`` or
+  ``mft_corr_win``) recomputes its window correlations; convc1 then runs
+  unfused on all iterations. These are the methods for frames whose
+  all-pairs volume does not fit on the card.
 Scheduled per-pair iterations and training mode are not ported.
 """
 
@@ -18,7 +23,8 @@ import dataclasses
 import torch
 from torch import nn
 
-from mft_tpu_torch.models.raft.corr import (build_corr_pyramid, corr_lookup,
+from mft_tpu_torch.models.raft.corr import (build_corr_pyramid, build_feature_pyramid,
+                                            corr_lookup, corr_lookup_features,
                                             corr_lookup_fused_conv)
 from mft_tpu_torch.models.raft.layers import BasicEncoder
 from mft_tpu_torch.models.raft.update import (BasicUpdateBlock,
@@ -27,15 +33,39 @@ from mft_tpu_torch.models.raft.upsample import convex_upsample_multi
 
 
 HIDDEN_DIM = CONTEXT_DIM = 128   # big model
+# corr_method: 'auto' is the all-pairs volume; 'alt' and 'win' recompute the
+# windows from the features. The JAX package's other methods, with the item of
+# ROADMAP.md that ports them; the port never maps one onto another method.
+CORR_METHODS = ("auto", "alt", "win")
+UNPORTED_CORR_METHODS = {
+    "pallas_t": "B5 (kernel #10 corr_lookup_pallas_t)",
+    "fold": "B6 (kernels #4-#5, folded volume)",
+    "int8": "B7 (kernel #6 corr_lookup_pallas_q)",
+    "packed": "B8 (kernels #7-#8, packed volume)",
+    "packed_i8": "B8 (kernels #7-#8, packed volume)",
+    "mixed": "B9 (kernel #9 corr_lookup_pallas_mixed)",
+    "mxu": "A3 (other formulations of the volume lookup)",
+    "gather": "A3 (other formulations of the volume lookup)",
+    "pallas": "A3 (other formulations of the volume lookup)",
+}
 
 
 @dataclasses.dataclass(frozen=True)
 class RAFTParams:
-    """Static model configuration (the main-path subset of the JAX RAFTParams:
+    """Static model configuration (the ported subset of the JAX RAFTParams:
     big model, 'separate_with_uncertainty' heads)."""
     corr_levels: int = 4
     corr_radius: int = 4
     compute_dtype: str = "float32"  # 'bfloat16' | 'float32' | 'auto' (bf16 on CUDA)
+    corr_method: str = "auto"       # 'auto' (volume) | 'alt' | 'win'
+
+    def __post_init__(self):
+        if self.corr_method in UNPORTED_CORR_METHODS:
+            raise NotImplementedError(
+                f"corr_method={self.corr_method!r} is not ported yet (ROADMAP "
+                f"{UNPORTED_CORR_METHODS[self.corr_method]}); ported: {CORR_METHODS}")
+        if self.corr_method not in CORR_METHODS:
+            raise ValueError(f"unknown corr_method {self.corr_method!r}")
 
     def dtype(self, device) -> torch.dtype:
         if self.compute_dtype == "auto":
@@ -91,7 +121,12 @@ class RAFT(nn.Module):
         B, _, H8, W8 = fmap1.shape
         P = H8 * W8
         radius = cfg.corr_radius
-        pyramid = build_corr_pyramid(fmap1, fmap2, cfg.corr_levels)
+        features = cfg.corr_method in ("alt", "win")
+        if features:
+            f1 = fmap1.permute(0, 2, 3, 1).contiguous()     # (B, H8, W8, C)
+            f2_pyramid = build_feature_pyramid(fmap2, cfg.corr_levels)
+        else:
+            pyramid = build_corr_pyramid(fmap1, fmap2, cfg.corr_levels)
         net = torch.tanh(cnet[:, :HIDDEN_DIM])
         inp = torch.relu(cnet[:, HIDDEN_DIM:])
 
@@ -107,7 +142,10 @@ class RAFT(nn.Module):
         to_nchw = lambda t: t.reshape(B, H8, W8, -1).permute(0, 3, 1, 2)
         for itr in range(iters):
             last = itr == iters - 1
-            if last:
+            if features:
+                corr = to_nchw(corr_lookup_features(cfg.corr_method, f1, f2_pyramid,
+                                                    coords1, radius, plain))
+            elif last:
                 samples = corr_lookup(pyramid, coords1, radius, plain)
                 corr = to_nchw(samples)
             else:

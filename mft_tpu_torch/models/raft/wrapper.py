@@ -39,7 +39,15 @@ def pad_to_8(H: int, W: int):
             (pad_wd // 2, pad_wd - pad_wd // 2))
 
 
+# conv_backend values of the JAX package that lower the same convolutions
+# differently; the port runs each of them as its PyTorch convolution
+SAME_CONV_BACKENDS = ("auto", "conv", "matmul", "im2col", "hybrid")
+
+
 def raft_params_from_config(raft_kwargs) -> RAFTParams:
+    """RAFTParams from a reference-style raft_params mapping (as JAX
+    ``raft_params_from_config``). An option whose value the port does not
+    implement raises instead of being ignored."""
     get = (raft_kwargs.get if hasattr(raft_kwargs, "get")
            else lambda k, d=None: getattr(raft_kwargs, k, d))
     if get("small", False):
@@ -48,7 +56,23 @@ def raft_params_from_config(raft_kwargs) -> RAFTParams:
     if module != "separate_with_uncertainty":
         raise NotImplementedError(f"occlusion_module={module!r}: only "
                                   "'separate_with_uncertainty' is ported")
-    return RAFTParams(compute_dtype=str(get("compute_dtype", "auto")))
+    unported = {
+        "normalized_features": "ROADMAP A3 (normalized features)",
+        "relu_uncertainty": "ROADMAP A3 (relu on the upsampled uncertainty)",
+        "OU_last_iter_only": "ROADMAP A14 (training mode; the port runs the "
+                             "heads on the last iteration only)",
+    }
+    for key, item in unported.items():
+        if get(key, False):
+            raise NotImplementedError(f"{key}=True is not ported yet ({item})")
+    backend = str(get("conv_backend", "auto"))
+    if backend == "pallas":
+        raise NotImplementedError("conv_backend='pallas' is not ported yet "
+                                  "(ROADMAP B11, kernel #13 conv_pallas)")
+    if backend not in SAME_CONV_BACKENDS:
+        raise ValueError(f"unknown conv_backend {backend!r}")
+    return RAFTParams(compute_dtype=str(get("compute_dtype", "auto")),
+                      corr_method=str(get("corr_method", "auto")))
 
 
 def random_init(model: nn.Module, seed: int = 0):

@@ -2,9 +2,10 @@
 
 Every ``csrc/*.cu`` file exposes ``extern "C"`` host functions that take raw
 pointers, ints and a ``cudaStream_t`` and return ``cudaGetLastError()``. One
-``nvcc`` command compiles all of them into one shared library; no source
-includes PyTorch's headers, so the build takes seconds (PyTorch's own
-extension builder needs ninja and minutes per file, and is not used).
+bare ``nvcc -c`` per source, all started together, compiles them; one more
+``nvcc`` links the objects into one shared library. No source includes
+PyTorch's headers, so the build takes seconds (``torch.utils.cpp_extension``
+needs ninja and minutes per file, and is not used).
 
 The library is built at first use into ``ops/_build/`` (listed in
 ``.gitignore``), keyed by a hash of the sources and flags, and reused while
@@ -23,9 +24,11 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 # -fmad=false: no implicit multiply-add contraction, so the kernels round each
-# operation as the plain PyTorch versions do (explicit __fmaf_rn still works)
+# operation as the plain PyTorch versions do (explicit __fmaf_rn still works);
+# -Xptxas=-v: registers, shared memory and spills of each kernel, kept in
+# ``build_log``
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
+              "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,11 +40,14 @@ SIGNATURES = {
     "mft_corr_lookup_conv": [_P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 9
                             + [_L, _I, _I, _I, _P],
     "mft_chain_select": [_P] * 10 + [_F, _I, _I, _I, _P],
+    "mft_corr_alt": [_P] * 7 + [_I] * 14 + [_F, _I, _P],
+    "mft_corr_win": [_P] * 7 + [_I] * 14 + [_F, _I, _P, _P],
 }
 
 _lock = threading.Lock()
 _lib = None
 build_seconds = None  # wall time of the build (or load) that made the library
+build_log = ""        # nvcc's messages of that build (empty if it was cached)
 
 
 def find_nvcc() -> str:
@@ -70,20 +76,39 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmft_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands at once; raise with the output of the first failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build() -> Path:
     """Compile all kernel sources into one shared library (if not yet built)."""
+    global build_log
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    tag = f"{os.getpid()}.tmp"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
+    tmp = out.with_suffix(f".{tag}")
+    nvcc = find_nvcc()
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                        for src, obj in zip(sources(), objs)])
+        log += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                          *map(str, objs)]])
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    build_log = log
     return out
 
 

@@ -13,6 +13,7 @@ import torch
 
 from mft_tpu_torch import ops
 from mft_tpu_torch.config import default_config
+from mft_tpu_torch.models.raft.corr import build_feature_pyramid
 from mft_tpu_torch.tracker import MFT
 
 pytestmark = pytest.mark.cuda
@@ -102,4 +103,77 @@ def test_mft_main_path_launches_each_kernel(cuda):
         res = tracker.track(np.ascontiguousarray(tex[k:k + 64, 2 * k:2 * k + 64])).result
         assert res.flow.shape == (64, 64, 2) and bool(torch.isfinite(res.flow).all())
     assert ops.launch_counts() == {"corr_lookup_fused": 6, "corr_lookup": 3,
-                                   "chain_select": 3}
+                                   "chain_select": 3, "corr_lookup_alt": 0,
+                                   "corr_lookup_win": 0}
+
+
+def _alt_inputs(np_rng, dtype, dev, kind, B=2, H8=13, W8=21, C=64, levels=4):
+    """13x21 source pixels: ragged 8x8 tiles and odd pyramid levels."""
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    f1 = t(np_rng.standard_normal((B, H8, W8, C))).to(DT[dtype])
+    f2 = t(np_rng.standard_normal((B, C, H8, W8))).to(DT[dtype])
+    if kind == "wild":
+        coords = np_rng.uniform(-8, W8 + 8, (B, H8 * W8, 2))
+    else:
+        g = np.mgrid[0:H8, 0:W8].transpose(1, 2, 0)[..., ::-1].reshape(1, H8 * W8, 2)
+        coords = g + np_rng.uniform(-2, 2, (B, H8 * W8, 2))
+    return f1, build_feature_pyramid(f2, levels), t(coords).contiguous()
+
+
+# stated tolerances against the plain version: the same float ops in the same
+# order (every dot in one fixed tree order), so bit-identical samples are
+# expected; the tolerance admits last-bit differences only
+ALT_TOL = {"float32": (1e-6, 1e-6), "bfloat16": (1e-6, 1e-6)}
+
+
+@pytest.mark.parametrize("kind", ["wild", "local"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["corr_lookup_alt", "corr_lookup_win"])
+def test_alt_kernels_match_plain(np_rng, cuda, dtype, kind, name):
+    f1, pyr, coords = _alt_inputs(np_rng, dtype, cuda, kind)
+    ops.reset_launch_counts()
+    got = getattr(ops, name)(f1, pyr, coords, 4)
+    assert ops.launch_counts()[name] == 1
+    want = ops.corr_lookup_alt_ref(f1, pyr, coords, 4)
+    assert got.dtype == DT[dtype] and got.shape == want.shape == (2, 13 * 21, 324)
+    atol, rtol = ALT_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_win_kernel_staged_and_unstaged_agree(np_rng, cuda, dtype):
+    """Wild coordinates on a 48x48 map: at level 0 a tile's tap box is the
+    whole map (2304 positions > 1600) and the tile reads device memory; the
+    smaller levels stage their boxes. Local coordinates stage every box.
+    Both give the plain version's samples; with C=40 (5 chunks of 8
+    channels) most lanes of a tap dot add zeros."""
+    tiles = 2 * 6 * 6                      # pairs x 8x8 tiles of 48x48
+    for kind, want_unstaged in (("wild", tiles), ("local", 0)):
+        f1, pyr, coords = _alt_inputs(np_rng, dtype, cuda, kind, H8=48, W8=48, C=40)
+        stats = torch.zeros(2, dtype=torch.int32, device=cuda)
+        got = ops.corr_lookup_win(f1, pyr, coords, 4, stats=stats)
+        assert stats.tolist() == [4 * tiles - want_unstaged, want_unstaged], kind
+        want = ops.corr_lookup_alt_ref(f1, pyr, coords, 4)
+        atol, rtol = ALT_TOL[dtype]
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("method", ["alt", "win"])
+def test_mft_feature_path_launches_its_kernel(cuda, method):
+    """corr_method 'alt' / 'win' on the card: every iteration launches the
+    method's kernel, the frame one chain + select, and no volume lookup."""
+    cfg = default_config()
+    cfg.flow_config.flow_iters = 3
+    cfg.flow_config.raft_params["corr_method"] = method
+    tracker = MFT(cfg, device=cuda)
+    rng = np.random.default_rng(0)
+    tex = (rng.random((80, 80, 3)) * 255).astype(np.uint8)
+    ops.reset_launch_counts()
+    tracker.init(tex[:64, :64])
+    for k in range(1, 3):
+        res = tracker.track(np.ascontiguousarray(tex[k:k + 64, 2 * k:2 * k + 64])).result
+        assert res.flow.shape == (64, 64, 2) and bool(torch.isfinite(res.flow).all())
+    name = {"alt": "corr_lookup_alt", "win": "corr_lookup_win"}[method]
+    want = {k: 0 for k in ops.launch_counts()}
+    want.update({name: 6, "chain_select": 2})
+    assert ops.launch_counts() == want

@@ -25,12 +25,12 @@ FRAMES = 5
 DELTAS = [np.inf, 1, 2, 4, 8, 16, 32]
 
 
-def _config(cls, flower_cls):
+def _config(cls, flower_cls, corr_method="auto"):
     conf = cls()
     flow = cls()
     flow.of_class = flower_cls
     flow.raft_params = {"occlusion_module": "separate_with_uncertainty",
-                        "compute_dtype": "float32"}
+                        "compute_dtype": "float32", "corr_method": corr_method}
     flow.model = None
     flow.flow_iters = 2
     conf.flow_config = flow
@@ -45,11 +45,10 @@ def _clip(n, seed=0):
     return [np.ascontiguousarray(tex[k:k + H, 2 * k:2 * k + W]) for k in range(n + 1)]
 
 
-@pytest.fixture(scope="module")
-def both_runs():
-    frames = _clip(FRAMES)
-    jt = JaxMFT(_config(JaxConfig, JaxRAFTFlow))
-    tt = MFT(_config(Config, RAFTFlow), device="cpu")
+def _run_both(n_frames, jax_method="auto", port_method="auto"):
+    frames = _clip(n_frames)
+    jt = JaxMFT(_config(JaxConfig, JaxRAFTFlow, jax_method))
+    tt = MFT(_config(Config, RAFTFlow, port_method), device="cpu")
     tt.flower.load_state_dict(params_from_flax(
         jax.tree.map(np.asarray, jt.flower.variables)))
     jt.init(frames[0])
@@ -63,6 +62,21 @@ def both_runs():
     return out
 
 
+@pytest.fixture(scope="module")
+def both_runs():
+    return _run_both(FRAMES)
+
+
+ALT_FRAMES = 3
+
+
+@pytest.fixture(scope="module")
+def both_runs_alt():
+    """The port with corr_method 'alt' (no volume) against the JAX tracker
+    with 'mxu', its exact volume lookup of the same function."""
+    return _run_both(ALT_FRAMES, jax_method="mxu", port_method="alt")
+
+
 @pytest.mark.parametrize("frame", range(1, FRAMES + 1))
 def test_frame_matches_jax(both_runs, frame):
     """float32, same math: 1e-4 on flow (px), occlusion and sigma at every
@@ -72,6 +86,15 @@ def test_frame_matches_jax(both_runs, frame):
         assert g.shape == w.shape, name
         np.testing.assert_allclose(g, w, atol=1e-4, rtol=1e-5,
                                    err_msg=f"frame {frame} {name}")
+
+
+@pytest.mark.parametrize("frame", range(1, ALT_FRAMES + 1))
+def test_alt_frame_matches_jax(both_runs_alt, frame):
+    """float32: 1e-4 on flow (px), occlusion and sigma at every pixel."""
+    want, got = both_runs_alt[frame - 1]
+    for g, w, name in zip(got, want, ("flow", "occlusion", "sigma")):
+        np.testing.assert_allclose(g, w, atol=1e-4, rtol=1e-5,
+                                   err_msg=f"alt frame {frame} {name}")
 
 
 def test_default_config_is_the_main_path():

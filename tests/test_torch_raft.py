@@ -21,10 +21,10 @@ from mft_tpu_torch.models.raft.convert import params_from_flax
 H, W, ITERS = 60, 68, 3
 
 
-def _flow_config(cls, dtype):
+def _flow_config(cls, dtype, corr_method="auto"):
     conf = cls()
     conf.raft_params = {"occlusion_module": "separate_with_uncertainty",
-                        "compute_dtype": dtype}
+                        "compute_dtype": dtype, "corr_method": corr_method}
     conf.model = None
     conf.flow_iters = ITERS
     return conf
@@ -43,10 +43,10 @@ def _images(seed=0):
     return tex[:H, :W].copy(), tex[3:H + 3, 2:W + 2].copy()
 
 
-def _both(jax_variables, dtype, init_flow=None):
-    jf = JaxRAFTFlow(_flow_config(JaxConfig, dtype))
+def _both(jax_variables, dtype, init_flow=None, jax_method="auto", port_method="auto"):
+    jf = JaxRAFTFlow(_flow_config(JaxConfig, dtype, jax_method))
     jf.variables = jax.tree.map(np.asarray, jax_variables)
-    tf = RAFTFlow(_flow_config(Config, dtype), device="cpu")
+    tf = RAFTFlow(_flow_config(Config, dtype, port_method), device="cpu")
     tf.load_state_dict(params_from_flax(jax_variables))
     img1, img2 = _images()
     jflow, jextra = jf.compute_flow(img1, img2, mode="flow", numpy_out=True,
@@ -99,6 +99,19 @@ def test_compute_flow_matches_jax_bf16(jax_variables):
         assert np.isfinite(got).all(), name
         assert err.mean() < 0.02 * scale, (name, err.mean(), scale)
         assert np.quantile(err, 0.99) < 0.1 * scale, (name, np.quantile(err, 0.99), scale)
+
+
+@pytest.mark.parametrize("method", ["alt", "win"])
+def test_feature_lookup_methods_match_jax_f32(jax_variables, method):
+    """corr_method 'alt' / 'win' (no volume; the plain version on the CPU)
+    against the JAX RAFT with 'mxu', its exact volume lookup of the same
+    function: the same weights, 3 iterations, f32, 1e-4 absolute and 1e-5
+    relative, as the volume path is held."""
+    (jf, jo, js), (tf, to, ts) = _both(jax_variables, "float32", jax_method="mxu",
+                                       port_method=method)
+    np.testing.assert_allclose(tf, jf, atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(to, jo, atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(ts, js, atol=1e-4, rtol=1e-5)
 
 
 def test_cuda_entry_point_raises_without_card():

@@ -3,17 +3,19 @@
 
 Drives ``MFT(default_config())`` of ``mft_tpu_torch`` on one NVIDIA card at
 512x512 (random weights from seed 0, the synthetic clip of chip_smoke.py),
-warms up, then traces ``--frames`` frames with ``torch.profiler`` and prints:
+or with another ``--corr-method`` and frame ``--size``, warms up, then traces
+``--frames`` frames with ``torch.profiler`` and prints:
 
 - wall ms per frame (host clock, synchronised) and device-busy ms per frame
   (the sum of kernel times; one stream), hence the device's idle share;
-- device ms per frame by kernel group: the port's three kernels by name,
+- device ms per frame by kernel group: the port's kernels by name,
   convolutions, matrix products, element-wise, reductions, copies, the rest;
-- the kernels with the most device time.
+- the kernels with the most device time, and the peak device memory.
 
 Imports nothing of JAX. Usage (on the card):
 
     python3 tools/torch_profile_frame.py [--frames 3] [--out frame_profile.txt]
+        [--corr-method auto|alt|win] [--size 2160 3840]
 """
 
 import argparse
@@ -30,6 +32,8 @@ GROUPS = (  # first match wins
     ("corr_lookup_fused", re.compile(r"lookup_conv_kernel")),
     ("corr_lookup", re.compile(r"lookup_kernel")),
     ("chain_select", re.compile(r"chain_select_kernel")),
+    ("corr_lookup_alt", re.compile(r"alt_kernel")),
+    ("corr_lookup_win", re.compile(r"win_kernel")),
     ("convolution", re.compile(r"conv|fprop|implicit|winograd|cudnn", re.I)),
     ("matrix product", re.compile(r"gemm|cutlass|xmma|cublas", re.I)),
     ("reduction", re.compile(r"reduce|softmax|norm", re.I)),
@@ -50,6 +54,9 @@ def main(argv=None) -> int:
     parser.add_argument("--frames", type=int, default=3)
     parser.add_argument("--warmup", type=int, default=3)
     parser.add_argument("--out", default=None, help="write the full kernel table here")
+    parser.add_argument("--corr-method", default="auto", choices=("auto", "alt", "win"))
+    parser.add_argument("--size", type=int, nargs=2, default=(512, 512),
+                        metavar=("H", "W"))
     args = parser.parse_args(argv)
 
     sys.path.insert(0, REPO)
@@ -67,8 +74,11 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     n = args.warmup + args.frames
-    frames = synthetic_clip(n)
-    tracker = MFT(default_config(), device="cuda")
+    H, W = args.size
+    frames = synthetic_clip(n, H=H, W=W)
+    cfg = default_config()
+    cfg.flow_config.raft_params["corr_method"] = args.corr_method
+    tracker = MFT(cfg, device="cuda")
     tracker.init(frames[0])
     for k in range(1, args.warmup + 1):
         tracker.track(frames[k])
@@ -93,9 +103,10 @@ def main(argv=None) -> int:
         print("the profiler recorded no device time", file=sys.stderr)
         return 1
     print(f"card: {card}")
-    print(f"frames traced: {args.frames} after {args.warmup} warm-up, 512x512, "
-          f"{len(tracker.deltas)} deltas, {tracker.flower.iters} iterations, "
-          f"{tracker.flower.dtype}")
+    print(f"frames traced: {args.frames} after {args.warmup} warm-up, {H}x{W}, "
+          f"corr_method {args.corr_method}, {len(tracker.deltas)} deltas, "
+          f"{tracker.flower.iters} iterations, {tracker.flower.dtype}")
+    print(f"peak device memory: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     print(f"wall ms per frame (profiler on): {wall_ms:.3f}")
     print(f"device-busy ms per frame: {busy:.3f} (idle share {1 - busy / wall_ms:.1%})")
     groups = {}
