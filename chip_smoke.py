@@ -5,26 +5,35 @@ Run from any directory, with no arguments:
 
     python3 chip_smoke.py
 
-Phases (each prints its seconds; any failure exits non-zero and prints no
-result line):
+Phases, in the order they run (each prints its seconds; any failure exits
+non-zero and prints no result line):
 1. the card's name and power limit (nvidia-smi);
-2. build the CUDA kernels from ``mft_tpu_torch/ops/csrc`` (one bare nvcc);
+2. build the CUDA kernels from ``mft_tpu_torch/ops/csrc`` (one bare nvcc per
+   source, started together);
 3. hold each kernel against its plain PyTorch version at the main path's
    shapes, in bf16 and f32, and time kernel and plain version (CUDA events);
 3b. the same for the window-correlation kernels of corr_method 'alt' and
    'win' (no volume), on wild and on local coordinates;
+3c. the same for the lookups of the volume's other stored forms,
+   corr_method 'int8', 'packed', 'packed_i8' and 'pallas_t' (K6-K9), on
+   uniform and on local coordinates;
 4. the main path: ``MFT(default_config())`` with random weights from a seed,
    ``init`` + ``track`` of synthetic 512x512 frames (a texture under a known
    shift); checks shapes, finiteness, ranges and that the kernels launched
    11, 1 and 1 times per tracked frame;
 5. one more frame with the plain versions forced, compared with the kernels';
 6. the same tracker with corr_method 'alt', then 'win', at 512x512: frame
-   times, 12 launches of the method's kernel and 1 chain + select per frame,
-   a frame against the plain versions, and (printed, not gated) a frame
-   against the volume path;
-7. both methods at 2160x3840, where the all-pairs volume would not fit on the
-   card: init + 2 tracked frames each, peak device memory, and the kernels
-   (K3-K5) against their plain versions on sampled pixels at that size.
+   times, peak memory, 12 launches of the method's kernel and 1 chain +
+   select per frame, a frame against the plain versions, and (printed, not
+   gated) a frame against the volume path;
+8. the same for 'int8', 'packed', 'packed_i8' and 'pallas_t';
+7. 'alt' and 'win' at 2160x3840, where the all-pairs volume would not fit on
+   the card: init + 2 tracked frames each, peak device memory, and the
+   kernels (K3-K5) against their plain versions on sampled pixels at that
+   size;
+9. 'int8' and 'auto' at 1080x1920: init + 2 tracked frames each, their peak
+   device memory ('int8' must peak lower), and K6 against its plain version
+   on sampled pixels at that size.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Needs no network and imports nothing
@@ -101,13 +110,13 @@ LEVELS = ((64, 64), (32, 32), (16, 16), (8, 8))   # 512x512 at stride 8
 B, P, RADIUS, F = 7, 64 * 64, 4, 256               # 7 delta pairs
 
 
-def window_tap_bytes(pyramid, coords) -> int:
-    """Bytes of the pyramid the windows of these coords touch (in-bounds taps
+def window_tap_bytes(dims, coords, itemsize) -> int:
+    """Bytes of a pyramid of levels ``dims`` = ((h_l, w_l), ...) with values of
+    ``itemsize`` bytes that the windows of these coords touch (in-bounds taps
     of each pixel's (2r+2)^2 neighbourhood per level; each read once)."""
     import torch
     n = 0
-    for lvl, corr in enumerate(pyramid):
-        h, w = corr.shape[2:]
+    for lvl, (h, w) in enumerate(dims):
         c = coords / 2.0 ** lvl
         lo = torch.floor(c) - RADIUS
         x_lo, y_lo = lo[..., 0].clamp(min=0), lo[..., 1].clamp(min=0)
@@ -116,7 +125,7 @@ def window_tap_bytes(pyramid, coords) -> int:
         nx = (x_hi - x_lo + 1).clamp(min=0)
         ny = (y_hi - y_lo + 1).clamp(min=0)
         n += int((nx * ny).sum().item())
-    return n * pyramid[0].element_size()
+    return n * itemsize
 
 
 def check_lookups(torch, ops, dev, card):
@@ -156,7 +165,7 @@ def check_lookups(torch, ops, dev, card):
             check(ok, f"{kind} {name} disagrees with its plain version")
             ms = cuda_ms(kernel, reps=20)
             plain_ms = cuda_ms(plain, reps=3, warmup=1)
-            tap = window_tap_bytes(pyr, coords)
+            tap = window_tap_bytes(LEVELS, coords, pyr[0].element_size())
             out_bytes = got.numel() * got.element_size()
             nbytes = tap + coords.numel() * 4 + out_bytes
             ops_n = 0
@@ -345,6 +354,92 @@ def check_feature_kernels(torch, ops, dev, card):
 
 
 # --------------------------------------------------------------------------- #
+# phase 3c: the lookups of the volume's other stored forms
+# --------------------------------------------------------------------------- #
+# corr_method -> the wrapper of its lookup kernel
+VOLUME_KERNEL_OF = {"int8": "corr_lookup_q", "packed": "corr_lookup_packed",
+                    "packed_i8": "corr_lookup_packed_i8", "pallas_t": "corr_lookup_t"}
+# stated tolerance |kernel - plain| <= atol + rtol*|plain|: the same float ops
+# in the same order (each tap dequantized, then weighted; -fmad=false), so
+# identical results are expected and the tolerance admits last-bit
+# differences only
+VOLUME_TOL = (1e-6, 1e-6)
+
+
+def lookup_coords(torch, dev, kind, gen, H8=64, W8=64):
+    """(B, H8*W8, 2) coords: 'uniform' over the map and 10 px beyond it
+    ([-10, 74] at 64x64, as phase 3 draws them), 'local' the pixel grid +
+    U(-2, 2)."""
+    u = torch.empty((B, H8 * W8, 2), device=dev).uniform_(0.0, 1.0, generator=gen)
+    if kind == "uniform":
+        span = torch.tensor([W8 + 20.0, H8 + 20.0], device=dev)
+        return (-10.0 + u * span).contiguous()
+    ys, xs = torch.meshgrid(torch.arange(H8, device=dev), torch.arange(W8, device=dev),
+                            indexing="ij")
+    grid = torch.stack([xs, ys], -1).reshape(1, H8 * W8, 2).float()
+    return (grid + 4.0 * u - 2.0).contiguous()
+
+
+def stored_volume(torch, tcorr, method, pyr):
+    """The tagged volume of ``method`` from (B, P, h, w) levels ``pyr``; the
+    int8 forms quantize them."""
+    if method == "int8":
+        return ("i8", *tcorr.quantize_pyramid(pyr))
+    if method == "packed":
+        return ("packed", *tcorr.pack_corr_pyramid(pyr))
+    if method == "packed_i8":
+        return ("packed_i8", *tcorr.pack_corr_pyramid_i8(pyr))
+    return ("t", [lvl.movedim(1, 3).contiguous() for lvl in pyr])
+
+
+def check_volume_kernels(torch, ops, dev, card):
+    """K6-K9 against their plain versions at the 512x512 slice's shapes:
+    B=7, P=4096, levels 64^2..8^2, r=4; 'packed' and 'pallas_t' in f32 and
+    bf16, 'int8' and 'packed_i8' on the int8 quantization of a bf16 pyramid."""
+    from mft_tpu_torch.models.raft import corr as tcorr
+    gen = torch.Generator(device=dev).manual_seed(6)
+    coords = {kind: lookup_coords(torch, dev, kind, gen) for kind in ("uniform", "local")}
+    stats = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        pyr = [torch.randn((B, P, h, w), device=dev, generator=gen).to(dtype)
+               for h, w in LEVELS]
+        for method, kname in VOLUME_KERNEL_OF.items():
+            if method in ("int8", "packed_i8") and dtype != torch.bfloat16:
+                continue
+            stored = stored_volume(torch, tcorr, method, pyr)
+            itemsize = (stored[1][0] if method in ("int8", "pallas_t") else
+                        stored[1]).element_size()
+            scale_bytes = B * len(LEVELS) * 4 if itemsize == 1 else 0
+            label = f"{kname} {'int8 of bfloat16' if itemsize == 1 else name}"
+            for kind, c in coords.items():
+                kernel = lambda: tcorr.corr_lookup(stored, c, RADIUS)
+                plain = lambda: tcorr.corr_lookup(stored, c, RADIUS, plain=True)
+                got = kernel()
+                torch.cuda.synchronize()
+                want = plain()
+                err = max_err(got, want)
+                ok = within(got, want, *VOLUME_TOL)
+                log(f"check {label} {kind}: max_abs_err {err:.3e} (tolerance atol "
+                    f"{VOLUME_TOL[0]} + rtol {VOLUME_TOL[1]}) {'ok' if ok else 'FAIL'}")
+                check(ok, f"{label} {kind} disagrees with its plain version")
+                ms = cuda_ms(kernel, reps=20)
+                plain_ms = cuda_ms(plain, reps=3, warmup=1)
+                nbytes = (window_tap_bytes(LEVELS, c, itemsize) + c.numel() * 4
+                          + scale_bytes + got.numel() * got.element_size())
+                bound = nbytes / HBM_BYTES_PER_S * 1e3
+                log(f"time {label} {kind}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+                    f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB) [{card}]")
+                stats[(kname, name, kind)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                                  bound_ms=bound, bound_by="bytes")
+                del got, want
+            del stored
+        del pyr
+    torch.cuda.empty_cache()
+    return stats
+
+
+# --------------------------------------------------------------------------- #
 # phases 4-5: the main path
 # --------------------------------------------------------------------------- #
 def synthetic_clip(n_frames, H=512, W=512, seed=0):
@@ -493,27 +588,30 @@ def run_main_path(torch, ops, dev, card):
 
 
 # --------------------------------------------------------------------------- #
-# phases 6-7: corr_method 'alt' and 'win' (no volume)
+# phases 6-8: the other corr_methods at 512x512, 'alt' and 'win' at 2160x3840
 # --------------------------------------------------------------------------- #
-KERNEL_OF = {"alt": "corr_lookup_alt", "win": "corr_lookup_win"}
+KERNEL_OF = {"alt": "corr_lookup_alt", "win": "corr_lookup_win", **VOLUME_KERNEL_OF}
 
 
-def feature_config(method):
+def method_config(method):
     from mft_tpu_torch.config import default_config
     cfg = default_config()
     cfg.flow_config.raft_params["corr_method"] = method
     return cfg
 
 
-def run_feature_path(torch, ops, dev, card, method, volume_tracker, volume_median):
-    """Phase 6: the default tracker with corr_method ``method`` at 512x512."""
+def run_method_path(torch, ops, dev, card, method, volume_tracker, volume_median):
+    """Phases 6 and 8: the default tracker with corr_method ``method`` at 512x512."""
     from mft_tpu_torch.tracker import MFT
-    tracker = MFT(feature_config(method), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    tracker = MFT(method_config(method), device=dev)
     iters = tracker.flower.iters
     frames = synthetic_clip(FEATURE_FRAMES + 1)
     ops.reset_launch_counts()
     results, frame_ms = track_frames(torch, tracker, frames[:FEATURE_FRAMES + 1])
     counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
     log(f"{method}: launches over {FEATURE_FRAMES} tracked frames: {counts}")
     want = expected_counts(ops, **{KERNEL_OF[method]: FEATURE_FRAMES * iters},
                            chain_select=FEATURE_FRAMES)
@@ -525,6 +623,8 @@ def run_feature_path(torch, ops, dev, card, method, volume_tracker, volume_media
     log(f"{method} frame ms: {', '.join(f'{m:.2f}' for m in frame_ms)}")
     log(f"{method} frame ms median after {WARMUP} warm-up frames: {median:.3f} ms, "
         f"volume path (phase 4, same run) {volume_median:.3f} ms [{card}]")
+    log(f"{method} peak device memory {peak / 1e9:.3f} GB, {(peak - held) / 1e9:.3f} GB "
+        f"above the {held / 1e9:.3f} GB held before (the volume path's tracker)")
     check_kernels_vs_plain(torch, tracker, frames[FEATURE_FRAMES + 1], method)
 
     # not gated: the volume path on the same inputs. In bf16 the volume is
@@ -600,7 +700,7 @@ def run_uhd(torch, ops, dev, card, H=2160, W=3840):
     for method in ("win", "alt"):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        tracker = MFT(feature_config(method), device=dev)
+        tracker = MFT(method_config(method), device=dev)
         iters = tracker.flower.iters
         ops.reset_launch_counts()
         t = time.perf_counter()
@@ -623,6 +723,82 @@ def run_uhd(torch, ops, dev, card, H=2160, W=3840):
         del tracker, results, last
     torch.cuda.empty_cache()
     check_kernels_uhd(torch, ops, dev, card, H8, W8)
+
+
+# --------------------------------------------------------------------------- #
+# phase 9: 'int8' and 'auto' at 1080x1920
+# --------------------------------------------------------------------------- #
+def check_q_kernel_hd(torch, ops, dev, card, H8, W8, n_sample=4096):
+    """K6 on a whole (7, H8*W8) call of the int8 volume of random bf16
+    features, held against its plain version on ``n_sample`` sampled pixels
+    of each pair."""
+    from mft_tpu_torch.models.raft import corr as tcorr
+    gen = torch.Generator(device=dev).manual_seed(7)
+    f1 = torch.randn((B, FEAT_C, H8, W8), device=dev, generator=gen).to(torch.bfloat16)
+    f2 = torch.randn((B, FEAT_C, H8, W8), device=dev, generator=gen).to(torch.bfloat16)
+    levels, scales = tcorr.build_corr_pyramid_i8(f1, f2, len(LEVELS))
+    del f1, f2
+    for kind in ("local", "uniform"):
+        coords = lookup_coords(torch, dev, kind, gen, H8, W8)
+        idx = torch.randperm(H8 * W8, device=dev, generator=gen)[:n_sample]
+        kernel = lambda: ops.corr_lookup_q(levels, scales, coords, RADIUS)
+        got = kernel()[:, idx]
+        torch.cuda.synchronize()
+        want = ops.corr_lookup_q_ref([lvl[:, idx].contiguous() for lvl in levels], scales,
+                                     coords[:, idx].contiguous(), RADIUS)
+        ok = within(got, want, *VOLUME_TOL)
+        ms = cuda_ms(kernel, reps=3, warmup=1)
+        log(f"check corr_lookup_q int8 {kind} at {H8}x{W8} (7 pairs), {n_sample} sampled "
+            f"pixels per pair: max_abs_err {max_err(got, want):.3e} (tolerance atol "
+            f"{VOLUME_TOL[0]} + rtol {VOLUME_TOL[1]}) {'ok' if ok else 'FAIL'}; kernel "
+            f"{ms:.3f} ms [{card}]")
+        check(ok, f"corr_lookup_q {kind} disagrees with its plain version at {H8}x{W8}")
+        del got, want
+    del levels, scales
+    torch.cuda.empty_cache()
+
+
+def run_hd(torch, ops, dev, card, H=1080, W=1920):
+    """Phase 9: 'int8' and 'auto' at 1080x1920, then K6 at that size."""
+    from mft_tpu_torch.tracker import MFT
+    H8, W8 = H // 8, W // 8
+    frames = synthetic_clip(UHD_FRAMES, H=H, W=W)
+    peaks = {}
+    for method in ("int8", "auto"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        tracker = MFT(method_config(method), device=dev)
+        iters = tracker.flower.iters
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        results, frame_ms = track_frames(torch, tracker, frames)
+        seconds = time.perf_counter() - t
+        counts = ops.launch_counts()
+        if method == "auto":
+            want = expected_counts(ops, corr_lookup_fused=UHD_FRAMES * (iters - 1),
+                                   corr_lookup=UHD_FRAMES, chain_select=UHD_FRAMES)
+        else:
+            want = expected_counts(ops, **{KERNEL_OF[method]: UHD_FRAMES * iters},
+                                   chain_select=UHD_FRAMES)
+        check(counts == want, f"{method} {H}x{W}: launch counts {counts} != {want}")
+        check_results(torch, results, H, W, f"{method} {H}x{W}")
+        peaks[method] = torch.cuda.max_memory_allocated()
+        log(f"{method} at {H}x{W}: frame ms {', '.join(f'{m:.1f}' for m in frame_ms)} "
+            f"(init + {UHD_FRAMES} frames {seconds:.2f} s); launches {counts}; peak device "
+            f"memory {peaks[method] / 1e9:.2f} GB ({held / 1e9:.2f} GB held before); bf16 "
+            f"volume of 7 pairs {volume_bytes(H8, W8) / 1e9:.2f} GB, int8 "
+            f"{volume_bytes(H8, W8, itemsize=1) / 1e9:.2f} GB [{card}]")
+        last = results[-1]
+        log(f"{method} at {H}x{W}: mean flow ({float(last.flow[..., 0].mean()):.3f}, "
+            f"{float(last.flow[..., 1].mean()):.3f}) px, mean occlusion "
+            f"{float(last.occlusion.mean()):.4f}, mean sigma {float(last.sigma.mean()):.4f}")
+        del tracker, results, last
+    check(peaks["int8"] < peaks["auto"],
+          f"int8 peaks at {peaks['int8'] / 1e9:.2f} GB, not below auto's "
+          f"{peaks['auto'] / 1e9:.2f} GB at {H}x{W}")
+    torch.cuda.empty_cache()
+    check_q_kernel_hd(torch, ops, dev, card, H8, W8)
 
 
 def main() -> int:
@@ -674,19 +850,31 @@ def run() -> int:
         fk = check_feature_kernels(torch, ops, dev, card)
         log(f"phase 3b seconds {time.perf_counter() - t:.2f}")
         t = time.perf_counter()
+        vk = check_volume_kernels(torch, ops, dev, card)
+        log(f"phase 3c seconds {time.perf_counter() - t:.2f}")
+        t = time.perf_counter()
         counts, volume_median, volume_tracker = run_main_path(torch, ops, dev, card)
         log(f"phase 4-5 seconds {time.perf_counter() - t:.2f}")
         t = time.perf_counter()
         for method in ("alt", "win"):
-            c = run_feature_path(torch, ops, dev, card, method, volume_tracker,
-                                 volume_median)
+            c = run_method_path(torch, ops, dev, card, method, volume_tracker,
+                                volume_median)
+            counts[KERNEL_OF[method]] = c[KERNEL_OF[method]]
+        log(f"phase 6 seconds {time.perf_counter() - t:.2f}")
+        t = time.perf_counter()
+        for method in VOLUME_KERNEL_OF:
+            c = run_method_path(torch, ops, dev, card, method, volume_tracker,
+                                volume_median)
             counts[KERNEL_OF[method]] = c[KERNEL_OF[method]]
         del volume_tracker
-        log(f"phase 6 seconds {time.perf_counter() - t:.2f}")
+        log(f"phase 8 seconds {time.perf_counter() - t:.2f}")
         t = time.perf_counter()
         run_uhd(torch, ops, dev, card)
         log(f"phase 7 seconds {time.perf_counter() - t:.2f}")
-        for stats in (*lk.values(), cs, *fk.values()):
+        t = time.perf_counter()
+        run_hd(torch, ops, dev, card)
+        log(f"phase 9 seconds {time.perf_counter() - t:.2f}")
+        for stats in (*lk.values(), cs, *fk.values(), *vk.values()):
             check(all(math.isfinite(stats[k]) for k in
                       ("max_abs_err", "ms", "plain_ms", "bound_ms")),
                   f"non-finite measurement {stats}")
@@ -716,6 +904,13 @@ def run() -> int:
              launches=counts["corr_lookup_win"],
              **fk[("corr_lookup_win", "bfloat16", "local")], library_ms=None),
     ]
+    replaces = {"corr_lookup_q": 654, "corr_lookup_packed": 808,
+                "corr_lookup_packed_i8": 868, "corr_lookup_t": 1151}
+    for kname, line in replaces.items():
+        kernels.append(dict(name=kname, route="cuda", source=src + "corr_volume.cu",
+                            replaces=f"mft_tpu/ops/corr_lookup_pallas.py:{line}",
+                            launches=counts[kname],
+                            **vk[(kname, "bfloat16", "uniform")], library_ms=None))
     log(f"total seconds {time.perf_counter() - t_all:.2f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -14,6 +14,19 @@ of pooled target features (:func:`build_feature_pyramid`) and every lookup
 recomputes the window correlations from the features
 (:func:`corr_lookup_features`).
 
+The other stored forms of the volume are tagged tuples, as in the JAX
+package, and :func:`corr_lookup` dispatches on the tag:
+- ``("i8", levels, scales)``: int8 levels with a float32 scale per (pair,
+  level), from :func:`quantize_pyramid` ('int8');
+- ``("packed", packed, dims)``: all levels side by side in one zero-row-padded
+  (B, P, H0, sum w_l) map, from :func:`pack_corr_pyramid` ('packed');
+- ``("packed_i8", packed, scales, dims)``: that map in int8
+  (:func:`pack_corr_pyramid_i8`, 'packed_i8');
+- ``("t", levels_t)``: lane-major (B, h_l, w_l, P) levels, from
+  :func:`build_corr_pyramid_t` ('pallas_t').
+The int8 forms sample bfloat16 whatever the volume dtype; the others sample
+in the volume dtype.
+
 The lookup itself runs on the kernels of ``mft_tpu_torch.ops``;
 ``plain=True`` makes the caller's choice of their plain PyTorch versions
 explicit (for comparing the two on the card).
@@ -25,6 +38,10 @@ import torch
 import torch.nn.functional as F
 
 from mft_tpu_torch import ops
+from mft_tpu_torch.ops.corr_lookup import dequant_levels, unpack_levels
+
+PACKED_MAX_WIDTH = 128   # sum of the level widths of a packed map
+QUANT_CHUNK = 1 << 26    # values of one pair-level quantized at once
 
 
 def avg_pool2x2(f: torch.Tensor) -> torch.Tensor:
@@ -57,6 +74,118 @@ def build_corr_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor,
     return pyramid
 
 
+def build_corr_pyramid_t(fmap1: torch.Tensor, fmap2: torch.Tensor,
+                         num_levels: int = 4) -> list:
+    """The pyramid of :func:`build_corr_pyramid` in lane-major layout.
+
+    returns: ``num_levels`` maps, level l: (B, h_l, w_l, H*W), the source
+    pixel on the fastest axis. Built by swapping the product's operands, the
+    f32 accumulator scaled by 1/sqrt(C) before the one rounding to dtype.
+    """
+    B, C, H, W = fmap1.shape
+    f1 = fmap1.reshape(B, C, H * W)
+    f2 = fmap2
+    scale = 1.0 / math.sqrt(C)
+    zero = f1.new_zeros(())
+    pyramid = []
+    for lvl in range(num_levels):
+        if lvl > 0:
+            f2 = avg_pool2x2(f2)
+        h, w = f2.shape[2], f2.shape[3]
+        corr = torch.baddbmm(zero, f2.reshape(B, C, h * w).transpose(1, 2), f1,
+                             beta=0.0, alpha=scale)
+        pyramid.append(corr.view(B, h, w, H * W))
+    return pyramid
+
+
+def _quantize_into(corr: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """Quantize one pair's (P, h, w) level into ``out`` (int8); its scale.
+
+    In chunks of source pixels, so no float32 copy of the level is held. The
+    maximum of |a| is max(max a, -min a), taken in the level's dtype (which
+    rounds nothing).
+    """
+    rows = max(1, QUANT_CHUNK // max(1, corr[0].numel()))
+    starts = range(0, corr.shape[0], rows)
+    bounds = torch.stack([torch.stack(torch.aminmax(corr[s:s + rows])) for s in starts])
+    mx = torch.maximum(-bounds[:, 0].amin(), bounds[:, 1].amax())
+    mx = mx.float().clamp(min=1e-12)
+    # tensor by tensor: torch turns ``127.0 / mx`` into 127 * (1/mx), and a
+    # division by a host scalar on the card into a product with its inverse
+    c127 = torch.full_like(mx, 127.0)
+    mul = c127 / mx
+    for s in starts:
+        a = corr[s:s + rows].float() * mul     # a new tensor: corr is not written
+        # integers in [-127, 127] after clamp_: the int8 copy is exact
+        out[s:s + rows].copy_(a.round_().clamp_(-127.0, 127.0))
+    return mx / c127
+
+
+def _quantize_pairs(pair_levels, B: int):
+    """int8 levels and (B, L) scales of the pyramid whose pair b has the
+    (P, h_l, w_l) levels ``pair_levels(b)``, quantized one pair at a time."""
+    levels = scales = None
+    for b in range(B):
+        pair = pair_levels(b)
+        if levels is None:
+            levels = [torch.empty((B, *c.shape), dtype=torch.int8, device=c.device)
+                      for c in pair]
+            scales = torch.empty((B, len(pair)), dtype=torch.float32,
+                                 device=pair[0].device)
+        for lvl, corr in enumerate(pair):
+            scales[b, lvl] = _quantize_into(corr, levels[lvl][b])
+        del pair
+    return levels, scales
+
+
+def quantize_pyramid(pyramid):
+    """int8 levels and (B, L) float32 scales, value = q * scale.
+
+    Per (pair, level): mx = max(max|a|, 1e-12) over the level's values ``a``
+    (as stored, widened to f32), q = clip(round(a * (127/mx)), -127, 127)
+    rounded half to even, scale = mx/127; the error is at most mx/254 per
+    value (JAX ``quantize_pyramid``). Works pair by pair and level by level.
+    """
+    return _quantize_pairs(lambda b: [c[b] for c in pyramid], pyramid[0].shape[0])
+
+
+def build_corr_pyramid_i8(fmap1: torch.Tensor, fmap2: torch.Tensor,
+                          num_levels: int = 4):
+    """:func:`quantize_pyramid` of :func:`build_corr_pyramid`, built pair by
+    pair, so only one pair's pyramid in the volume dtype exists at a time
+    beside the int8 one. returns: (levels, scales)."""
+    pair = lambda b: [c[0] for c in build_corr_pyramid(fmap1[b:b + 1], fmap2[b:b + 1],
+                                                       num_levels)]
+    return _quantize_pairs(pair, fmap1.shape[0])
+
+
+def pack_corr_pyramid(pyramid):
+    """Levels side by side in one (B, P, H0, sum w_l) map per pixel.
+
+    Level l fills columns [off_l, off_l + w_l) and rows [0, h_l); rows h_l..H0-1
+    are zero. As in the JAX package, the sum of the widths must be at most
+    128 (W8 <= 68), else ValueError.
+    returns: (packed, dims), dims the levels' (h_l, w_l).
+    """
+    B, P, H0, _ = pyramid[0].shape
+    dims = tuple((c.shape[2], c.shape[3]) for c in pyramid)
+    if sum(w for _, w in dims) > PACKED_MAX_WIDTH:
+        raise ValueError(f"packed layout needs sum of level widths <= "
+                         f"{PACKED_MAX_WIDTH}, got {[w for _, w in dims]}")
+    packed = pyramid[0].new_zeros((B, P, H0, sum(w for _, w in dims)))
+    for view, corr in zip(unpack_levels(packed, dims), pyramid):
+        view.copy_(corr)
+    return packed, dims
+
+
+def pack_corr_pyramid_i8(pyramid):
+    """:func:`pack_corr_pyramid` of the :func:`quantize_pyramid` levels.
+    returns: (packed int8, scales (B, L) float32, dims)."""
+    levels, scales = quantize_pyramid(pyramid)
+    packed, dims = pack_corr_pyramid(levels)
+    return packed, scales, dims
+
+
 def build_feature_pyramid(fmap2: torch.Tensor, num_levels: int = 4) -> list:
     """Pooled target features of the 'alt' and 'win' lookups.
 
@@ -87,11 +216,25 @@ def corr_lookup_features(method: str, f1, f2_pyramid, coords, radius: int = 4,
     return lookup(f1, f2_pyramid, coords, radius)
 
 
+# tag of a stored volume -> (kernel wrapper, plain version)
+_LOOKUPS = {
+    "volume": (ops.corr_lookup, ops.corr_lookup_ref),
+    "i8": (ops.corr_lookup_q, ops.corr_lookup_q_ref),
+    "packed": (ops.corr_lookup_packed, ops.corr_lookup_packed_ref),
+    "packed_i8": (ops.corr_lookup_packed_i8, ops.corr_lookup_packed_i8_ref),
+    "t": (ops.corr_lookup_t, ops.corr_lookup_t_ref),
+}
+
+
 def corr_lookup(pyramid, coords, radius: int = 4, plain: bool = False):
-    """(B, P, L*(2r+1)^2) window samples in the volume dtype."""
-    if plain:
-        return ops.corr_lookup_ref(pyramid, coords, radius)
-    return ops.corr_lookup(pyramid, coords, radius)
+    """(B, P, L*(2r+1)^2) window samples.
+
+    args: pyramid, the list of :func:`build_corr_pyramid` (samples in the
+      volume dtype) or one of the tagged tuples of the module docstring.
+    """
+    tag, *args = pyramid if isinstance(pyramid, tuple) else ("volume", pyramid)
+    kernel, ref = _LOOKUPS[tag]
+    return (ref if plain else kernel)(*args, coords, radius)
 
 
 def corr_lookup_fused_conv(pyramid, coords, weight, bias, radius: int = 4,

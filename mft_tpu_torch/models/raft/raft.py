@@ -15,6 +15,12 @@ Port of ``mft_tpu/models/raft/raft.py`` in test mode, big model only:
   ``mft_corr_win``) recomputes its window correlations; convc1 then runs
   unfused on all iterations. These are the methods for frames whose
   all-pairs volume does not fit on the card.
+- ``corr_method`` 'int8', 'packed', 'packed_i8' and 'pallas_t' store the
+  volume in another form (int8 with per-(pair, level) scales, all levels
+  packed in one map, both, or lane-major; ``corr.py``) and run that form's
+  lookup kernel, unfused, on every iteration, as the JAX model does. The int8
+  forms halve the volume's bytes and sample in bfloat16 whatever the model
+  dtype (error at most max|corr|/254 per value).
 Scheduled per-pair iterations and training mode are not ported.
 """
 
@@ -23,9 +29,11 @@ import dataclasses
 import torch
 from torch import nn
 
-from mft_tpu_torch.models.raft.corr import (build_corr_pyramid, build_feature_pyramid,
+from mft_tpu_torch.models.raft.corr import (build_corr_pyramid, build_corr_pyramid_i8,
+                                            build_corr_pyramid_t, build_feature_pyramid,
                                             corr_lookup, corr_lookup_features,
-                                            corr_lookup_fused_conv)
+                                            corr_lookup_fused_conv, pack_corr_pyramid,
+                                            pack_corr_pyramid_i8)
 from mft_tpu_torch.models.raft.layers import BasicEncoder
 from mft_tpu_torch.models.raft.update import (BasicUpdateBlock,
                                               OcclusionAndUncertaintyBlock)
@@ -34,15 +42,14 @@ from mft_tpu_torch.models.raft.upsample import convex_upsample_multi
 
 HIDDEN_DIM = CONTEXT_DIM = 128   # big model
 # corr_method: 'auto' is the all-pairs volume; 'alt' and 'win' recompute the
-# windows from the features. The JAX package's other methods, with the item of
-# ROADMAP.md that ports them; the port never maps one onto another method.
-CORR_METHODS = ("auto", "alt", "win")
+# windows from the features; the volume methods store it in another form.
+# The JAX package's other methods, with the item of ROADMAP.md that ports
+# them; the port never maps one onto another method.
+FEATURE_METHODS = ("alt", "win")
+VOLUME_METHODS = ("int8", "packed", "packed_i8", "pallas_t")
+CORR_METHODS = ("auto", *FEATURE_METHODS, *VOLUME_METHODS)
 UNPORTED_CORR_METHODS = {
-    "pallas_t": "B5 (kernel #10 corr_lookup_pallas_t)",
     "fold": "B6 (kernels #4-#5, folded volume)",
-    "int8": "B7 (kernel #6 corr_lookup_pallas_q)",
-    "packed": "B8 (kernels #7-#8, packed volume)",
-    "packed_i8": "B8 (kernels #7-#8, packed volume)",
     "mixed": "B9 (kernel #9 corr_lookup_pallas_mixed)",
     "mxu": "A3 (other formulations of the volume lookup)",
     "gather": "A3 (other formulations of the volume lookup)",
@@ -57,7 +64,7 @@ class RAFTParams:
     corr_levels: int = 4
     corr_radius: int = 4
     compute_dtype: str = "float32"  # 'bfloat16' | 'float32' | 'auto' (bf16 on CUDA)
-    corr_method: str = "auto"       # 'auto' (volume) | 'alt' | 'win'
+    corr_method: str = "auto"       # one of CORR_METHODS
 
     def __post_init__(self):
         if self.corr_method in UNPORTED_CORR_METHODS:
@@ -121,12 +128,23 @@ class RAFT(nn.Module):
         B, _, H8, W8 = fmap1.shape
         P = H8 * W8
         radius = cfg.corr_radius
-        features = cfg.corr_method in ("alt", "win")
+        method, levels = cfg.corr_method, cfg.corr_levels
+        features = method in FEATURE_METHODS
         if features:
             f1 = fmap1.permute(0, 2, 3, 1).contiguous()     # (B, H8, W8, C)
-            f2_pyramid = build_feature_pyramid(fmap2, cfg.corr_levels)
+            f2_pyramid = build_feature_pyramid(fmap2, levels)
+        elif method == "int8":
+            pyramid = ("i8", *build_corr_pyramid_i8(fmap1, fmap2, levels))
+        elif method == "packed_i8":
+            pyramid = ("packed_i8", *pack_corr_pyramid_i8(
+                build_corr_pyramid(fmap1, fmap2, levels)))
+        elif method == "packed":
+            pyramid = ("packed", *pack_corr_pyramid(
+                build_corr_pyramid(fmap1, fmap2, levels)))
+        elif method == "pallas_t":
+            pyramid = ("t", build_corr_pyramid_t(fmap1, fmap2, levels))
         else:
-            pyramid = build_corr_pyramid(fmap1, fmap2, cfg.corr_levels)
+            pyramid = build_corr_pyramid(fmap1, fmap2, levels)
         net = torch.tanh(cnet[:, :HIDDEN_DIM])
         inp = torch.relu(cnet[:, HIDDEN_DIM:])
 
@@ -143,9 +161,9 @@ class RAFT(nn.Module):
         for itr in range(iters):
             last = itr == iters - 1
             if features:
-                corr = to_nchw(corr_lookup_features(cfg.corr_method, f1, f2_pyramid,
+                corr = to_nchw(corr_lookup_features(method, f1, f2_pyramid,
                                                     coords1, radius, plain))
-            elif last:
+            elif last or method in VOLUME_METHODS:
                 samples = corr_lookup(pyramid, coords1, radius, plain)
                 corr = to_nchw(samples)
             else:

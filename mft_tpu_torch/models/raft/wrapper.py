@@ -44,10 +44,23 @@ def pad_to_8(H: int, W: int):
 SAME_CONV_BACKENDS = ("auto", "conv", "matmul", "im2col", "hybrid")
 
 
+def check_corr_tile(v) -> int:
+    """A corr_tile override: 0 (auto) or a power of two >= 8, else ValueError,
+    as the JAX package's wrapper checks it. The tile sizes the TPU lookups'
+    pixel blocks; the port's kernels take any pixel count, so a valid value
+    changes nothing here."""
+    t = int(v or 0)
+    if t and (t < 8 or t & (t - 1)):
+        raise ValueError(f"corr_tile must be 0 or a power of two >= 8, got {t}")
+    return t
+
+
 def raft_params_from_config(raft_kwargs) -> RAFTParams:
     """RAFTParams from a reference-style raft_params mapping (as JAX
     ``raft_params_from_config``). An option whose value the port does not
-    implement raises instead of being ignored."""
+    implement raises instead of being ignored; ``corr_tile`` and
+    ``fuse_lookup`` choose the TPU's tiling and fusion, not the function, so
+    every valid value is accepted."""
     get = (raft_kwargs.get if hasattr(raft_kwargs, "get")
            else lambda k, d=None: getattr(raft_kwargs, k, d))
     if get("small", False):
@@ -71,6 +84,7 @@ def raft_params_from_config(raft_kwargs) -> RAFTParams:
                                   "(ROADMAP B11, kernel #13 conv_pallas)")
     if backend not in SAME_CONV_BACKENDS:
         raise ValueError(f"unknown conv_backend {backend!r}")
+    check_corr_tile(get("corr_tile", 0))
     return RAFTParams(compute_dtype=str(get("compute_dtype", "auto")),
                       corr_method=str(get("corr_method", "auto")))
 

@@ -7,6 +7,10 @@
 | chain_select (mft_chain_select)           | warp_pallas.py bilinear_warp_blocked (+ chain/select) |
 | corr_lookup_alt (mft_corr_alt)            | alt_corr_pallas.py corr_lookup_alt                   |
 | corr_lookup_win (mft_corr_win)            | alt_corr_pallas.py corr_lookup_win                   |
+| corr_lookup_q (mft_corr_lookup_q)         | corr_lookup_pallas.py corr_lookup_pallas_q           |
+| corr_lookup_packed (mft_corr_lookup_packed) | corr_lookup_pallas.py corr_lookup_pallas_packed    |
+| corr_lookup_packed_i8 (mft_corr_lookup_packed_i8) | corr_lookup_pallas.py corr_lookup_pallas_packed_i8 |
+| corr_lookup_t (mft_corr_lookup_t)         | corr_lookup_pallas.py corr_lookup_pallas_t           |
 
 A wrapper launches its kernel for CUDA tensors and uses the plain version for
 CPU tensors; it raises for anything else. Each wrapper counts its launches in
@@ -16,11 +20,15 @@ its ``launches`` attribute (:func:`launch_counts`, :func:`reset_launch_counts`).
 from mft_tpu_torch.ops.chain_select import chain_select, chain_select_ref
 from mft_tpu_torch.ops.corr_alt import (corr_lookup_alt, corr_lookup_alt_ref,
                                         corr_lookup_win)
-from mft_tpu_torch.ops.corr_lookup import (corr_lookup, corr_lookup_fused,
-                                           corr_lookup_fused_ref, corr_lookup_ref)
+from mft_tpu_torch.ops.corr_lookup import (
+    corr_lookup, corr_lookup_fused, corr_lookup_fused_ref, corr_lookup_packed,
+    corr_lookup_packed_i8, corr_lookup_packed_i8_ref, corr_lookup_packed_ref,
+    corr_lookup_q, corr_lookup_q_ref, corr_lookup_ref, corr_lookup_t,
+    corr_lookup_t_ref)
 
 KERNELS = (corr_lookup_fused, corr_lookup, chain_select, corr_lookup_alt,
-           corr_lookup_win)
+           corr_lookup_win, corr_lookup_q, corr_lookup_packed, corr_lookup_packed_i8,
+           corr_lookup_t)
 
 
 def launch_counts() -> dict:
@@ -35,5 +43,8 @@ def reset_launch_counts():
 
 __all__ = ["chain_select", "chain_select_ref", "corr_lookup", "corr_lookup_ref",
            "corr_lookup_fused", "corr_lookup_fused_ref", "corr_lookup_alt",
-           "corr_lookup_alt_ref", "corr_lookup_win", "KERNELS",
+           "corr_lookup_alt_ref", "corr_lookup_win", "corr_lookup_q",
+           "corr_lookup_q_ref", "corr_lookup_packed", "corr_lookup_packed_ref",
+           "corr_lookup_packed_i8", "corr_lookup_packed_i8_ref", "corr_lookup_t",
+           "corr_lookup_t_ref", "KERNELS",
            "launch_counts", "reset_launch_counts"]

@@ -42,6 +42,10 @@ SIGNATURES = {
     "mft_chain_select": [_P] * 10 + [_F, _I, _I, _I, _P],
     "mft_corr_alt": [_P] * 7 + [_I] * 14 + [_F, _I, _P],
     "mft_corr_win": [_P] * 7 + [_I] * 14 + [_F, _I, _P, _P],
+    "mft_corr_lookup_q": [_P] * 7 + [_I] * 12 + [_P],
+    "mft_corr_lookup_packed": [_P] * 3 + [_I] * 15 + [_P],
+    "mft_corr_lookup_packed_i8": [_P] * 4 + [_I] * 14 + [_P],
+    "mft_corr_lookup_t": [_P] * 6 + [_I] * 13 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,6 +1,6 @@
 """Correlation-pyramid window lookup: CUDA kernels and their plain versions.
 
-Two functions, each a wrapper that launches its kernel on a CUDA tensor and
+Each function is a wrapper that launches its kernel on a CUDA tensor and
 uses its plain PyTorch version on a CPU tensor:
 
 - :func:`corr_lookup` (kernel ``mft_corr_lookup``, replacing
@@ -9,7 +9,19 @@ uses its plain PyTorch version on a CPU tensor:
 - :func:`corr_lookup_fused` (kernel ``mft_corr_lookup_conv``, replacing
   ``corr_lookup_pallas_fused``) returns relu(samples @ wc + bias), (B, P, F)
   in the volume dtype, with the samples rounded through the volume dtype and
-  the product accumulated in float32.
+  the product accumulated in float32;
+- four lookups of the same samples from other stored forms of the volume
+  (kernels in ``csrc/corr_volume.cu``):
+  :func:`corr_lookup_q` (``mft_corr_lookup_q``, replacing
+  ``corr_lookup_pallas_q``) from int8 levels with a scale per (pair, level),
+  :func:`corr_lookup_packed` (``mft_corr_lookup_packed``, replacing
+  ``corr_lookup_pallas_packed``) from all levels side by side in one
+  zero-row-padded (B, P, H0, sum w_l) map,
+  :func:`corr_lookup_packed_i8` (``mft_corr_lookup_packed_i8``, replacing
+  ``corr_lookup_pallas_packed_i8``) from that map in int8, and
+  :func:`corr_lookup_t` (``mft_corr_lookup_t``, replacing
+  ``corr_lookup_pallas_t``) from lane-major (B, h_l, w_l, P) levels. The int8
+  forms return bfloat16 samples, the others the volume dtype.
 
 Layouts are those of the JAX kernels: the pyramid is a list of (B, P, h_l, w_l)
 maps (f32 or bf16), coords (B, P, 2) float32 (x, y) centres at level-0 scale.
@@ -18,7 +30,9 @@ the reference's transposed order.
 
 The plain versions are the exact bilinear math (``_lookup_level`` in
 ``mft_tpu/models/raft/corr.py``), not the TPU's tent-matmul formulation,
-whose bf16 tent weights round.
+whose bf16 tent weights round. An int8 value is dequantized (``q * scale``
+in float32) before it is sampled, as the JAX package's non-TPU path does, and
+the samples are rounded once.
 """
 
 import torch
@@ -27,6 +41,21 @@ from mft_tpu_torch.core.interp import sample_stacked
 from mft_tpu_torch.ops import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def unpack_levels(packed: torch.Tensor, dims) -> list:
+    """(B, P, H0, sum w_l) packed volume -> per-level (B, P, h_l, w_l) views."""
+    levels, off = [], 0
+    for h, w in dims:
+        levels.append(packed[:, :, :h, off:off + w])
+        off += w
+    return levels
+
+
+def dequant_levels(levels, scales: torch.Tensor) -> list:
+    """int8 levels times their (B, L) per-(pair, level) scales, float32."""
+    return [lvl.float() * scales[:, i, None, None, None]
+            for i, lvl in enumerate(levels)]
 
 
 # --------------------------------------------------------------------------- #
@@ -56,6 +85,28 @@ def corr_lookup_ref(pyramid, coords, radius: int = 4) -> torch.Tensor:
     return _samples_ref(pyramid, coords, radius).to(pyramid[0].dtype)
 
 
+def corr_lookup_q_ref(levels, scales, coords, radius: int = 4) -> torch.Tensor:
+    """Plain version of :func:`corr_lookup_q`."""
+    return _samples_ref(dequant_levels(levels, scales), coords,
+                        radius).to(torch.bfloat16)
+
+
+def corr_lookup_packed_ref(packed, dims, coords, radius: int = 4) -> torch.Tensor:
+    """Plain version of :func:`corr_lookup_packed`."""
+    return corr_lookup_ref(unpack_levels(packed, dims), coords, radius)
+
+
+def corr_lookup_packed_i8_ref(packed, scales, dims, coords,
+                              radius: int = 4) -> torch.Tensor:
+    """Plain version of :func:`corr_lookup_packed_i8`."""
+    return corr_lookup_q_ref(unpack_levels(packed, dims), scales, coords, radius)
+
+
+def corr_lookup_t_ref(levels_t, coords, radius: int = 4) -> torch.Tensor:
+    """Plain version of :func:`corr_lookup_t`."""
+    return corr_lookup_ref([lvl.movedim(3, 1) for lvl in levels_t], coords, radius)
+
+
 def corr_lookup_fused_ref(pyramid, coords, wc, bias, radius: int = 4):
     """Plain version of :func:`corr_lookup_fused`."""
     dt = pyramid[0].dtype
@@ -67,28 +118,65 @@ def corr_lookup_fused_ref(pyramid, coords, wc, bias, radius: int = 4):
 # --------------------------------------------------------------------------- #
 # kernel wrappers
 # --------------------------------------------------------------------------- #
-def _check_inputs(pyramid, coords):
-    if not 1 <= len(pyramid) <= 4:
-        raise ValueError(f"1..4 pyramid levels supported, got {len(pyramid)}")
-    dt = pyramid[0].dtype
-    if dt not in _DTYPE_CODE:
-        raise TypeError(f"volume dtype must be float32 or bfloat16, got {dt}")
-    B, P = pyramid[0].shape[:2]
-    dev = coords.device
-    for lvl in pyramid:
-        if (lvl.dim() != 4 or lvl.shape[:2] != (B, P) or lvl.dtype != dt
-                or lvl.device != dev or not lvl.is_contiguous()):
-            raise ValueError("pyramid levels must be contiguous (B, P, h, w) "
-                             "maps of one dtype on the coords' device")
+def _check_coords(coords, B, P):
     if (coords.shape != (B, P, 2) or coords.dtype != torch.float32
             or not coords.is_contiguous()):
         raise ValueError(f"coords must be contiguous float32 (B, P, 2) = "
                          f"({B}, {P}, 2), got {tuple(coords.shape)} {coords.dtype}")
+
+
+def _check_levels(levels, coords, dtypes, lane_major=False):
+    """(dtype, B, P, level pointers, (h_l, w_l) of 4 levels) of contiguous
+    (B, P, h, w) levels, or (B, h, w, P) ones if ``lane_major``."""
+    if not 1 <= len(levels) <= 4:
+        raise ValueError(f"1..4 pyramid levels supported, got {len(levels)}")
+    dt = levels[0].dtype
+    if dt not in dtypes:
+        raise TypeError(f"volume dtype must be one of {dtypes}, got {dt}")
+    bp = lambda t: (t.shape[0], t.shape[3]) if lane_major else tuple(t.shape[:2])
+    B, P = bp(levels[0])
+    dev = coords.device
+    for lvl in levels:
+        if (lvl.dim() != 4 or bp(lvl) != (B, P) or lvl.dtype != dt
+                or lvl.device != dev or not lvl.is_contiguous()):
+            raise ValueError(f"pyramid levels must be contiguous "
+                             f"{'(B, h, w, P)' if lane_major else '(B, P, h, w)'} "
+                             "maps of one dtype on the coords' device")
+    _check_coords(coords, B, P)
     hw = []
     for l in range(4):
-        hw += list(pyramid[l].shape[2:]) if l < len(pyramid) else [0, 0]
-    ptrs = [lvl.data_ptr() for lvl in pyramid] + [None] * (4 - len(pyramid))
+        if l < len(levels):
+            hw += list(levels[l].shape[1:3] if lane_major else levels[l].shape[2:])
+        else:
+            hw += [0, 0]
+    ptrs = [lvl.data_ptr() for lvl in levels] + [None] * (4 - len(levels))
     return dt, B, P, ptrs, hw
+
+
+def _check_scales(scales, B, L, dev):
+    if (scales.shape != (B, L) or scales.dtype != torch.float32
+            or scales.device != dev or not scales.is_contiguous()):
+        raise ValueError(f"scales must be contiguous float32 (B, L) = ({B}, {L}) "
+                         f"on the coords' device, got {tuple(scales.shape)} "
+                         f"{scales.dtype}")
+
+
+def _check_packed(packed, dims, coords, dtypes):
+    """(dtype, B, P, H0, Wp, (h_l, w_l) of 4 levels) of a packed volume."""
+    if not 1 <= len(dims) <= 4:
+        raise ValueError(f"1..4 pyramid levels supported, got {len(dims)}")
+    if packed.dtype not in dtypes:
+        raise TypeError(f"packed volume dtype must be one of {dtypes}, "
+                        f"got {packed.dtype}")
+    if packed.dim() != 4 or packed.device != coords.device or not packed.is_contiguous():
+        raise ValueError("the packed volume must be a contiguous (B, P, H0, sum_w) "
+                         "tensor on the coords' device")
+    B, P, H0, Wp = packed.shape
+    if any(h > H0 for h, _ in dims) or sum(w for _, w in dims) != Wp:
+        raise ValueError(f"dims {tuple(dims)} do not fit a ({H0}, {Wp}) packed map")
+    _check_coords(coords, B, P)
+    hw = [int(v) for h_w in dims for v in h_w] + [0, 0] * (4 - len(dims))
+    return packed.dtype, B, P, H0, Wp, hw
 
 
 def _require_cuda(t: torch.Tensor, name: str):
@@ -96,17 +184,25 @@ def _require_cuda(t: torch.Tensor, name: str):
         raise ValueError(f"{name}: unsupported device {t.device}")
 
 
+def _channels(num_levels: int, radius: int) -> int:
+    return num_levels * (2 * radius + 1) ** 2
+
+
+def _stream(t: torch.Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def corr_lookup(pyramid, coords, radius: int = 4) -> torch.Tensor:
     """Window lookup: (B, P, L*(2r+1)^2) samples in the volume dtype."""
     if coords.device.type == "cpu":
         return corr_lookup_ref(pyramid, coords, radius)
     _require_cuda(coords, "corr_lookup")
-    dt, B, P, ptrs, hw = _check_inputs(pyramid, coords)
-    C = len(pyramid) * (2 * radius + 1) ** 2
+    dt, B, P, ptrs, hw = _check_levels(pyramid, coords, tuple(_DTYPE_CODE))
+    C = _channels(len(pyramid), radius)
     out = torch.empty((B, P, C), dtype=dt, device=coords.device)
     err = _build.library().mft_corr_lookup(
         out.data_ptr(), coords.data_ptr(), *ptrs, *hw, len(pyramid), B * P,
-        radius, _DTYPE_CODE[dt], torch.cuda.current_stream(coords.device).cuda_stream)
+        radius, _DTYPE_CODE[dt], _stream(coords))
     _build.check(err, "mft_corr_lookup")
     corr_lookup.launches += 1
     return out
@@ -123,8 +219,8 @@ def corr_lookup_fused(pyramid, coords, wc, bias, radius: int = 4) -> torch.Tenso
     if coords.device.type == "cpu":
         return corr_lookup_fused_ref(pyramid, coords, wc, bias, radius)
     _require_cuda(coords, "corr_lookup_fused")
-    dt, B, P, ptrs, hw = _check_inputs(pyramid, coords)
-    C = len(pyramid) * (2 * radius + 1) ** 2
+    dt, B, P, ptrs, hw = _check_levels(pyramid, coords, tuple(_DTYPE_CODE))
+    C = _channels(len(pyramid), radius)
     F = wc.shape[-1]
     if wc.shape != (C, F):
         raise ValueError(f"wc must be (L*(2r+1)^2, F) = ({C}, F), got {tuple(wc.shape)}")
@@ -136,10 +232,108 @@ def corr_lookup_fused(pyramid, coords, wc, bias, radius: int = 4) -> torch.Tenso
     err = _build.library().mft_corr_lookup_conv(
         out.data_ptr(), coords.data_ptr(), wc.data_ptr(), bias.data_ptr(), *ptrs,
         *hw, len(pyramid), B * P, radius, F, _DTYPE_CODE[dt],
-        torch.cuda.current_stream(coords.device).cuda_stream)
+        _stream(coords))
     _build.check(err, "mft_corr_lookup_conv")
     corr_lookup_fused.launches += 1
     return out
 
 
 corr_lookup_fused.launches = 0
+
+
+def corr_lookup_q(levels, scales, coords, radius: int = 4) -> torch.Tensor:
+    """Window lookup on int8 levels: (B, P, L*(2r+1)^2) bfloat16 samples.
+
+    args: levels, a list of (B, P, h_l, w_l) int8 maps; scales (B, L) float32,
+      value = q * scale (:func:`mft_tpu_torch.models.raft.corr.quantize_pyramid`).
+    """
+    if coords.device.type == "cpu":
+        return corr_lookup_q_ref(levels, scales, coords, radius)
+    _require_cuda(coords, "corr_lookup_q")
+    _, B, P, ptrs, hw = _check_levels(levels, coords, (torch.int8,))
+    _check_scales(scales, B, len(levels), coords.device)
+    out = torch.empty((B, P, _channels(len(levels), radius)), dtype=torch.bfloat16,
+                      device=coords.device)
+    err = _build.library().mft_corr_lookup_q(
+        out.data_ptr(), coords.data_ptr(), scales.data_ptr(), *ptrs, *hw,
+        len(levels), B, P, radius, _stream(coords))
+    _build.check(err, "mft_corr_lookup_q")
+    corr_lookup_q.launches += 1
+    return out
+
+
+corr_lookup_q.launches = 0
+
+
+def corr_lookup_packed(packed, dims, coords, radius: int = 4) -> torch.Tensor:
+    """Window lookup on the packed volume: (B, P, L*(2r+1)^2) samples in its dtype.
+
+    args: packed (B, P, H0, sum w_l) float32 or bfloat16, level l in columns
+      [sum_{m<l} w_m, ... + w_l) and rows [0, h_l), zeros below; dims the
+      levels' (h_l, w_l) (:func:`mft_tpu_torch.models.raft.corr.pack_corr_pyramid`).
+      A tap outside its level's own columns or rows is zero.
+    """
+    if coords.device.type == "cpu":
+        return corr_lookup_packed_ref(packed, dims, coords, radius)
+    _require_cuda(coords, "corr_lookup_packed")
+    dt, B, P, H0, Wp, hw = _check_packed(packed, dims, coords, tuple(_DTYPE_CODE))
+    out = torch.empty((B, P, _channels(len(dims), radius)), dtype=dt,
+                      device=coords.device)
+    err = _build.library().mft_corr_lookup_packed(
+        out.data_ptr(), coords.data_ptr(), packed.data_ptr(), H0, Wp, *hw, len(dims),
+        B, P, radius, _DTYPE_CODE[dt], _stream(coords))
+    _build.check(err, "mft_corr_lookup_packed")
+    corr_lookup_packed.launches += 1
+    return out
+
+
+corr_lookup_packed.launches = 0
+
+
+def corr_lookup_packed_i8(packed, scales, dims, coords, radius: int = 4) -> torch.Tensor:
+    """Window lookup on the int8 packed volume: (B, P, L*(2r+1)^2) bfloat16.
+
+    args: packed (B, P, H0, sum w_l) int8 as in :func:`corr_lookup_packed`;
+      scales (B, L) float32, value = q * scale.
+    """
+    if coords.device.type == "cpu":
+        return corr_lookup_packed_i8_ref(packed, scales, dims, coords, radius)
+    _require_cuda(coords, "corr_lookup_packed_i8")
+    _, B, P, H0, Wp, hw = _check_packed(packed, dims, coords, (torch.int8,))
+    _check_scales(scales, B, len(dims), coords.device)
+    out = torch.empty((B, P, _channels(len(dims), radius)), dtype=torch.bfloat16,
+                      device=coords.device)
+    err = _build.library().mft_corr_lookup_packed_i8(
+        out.data_ptr(), coords.data_ptr(), scales.data_ptr(), packed.data_ptr(), H0,
+        Wp, *hw, len(dims), B, P, radius, _stream(coords))
+    _build.check(err, "mft_corr_lookup_packed_i8")
+    corr_lookup_packed_i8.launches += 1
+    return out
+
+
+corr_lookup_packed_i8.launches = 0
+
+
+def corr_lookup_t(levels_t, coords, radius: int = 4) -> torch.Tensor:
+    """Window lookup on lane-major levels: (B, P, L*(2r+1)^2) in their dtype.
+
+    args: levels_t, a list of (B, h_l, w_l, P) float32 or bfloat16 maps, the
+      source pixel on the fastest axis
+      (:func:`mft_tpu_torch.models.raft.corr.build_corr_pyramid_t`).
+    """
+    if coords.device.type == "cpu":
+        return corr_lookup_t_ref(levels_t, coords, radius)
+    _require_cuda(coords, "corr_lookup_t")
+    dt, B, P, ptrs, hw = _check_levels(levels_t, coords, tuple(_DTYPE_CODE),
+                                       lane_major=True)
+    out = torch.empty((B, P, _channels(len(levels_t), radius)), dtype=dt,
+                      device=coords.device)
+    err = _build.library().mft_corr_lookup_t(
+        out.data_ptr(), coords.data_ptr(), *ptrs, *hw, len(levels_t), B, P, radius,
+        _DTYPE_CODE[dt], _stream(coords))
+    _build.check(err, "mft_corr_lookup_t")
+    corr_lookup_t.launches += 1
+    return out
+
+
+corr_lookup_t.launches = 0

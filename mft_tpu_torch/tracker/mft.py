@@ -15,6 +15,8 @@ fused frame step (``MFT._fused_frame_body``):
 
 Not ported: FlowCache reads/writes and injected pairs, ``warm_start_inf``,
 ``track_chunk``, per-delta iteration schedules and the unfused timer path.
+A config that sets one of these options raises (:data:`UNPORTED_OPTIONS`)
+instead of being tracked as the default frame.
 """
 
 from types import SimpleNamespace
@@ -27,14 +29,38 @@ from mft_tpu_torch.core.device import resolve_device
 from mft_tpu_torch.core.flowou import FlowOU, identity_flowou
 from mft_tpu_torch.tracker.fused import chain_select, chain_select_ref
 
+# tracker options of the JAX package that change the frame step, with the
+# item of ROADMAP.md that ports them; a config that sets one raises
+UNPORTED_OPTIONS = {
+    "warm_start_inf": "A7 (template pair warm-started from the previous frame)",
+    "flow_iters_schedule": "A9 (per-delta iteration schedules)",
+    "cache_delta_infinity": "A6 (FlowCache and injected pairs)",
+    "timers_enabled": "A17 (the unfused phase-timer frame step)",
+}
+
 
 class MFT:
-    """Multi-Flow dense Tracker."""
+    """Multi-Flow dense Tracker.
+
+    ``config.exact_chain`` is accepted with either value: the port's chain +
+    select (kernel and plain version) always computes the exact
+    ``chain_select_ref`` math, which is what the option asks of the JAX
+    tracker. The options of :data:`UNPORTED_OPTIONS` raise when set.
+    """
 
     def __init__(self, config, device="cuda"):
         self.C = config
-        self.device = resolve_device(device)
         deltas = list(config.deltas)
+        if (bool(config.warm_start_inf) and any(np.isinf(d) for d in deltas)
+                and bool(config.cache_delta_infinity)):
+            raise ValueError(
+                "warm_start_inf and cache_delta_infinity cannot be combined: "
+                "warm-started template flows depend on the tracking history "
+                "that produced them, so they are not reusable cache entries")
+        for key, item in UNPORTED_OPTIONS.items():
+            if bool(getattr(config, key)):
+                raise NotImplementedError(f"{key} is not ported yet (ROADMAP {item})")
+        self.device = resolve_device(device)
         self.deltas = sorted(deltas, key=lambda d: 0 if np.isinf(d) else d)
         finite = [int(d) for d in self.deltas if np.isfinite(d)]
         self.ring = max(finite) if finite else 1

@@ -21,8 +21,8 @@ from mft_tpu.ops.alt_corr_pallas import (build_feature_pyramid as jax_feature_py
                                          corr_lookup_win)
 from mft_tpu_torch import ops
 from mft_tpu_torch.models.raft.corr import build_feature_pyramid
-from mft_tpu_torch.models.raft.raft import (CORR_METHODS, UNPORTED_CORR_METHODS, RAFT,
-                                            RAFTParams)
+from mft_tpu_torch.models.raft.raft import (CORR_METHODS, UNPORTED_CORR_METHODS,
+                                            VOLUME_METHODS, RAFT, RAFTParams)
 from mft_tpu_torch.models.raft.wrapper import SAME_CONV_BACKENDS, raft_params_from_config
 
 R = 4
@@ -173,10 +173,21 @@ def test_wrappers_raise_off_cpu_and_cuda(lookup):
         lookup(f1, pyr, coords, R)
 
 
-@pytest.mark.parametrize("method", sorted(UNPORTED_CORR_METHODS))
+# every JAX corr_method other than 'auto', 'alt' and 'win'
+OTHER_JAX_METHODS = ("fold", "gather", "int8", "mixed", "mxu", "packed", "packed_i8",
+                     "pallas", "pallas_t")
+
+
+@pytest.mark.parametrize("method", OTHER_JAX_METHODS)
 def test_unported_corr_method_raises(method):
     """Every JAX corr_method the port lacks raises and names its ROADMAP
-    item; none falls back to the volume path."""
+    item; none falls back to the volume path. The volume methods ported
+    since are read as they are."""
+    assert set(OTHER_JAX_METHODS) == set(UNPORTED_CORR_METHODS) | set(VOLUME_METHODS)
+    if method in VOLUME_METHODS:
+        assert raft_params_from_config({"corr_method": method}).corr_method == method
+        assert method not in UNPORTED_CORR_METHODS
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         raft_params_from_config({"corr_method": method})
     with pytest.raises(NotImplementedError, match=method):
@@ -209,3 +220,24 @@ def test_conv_backends_of_the_same_convolution_are_accepted():
             compute_dtype="auto")
     with pytest.raises(ValueError, match="unknown conv_backend"):
         raft_params_from_config({"conv_backend": "winograd"})
+
+
+@pytest.mark.parametrize("tile,ok", [(0, True), (8, True), (16, True), (256, True),
+                                     (12, False), (4, False), (24, False)])
+def test_corr_tile_is_checked(tile, ok):
+    """corr_tile: 0 or a power of two >= 8, as the JAX wrapper's _pow2_tile
+    checks it; a valid tile changes nothing in the port, a bad one raises."""
+    if ok:
+        assert raft_params_from_config({"corr_tile": tile}) == RAFTParams(
+            compute_dtype="auto")
+    else:
+        with pytest.raises(ValueError, match="corr_tile"):
+            raft_params_from_config({"corr_tile": tile})
+
+
+@pytest.mark.parametrize("value", ["auto", "on", "off"])
+def test_fuse_lookup_values_are_accepted(value):
+    """fuse_lookup chooses the TPU's fusion of lookup and convc1, not the
+    function; the port fuses on the 'auto' volume path whatever it says."""
+    assert raft_params_from_config({"fuse_lookup": value}) == RAFTParams(
+        compute_dtype="auto")

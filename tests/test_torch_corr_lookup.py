@@ -115,9 +115,8 @@ def test_wrappers_use_plain_version_on_cpu(rng):
     tw, tb = torch.from_numpy(wc), torch.from_numpy(bias)
     assert torch.equal(ops.corr_lookup_fused(tp, tc, tw, tb, R),
                        ops.corr_lookup_fused_ref(tp, tc, tw, tb, R))
-    assert ops.launch_counts() == {"corr_lookup_fused": 0, "corr_lookup": 0,
-                                   "chain_select": 0, "corr_lookup_alt": 0,
-                                   "corr_lookup_win": 0}
+    assert ops.launch_counts() == {k.__name__: 0 for k in ops.KERNELS}
+    assert len(ops.KERNELS) == 9
 
 
 def test_wrappers_refuse_other_devices(rng):

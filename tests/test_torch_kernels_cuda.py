@@ -13,6 +13,7 @@ import torch
 
 from mft_tpu_torch import ops
 from mft_tpu_torch.config import default_config
+from mft_tpu_torch.models.raft import corr as tcorr
 from mft_tpu_torch.models.raft.corr import build_feature_pyramid
 from mft_tpu_torch.tracker import MFT
 
@@ -102,9 +103,9 @@ def test_mft_main_path_launches_each_kernel(cuda):
     for k in range(1, 4):
         res = tracker.track(np.ascontiguousarray(tex[k:k + 64, 2 * k:2 * k + 64])).result
         assert res.flow.shape == (64, 64, 2) and bool(torch.isfinite(res.flow).all())
-    assert ops.launch_counts() == {"corr_lookup_fused": 6, "corr_lookup": 3,
-                                   "chain_select": 3, "corr_lookup_alt": 0,
-                                   "corr_lookup_win": 0}
+    want = {k: 0 for k in ops.launch_counts()}
+    want.update(corr_lookup_fused=6, corr_lookup=3, chain_select=3)
+    assert ops.launch_counts() == want
 
 
 def _alt_inputs(np_rng, dtype, dev, kind, B=2, H8=13, W8=21, C=64, levels=4):
@@ -176,4 +177,80 @@ def test_mft_feature_path_launches_its_kernel(cuda, method):
     name = {"alt": "corr_lookup_alt", "win": "corr_lookup_win"}[method]
     want = {k: 0 for k in ops.launch_counts()}
     want.update({name: 6, "chain_select": 2})
+    assert ops.launch_counts() == want
+
+
+VOLUME_KERNELS = {"int8": "corr_lookup_q", "packed": "corr_lookup_packed",
+                  "packed_i8": "corr_lookup_packed_i8", "pallas_t": "corr_lookup_t"}
+
+
+def _stored_volume(np_rng, method, dtype, dev, kind, B=2, H8=13, W8=21, C=32):
+    """A tagged volume of random features (13x21 source pixels: odd levels,
+    widths 21+10+5+2 = 38) and coords, 'wild' past every level's edges or
+    'local' (the pixel grid + U(-2, 2)). The int8 forms quantize a volume
+    of ``dtype``."""
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    f1 = t(np_rng.standard_normal((B, C, H8, W8))).to(DT[dtype])
+    f2 = t(np_rng.standard_normal((B, C, H8, W8))).to(DT[dtype])
+    if kind == "wild":
+        coords = np_rng.uniform(-6, W8 + 6, (B, H8 * W8, 2))
+    else:
+        g = np.mgrid[0:H8, 0:W8].transpose(1, 2, 0)[..., ::-1].reshape(1, H8 * W8, 2)
+        coords = g + np_rng.uniform(-2, 2, (B, H8 * W8, 2))
+    if method == "pallas_t":
+        return ("t", tcorr.build_corr_pyramid_t(f1, f2, 4)), t(coords).contiguous()
+    pyr = tcorr.build_corr_pyramid(f1, f2, 4)
+    stored = {"int8": lambda: ("i8", *tcorr.quantize_pyramid(pyr)),
+              "packed": lambda: ("packed", *tcorr.pack_corr_pyramid(pyr)),
+              "packed_i8": lambda: ("packed_i8", *tcorr.pack_corr_pyramid_i8(pyr))}
+    return stored[method](), t(coords).contiguous()
+
+
+@pytest.mark.parametrize("kind", ["wild", "local"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("method", sorted(VOLUME_KERNELS))
+def test_volume_kernels_match_plain(np_rng, cuda, method, dtype, kind):
+    """The same float ops in the same order (tap dequantized, then weighted;
+    built with -fmad=false): bit-identical samples expected, last-bit
+    tolerance. int8 forms write bf16, the others the volume dtype."""
+    stored, coords = _stored_volume(np_rng, method, dtype, cuda, kind)
+    name = VOLUME_KERNELS[method]
+    ops.reset_launch_counts()
+    got = tcorr.corr_lookup(stored, coords, 4)
+    assert ops.launch_counts()[name] == 1
+    want = tcorr.corr_lookup(stored, coords, 4, plain=True)
+    out_dt = torch.bfloat16 if method in ("int8", "packed_i8") else DT[dtype]
+    assert got.dtype == want.dtype == out_dt and got.shape == (2, 13 * 21, 324)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-6, rtol=1e-6)
+
+
+def test_packed_kernel_stays_in_each_level(np_rng, cuda):
+    """Filling the other levels' columns with 1e3 changes no level-0 sample,
+    also where the windows pass the level's right edge."""
+    (tag, packed, dims), coords = _stored_volume(np_rng, "packed", "float32", cuda, "wild")
+    want = ops.corr_lookup_packed(packed, dims, coords, 4)
+    for view in tcorr.unpack_levels(packed, dims)[1:]:
+        view.fill_(1e3)
+    got = ops.corr_lookup_packed(packed, dims, coords, 4)
+    torch.testing.assert_close(got[..., :81], want[..., :81], atol=0.0, rtol=0.0)
+
+
+@pytest.mark.parametrize("method", sorted(VOLUME_KERNELS))
+def test_mft_volume_methods_launch_their_kernel(cuda, method):
+    """corr_method 'int8', 'packed', 'packed_i8', 'pallas_t' on the card:
+    every iteration launches the method's lookup kernel (no fused lookup),
+    the frame one chain + select."""
+    cfg = default_config()
+    cfg.flow_config.flow_iters = 3
+    cfg.flow_config.raft_params["corr_method"] = method
+    tracker = MFT(cfg, device=cuda)
+    rng = np.random.default_rng(0)
+    tex = (rng.random((80, 80, 3)) * 255).astype(np.uint8)
+    ops.reset_launch_counts()
+    tracker.init(tex[:64, :64])
+    for k in range(1, 3):
+        res = tracker.track(np.ascontiguousarray(tex[k:k + 64, 2 * k:2 * k + 64])).result
+        assert res.flow.shape == (64, 64, 2) and bool(torch.isfinite(res.flow).all())
+    want = {k: 0 for k in ops.launch_counts()}
+    want.update({VOLUME_KERNELS[method]: 6, "chain_select": 2})
     assert ops.launch_counts() == want

@@ -19,6 +19,7 @@ from mft_tpu_torch.config import Config, default_config
 from mft_tpu_torch.models.raft import RAFTFlow
 from mft_tpu_torch.models.raft.convert import params_from_flax
 from mft_tpu_torch.tracker import MFT
+from mft_tpu_torch.tracker.mft import UNPORTED_OPTIONS
 
 H = W = 64
 FRAMES = 5
@@ -77,6 +78,15 @@ def both_runs_alt():
     return _run_both(ALT_FRAMES, jax_method="mxu", port_method="alt")
 
 
+INT8_FRAMES = 3
+
+
+@pytest.fixture(scope="module")
+def both_runs_int8():
+    """Both trackers with corr_method 'int8' (the quantized volume)."""
+    return _run_both(INT8_FRAMES, jax_method="int8", port_method="int8")
+
+
 @pytest.mark.parametrize("frame", range(1, FRAMES + 1))
 def test_frame_matches_jax(both_runs, frame):
     """float32, same math: 1e-4 on flow (px), occlusion and sigma at every
@@ -95,6 +105,60 @@ def test_alt_frame_matches_jax(both_runs_alt, frame):
     for g, w, name in zip(got, want, ("flow", "occlusion", "sigma")):
         np.testing.assert_allclose(g, w, atol=1e-4, rtol=1e-5,
                                    err_msg=f"alt frame {frame} {name}")
+
+
+@pytest.mark.parametrize("frame", range(1, INT8_FRAMES + 1))
+def test_int8_frame_matches_jax(both_runs_int8, frame):
+    """float32 model, int8 volume: both trackers quantize the same volume to
+    the same int8 values and round the samples to bf16, so compare in
+    relation to the outputs' scale (the tolerance of
+    test_torch_raft.py::test_compute_flow_matches_jax_bf16): mean error under
+    2% of the mean magnitude and 99% of pixels within 10% of it."""
+    want, got = both_runs_int8[frame - 1]
+    for g, w, name in zip(got, want, ("flow", "occlusion", "sigma")):
+        scale = float(np.abs(w).mean()) + 1e-6
+        err = np.abs(g - w)
+        assert np.isfinite(g).all(), name
+        assert err.mean() < 0.02 * scale, (frame, name, err.mean(), scale)
+        assert np.quantile(err, 0.99) < 0.1 * scale, (frame, name, np.quantile(err, 0.99))
+
+
+@pytest.mark.parametrize("key,value,error", [
+    ("warm_start_inf", True, NotImplementedError),
+    ("flow_iters_schedule", {np.inf: 5, 1: 4}, NotImplementedError),
+    ("cache_delta_infinity", True, NotImplementedError),
+    ("timers_enabled", True, NotImplementedError),
+    ("warm_start_inf+cache_delta_infinity", True, ValueError),
+])
+def test_unported_tracker_options_raise(key, value, error):
+    """A tracker option the port lacks raises and names its ROADMAP item
+    instead of tracking the default frame; warm_start_inf with
+    cache_delta_infinity is refused with the JAX tracker's ValueError, before
+    any model is built. Unset or False, each is accepted."""
+    conf = _config(Config, RAFTFlow)
+    for k in key.split("+"):
+        setattr(conf, k, value)
+    match = "cannot be combined" if error is ValueError else UNPORTED_OPTIONS[key]
+    with pytest.raises(error, match=match.split(" (")[0]):
+        MFT(conf, device="cpu")
+    if error is ValueError:
+        jconf = _config(JaxConfig, JaxRAFTFlow)
+        for k in key.split("+"):
+            setattr(jconf, k, value)
+        with pytest.raises(ValueError, match="cannot be combined"):
+            JaxMFT(jconf)
+    for k in key.split("+"):
+        setattr(conf, k, False)
+    assert MFT(conf, device="cpu").deltas == DELTAS
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_exact_chain_is_accepted(exact):
+    """exact_chain asks the JAX tracker for chain_select_ref's exact math,
+    which the port's chain + select always computes: both values build."""
+    conf = _config(Config, RAFTFlow)
+    conf.exact_chain = exact
+    assert MFT(conf, device="cpu").occlusion_threshold == 0.02
 
 
 def test_default_config_is_the_main_path():

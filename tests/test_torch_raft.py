@@ -87,18 +87,47 @@ def test_compute_flow_matches_jax_f32(jax_variables, init):
     np.testing.assert_allclose(ts, js, atol=1e-4, rtol=1e-5)
 
 
-def test_compute_flow_matches_jax_bf16(jax_variables):
-    """bfloat16: the two frameworks round at other places (JAX's CPU lookup
-    also rounds its tent weights to bf16), 8-bit mantissas, so compare in
-    relation to the outputs' scale: mean error under 2% of the mean
-    magnitude and 99% of pixels within 10% of it."""
-    (jf, jo, js), (tf, to, ts) = _both(jax_variables, "bfloat16")
-    for got, want, name in ((tf, jf, "flow"), (to, jo, "occlusion"), (ts, js, "sigma")):
+def _assert_close_in_scale(ported, reference):
+    """Mean error under 2% of the mean magnitude and 99% of pixels within
+    10% of it, for flow, occlusion and sigma."""
+    for got, want, name in zip(ported, reference, ("flow", "occlusion", "sigma")):
         scale = float(np.abs(want).mean()) + 1e-6
         err = np.abs(got.astype(np.float32) - want.astype(np.float32))
         assert np.isfinite(got).all(), name
         assert err.mean() < 0.02 * scale, (name, err.mean(), scale)
         assert np.quantile(err, 0.99) < 0.1 * scale, (name, np.quantile(err, 0.99), scale)
+
+
+def test_compute_flow_matches_jax_bf16(jax_variables):
+    """bfloat16: the two frameworks round at other places (JAX's CPU lookup
+    also rounds its tent weights to bf16), 8-bit mantissas, so compare in
+    relation to the outputs' scale: mean error under 2% of the mean
+    magnitude and 99% of pixels within 10% of it."""
+    want, got = _both(jax_variables, "bfloat16")
+    _assert_close_in_scale(got, want)
+
+
+@pytest.mark.parametrize("method", ["packed", "pallas_t"])
+def test_volume_layouts_match_jax_f32(jax_variables, method):
+    """corr_method 'packed' / 'pallas_t' (the volume packed in one map, or
+    lane-major) against the JAX RAFT with the same method, whose CPU path
+    unpacks or transposes back and samples exactly: f32, 1e-4 absolute and
+    1e-5 relative, as the volume path is held."""
+    (jf, jo, js), (tf, to, ts) = _both(jax_variables, "float32", jax_method=method,
+                                       port_method=method)
+    np.testing.assert_allclose(tf, jf, atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(to, jo, atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(ts, js, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("method", ["int8", "packed_i8"])
+def test_int8_volumes_match_jax_f32_model(jax_variables, method):
+    """corr_method 'int8' / 'packed_i8' in an f32 model against the JAX RAFT
+    with the same method: both quantize the same volume to the same int8
+    values and round the samples to bf16, so the relative tolerance of the
+    bf16 comparison applies."""
+    want, got = _both(jax_variables, "float32", jax_method=method, port_method=method)
+    _assert_close_in_scale(got, want)
 
 
 @pytest.mark.parametrize("method", ["alt", "win"])

@@ -15,7 +15,7 @@ or with another ``--corr-method`` and frame ``--size``, warms up, then traces
 Imports nothing of JAX. Usage (on the card):
 
     python3 tools/torch_profile_frame.py [--frames 3] [--out frame_profile.txt]
-        [--corr-method auto|alt|win] [--size 2160 3840]
+        [--corr-method auto|alt|win|int8|packed|packed_i8|pallas_t] [--size 2160 3840]
 """
 
 import argparse
@@ -34,6 +34,8 @@ GROUPS = (  # first match wins
     ("chain_select", re.compile(r"chain_select_kernel")),
     ("corr_lookup_alt", re.compile(r"alt_kernel")),
     ("corr_lookup_win", re.compile(r"win_kernel")),
+    # corr_volume.cu: corr_lookup_q, _packed, _packed_i8 (pixel-major), _t
+    ("volume-form lookup", re.compile(r"pixel_major_kernel|lane_major_kernel")),
     ("convolution", re.compile(r"conv|fprop|implicit|winograd|cudnn", re.I)),
     ("matrix product", re.compile(r"gemm|cutlass|xmma|cublas", re.I)),
     ("reduction", re.compile(r"reduce|softmax|norm", re.I)),
@@ -54,7 +56,9 @@ def main(argv=None) -> int:
     parser.add_argument("--frames", type=int, default=3)
     parser.add_argument("--warmup", type=int, default=3)
     parser.add_argument("--out", default=None, help="write the full kernel table here")
-    parser.add_argument("--corr-method", default="auto", choices=("auto", "alt", "win"))
+    parser.add_argument("--corr-method", default="auto",
+                        choices=("auto", "alt", "win", "int8", "packed", "packed_i8",
+                                 "pallas_t"))
     parser.add_argument("--size", type=int, nargs=2, default=(512, 512),
                         metavar=("H", "W"))
     args = parser.parse_args(argv)
