@@ -17,6 +17,10 @@ non-zero and prints no result line):
 3c. the same for the lookups of the volume's other stored forms,
    corr_method 'int8', 'packed', 'packed_i8' and 'pallas_t' (K6-K9), on
    uniform and on local coordinates;
+3d. the same for the folded volume's build and lookup (corr_method 'fold'),
+   the mixed lookup ('mixed') and the update block's convolution
+   (conv_backend 'pallas') at every conv shape of the frame and each
+   activation; each held to bit-identical results;
 4. the main path: ``MFT(default_config())`` with random weights from a seed,
    ``init`` + ``track`` of synthetic 512x512 frames (a texture under a known
    shift); checks shapes, finiteness, ranges and that the kernels launched
@@ -27,6 +31,11 @@ non-zero and prints no result line):
    select per frame, a frame against the plain versions, and (printed, not
    gated) a frame against the volume path;
 8. the same for 'int8', 'packed', 'packed_i8' and 'pallas_t';
+10. the same for corr_method 'fold', for 'mixed' and for conv_backend
+   'pallas': each path's launches per frame ('fold' one build and 12 folded
+   lookups, 'mixed' 12 mixed lookups, 'pallas' 11 fused lookups, 1 lookup
+   and 109 convs), the frame against the plain versions and (not gated) the
+   volume path;
 7. 'alt' and 'win' at 2160x3840, where the all-pairs volume would not fit on
    the card: init + 2 tracked frames each, peak device memory, and the
    kernels (K3-K5) against their plain versions on sampled pixels at that
@@ -34,6 +43,11 @@ non-zero and prints no result line):
 9. 'int8' and 'auto' at 1080x1920: init + 2 tracked frames each, their peak
    device memory ('int8' must peak lower), and K6 against its plain version
    on sampled pixels at that size.
+
+Where one PyTorch call computes a kernel's function, its time is taken beside
+the kernel's as a yardstick (``library_ms``; the port never calls it):
+``F.grid_sample`` per level for the volume lookups, ``torch.baddbmm`` for the
+folded build, ``F.conv2d`` for the convolution.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Needs no network and imports nothing
@@ -101,6 +115,35 @@ def max_err(got, want):
 def within(got, want, atol, rtol) -> bool:
     got, want = got.float(), want.float()
     return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+
+
+def grid_sample_lookup(torch, levels, coords, reps=20):
+    """The library's yardstick for a volume lookup: ``F.grid_sample``
+    (bilinear, zeros outside, align_corners=True), one call per level on the
+    (B*P, 1, h_l, w_l) view of the stored level (a copy where the layout has
+    no such view, as the lane-major one), sampling each pixel's (2r+1)^2
+    window. The grids are made beforehand, in the levels' dtype as
+    grid_sample needs. returns: (mean ms of the calls, (B, P, L*(2r+1)^2)
+    samples in the reference's channel order)."""
+    import torch.nn.functional as F
+    n = 2 * RADIUS + 1
+    off = torch.arange(n, dtype=torch.float32, device=coords.device) - RADIUS
+    Bn, Pn = coords.shape[:2]
+    grids = []
+    for lvl, corr in enumerate(levels):
+        h, w = corr.shape[2:]
+        c = coords / 2.0 ** lvl
+        x = (c[..., 0, None, None] + off[:, None]).expand(Bn, Pn, n, n)  # i offsets x
+        y = (c[..., 1, None, None] + off[None, :]).expand(Bn, Pn, n, n)
+        g = torch.stack([2.0 * x / (w - 1) - 1.0, 2.0 * y / (h - 1) - 1.0], dim=-1)
+        grids.append(g.reshape(Bn * Pn, n, n, 2).to(corr.dtype))
+
+    def run():
+        return [F.grid_sample(corr.reshape(Bn * Pn, 1, *corr.shape[2:]), g,
+                              mode="bilinear", padding_mode="zeros", align_corners=True)
+                for corr, g in zip(levels, grids)]
+    out = torch.cat([o.reshape(Bn, Pn, n * n) for o in run()], dim=-1)
+    return cuda_ms(run, reps), out
 
 
 # --------------------------------------------------------------------------- #
@@ -181,6 +224,12 @@ def check_lookups(torch, ops, dev, card):
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+            if kind == "lookup":
+                lib_ms, lib = grid_sample_lookup(torch, pyr, coords)
+                log(f"library lookup {name}: F.grid_sample per level {lib_ms:.4f} ms, "
+                    f"max_abs_err to the plain version {max_err(lib, want):.3e} "
+                    f"(its grid is in the volume dtype) [{card}]")
+                stats[(kind, name)]["library_ms"] = lib_ms
         del pyr
     return stats
 
@@ -432,11 +481,207 @@ def check_volume_kernels(torch, ops, dev, card):
                     f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB) [{card}]")
                 stats[(kname, name, kind)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                                   bound_ms=bound, bound_by="bytes")
+                if method in ("packed", "pallas_t"):
+                    views = (tcorr.unpack_levels(stored[1], stored[2]) if method == "packed"
+                             else [lvl.movedim(3, 1) for lvl in stored[1]])
+                    lib_ms, lib = grid_sample_lookup(torch, views, c)
+                    log(f"library {label} {kind}: F.grid_sample per level {lib_ms:.4f} ms, "
+                        f"max_abs_err to the plain version {max_err(lib, want):.3e} [{card}]")
+                    stats[(kname, name, kind)]["library_ms"] = lib_ms
                 del got, want
             del stored
         del pyr
     torch.cuda.empty_cache()
     return stats
+
+
+# --------------------------------------------------------------------------- #
+# phase 3d: the folded volume, the mixed lookup and the convolution
+# --------------------------------------------------------------------------- #
+# stated tolerance of the four product and folded kernels: the plain versions'
+# float ops in the same order (one ascending float32 sum per output; built
+# with -fmad=false), so bit-identical results are required
+EXACT_TOL = (0.0, 0.0)
+# the update block's convs at the 512x512 slice: name -> (Cout, Cin, kh, kw,
+# act, launches per frame of 12 iterations); convc1 reaches the conv kernel
+# on the last iteration only (K1 fuses it on the others)
+CONV_SHAPES = {
+    "convc1": (256, 324, 1, 1, "relu", 1), "convc2": (192, 256, 3, 3, "relu", 12),
+    "convf2": (64, 128, 3, 3, "relu", 12), "conv": (126, 256, 3, 3, "relu", 12),
+    "gru_zr1": (256, 384, 1, 5, None, 12), "gru_q1": (128, 384, 1, 5, None, 12),
+    "gru_zr2": (256, 384, 5, 1, None, 12), "gru_q2": (128, 384, 5, 1, None, 12),
+    "flow_head1": (256, 128, 3, 3, "relu", 12), "flow_head2": (2, 256, 3, 3, None, 12),
+}
+
+
+def exact_check(torch, label, got, want):
+    err = max_err(got, want)
+    ok = got.dtype == want.dtype and within(got, want, *EXACT_TOL)
+    log(f"check {label}: max_abs_err {err:.3e} (tolerance atol {EXACT_TOL[0]} + rtol "
+        f"{EXACT_TOL[1]}) {'ok' if ok else 'FAIL'}")
+    check(ok, f"{label} disagrees with its plain version")
+    return err
+
+
+def check_fold_kernels(torch, ops, dev, card):
+    """#5 (corr_build_folded), #4 (corr_lookup_folded) and #9
+    (corr_lookup_mixed) against their plain versions at the 512x512 slice's
+    shapes: features (7, 256, 64, 64), levels 64^2..8^2, r=4, in f32 and
+    bf16, the lookups on uniform and local coordinates."""
+    from mft_tpu_torch.models.raft import corr as tcorr
+    from mft_tpu_torch.ops.corr_lookup import unfold_levels
+    gen = torch.Generator(device=dev).manual_seed(8)
+    coords = {kind: lookup_coords(torch, dev, kind, gen) for kind in ("uniform", "local")}
+    stats = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        f1 = torch.randn((B, FEAT_C, 64, 64), device=dev, generator=gen).to(dtype)
+        f2 = torch.randn((B, FEAT_C, 64, 64), device=dev, generator=gen).to(dtype)
+        build = lambda: tcorr.build_corr_pyramid_folded(f1, f2, len(LEVELS))
+        plain = lambda: tcorr.build_corr_pyramid_folded(f1, f2, len(LEVELS), plain=True)
+        (levels, dims), (want, _) = build(), plain()
+        torch.cuda.synchronize()
+        err = max(exact_check(torch, f"corr_build_folded {name} level {l}", g, w)
+                  for l, (g, w) in enumerate(zip(levels, want)))
+        del want
+        # inputs of the kernel: f1 (B, C, P) and the zero-padded pooled levels
+        f1r = f1.reshape(B, FEAT_C, P)
+        f2l, cur = [], f2
+        for lvl in range(len(LEVELS)):
+            cur = cur if lvl == 0 else tcorr.avg_pool2x2(cur)
+            flat = cur.reshape(B, FEAT_C, -1)
+            f2l.append(torch.nn.functional.pad(flat, (0, max(0, 128 - flat.shape[2]))))
+        kernel = lambda: ops.corr_build_folded(f1r, f2l)
+        ms = cuda_ms(kernel, reps=20)
+        plain_ms = cuda_ms(lambda: ops.corr_build_folded_ref(f1r, f2l), reps=1, warmup=0)
+        f2cat = torch.cat(f2l, dim=2)
+        zero = f1.new_zeros(())
+        f1t = f1r.transpose(1, 2)
+        scale = 1.0 / math.sqrt(FEAT_C)
+        lib_ms = cuda_ms(lambda: torch.baddbmm(zero, f1t, f2cat, beta=0.0, alpha=scale),
+                         reps=20)
+        es = f1.element_size()
+        q = f2cat.shape[2]
+        nbytes = (f1r.numel() + f2cat.numel() + B * P * q) * es
+        ops_n = 2 * B * P * q * FEAT_C
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops_n / PEAK_OPS_PER_S[name] * 1e3
+        log(f"time corr_build_folded {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"torch.baddbmm {lib_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+            f"({nbytes / 1e6:.1f} MB, {ops_n / 1e9:.2f} GFLOP) [{card}]")
+        stats[("corr_build_folded", name)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=lib_ms)
+        del f2cat, f1t, f2l
+        mixed = tcorr.build_corr_pyramid_mixed(f1, f2, len(LEVELS))
+        log(f"mixed {name}: folded levels {[tuple(a.shape) for a in mixed[1]]}, plain "
+            f"levels {[tuple(a.shape) for a in mixed[3]]}")
+        forms = {"corr_lookup_folded": ("fold", levels, dims), "corr_lookup_mixed": mixed}
+        views = {"corr_lookup_folded": unfold_levels(levels, dims),
+                 "corr_lookup_mixed": unfold_levels(mixed[1], mixed[2]) + list(mixed[3])}
+        for kname, stored in forms.items():
+            for kind, c in coords.items():
+                kernel = lambda: tcorr.corr_lookup(stored, c, RADIUS)
+                plain = lambda: tcorr.corr_lookup(stored, c, RADIUS, plain=True)
+                got = kernel()
+                torch.cuda.synchronize()
+                want = plain()
+                err = exact_check(torch, f"{kname} {name} {kind}", got, want)
+                ms = cuda_ms(kernel, reps=20)
+                plain_ms = cuda_ms(plain, reps=3, warmup=1)
+                lib_ms, lib = grid_sample_lookup(torch, views[kname], c)
+                nbytes = (window_tap_bytes(LEVELS, c, es) + c.numel() * 4
+                          + got.numel() * got.element_size())
+                bound = nbytes / HBM_BYTES_PER_S * 1e3
+                log(f"time {kname} {name} {kind}: kernel {ms:.4f} ms, plain {plain_ms:.3f} "
+                    f"ms, F.grid_sample per level {lib_ms:.4f} ms (max_abs_err "
+                    f"{max_err(lib, want):.3e}), bound {bound:.4f} ms "
+                    f"({nbytes / 1e6:.1f} MB) [{card}]")
+                stats[(kname, name, kind)] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                    bound_by="bytes", library_ms=lib_ms)
+                del got, want, lib
+        del levels, mixed, views, forms, f1, f2, f1r
+        torch.cuda.empty_cache()
+    return stats
+
+
+def conv_inputs(torch, dev, gen, dtype, Cout, Cin, kh, kw):
+    """x (7, Cin, 64, 64) (channel-last in memory for the 1x1 convc1, which
+    reads the lookup's samples so), nn.Conv2d-like weights and bias."""
+    x = torch.randn((B, 64, 64, Cin) if kh == kw == 1 else (B, Cin, 64, 64),
+                    device=dev, generator=gen).to(dtype)
+    if kh == kw == 1:
+        x = x.permute(0, 3, 1, 2)
+    w = (torch.randn((Cout, Cin, kh, kw), device=dev, generator=gen)
+         / math.sqrt(Cin * kh * kw)).to(dtype)
+    bias = (0.1 * torch.randn((Cout,), device=dev, generator=gen)).to(dtype)
+    return x, w, bias, ((kh // 2, kh // 2), (kw // 2, kw // 2))
+
+
+def check_conv_kernel(torch, ops, dev, card):
+    """#13 (conv_pallas) against its plain version at every conv shape of
+    the 512x512 frame (7 images of 64x64) in bf16 and f32, and each act;
+    timed in bf16 beside F.conv2d (cuDNN, TF32 off). returns: per-shape
+    stats and their means over one frame's 109 launches."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(9)
+    per_shape, frame = {}, dict(n=0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                                max_abs_err=0.0, bytes_ms=0.0, ops_ms=0.0)
+    for cname, (Cout, Cin, kh, kw, act, n) in CONV_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            x, w, bias, pad = conv_inputs(torch, dev, gen, dtype, Cout, Cin, kh, kw)
+            kernel = lambda: ops.conv_pallas(x, w, bias, pad, act=act)
+            plain = lambda: ops.conv_pallas_ref(x, w, bias, pad, act=act)
+            got = kernel()
+            torch.cuda.synchronize()
+            want = plain()
+            err = exact_check(torch, f"conv_pallas {cname} {Cin}->{Cout} {kh}x{kw} "
+                                     f"act {act} {name}", got, want)
+            frame["max_abs_err"] = max(frame["max_abs_err"], err)
+            if dtype == torch.float32:
+                continue
+            ms = cuda_ms(kernel, reps=10)
+            plain_ms = cuda_ms(plain, reps=1, warmup=0)
+            lib = lambda: F.conv2d(x, w, bias, padding=(kh // 2, kw // 2))
+            lib_ms = cuda_ms(lib, reps=10)
+            es = x.element_size()
+            nbytes = (x.numel() + w.numel() + got.numel()) * es + Cout * 4
+            ops_n = 2 * B * 64 * 64 * Cout * Cin * kh * kw
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops_n / PEAK_OPS_PER_S[name] * 1e3
+            log(f"time conv_pallas {cname} bfloat16 ({n}/frame): kernel {ms:.4f} ms "
+                f"({ops_n / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, F.conv2d "
+                f"{lib_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+                f"({nbytes / 1e6:.1f} MB, {ops_n / 1e9:.2f} GFLOP) [{card}]")
+            per_shape[cname] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                    bound_ms=max(bytes_ms, ops_ms), launches=n)
+            frame["n"] += n
+            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                           ("bound_ms", max(bytes_ms, ops_ms)), ("bytes_ms", bytes_ms),
+                           ("ops_ms", ops_ms)):
+                frame[key] += n * v
+        del x, w, bias, got, want
+    # each activation on one shape (the GRU's 1x5 q conv), both dtypes
+    for act in ("relu", "sigmoid", "tanh"):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, bias, pad = conv_inputs(torch, dev, gen, dtype, 128, 384, 1, 5)
+            got = ops.conv_pallas(x, w, bias, pad, act=act)
+            torch.cuda.synchronize()
+            want = ops.conv_pallas_ref(x, w, bias, pad, act=act)
+            err = exact_check(torch, f"conv_pallas gru_q1 act {act} "
+                                     f"{str(dtype).split('.')[1]}", got, want)
+            frame["max_abs_err"] = max(frame["max_abs_err"], err)
+    torch.cuda.empty_cache()
+    n = frame.pop("n")
+    log(f"conv_pallas over one frame ({n} launches, bf16): kernel {frame['ms']:.3f} ms, "
+        f"plain {frame['plain_ms']:.3f} ms, F.conv2d {frame['library_ms']:.3f} ms, "
+        f"bound {frame['bound_ms']:.3f} ms [{card}]")
+    bytes_ms, ops_ms = frame.pop("bytes_ms"), frame.pop("ops_ms")
+    mean = {k: (v / n if k != "max_abs_err" else v) for k, v in frame.items()}
+    mean["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    return mean, per_shape
 
 
 # --------------------------------------------------------------------------- #
@@ -590,22 +835,44 @@ def run_main_path(torch, ops, dev, card):
 # --------------------------------------------------------------------------- #
 # phases 6-8: the other corr_methods at 512x512, 'alt' and 'win' at 2160x3840
 # --------------------------------------------------------------------------- #
-KERNEL_OF = {"alt": "corr_lookup_alt", "win": "corr_lookup_win", **VOLUME_KERNEL_OF}
+KERNEL_OF = {"alt": "corr_lookup_alt", "win": "corr_lookup_win", **VOLUME_KERNEL_OF,
+             "fold": "corr_lookup_folded", "mixed": "corr_lookup_mixed"}
+NEW_PATHS = ("fold", "mixed", "conv pallas")   # phase 10
 
 
 def method_config(method):
+    """default_config() with corr_method ``method``, or with conv_backend
+    'pallas' for ``method`` 'conv pallas'."""
     from mft_tpu_torch.config import default_config
     cfg = default_config()
-    cfg.flow_config.raft_params["corr_method"] = method
+    if method == "conv pallas":
+        cfg.flow_config.raft_params["conv_backend"] = "pallas"
+    else:
+        cfg.flow_config.raft_params["corr_method"] = method
     return cfg
 
 
+def path_per_frame(method, iters):
+    """Kernel launches per tracked frame of each path besides chain + select:
+    the volume forms and feature lookups launch their lookup on every
+    iteration, 'fold' also its build once; conv_backend 'pallas' runs the
+    default lookups (the fused one on iterations 1..iters-1) and 9 convs an
+    iteration plus convc1 on the last one."""
+    if method == "conv pallas":
+        return dict(corr_lookup_fused=iters - 1, corr_lookup=1, conv_pallas=9 * iters + 1)
+    if method == "fold":
+        return dict(corr_build_folded=1, corr_lookup_folded=iters)
+    return {KERNEL_OF[method]: iters}
+
+
 def run_method_path(torch, ops, dev, card, method, volume_tracker, volume_median):
-    """Phases 6 and 8: the default tracker with corr_method ``method`` at 512x512."""
+    """Phases 6, 8 and 10: the default tracker at 512x512 with corr_method
+    ``method``, or with conv_backend 'pallas' for ``method`` 'conv pallas'."""
     from mft_tpu_torch.tracker import MFT
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    tracker = MFT(method_config(method), device=dev)
+    cfg = method_config(method)
+    tracker = MFT(cfg, device=dev)
     iters = tracker.flower.iters
     frames = synthetic_clip(FEATURE_FRAMES + 1)
     ops.reset_launch_counts()
@@ -613,10 +880,11 @@ def run_method_path(torch, ops, dev, card, method, volume_tracker, volume_median
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     log(f"{method}: launches over {FEATURE_FRAMES} tracked frames: {counts}")
-    want = expected_counts(ops, **{KERNEL_OF[method]: FEATURE_FRAMES * iters},
+    per_frame = path_per_frame(method, iters)
+    want = expected_counts(ops, **{k: FEATURE_FRAMES * v for k, v in per_frame.items()},
                            chain_select=FEATURE_FRAMES)
     check(counts == want, f"{method}: launch counts {counts} != {want} "
-                          f"({iters} and 1 per tracked frame, no volume lookup)")
+                          f"({per_frame} and 1 chain + select per tracked frame)")
     H, W = frames[0].shape[:2]
     check_results(torch, results, H, W, method)
     median = median_after_warmup(frame_ms)
@@ -628,7 +896,8 @@ def run_method_path(torch, ops, dev, card, method, volume_tracker, volume_median
     check_kernels_vs_plain(torch, tracker, frames[FEATURE_FRAMES + 1], method)
 
     # not gated: the volume path on the same inputs. In bf16 the volume is
-    # rounded before it is sampled, the feature lookups round the samples.
+    # rounded before it is sampled, the feature lookups round the samples;
+    # the product kernels sum in another order than cuBLAS and cuDNN.
     snap = snapshot(tracker)
     a = tracker.track(frames[FEATURE_FRAMES + 1]).result
     restore(volume_tracker, snap)
@@ -853,6 +1122,10 @@ def run() -> int:
         vk = check_volume_kernels(torch, ops, dev, card)
         log(f"phase 3c seconds {time.perf_counter() - t:.2f}")
         t = time.perf_counter()
+        fo = check_fold_kernels(torch, ops, dev, card)
+        cv, cv_shapes = check_conv_kernel(torch, ops, dev, card)
+        log(f"phase 3d seconds {time.perf_counter() - t:.2f}")
+        t = time.perf_counter()
         counts, volume_median, volume_tracker = run_main_path(torch, ops, dev, card)
         log(f"phase 4-5 seconds {time.perf_counter() - t:.2f}")
         t = time.perf_counter()
@@ -866,15 +1139,24 @@ def run() -> int:
             c = run_method_path(torch, ops, dev, card, method, volume_tracker,
                                 volume_median)
             counts[KERNEL_OF[method]] = c[KERNEL_OF[method]]
-        del volume_tracker
         log(f"phase 8 seconds {time.perf_counter() - t:.2f}")
+        t = time.perf_counter()
+        for method in NEW_PATHS:
+            c = run_method_path(torch, ops, dev, card, method, volume_tracker,
+                                volume_median)
+            for kname, n in path_per_frame(method, 12).items():
+                if kname not in ("corr_lookup_fused", "corr_lookup"):
+                    counts[kname] = c[kname]
+        del volume_tracker
+        torch.cuda.empty_cache()
+        log(f"phase 10 seconds {time.perf_counter() - t:.2f}")
         t = time.perf_counter()
         run_uhd(torch, ops, dev, card)
         log(f"phase 7 seconds {time.perf_counter() - t:.2f}")
         t = time.perf_counter()
         run_hd(torch, ops, dev, card)
         log(f"phase 9 seconds {time.perf_counter() - t:.2f}")
-        for stats in (*lk.values(), cs, *fk.values(), *vk.values()):
+        for stats in (*lk.values(), cs, *fk.values(), *vk.values(), *fo.values(), cv):
             check(all(math.isfinite(stats[k]) for k in
                       ("max_abs_err", "ms", "plain_ms", "bound_ms")),
                   f"non-finite measurement {stats}")
@@ -890,8 +1172,7 @@ def run() -> int:
              library_ms=None),
         dict(name="corr_lookup", route="cuda", source=src + "corr_lookup.cu",
              replaces="mft_tpu/ops/corr_lookup_pallas.py:168",
-             launches=counts["corr_lookup"], **lk[("lookup", "bfloat16")],
-             library_ms=None),
+             launches=counts["corr_lookup"], **lk[("lookup", "bfloat16")]),
         dict(name="chain_select", route="cuda", source=src + "chain_select.cu",
              replaces="mft_tpu/ops/warp_pallas.py:432",
              launches=counts["chain_select"], **cs, library_ms=None),
@@ -909,8 +1190,20 @@ def run() -> int:
     for kname, line in replaces.items():
         kernels.append(dict(name=kname, route="cuda", source=src + "corr_volume.cu",
                             replaces=f"mft_tpu/ops/corr_lookup_pallas.py:{line}",
-                            launches=counts[kname],
-                            **vk[(kname, "bfloat16", "uniform")], library_ms=None))
+                            launches=counts[kname], **{"library_ms": None,
+                                                       **vk[(kname, "bfloat16", "uniform")]}))
+    for kname, line in (("corr_lookup_folded", 456), ("corr_lookup_mixed", 1028)):
+        kernels.append(dict(name=kname, route="cuda", source=src + "corr_volume.cu",
+                            replaces=f"mft_tpu/ops/corr_lookup_pallas.py:{line}",
+                            launches=counts[kname], **fo[(kname, "bfloat16", "uniform")]))
+    kernels.append(dict(name="corr_build_folded", route="cuda", source=src + "product.cu",
+                        replaces="mft_tpu/ops/corr_lookup_pallas.py:556",
+                        launches=counts["corr_build_folded"],
+                        **fo[("corr_build_folded", "bfloat16")]))
+    # per launch: the means over one frame's 109 convs (per shape in the log)
+    kernels.append(dict(name="conv_pallas", route="cuda", source=src + "product.cu",
+                        replaces="mft_tpu/ops/conv_pallas.py:84",
+                        launches=counts["conv_pallas"], **cv))
     log(f"total seconds {time.perf_counter() - t_all:.2f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

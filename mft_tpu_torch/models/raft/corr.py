@@ -23,7 +23,13 @@ package, and :func:`corr_lookup` dispatches on the tag:
 - ``("packed_i8", packed, scales, dims)``: that map in int8
   (:func:`pack_corr_pyramid_i8`, 'packed_i8');
 - ``("t", levels_t)``: lane-major (B, h_l, w_l, P) levels, from
-  :func:`build_corr_pyramid_t` ('pallas_t').
+  :func:`build_corr_pyramid_t` ('pallas_t');
+- ``("fold", levels, dims)``: folded (B, P, h_l*w_l/128, 128) levels (fold =
+  128/w_l image rows per 128-lane row), the smallest ones a single
+  zero-padded row, built in one launch by :func:`build_corr_pyramid_folded`
+  ('fold');
+- ``("mixed", folded, fdims, padded)``: the leading levels folded, the rest
+  plain, from :func:`build_corr_pyramid_mixed` ('mixed').
 The int8 forms sample bfloat16 whatever the volume dtype; the others sample
 in the volume dtype.
 
@@ -41,6 +47,8 @@ from mft_tpu_torch import ops
 from mft_tpu_torch.ops.corr_lookup import dequant_levels, unpack_levels
 
 PACKED_MAX_WIDTH = 128   # sum of the level widths of a packed map
+FOLD_LANES = 128         # values per row of a folded level
+MIXED_MAX_FOLD = 4       # 'mixed' folds a level only up to this many rows per lane row
 QUANT_CHUNK = 1 << 26    # values of one pair-level quantized at once
 
 
@@ -186,6 +194,75 @@ def pack_corr_pyramid_i8(pyramid):
     return packed, scales, dims
 
 
+def packable(H8: int, W8: int, num_levels: int) -> bool:
+    """True iff every level fits the folded layout: the whole map fits one
+    128-lane row, or whole image rows pack evenly into rows of 128 lanes (128
+    divisible by w and h*w by 128), as the JAX ``_packable`` checks."""
+    h, w = H8, W8
+    for lvl in range(num_levels):
+        if lvl > 0:
+            h, w = h // 2, w // 2
+        if h * w > FOLD_LANES and (FOLD_LANES % w or (h * w) % FOLD_LANES):
+            return False
+    return True
+
+
+def build_corr_pyramid_folded(fmap1: torch.Tensor, fmap2: torch.Tensor,
+                              num_levels: int = 4, plain: bool = False):
+    """The pyramid of :func:`build_corr_pyramid` in the folded layout, all
+    levels in one launch of the product kernel (``ops.corr_build_folded``).
+
+    The target features are pooled per level; a level of fewer than 128
+    positions gets zero features up to 128, so its padding lanes are zero.
+    The sum runs over the channels in order, scaled by 1/sqrt(C) after it
+    and rounded once to the features' dtype. ``plain`` runs the kernel's
+    plain version.
+    returns: (levels, dims): levels[l] (B, H*W, max(h_l*w_l, 128)/128, 128),
+      dims[l] = (h_l, w_l). Raises ValueError for dims :func:`packable`
+      rejects, as the JAX model does for corr_method 'fold'.
+    """
+    B, C, H, W = fmap1.shape
+    if not packable(H, W, num_levels):
+        raise ValueError(f"corr_method='fold' needs packable dims, got {H}x{W}")
+    f2, f2_levels, dims = fmap2, [], []
+    for lvl in range(num_levels):
+        if lvl > 0:
+            f2 = avg_pool2x2(f2)
+        h, w = f2.shape[2], f2.shape[3]
+        flat = f2.reshape(B, C, h * w)
+        if h * w < FOLD_LANES:
+            flat = F.pad(flat, (0, FOLD_LANES - h * w))
+        f2_levels.append(flat.contiguous())
+        dims.append((h, w))
+    build = ops.corr_build_folded_ref if plain else ops.corr_build_folded
+    return build(fmap1.reshape(B, C, H * W).contiguous(), f2_levels), tuple(dims)
+
+
+def build_corr_pyramid_mixed(fmap1: torch.Tensor, fmap2: torch.Tensor,
+                             num_levels: int = 4, max_fold: int = None):
+    """:func:`build_corr_pyramid` with the leading levels folded.
+
+    A level is folded to (B, P, h*w/128, 128) (a view: the product's flat
+    rows are already dense) while no earlier level stayed plain, it has more
+    than 128 values, 128 is divisible by w, h by fold = 128/w, and fold <=
+    ``max_fold`` (default 4); the others stay (B, P, h, w), as the JAX
+    ``build_corr_pyramid_mixed`` splits them.
+    returns: ("mixed", folded, fdims, padded).
+    """
+    max_fold = MIXED_MAX_FOLD if max_fold is None else max_fold
+    folded, fdims, padded = [], [], []
+    for corr in build_corr_pyramid(fmap1, fmap2, num_levels):
+        B, P, h, w = corr.shape
+        fold = FOLD_LANES // w if w and FOLD_LANES % w == 0 else 0
+        if (not padded and h * w > FOLD_LANES and fold and h % fold == 0
+                and fold <= max_fold):
+            folded.append(corr.view(B, P, h // fold, FOLD_LANES))
+            fdims.append((h, w))
+        else:
+            padded.append(corr)
+    return ("mixed", folded, tuple(fdims), padded)
+
+
 def build_feature_pyramid(fmap2: torch.Tensor, num_levels: int = 4) -> list:
     """Pooled target features of the 'alt' and 'win' lookups.
 
@@ -223,6 +300,8 @@ _LOOKUPS = {
     "packed": (ops.corr_lookup_packed, ops.corr_lookup_packed_ref),
     "packed_i8": (ops.corr_lookup_packed_i8, ops.corr_lookup_packed_i8_ref),
     "t": (ops.corr_lookup_t, ops.corr_lookup_t_ref),
+    "fold": (ops.corr_lookup_folded, ops.corr_lookup_folded_ref),
+    "mixed": (ops.corr_lookup_mixed, ops.corr_lookup_mixed_ref),
 }
 
 

@@ -15,12 +15,17 @@ Port of ``mft_tpu/models/raft/raft.py`` in test mode, big model only:
   ``mft_corr_win``) recomputes its window correlations; convc1 then runs
   unfused on all iterations. These are the methods for frames whose
   all-pairs volume does not fit on the card.
-- ``corr_method`` 'int8', 'packed', 'packed_i8' and 'pallas_t' store the
-  volume in another form (int8 with per-(pair, level) scales, all levels
-  packed in one map, both, or lane-major; ``corr.py``) and run that form's
-  lookup kernel, unfused, on every iteration, as the JAX model does. The int8
-  forms halve the volume's bytes and sample in bfloat16 whatever the model
-  dtype (error at most max|corr|/254 per value).
+- ``corr_method`` 'int8', 'packed', 'packed_i8', 'pallas_t', 'fold' and
+  'mixed' store the volume in another form (int8 with per-(pair, level)
+  scales, all levels packed in one map, both, lane-major, folded into rows
+  of 128 lanes and built in one launch of the product kernel, or folded only
+  in its big levels; ``corr.py``) and run that form's lookup kernel, unfused,
+  on every iteration, as the JAX model does. The int8 forms halve the
+  volume's bytes and sample in bfloat16 whatever the model dtype (error at
+  most max|corr|/254 per value).
+- ``conv_backend`` 'pallas' runs the update block's convs on the product
+  kernel (``update.conv_apply``); the fused lookup still takes convc1 on
+  iterations 1..iters-1 on the 'auto' path, as in JAX.
 Scheduled per-pair iterations and training mode are not ported.
 """
 
@@ -29,7 +34,8 @@ import dataclasses
 import torch
 from torch import nn
 
-from mft_tpu_torch.models.raft.corr import (build_corr_pyramid, build_corr_pyramid_i8,
+from mft_tpu_torch.models.raft.corr import (build_corr_pyramid, build_corr_pyramid_folded,
+                                            build_corr_pyramid_i8, build_corr_pyramid_mixed,
                                             build_corr_pyramid_t, build_feature_pyramid,
                                             corr_lookup, corr_lookup_features,
                                             corr_lookup_fused_conv, pack_corr_pyramid,
@@ -46,11 +52,9 @@ HIDDEN_DIM = CONTEXT_DIM = 128   # big model
 # The JAX package's other methods, with the item of ROADMAP.md that ports
 # them; the port never maps one onto another method.
 FEATURE_METHODS = ("alt", "win")
-VOLUME_METHODS = ("int8", "packed", "packed_i8", "pallas_t")
+VOLUME_METHODS = ("int8", "packed", "packed_i8", "pallas_t", "fold", "mixed")
 CORR_METHODS = ("auto", *FEATURE_METHODS, *VOLUME_METHODS)
 UNPORTED_CORR_METHODS = {
-    "fold": "B6 (kernels #4-#5, folded volume)",
-    "mixed": "B9 (kernel #9 corr_lookup_pallas_mixed)",
     "mxu": "A3 (other formulations of the volume lookup)",
     "gather": "A3 (other formulations of the volume lookup)",
     "pallas": "A3 (other formulations of the volume lookup)",
@@ -65,6 +69,7 @@ class RAFTParams:
     corr_radius: int = 4
     compute_dtype: str = "float32"  # 'bfloat16' | 'float32' | 'auto' (bf16 on CUDA)
     corr_method: str = "auto"       # one of CORR_METHODS
+    conv_backend: str = "auto"      # 'pallas': update-block convs on the product kernel
 
     def __post_init__(self):
         if self.corr_method in UNPORTED_CORR_METHODS:
@@ -73,6 +78,8 @@ class RAFTParams:
                 f"{UNPORTED_CORR_METHODS[self.corr_method]}); ported: {CORR_METHODS}")
         if self.corr_method not in CORR_METHODS:
             raise ValueError(f"unknown corr_method {self.corr_method!r}")
+        if self.conv_backend not in ("auto", "pallas"):
+            raise ValueError(f"unknown conv_backend {self.conv_backend!r}")
 
     def dtype(self, device) -> torch.dtype:
         if self.compute_dtype == "auto":
@@ -90,7 +97,8 @@ class RAFT(nn.Module):
         self.cnet = BasicEncoder(output_dim=HIDDEN_DIM + CONTEXT_DIM,
                                  norm_fn="batch")
         corr_channels = cfg.corr_levels * (2 * cfg.corr_radius + 1) ** 2
-        self.update_block = BasicUpdateBlock(HIDDEN_DIM, corr_channels)
+        self.update_block = BasicUpdateBlock(HIDDEN_DIM, corr_channels,
+                                             cfg.conv_backend)
         # [net, inp, corr, flow, delta_flow, motion features] = 712 channels
         self.occlusion_block = OcclusionAndUncertaintyBlock(
             HIDDEN_DIM + CONTEXT_DIM + corr_channels + 2 + 2 + 128)
@@ -120,7 +128,7 @@ class RAFT(nn.Module):
         args: fmap1/fmap2 (B, 256, H8, W8) fnet features, cnet
           (B, 256, H8, W8) context features of frame 1, flow_init optional
           (B, H8, W8, 2) low-resolution initial flow; ``plain`` runs the
-          plain PyTorch lookups instead of the kernels.
+          kernels' plain PyTorch versions instead of the kernels.
         returns: {'flow': (B, H, W, 2), 'occlusion': (B, H, W, 2) logits,
           'uncertainty': (B, H, W, 1) log-variance, 'coords': (B, H8, W8, 2)}.
         """
@@ -143,6 +151,10 @@ class RAFT(nn.Module):
                 build_corr_pyramid(fmap1, fmap2, levels)))
         elif method == "pallas_t":
             pyramid = ("t", build_corr_pyramid_t(fmap1, fmap2, levels))
+        elif method == "fold":
+            pyramid = ("fold", *build_corr_pyramid_folded(fmap1, fmap2, levels, plain))
+        elif method == "mixed":
+            pyramid = build_corr_pyramid_mixed(fmap1, fmap2, levels)
         else:
             pyramid = build_corr_pyramid(fmap1, fmap2, levels)
         net = torch.tanh(cnet[:, :HIDDEN_DIM])
@@ -171,7 +183,7 @@ class RAFT(nn.Module):
                     pyramid, _c, w, b, radius, plain))
             flow = to_nchw(coords1 - coords0)
             net, up_mask, delta_flow, motion = self.update_block(
-                net, inp, corr, flow, need_mask=last)
+                net, inp, corr, flow, need_mask=last, plain=plain)
             delta_flow = delta_flow.float()
             coords1 = coords1 + delta_flow.permute(0, 2, 3, 1).reshape(B, P, 2)
 

@@ -10,20 +10,64 @@ for the big model, NCHW:
 - OcclusionAndUncertaintyBlock ('simple' heads): input concat
   [net, inp, corr, flow, delta_flow, motion] = 712 channels, both heads'
   first convs run as one 712->256 conv.
+
+The convs that the JAX package routes through its ``conv_apply`` (convc1
+when unfused, convc2, convf2, conv, the GRU's zr pair and q in both passes,
+the flow head's two convs) run through :func:`conv_apply` here: with
+``conv_backend='pallas'`` on the product kernel (``ops.conv_pallas``, one
+fixed summation order), else ``F.conv2d``. convf1, the mask head and the OU
+block stay ``nn.Conv2d``, as they stay ``nn.Conv`` in JAX.
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mft_tpu_torch import ops
 from mft_tpu_torch.models.raft.layers import conv
 
+_ACT = {None: lambda v: v, "relu": torch.relu}
 
-def _fused_pair(conv_a: nn.Conv2d, conv_b: nn.Conv2d, x):
+
+def conv_apply(x, weight, bias, padding, backend: str = "auto", plain: bool = False,
+               act=None):
+    """One update-block convolution, lowered as the JAX ``conv_apply`` does.
+
+    args: x (B, Cin, H, W); weight (Cout, Cin, kh, kw); bias (Cout,); padding
+      ((top, bottom), (left, right)), SAME-size; backend the conv_backend;
+      ``plain`` runs the kernel's plain version; act None or 'relu'.
+    'pallas' runs the product kernel, whose bias and relu act on the float32
+    sum before the one cast (relu commutes with that rounding, so the result
+    equals relu after the cast, as JAX applies it). As in JAX, a tiny-Cin
+    conv (Cin <= 8, kh*kw > 1) does not. JAX also needs ``conv_fits_pallas``
+    (its TPU memory budget and W of 64 or a multiple of 128); the port's
+    kernel takes any SAME-size conv, so it runs at every width. The other
+    backends compute the same convolution with ``F.conv2d``.
+    """
+    kh, kw = weight.shape[2:]
+    if backend == "pallas" and not (x.shape[1] <= 8 and kh * kw > 1):
+        conv_fn = ops.conv_pallas_ref if plain else ops.conv_pallas
+        return conv_fn(x, weight, bias, padding, act=act)
+    (pt, pb), (pl, pr) = padding
+    if pt != pb or pl != pr:
+        x, pt, pl = F.pad(x, (pl, pr, pt, pb)), 0, 0
+    return _ACT[act](F.conv2d(x, weight, bias, padding=(pt, pl)))
+
+
+def _same(m: nn.Conv2d):
+    ph, pw = m.padding
+    return (ph, ph), (pw, pw)
+
+
+def _apply(m: nn.Conv2d, x, backend, plain, act=None):
+    return conv_apply(x, m.weight, m.bias, _same(m), backend, plain, act)
+
+
+def _fused_pair(conv_a: nn.Conv2d, conv_b: nn.Conv2d, x, backend="auto", plain=False):
     """Two same-shape convs on one input as one conv; channels [a, b]."""
     w = torch.cat([conv_a.weight, conv_b.weight], dim=0)
     b = torch.cat([conv_a.bias, conv_b.bias], dim=0)
-    return F.conv2d(x, w, b, padding=conv_a.padding)
+    return conv_apply(x, w, b, _same(conv_a), backend, plain)
 
 
 class FlowHead(nn.Module):
@@ -32,8 +76,9 @@ class FlowHead(nn.Module):
         self.conv1 = conv(cin, hidden_dim, 3)
         self.conv2 = conv(hidden_dim, out_dim, 3)
 
-    def forward(self, x):
-        return self.conv2(torch.relu(self.conv1(x)))
+    def forward(self, x, backend="auto", plain=False):
+        return _apply(self.conv2, _apply(self.conv1, x, backend, plain, "relu"),
+                      backend, plain)
 
 
 class BasicMotionEncoder(nn.Module):
@@ -52,17 +97,17 @@ class BasicMotionEncoder(nn.Module):
         self.convf2 = conv(128, 64, 3)
         self.conv = conv(256, 126, 3)
 
-    def forward(self, flow, corr):
+    def forward(self, flow, corr, backend="auto", plain=False):
         dt = self.conv.weight.dtype
         flow = flow.to(dt)
         if callable(corr):
             cor = corr(self.convc1.weight, self.convc1.bias).to(dt)
         else:
-            cor = torch.relu(self.convc1(corr.to(dt)))
-        cor = torch.relu(self.convc2(cor))
+            cor = _apply(self.convc1, corr.to(dt), backend, plain, "relu")
+        cor = _apply(self.convc2, cor, backend, plain, "relu")
         flo = torch.relu(self.convf1(flow))
-        flo = torch.relu(self.convf2(flo))
-        out = torch.relu(self.conv(torch.cat([cor, flo], dim=1)))
+        flo = _apply(self.convf2, flo, backend, plain, "relu")
+        out = _apply(self.conv, torch.cat([cor, flo], dim=1), backend, plain, "relu")
         return torch.cat([out, flow], dim=1)
 
 
@@ -74,35 +119,42 @@ class SepConvGRU(nn.Module):
             for gate in "zrq":
                 setattr(self, f"conv{gate}{suffix}", conv(cin, hidden_dim, k))
 
-    def forward(self, h, x):
+    def forward(self, h, x, backend="auto", plain=False):
         hd = h.shape[1]
         for suffix in ("1", "2"):
             hx = torch.cat([h, x], dim=1)
             zr = _fused_pair(getattr(self, f"convz{suffix}"),
-                             getattr(self, f"convr{suffix}"), hx)
+                             getattr(self, f"convr{suffix}"), hx, backend, plain)
             z = torch.sigmoid(zr[:, :hd])
             r = torch.sigmoid(zr[:, hd:])
-            q = torch.tanh(getattr(self, f"convq{suffix}")(
-                torch.cat([r * h, x], dim=1)))
+            q = torch.tanh(_apply(getattr(self, f"convq{suffix}"),
+                                  torch.cat([r * h, x], dim=1), backend, plain))
             h = (1.0 - z) * h + z * q
         return h
 
 
 class BasicUpdateBlock(nn.Module):
-    """One RAFT refinement step: motion encoder -> GRU -> flow delta + up-mask."""
+    """One RAFT refinement step: motion encoder -> GRU -> flow delta + up-mask.
 
-    def __init__(self, hidden_dim: int = 128, corr_channels: int = 324):
+    ``conv_backend`` lowers the convs of :func:`conv_apply`; ``plain`` in
+    :meth:`forward` runs the plain version of its kernel.
+    """
+
+    def __init__(self, hidden_dim: int = 128, corr_channels: int = 324,
+                 conv_backend: str = "auto"):
         super().__init__()
+        self.conv_backend = conv_backend
         self.encoder = BasicMotionEncoder(corr_channels)
         self.gru = SepConvGRU(hidden_dim, 128 + hidden_dim)
         self.flow_head = FlowHead(hidden_dim, 256, 2)
         self.mask_conv1 = conv(hidden_dim, 256, 3)
         self.mask_conv2 = conv(256, 576, 1)
 
-    def forward(self, net, inp, corr, flow, need_mask: bool = True):
-        motion_features = self.encoder(flow, corr)
-        net = self.gru(net, torch.cat([inp, motion_features], dim=1))
-        delta_flow = self.flow_head(net)
+    def forward(self, net, inp, corr, flow, need_mask: bool = True, plain: bool = False):
+        backend = self.conv_backend
+        motion_features = self.encoder(flow, corr, backend, plain)
+        net = self.gru(net, torch.cat([inp, motion_features], dim=1), backend, plain)
+        delta_flow = self.flow_head(net, backend, plain)
         up_mask = None
         if need_mask:
             # scaled 0.25 to balance gradients (reference update.py:237)

@@ -40,8 +40,10 @@ def pad_to_8(H: int, W: int):
 
 
 # conv_backend values of the JAX package that lower the same convolutions
-# differently; the port runs each of them as its PyTorch convolution
+# differently; the port runs each of them as its PyTorch convolution, and
+# 'pallas' on its product kernel (update.conv_apply)
 SAME_CONV_BACKENDS = ("auto", "conv", "matmul", "im2col", "hybrid")
+CONV_BACKENDS = (*SAME_CONV_BACKENDS, "pallas")
 
 
 def check_corr_tile(v) -> int:
@@ -79,14 +81,12 @@ def raft_params_from_config(raft_kwargs) -> RAFTParams:
         if get(key, False):
             raise NotImplementedError(f"{key}=True is not ported yet ({item})")
     backend = str(get("conv_backend", "auto"))
-    if backend == "pallas":
-        raise NotImplementedError("conv_backend='pallas' is not ported yet "
-                                  "(ROADMAP B11, kernel #13 conv_pallas)")
-    if backend not in SAME_CONV_BACKENDS:
+    if backend not in CONV_BACKENDS:
         raise ValueError(f"unknown conv_backend {backend!r}")
     check_corr_tile(get("corr_tile", 0))
     return RAFTParams(compute_dtype=str(get("compute_dtype", "auto")),
-                      corr_method=str(get("corr_method", "auto")))
+                      corr_method=str(get("corr_method", "auto")),
+                      conv_backend="pallas" if backend == "pallas" else "auto")
 
 
 def random_init(model: nn.Module, seed: int = 0):

@@ -11,6 +11,10 @@
 | corr_lookup_packed (mft_corr_lookup_packed) | corr_lookup_pallas.py corr_lookup_pallas_packed    |
 | corr_lookup_packed_i8 (mft_corr_lookup_packed_i8) | corr_lookup_pallas.py corr_lookup_pallas_packed_i8 |
 | corr_lookup_t (mft_corr_lookup_t)         | corr_lookup_pallas.py corr_lookup_pallas_t           |
+| corr_lookup_folded (mft_corr_lookup_folded) | corr_lookup_pallas.py corr_lookup_pallas_folded    |
+| corr_lookup_mixed (mft_corr_lookup_mixed) | corr_lookup_pallas.py corr_lookup_pallas_mixed       |
+| corr_build_folded (mft_corr_build_folded) | corr_lookup_pallas.py build_corr_pyramid_pallas      |
+| conv_pallas (mft_conv)                    | conv_pallas.py conv_pallas                           |
 
 A wrapper launches its kernel for CUDA tensors and uses the plain version for
 CPU tensors; it raises for anything else. Each wrapper counts its launches in
@@ -21,14 +25,18 @@ from mft_tpu_torch.ops.chain_select import chain_select, chain_select_ref
 from mft_tpu_torch.ops.corr_alt import (corr_lookup_alt, corr_lookup_alt_ref,
                                         corr_lookup_win)
 from mft_tpu_torch.ops.corr_lookup import (
-    corr_lookup, corr_lookup_fused, corr_lookup_fused_ref, corr_lookup_packed,
+    corr_lookup, corr_lookup_folded, corr_lookup_folded_ref, corr_lookup_fused,
+    corr_lookup_fused_ref, corr_lookup_mixed, corr_lookup_mixed_ref, corr_lookup_packed,
     corr_lookup_packed_i8, corr_lookup_packed_i8_ref, corr_lookup_packed_ref,
     corr_lookup_q, corr_lookup_q_ref, corr_lookup_ref, corr_lookup_t,
     corr_lookup_t_ref)
+from mft_tpu_torch.ops.product import (conv_pallas, conv_pallas_ref, corr_build_folded,
+                                       corr_build_folded_ref)
 
 KERNELS = (corr_lookup_fused, corr_lookup, chain_select, corr_lookup_alt,
            corr_lookup_win, corr_lookup_q, corr_lookup_packed, corr_lookup_packed_i8,
-           corr_lookup_t)
+           corr_lookup_t, corr_lookup_folded, corr_build_folded, corr_lookup_mixed,
+           conv_pallas)
 
 
 def launch_counts() -> dict:
@@ -46,5 +54,7 @@ __all__ = ["chain_select", "chain_select_ref", "corr_lookup", "corr_lookup_ref",
            "corr_lookup_alt_ref", "corr_lookup_win", "corr_lookup_q",
            "corr_lookup_q_ref", "corr_lookup_packed", "corr_lookup_packed_ref",
            "corr_lookup_packed_i8", "corr_lookup_packed_i8_ref", "corr_lookup_t",
-           "corr_lookup_t_ref", "KERNELS",
+           "corr_lookup_t_ref", "corr_lookup_folded", "corr_lookup_folded_ref",
+           "corr_lookup_mixed", "corr_lookup_mixed_ref", "corr_build_folded",
+           "corr_build_folded_ref", "conv_pallas", "conv_pallas_ref", "KERNELS",
            "launch_counts", "reset_launch_counts"]

@@ -21,7 +21,17 @@ uses its plain PyTorch version on a CPU tensor:
   ``corr_lookup_pallas_packed_i8``) from that map in int8, and
   :func:`corr_lookup_t` (``mft_corr_lookup_t``, replacing
   ``corr_lookup_pallas_t``) from lane-major (B, h_l, w_l, P) levels. The int8
-  forms return bfloat16 samples, the others the volume dtype.
+  forms return bfloat16 samples, the others the volume dtype;
+- two lookups of the same samples from folded levels (kernels in
+  ``csrc/corr_volume.cu``): :func:`corr_lookup_folded`
+  (``mft_corr_lookup_folded``, replacing ``corr_lookup_pallas_folded``) from
+  (B, P, rows_l, 128) levels, lane u*w + x of row q holding image row
+  q*fold + u, the smallest levels one zero-padded row; and
+  :func:`corr_lookup_mixed` (``mft_corr_lookup_mixed``, replacing
+  ``corr_lookup_pallas_mixed``) from folded big levels followed by plain
+  (B, P, h_l, w_l) ones. Where fold*w = 128 a folded level is its dense map
+  under another shape (value (y, x) is element y*w + x), so both address the
+  levels with strides and sample as :func:`corr_lookup` does.
 
 Layouts are those of the JAX kernels: the pyramid is a list of (B, P, h_l, w_l)
 maps (f32 or bf16), coords (B, P, 2) float32 (x, y) centres at level-0 scale.
@@ -50,6 +60,14 @@ def unpack_levels(packed: torch.Tensor, dims) -> list:
         levels.append(packed[:, :, :h, off:off + w])
         off += w
     return levels
+
+
+def unfold_levels(levels, dims) -> list:
+    """Folded (B, P, rows_l, 128) levels -> (B, P, h_l, w_l) views: the first
+    h_l*w_l lanes of each pixel's rows (all of them but a small level's
+    padding)."""
+    return [lvl.reshape(*lvl.shape[:2], -1)[..., :h * w].unflatten(-1, (h, w))
+            for lvl, (h, w) in zip(levels, dims)]
 
 
 def dequant_levels(levels, scales: torch.Tensor) -> list:
@@ -105,6 +123,17 @@ def corr_lookup_packed_i8_ref(packed, scales, dims, coords,
 def corr_lookup_t_ref(levels_t, coords, radius: int = 4) -> torch.Tensor:
     """Plain version of :func:`corr_lookup_t`."""
     return corr_lookup_ref([lvl.movedim(3, 1) for lvl in levels_t], coords, radius)
+
+
+def corr_lookup_folded_ref(levels, dims, coords, radius: int = 4,
+                           ywin: int = 0) -> torch.Tensor:
+    """Plain version of :func:`corr_lookup_folded`."""
+    return corr_lookup_ref(unfold_levels(levels, dims), coords, radius)
+
+
+def corr_lookup_mixed_ref(folded, fdims, padded, coords, radius: int = 4) -> torch.Tensor:
+    """Plain version of :func:`corr_lookup_mixed`."""
+    return corr_lookup_ref(unfold_levels(folded, fdims) + list(padded), coords, radius)
 
 
 def corr_lookup_fused_ref(pyramid, coords, wc, bias, radius: int = 4):
@@ -177,6 +206,34 @@ def _check_packed(packed, dims, coords, dtypes):
     _check_coords(coords, B, P)
     hw = [int(v) for h_w in dims for v in h_w] + [0, 0] * (4 - len(dims))
     return packed.dtype, B, P, H0, Wp, hw
+
+
+def _check_folded(levels, dims, coords, dtypes, dense_only=False):
+    """(dtype, B, P, rows of 4 levels, (h_l, w_l) of 4 levels) of contiguous
+    folded (B, P, rows_l, 128) levels: rows_l*128 = h_l*w_l, or one row of at
+    most 128 values unless ``dense_only``."""
+    if not 1 <= len(levels) <= 4 or len(dims) != len(levels):
+        raise ValueError(f"1..4 folded levels with their dims supported, got "
+                         f"{len(levels)} levels and {len(dims)} dims")
+    dt = levels[0].dtype
+    if dt not in dtypes:
+        raise TypeError(f"volume dtype must be one of {dtypes}, got {dt}")
+    B, P = levels[0].shape[:2]
+    for lvl, (h, w) in zip(levels, dims):
+        rows = lvl.shape[2] if lvl.dim() == 4 else 0
+        dense = rows * 128 == h * w
+        if (lvl.dim() != 4 or tuple(lvl.shape[:2]) != (B, P) or lvl.shape[3] != 128
+                or lvl.dtype != dt or lvl.device != coords.device
+                or not lvl.is_contiguous()
+                or not (dense or (not dense_only and rows == 1 and h * w < 128))):
+            raise ValueError(f"folded levels must be contiguous (B, P, h*w/128, 128) "
+                             f"maps of one dtype on the coords' device (or one row "
+                             f"for fewer than 128 values); got {tuple(lvl.shape)} for "
+                             f"dims ({h}, {w})")
+    _check_coords(coords, B, P)
+    rows = [lvl.shape[2] for lvl in levels] + [0] * (4 - len(levels))
+    hw = [int(v) for h_w in dims for v in h_w] + [0, 0] * (4 - len(dims))
+    return dt, B, P, rows, hw
 
 
 def _require_cuda(t: torch.Tensor, name: str):
@@ -337,3 +394,60 @@ def corr_lookup_t(levels_t, coords, radius: int = 4) -> torch.Tensor:
 
 
 corr_lookup_t.launches = 0
+
+
+def corr_lookup_folded(levels, dims, coords, radius: int = 4, ywin: int = 0) -> torch.Tensor:
+    """Window lookup on folded levels: (B, P, L*(2r+1)^2) samples in their dtype.
+
+    args: levels, a list of (B, P, rows_l, 128) float32 or bfloat16 maps from
+      :func:`mft_tpu_torch.models.raft.corr.build_corr_pyramid_folded`, dims
+      their (h_l, w_l). A tap outside its level's h_l x w_l map is zero; the
+      padding lanes of a small level are never read. ``ywin`` is the JAX
+      kernel's row window, which contracts only the rows the windows reach
+      (and all rows where they do not fit): exact either way, so it changes
+      nothing here.
+    """
+    if coords.device.type == "cpu":
+        return corr_lookup_folded_ref(levels, dims, coords, radius, ywin)
+    _require_cuda(coords, "corr_lookup_folded")
+    dt, B, P, rows, hw = _check_folded(levels, dims, coords, tuple(_DTYPE_CODE))
+    ptrs = [lvl.data_ptr() for lvl in levels] + [None] * (4 - len(levels))
+    out = torch.empty((B, P, _channels(len(levels), radius)), dtype=dt,
+                      device=coords.device)
+    err = _build.library().mft_corr_lookup_folded(
+        out.data_ptr(), coords.data_ptr(), *ptrs, *hw, *rows, len(levels), B, P, radius,
+        _DTYPE_CODE[dt], _stream(coords))
+    _build.check(err, "mft_corr_lookup_folded")
+    corr_lookup_folded.launches += 1
+    return out
+
+
+corr_lookup_folded.launches = 0
+
+
+def corr_lookup_mixed(folded, fdims, padded, coords, radius: int = 4) -> torch.Tensor:
+    """Window lookup on a mixed pyramid: (B, P, L*(2r+1)^2) in its dtype.
+
+    args: folded, the leading levels as (B, P, h_l*w_l/128, 128) maps, fdims
+      their (h_l, w_l); padded, the remaining levels as (B, P, h_l, w_l) maps
+      (:func:`mft_tpu_torch.models.raft.corr.build_corr_pyramid_mixed`);
+      either list may be empty, not both.
+    """
+    if coords.device.type == "cpu":
+        return corr_lookup_mixed_ref(folded, fdims, padded, coords, radius)
+    _require_cuda(coords, "corr_lookup_mixed")
+    levels = unfold_levels(folded, fdims) + list(padded)
+    if folded:
+        _check_folded(folded, fdims, coords, tuple(_DTYPE_CODE), dense_only=True)
+    dt, B, P, ptrs, hw = _check_levels(levels, coords, tuple(_DTYPE_CODE))
+    out = torch.empty((B, P, _channels(len(levels), radius)), dtype=dt,
+                      device=coords.device)
+    err = _build.library().mft_corr_lookup_mixed(
+        out.data_ptr(), coords.data_ptr(), *ptrs, *hw, len(levels), B, P, radius,
+        _DTYPE_CODE[dt], _stream(coords))
+    _build.check(err, "mft_corr_lookup_mixed")
+    corr_lookup_mixed.launches += 1
+    return out
+
+
+corr_lookup_mixed.launches = 0

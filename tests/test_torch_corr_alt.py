@@ -182,11 +182,17 @@ OTHER_JAX_METHODS = ("fold", "gather", "int8", "mixed", "mxu", "packed", "packed
 def test_unported_corr_method_raises(method):
     """Every JAX corr_method the port lacks raises and names its ROADMAP
     item; none falls back to the volume path. The volume methods ported
-    since are read as they are."""
+    since are read as they are and run: one iteration on 8x8 features gives
+    finite flow."""
     assert set(OTHER_JAX_METHODS) == set(UNPORTED_CORR_METHODS) | set(VOLUME_METHODS)
     if method in VOLUME_METHODS:
-        assert raft_params_from_config({"corr_method": method}).corr_method == method
+        params = raft_params_from_config({"corr_method": method})
+        assert params.corr_method == method
         assert method not in UNPORTED_CORR_METHODS
+        f = torch.randn((1, 256, 8, 8), generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            out = RAFT(params).flow_from_features(f, f.flip(-1), f, iters=1)
+        assert out["flow"].shape == (1, 64, 64, 2) and bool(out["flow"].isfinite().all())
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         raft_params_from_config({"corr_method": method})
@@ -208,7 +214,25 @@ def test_ported_corr_methods_are_read():
                                        ("OU_last_iter_only", True),
                                        ("conv_backend", "pallas")])
 def test_unported_raft_options_raise(key, value):
-    """Options the port does not implement raise instead of being ignored."""
+    """Options the port does not implement raise instead of being ignored.
+    conv_backend 'pallas', ported since, is read and runs: the model's
+    update block takes it, and one step of it computes the 'auto' block's
+    result (f32, 1e-4; the product kernel's plain version on the CPU)."""
+    if (key, value) == ("conv_backend", "pallas"):
+        params = raft_params_from_config({key: value})
+        assert params.conv_backend == "pallas"
+        block = RAFT(params).update_block
+        assert block.conv_backend == "pallas"
+        auto = RAFT(raft_params_from_config({})).update_block
+        block.load_state_dict(auto.state_dict())
+        gen = torch.Generator().manual_seed(0)
+        t = lambda c: torch.randn((1, c, 3, 5), generator=gen)
+        args = (t(128), t(128), t(324), t(2))
+        with torch.no_grad():
+            for g, w in zip(block(*args, need_mask=False), auto(*args, need_mask=False)):
+                if w is not None:
+                    torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         raft_params_from_config({key: value})
     raft_params_from_config({key: False if value is True else "auto"})

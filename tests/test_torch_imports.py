@@ -50,6 +50,8 @@ def test_port_modules_list_is_complete():
     mods = _port_modules()
     for want in ("mft_tpu_torch.ops._build", "mft_tpu_torch.ops.corr_lookup",
                  "mft_tpu_torch.ops.chain_select", "mft_tpu_torch.ops.corr_alt",
+                 "mft_tpu_torch.ops.product", "mft_tpu_torch.models.raft.update",
+                 "mft_tpu_torch.models.raft.corr",
                  "mft_tpu_torch.tracker.mft",
                  "mft_tpu_torch.models.raft.wrapper", "mft_tpu_torch.config"):
         assert want in mods

@@ -254,3 +254,130 @@ def test_mft_volume_methods_launch_their_kernel(cuda, method):
     want = {k: 0 for k in ops.launch_counts()}
     want.update({VOLUME_KERNELS[method]: 6, "chain_select": 2})
     assert ops.launch_counts() == want
+
+
+def _folded_inputs(np_rng, dtype, dev, kind, B=3, H8=16, W8=32, C=40):
+    """Features of a packable 16x32 map (levels 16x32 in 4 rows of 128
+    lanes, 8x16 in one row, 4x8 and 2x4 zero-padded to one row) and coords
+    'wild' past every level's edges or 'local' (the grid + U(-2, 2))."""
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    f1 = t(np_rng.standard_normal((B, C, H8, W8))).to(DT[dtype])
+    f2 = t(np_rng.standard_normal((B, C, H8, W8))).to(DT[dtype])
+    if kind == "wild":
+        coords = np_rng.uniform(-6, W8 + 6, (B, H8 * W8, 2))
+    else:
+        g = np.mgrid[0:H8, 0:W8].transpose(1, 2, 0)[..., ::-1].reshape(1, H8 * W8, 2)
+        coords = g + np_rng.uniform(-2, 2, (B, H8 * W8, 2))
+    return f1, f2, t(coords).contiguous()
+
+
+# The product kernels (volume build, convolution) and the folded and mixed
+# lookups do the plain versions' float ops in the same order (one ascending
+# float32 sum per output; built with -fmad=false), so they are held to
+# bit-identical results: tolerance 0.
+EXACT = dict(atol=0.0, rtol=0.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dims", [(16, 32), (8, 8)])
+def test_build_folded_kernel_matches_plain(np_rng, cuda, dtype, dims):
+    """All levels of all pairs in one launch; 8x8 has 64 source pixels, a
+    ragged tile, and every level in one zero-padded row."""
+    f1, f2, _ = _folded_inputs(np_rng, dtype, cuda, "wild", H8=dims[0], W8=dims[1])
+    ops.reset_launch_counts()
+    got, gdims = tcorr.build_corr_pyramid_folded(f1, f2, 4)
+    assert ops.launch_counts()["corr_build_folded"] == 1
+    want, wdims = tcorr.build_corr_pyramid_folded(f1, f2, 4, plain=True)
+    assert gdims == wdims
+    for g, w in zip(got, want):
+        assert g.dtype == DT[dtype] and g.shape == w.shape
+        torch.testing.assert_close(g, w, **EXACT)
+
+
+@pytest.mark.parametrize("kind", ["wild", "local"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_folded_lookup_kernel_matches_plain(np_rng, cuda, dtype, kind):
+    """The folded lookup on the plain build's levels; filling a small level's
+    padding lanes with 1e3 changes no sample (taps stay in each level)."""
+    f1, f2, coords = _folded_inputs(np_rng, dtype, cuda, kind)
+    levels, dims = tcorr.build_corr_pyramid_folded(f1, f2, 4, plain=True)
+    ops.reset_launch_counts()
+    got = ops.corr_lookup_folded(levels, dims, coords, 4, ywin=8)
+    assert ops.launch_counts()["corr_lookup_folded"] == 1
+    want = ops.corr_lookup_folded_ref(levels, dims, coords, 4)
+    assert got.dtype == DT[dtype] and got.shape == (3, 16 * 32, 324)
+    torch.testing.assert_close(got, want, **EXACT)
+    for lvl, (h, w) in zip(levels, dims):
+        lvl.reshape(*lvl.shape[:2], -1)[..., h * w:] = 1e3
+    torch.testing.assert_close(ops.corr_lookup_folded(levels, dims, coords, 4), want,
+                               **EXACT)
+
+
+@pytest.mark.parametrize("dims", [(16, 32), (13, 21)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mixed_lookup_kernel_matches_plain(np_rng, cuda, dtype, dims):
+    """16x32: level 0 folds (4 rows per lane row), the rest stay plain;
+    13x21: nothing folds (the all-plain case)."""
+    f1, f2, coords = _folded_inputs(np_rng, dtype, cuda, "wild", H8=dims[0], W8=dims[1])
+    stored = tcorr.build_corr_pyramid_mixed(f1, f2, 4)
+    assert len(stored[1]) == (1 if dims == (16, 32) else 0)
+    ops.reset_launch_counts()
+    got = tcorr.corr_lookup(stored, coords, 4)
+    assert ops.launch_counts()["corr_lookup_mixed"] == 1
+    want = tcorr.corr_lookup(stored, coords, 4, plain=True)
+    assert got.dtype == DT[dtype] and got.shape == (3, dims[0] * dims[1], 324)
+    torch.testing.assert_close(got, want, **EXACT)
+
+
+# the update block's convs with their channels cut by 4 (Cout 2 kept):
+# (Cout, Cin, kh, kw)
+CONV_SHAPES = [(64, 81, 1, 1), (48, 64, 3, 3), (16, 32, 3, 3), (32, 64, 3, 3),
+               (64, 96, 1, 5), (32, 96, 5, 1), (64, 32, 3, 3), (2, 64, 3, 3)]
+
+
+@pytest.mark.parametrize("act", [None, "relu", "sigmoid", "tanh"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+def test_conv_kernel_matches_plain(np_rng, cuda, shape, dtype, act):
+    """2 images of 12x20 (ragged pixel tiles), SAME padding; the 1x1 case
+    reads a channel-last (permuted) input, as convc1 reads the lookup."""
+    Cout, Cin, kh, kw = shape
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    x = t(np_rng.standard_normal((2, Cin, 12, 20))).to(DT[dtype])
+    if kh == kw == 1:
+        x = x.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+    w = t(np_rng.standard_normal((Cout, Cin, kh, kw)) / np.sqrt(Cin * kh * kw))
+    b = t(np_rng.standard_normal((Cout,)) * 0.1)
+    pad = ((kh // 2, kh // 2), (kw // 2, kw // 2))
+    ops.reset_launch_counts()
+    got = ops.conv_pallas(x, w.to(DT[dtype]), b, pad, act=act)
+    assert ops.launch_counts()["conv_pallas"] == 1
+    want = ops.conv_pallas_ref(x, w.to(DT[dtype]), b, pad, act=act)
+    assert got.dtype == DT[dtype] and got.shape == (2, Cout, 12, 20)
+    torch.testing.assert_close(got, want, **EXACT)
+
+
+@pytest.mark.parametrize("key,value", [("corr_method", "fold"), ("corr_method", "mixed"),
+                                       ("conv_backend", "pallas")])
+def test_mft_new_paths_launch_their_kernels(cuda, key, value):
+    """Per tracked frame with 3 iterations: 'fold' one build and 3 folded
+    lookups, 'mixed' 3 mixed lookups, conv_backend 'pallas' 2 fused lookups,
+    1 lookup and 3*9 + 1 convs (convc1 on the last iteration); each one
+    chain + select."""
+    cfg = default_config()
+    cfg.flow_config.flow_iters = 3
+    cfg.flow_config.raft_params[key] = value
+    tracker = MFT(cfg, device=cuda)
+    rng = np.random.default_rng(0)
+    tex = (rng.random((80, 80, 3)) * 255).astype(np.uint8)
+    ops.reset_launch_counts()
+    tracker.init(tex[:64, :64])
+    for k in range(1, 3):
+        res = tracker.track(np.ascontiguousarray(tex[k:k + 64, 2 * k:2 * k + 64])).result
+        assert res.flow.shape == (64, 64, 2) and bool(torch.isfinite(res.flow).all())
+    per_frame = {"fold": dict(corr_build_folded=1, corr_lookup_folded=3),
+                 "mixed": dict(corr_lookup_mixed=3),
+                 "pallas": dict(corr_lookup_fused=2, corr_lookup=1, conv_pallas=28)}[value]
+    want = {k: 0 for k in ops.launch_counts()}
+    want.update({k: 2 * v for k, v in per_frame.items()}, chain_select=2)
+    assert ops.launch_counts() == want

@@ -26,12 +26,13 @@ FRAMES = 5
 DELTAS = [np.inf, 1, 2, 4, 8, 16, 32]
 
 
-def _config(cls, flower_cls, corr_method="auto"):
+def _config(cls, flower_cls, corr_method="auto", conv_backend="auto"):
     conf = cls()
     flow = cls()
     flow.of_class = flower_cls
     flow.raft_params = {"occlusion_module": "separate_with_uncertainty",
-                        "compute_dtype": "float32", "corr_method": corr_method}
+                        "compute_dtype": "float32", "corr_method": corr_method,
+                        "conv_backend": conv_backend}
     flow.model = None
     flow.flow_iters = 2
     conf.flow_config = flow
@@ -46,10 +47,10 @@ def _clip(n, seed=0):
     return [np.ascontiguousarray(tex[k:k + H, 2 * k:2 * k + W]) for k in range(n + 1)]
 
 
-def _run_both(n_frames, jax_method="auto", port_method="auto"):
+def _run_both(n_frames, jax_method="auto", port_method="auto", conv_backend="auto"):
     frames = _clip(n_frames)
-    jt = JaxMFT(_config(JaxConfig, JaxRAFTFlow, jax_method))
-    tt = MFT(_config(Config, RAFTFlow, port_method), device="cpu")
+    jt = JaxMFT(_config(JaxConfig, JaxRAFTFlow, jax_method, conv_backend))
+    tt = MFT(_config(Config, RAFTFlow, port_method, conv_backend), device="cpu")
     tt.flower.load_state_dict(params_from_flax(
         jax.tree.map(np.asarray, jt.flower.variables)))
     jt.init(frames[0])
@@ -121,6 +122,23 @@ def test_int8_frame_matches_jax(both_runs_int8, frame):
         assert np.isfinite(g).all(), name
         assert err.mean() < 0.02 * scale, (frame, name, err.mean(), scale)
         assert np.quantile(err, 0.99) < 0.1 * scale, (frame, name, np.quantile(err, 0.99))
+
+
+@pytest.mark.parametrize("option", [("fold", "auto"), ("mixed", "auto"), ("auto", "pallas")],
+                         ids=["fold", "mixed", "conv_pallas"])
+def test_new_path_frame_matches_jax(option):
+    """One tracked frame with corr_method 'fold' / 'mixed' or conv_backend
+    'pallas', against the JAX tracker with the same option (its folded
+    volume through its Pallas kernels in interpret mode; at this 8x8
+    stride-8 map its mixed volume folds nothing, and its conv_apply takes
+    shifted matmuls, conv_pallas needing W8 = 64): float32, 1e-4 on flow
+    (px), occlusion and sigma at every pixel."""
+    method, backend = option
+    (want, got), = _run_both(1, jax_method=method, port_method=method,
+                             conv_backend=backend)
+    for g, w, name in zip(got, want, ("flow", "occlusion", "sigma")):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g, w, atol=1e-4, rtol=1e-5, err_msg=f"{option} {name}")
 
 
 @pytest.mark.parametrize("key,value,error", [

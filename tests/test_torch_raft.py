@@ -21,10 +21,11 @@ from mft_tpu_torch.models.raft.convert import params_from_flax
 H, W, ITERS = 60, 68, 3
 
 
-def _flow_config(cls, dtype, corr_method="auto"):
+def _flow_config(cls, dtype, corr_method="auto", conv_backend="auto"):
     conf = cls()
     conf.raft_params = {"occlusion_module": "separate_with_uncertainty",
-                        "compute_dtype": dtype, "corr_method": corr_method}
+                        "compute_dtype": dtype, "corr_method": corr_method,
+                        "conv_backend": conv_backend}
     conf.model = None
     conf.flow_iters = ITERS
     return conf
@@ -37,18 +38,20 @@ def jax_variables():
     return jax.tree.map(np.asarray, flower.variables)
 
 
-def _images(seed=0):
+def _images(seed=0, size=(H, W)):
+    h, w = size
     rng = np.random.default_rng(seed)
-    tex = (rng.random((H + 8, W + 8, 3)) * 255).astype(np.uint8)
-    return tex[:H, :W].copy(), tex[3:H + 3, 2:W + 2].copy()
+    tex = (rng.random((h + 8, w + 8, 3)) * 255).astype(np.uint8)
+    return tex[:h, :w].copy(), tex[3:h + 3, 2:w + 2].copy()
 
 
-def _both(jax_variables, dtype, init_flow=None, jax_method="auto", port_method="auto"):
-    jf = JaxRAFTFlow(_flow_config(JaxConfig, dtype, jax_method))
+def _both(jax_variables, dtype, init_flow=None, jax_method="auto", port_method="auto",
+          conv_backend="auto", size=(H, W)):
+    jf = JaxRAFTFlow(_flow_config(JaxConfig, dtype, jax_method, conv_backend))
     jf.variables = jax.tree.map(np.asarray, jax_variables)
-    tf = RAFTFlow(_flow_config(Config, dtype, port_method), device="cpu")
+    tf = RAFTFlow(_flow_config(Config, dtype, port_method, conv_backend), device="cpu")
     tf.load_state_dict(params_from_flax(jax_variables))
-    img1, img2 = _images()
+    img1, img2 = _images(size=size)
     jflow, jextra = jf.compute_flow(img1, img2, mode="flow", numpy_out=True,
                                     init_flow=init_flow)
     tflow, textra = tf.compute_flow(img1, img2, mode="flow", numpy_out=True,
@@ -138,6 +141,36 @@ def test_feature_lookup_methods_match_jax_f32(jax_variables, method):
     relative, as the volume path is held."""
     (jf, jo, js), (tf, to, ts) = _both(jax_variables, "float32", jax_method="mxu",
                                        port_method=method)
+    np.testing.assert_allclose(tf, jf, atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(to, jo, atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(ts, js, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("method", ["fold", "mixed"])
+def test_folded_volumes_match_jax_f32(jax_variables, method):
+    """corr_method 'fold' / 'mixed' against the JAX RAFT with the same
+    method, at 64x256 (stride-8 map 8x32: level 0 folds 4 rows into each
+    128-lane row, the others are one zero-padded row ('fold') or stay plain
+    ('mixed')). JAX builds and looks up the folded volume with its Pallas
+    kernels in interpret mode, the mixed one on its exact CPU path; f32,
+    1e-4 absolute and 1e-5 relative, as the volume path is held."""
+    (jf, jo, js), (tf, to, ts) = _both(jax_variables, "float32", jax_method=method,
+                                       port_method=method, size=(64, 256))
+    assert tf.shape == (64, 256, 2)
+    np.testing.assert_allclose(tf, jf, atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(to, jo, atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(ts, js, atol=1e-4, rtol=1e-5)
+
+
+def test_conv_backend_pallas_matches_jax_f32(jax_variables):
+    """conv_backend 'pallas' at 64x512, the JAX model's only width class
+    where its conv_apply reaches conv_pallas (W8 = 64; interpret mode): the
+    update block's convs in the port's fixed order against JAX's per-tap
+    dots; f32, 1e-4 absolute and 1e-5 relative, as the volume path is
+    held."""
+    (jf, jo, js), (tf, to, ts) = _both(jax_variables, "float32", conv_backend="pallas",
+                                       size=(64, 512))
+    assert tf.shape == (64, 512, 2)
     np.testing.assert_allclose(tf, jf, atol=1e-4, rtol=1e-5)
     np.testing.assert_allclose(to, jo, atol=1e-4, rtol=1e-5)
     np.testing.assert_allclose(ts, js, atol=1e-4, rtol=1e-5)

@@ -3,7 +3,8 @@
 
 Drives ``MFT(default_config())`` of ``mft_tpu_torch`` on one NVIDIA card at
 512x512 (random weights from seed 0, the synthetic clip of chip_smoke.py),
-or with another ``--corr-method`` and frame ``--size``, warms up, then traces
+or with another ``--corr-method``, ``--conv-backend`` and frame ``--size``,
+warms up, then traces
 ``--frames`` frames with ``torch.profiler`` and prints:
 
 - wall ms per frame (host clock, synchronised) and device-busy ms per frame
@@ -15,7 +16,8 @@ or with another ``--corr-method`` and frame ``--size``, warms up, then traces
 Imports nothing of JAX. Usage (on the card):
 
     python3 tools/torch_profile_frame.py [--frames 3] [--out frame_profile.txt]
-        [--corr-method auto|alt|win|int8|packed|packed_i8|pallas_t] [--size 2160 3840]
+        [--corr-method auto|alt|win|int8|packed|packed_i8|pallas_t|fold|mixed]
+        [--conv-backend auto|pallas] [--size 2160 3840]
 """
 
 import argparse
@@ -34,8 +36,12 @@ GROUPS = (  # first match wins
     ("chain_select", re.compile(r"chain_select_kernel")),
     ("corr_lookup_alt", re.compile(r"alt_kernel")),
     ("corr_lookup_win", re.compile(r"win_kernel")),
-    # corr_volume.cu: corr_lookup_q, _packed, _packed_i8 (pixel-major), _t
+    # corr_volume.cu: corr_lookup_q, _packed, _packed_i8, _folded, _mixed
+    # (pixel-major), _t (lane-major)
     ("volume-form lookup", re.compile(r"pixel_major_kernel|lane_major_kernel")),
+    # product.cu
+    ("corr_build_folded", re.compile(r"build_folded_kernel")),
+    ("conv_pallas", re.compile(r"conv_kernel")),
     ("convolution", re.compile(r"conv|fprop|implicit|winograd|cudnn", re.I)),
     ("matrix product", re.compile(r"gemm|cutlass|xmma|cublas", re.I)),
     ("reduction", re.compile(r"reduce|softmax|norm", re.I)),
@@ -58,7 +64,8 @@ def main(argv=None) -> int:
     parser.add_argument("--out", default=None, help="write the full kernel table here")
     parser.add_argument("--corr-method", default="auto",
                         choices=("auto", "alt", "win", "int8", "packed", "packed_i8",
-                                 "pallas_t"))
+                                 "pallas_t", "fold", "mixed"))
+    parser.add_argument("--conv-backend", default="auto", choices=("auto", "pallas"))
     parser.add_argument("--size", type=int, nargs=2, default=(512, 512),
                         metavar=("H", "W"))
     args = parser.parse_args(argv)
@@ -82,6 +89,7 @@ def main(argv=None) -> int:
     frames = synthetic_clip(n, H=H, W=W)
     cfg = default_config()
     cfg.flow_config.raft_params["corr_method"] = args.corr_method
+    cfg.flow_config.raft_params["conv_backend"] = args.conv_backend
     tracker = MFT(cfg, device="cuda")
     tracker.init(frames[0])
     for k in range(1, args.warmup + 1):
@@ -108,7 +116,8 @@ def main(argv=None) -> int:
         return 1
     print(f"card: {card}")
     print(f"frames traced: {args.frames} after {args.warmup} warm-up, {H}x{W}, "
-          f"corr_method {args.corr_method}, {len(tracker.deltas)} deltas, "
+          f"corr_method {args.corr_method}, conv_backend {args.conv_backend}, "
+          f"{len(tracker.deltas)} deltas, "
           f"{tracker.flower.iters} iterations, {tracker.flower.dtype}")
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     print(f"wall ms per frame (profiler on): {wall_ms:.3f}")
