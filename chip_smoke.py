@@ -21,11 +21,22 @@ non-zero and prints no result line):
    the mixed lookup ('mixed') and the update block's convolution
    (conv_backend 'pallas') at every conv shape of the frame and each
    activation; each held to bit-identical results;
+3e. the same for the bilinear warp (``mft_warp``) through each of its JAX
+   entry points, in 'tpu' mode at the shapes where JAX takes each of its
+   three warp kernels and bilinear_warp_blocked, and in 'exact' mode on
+   4-channel FlowOU maps at 512x512 and 2160x3840; bit-identical results;
 4. the main path: ``MFT(default_config())`` with random weights from a seed,
    ``init`` + ``track`` of synthetic 512x512 frames (a texture under a known
    shift); checks shapes, finiteness, ranges and that the kernels launched
    11, 1 and 1 times per tracked frame;
 5. one more frame with the plain versions forced, compared with the kernels';
+11. the slice's path on the main path's results: point tracking of the 10
+   tracked frames (the demo's query grid and every pixel), chain_results of
+   two results, and the TPU-form chain + select (``chain_select_pallas``) on
+   the next frame's 7 candidates, each through the warp kernel and through
+   the plain versions (identical), each call one warp launch; the TPU form's
+   gap to K3 is printed (not gated); chain_select_pallas again at 1080x1920
+   in phase 9;
 6. the same tracker with corr_method 'alt', then 'win', at 512x512: frame
    times, peak memory, 12 launches of the method's kernel and 1 chain +
    select per frame, a frame against the plain versions, and (printed, not
@@ -42,12 +53,14 @@ non-zero and prints no result line):
    size;
 9. 'int8' and 'auto' at 1080x1920: init + 2 tracked frames each, their peak
    device memory ('int8' must peak lower), and K6 against its plain version
-   on sampled pixels at that size.
+   on sampled pixels at that size; then phase 11's chain_select_pallas on
+   the 'auto' tracker's next 7 candidates.
 
 Where one PyTorch call computes a kernel's function, its time is taken beside
 the kernel's as a yardstick (``library_ms``; the port never calls it):
 ``F.grid_sample`` per level for the volume lookups, ``torch.baddbmm`` for the
-folded build, ``F.conv2d`` for the convolution.
+folded build, ``F.conv2d`` for the convolution, ``F.grid_sample`` for the
+warp.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Needs no network and imports nothing
@@ -106,6 +119,23 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device ms of one ``fn()``, replayed from a CUDA graph of ``reps``
+    calls: the wrapper's host cost leaves no idle gaps between launches, as
+    it does in :func:`cuda_ms` for a kernel of a few microseconds."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, reps=3, warmup=1) / reps
 
 
 def max_err(got, want):
@@ -685,6 +715,105 @@ def check_conv_kernel(torch, ops, dev, card):
 
 
 # --------------------------------------------------------------------------- #
+# phase 3e: the bilinear warp (#14-#16)
+# --------------------------------------------------------------------------- #
+# label -> (JAX entry point, mode, N, H, W, C): 'tpu' maps in bf16 (the
+# chain_select_pallas maps), 'exact' maps in f32 (a packed FlowOU)
+WARP_SHAPES = {
+    "blocked 7x512x512x6": ("bilinear_warp_blocked", "tpu", 7, 512, 512, 6),
+    "banded 7x512x480x6": ("bilinear_warp_banded", "tpu", 7, 512, 480, 6),
+    "pallas 7x1080x1920x6": ("bilinear_warp_pallas", "tpu", 7, 1080, 1920, 6),
+    "tiled 7x512x512x6": ("bilinear_warp_tiled", "tpu", 7, 512, 512, 6),
+    "exact 1x512x512x4": ("bilinear_warp_pallas", "exact", 1, 512, 512, 4),
+    "exact 1x2160x3840x4": ("bilinear_warp_pallas", "exact", 1, 2160, 3840, 4),
+}
+
+
+def warp_coords(torch, dev, gen, N, H, W):
+    """(N, H*W, 2) raster coordinates: the grid plus a smooth flow of up to
+    ~20 px (shifted by 1.25 px per image), except a band of rows at random
+    positions up to 40 px beyond the map and a band at half-integer shifts
+    and odd multiples of 1/512 px (where the snap rounds half to even)."""
+    ys, xs = torch.meshgrid(torch.arange(H, device=dev, dtype=torch.float32),
+                            torch.arange(W, device=dev, dtype=torch.float32), indexing="ij")
+    fx = 12.0 * torch.sin(ys / 37.0) + 5.0 * torch.cos(xs / 23.0)
+    fy = 9.0 * torch.cos(xs / 41.0) - 4.0 * torch.sin(ys / 19.0)
+    shift = 1.25 * torch.arange(N, device=dev, dtype=torch.float32)[:, None, None, None]
+    c = torch.stack([xs + fx, ys + fy], dim=-1)[None] + shift          # (N, H, W, 2)
+    band = max(H // 16, 1)
+    u = torch.rand((N, band, W, 2), device=dev, generator=gen)
+    c[:, :band] = u * torch.tensor([W + 80.0, H + 80.0], device=dev) - 40.0
+    g = torch.stack([xs, ys], dim=-1)[band:2 * band]
+    half = torch.randint(-6, 7, (N, band, W, 2), device=dev, generator=gen) * 0.5
+    odd = (torch.randint(-3, 4, (N, band, W, 2), device=dev, generator=gen)
+           + (2 * torch.randint(0, 256, (N, band, W, 2), device=dev, generator=gen) + 1)
+           / 512.0)
+    pick = torch.rand((N, band, W, 1), device=dev, generator=gen) < 0.5
+    c[:, band:2 * band] = g + torch.where(pick, half, odd)
+    return c.reshape(N, H * W, 2).contiguous()
+
+
+def check_warp_kernel(torch, ops, dev, card):
+    """mft_warp against its plain version at WARP_SHAPES, through the JAX
+    entry point whose kernel JAX runs at that shape; timed (device time, by
+    graph replay) beside F.grid_sample on the same maps (bf16 values as f32
+    for 'tpu') at the coordinates the kernel samples (snapped for 'tpu')."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(10)
+    stats = {}
+    for label, (entry, mode, N, H, W, C) in WARP_SHAPES.items():
+        dtype = torch.bfloat16 if mode == "tpu" else torch.float32
+        maps = (4.0 * torch.randn((N, H, W, C), device=dev, generator=gen)).to(dtype)
+        coords = warp_coords(torch, dev, gen, N, H, W)
+        planar = entry == "bilinear_warp_tiled"
+        fn = getattr(ops, entry)
+        if planar:
+            sx = coords[..., 0].reshape(N, H, W).contiguous()
+            sy = coords[..., 1].reshape(N, H, W).contiguous()
+            kernel = lambda: fn(maps, sx, sy)          # C planes, written in place
+        elif mode == "exact":
+            kernel = lambda: fn(maps, coords, dot_dtype=torch.float32, snap=False)
+        else:
+            kernel = lambda: fn(maps, coords)
+        plain = lambda: ops.bilinear_warp_ref(maps, coords, mode, planar)
+        got = kernel()
+        got = torch.stack(got).reshape(C, N, H * W) if planar else got
+        torch.cuda.synchronize()
+        want = plain()
+        err = exact_check(torch, f"bilinear_warp {label} ({entry}, {mode})", got, want)
+        call_ms = cuda_ms(kernel, reps=20)     # with the wrapper's host cost
+        ms = graph_ms(kernel)
+        plain_ms = cuda_ms(plain, reps=2, warmup=1)
+        # library yardstick: one F.grid_sample on (N, C, H, W) float32 maps
+        snapped = ops.snap256(coords) if mode == "tpu" else coords
+        grid = torch.stack([2.0 * snapped[..., 0] / (W - 1) - 1.0,
+                            2.0 * snapped[..., 1] / (H - 1) - 1.0], dim=-1)[:, None]
+        nchw = maps.float().permute(0, 3, 1, 2).contiguous()
+        lib = lambda: F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros",
+                                    align_corners=True)
+        lib_ms = graph_ms(lib)
+        lib_err = max_err(lib()[:, :, 0].permute(0, 2, 1),
+                          want.permute(1, 2, 0) if planar else want)
+        P = H * W
+        nbytes = maps.numel() * maps.element_size() + coords.numel() * 4 + N * P * C * 4
+        ops_n = N * P * (9 * C + 20)   # per channel 6 row + 3 column ops; weights
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops_n / PEAK_OPS_PER_S["float32"] * 1e3
+        bound = max(bytes_ms, ops_ms)
+        log(f"time bilinear_warp {label}: kernel {ms:.4f} ms (graph replay; {call_ms:.4f} "
+            f"ms a call from Python), plain {plain_ms:.3f} ms, "
+            f"F.grid_sample {lib_ms:.4f} ms (graph replay; max_abs_err to the plain version "
+            f"{lib_err:.3e}), bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
+            f"{ops_n / 1e9:.2f} GFLOP) [{card}]")
+        stats[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                            library_ms=lib_ms)
+        del maps, coords, got, want, grid, nchw
+        torch.cuda.empty_cache()
+    return stats
+
+
+# --------------------------------------------------------------------------- #
 # phases 4-5: the main path
 # --------------------------------------------------------------------------- #
 def synthetic_clip(n_frames, H=512, W=512, seed=0):
@@ -829,7 +958,110 @@ def run_main_path(torch, ops, dev, card):
     t5 = time.perf_counter()
     check_kernels_vs_plain(torch, tracker, frames[FRAMES + 1], "main path")
     log(f"phase 5 seconds {time.perf_counter() - t5:.2f}")
-    return counts, median, tracker
+    return counts, median, tracker, results, frames[FRAMES + 1]
+
+
+# --------------------------------------------------------------------------- #
+# phase 11: point tracking, chain_results and the TPU-form chain + select
+# --------------------------------------------------------------------------- #
+def demo_queries(H, W, spacing=30):
+    """The demo's query grid (mft_tpu/apps/demo.py get_queries): every
+    ``spacing`` px from spacing // 2; 289 points at 512x512."""
+    import numpy as np
+    xs = np.arange(spacing // 2, W, spacing, dtype=np.float32)
+    ys = np.arange(spacing // 2, H, spacing, dtype=np.float32)
+    xg, yg = np.meshgrid(xs, ys)
+    return np.stack([xg.reshape(-1), yg.reshape(-1)], axis=1)
+
+
+def outputs(out):
+    """The tensors of a FlowOU, or of a tuple of tensors or numpy arrays."""
+    import torch
+    if hasattr(out, "flow"):
+        return [out.flow, out.occlusion, out.sigma]
+    return [torch.as_tensor(o) for o in out]
+
+
+def slice_call(torch, ops, label, call, launches, card):
+    """``call(plain)`` through the kernel, with the launch counts set to 0
+    just before it and read just after (``launches`` of the warp and no other
+    kernel), then through the plain versions: identical outputs required.
+    returns: (warp launches, the kernel run's result)."""
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got = call(False)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    counts = ops.launch_counts()
+    want_counts = expected_counts(ops, bilinear_warp=launches)
+    check(counts == want_counts, f"{label}: launch counts {counts} != {want_counts}")
+    want = call(True)
+    pairs = list(zip(outputs(got), outputs(want)))
+    ok = all(g.shape == w.shape and bool(torch.isfinite(g.float()).all()) for g, w in pairs)
+    err = max(max_err(g, w) for g, w in pairs)
+    ok = ok and err == 0.0
+    log(f"check {label}: {launches} warp launch(es), host {ms:.3f} ms, max_abs_err to the "
+        f"plain versions {err:.3e} (tolerance 0) {'ok' if ok else 'FAIL'} [{card}]")
+    check(ok, f"{label} disagrees with its plain versions")
+    return counts["bilinear_warp"], got
+
+
+def chain_select_pallas_on(torch, ops, card, tracker, img, label):
+    """The TPU-form chain + select on the candidates of the tracker's next
+    frame ``img``, kernel against plain; its gap to K3's exact chain + select
+    is printed, not gated. returns: warp launches."""
+    from mft_tpu_torch.tracker.fused import chain_select, chain_select_pallas
+    t = tracker.current_frame_i + tracker.time_direction
+    left, right, valid, _ = tracker.pairs(tracker._to_device(img), t)
+    thr = tracker.occlusion_threshold
+    n, got = slice_call(torch, ops, f"chain_select_pallas {label} ({len(valid)} candidates)",
+                        lambda plain: chain_select_pallas(left, right, valid, thr, plain=plain),
+                        1, card)
+    H, W = got.occlusion.shape
+    check_results(torch, [got], H, W, f"chain_select_pallas {label}")
+    dflow, docc, dsig = frame_gap(got, chain_select(left, right, valid, thr))
+    log(f"chain_select_pallas {label} vs K3's exact chain + select (not gated): flow |d| "
+        f"median {float(dflow.median()):.3e} px, mean {float(dflow.mean()):.3e} px, max "
+        f"{float(dflow.max()):.3e} px, share > 0.5 px {float((dflow > 0.5).float().mean()):.4%}; "
+        f"occlusion |d| max {float(docc.max()):.3e}; sigma rel |d| share > 5% "
+        f"{float((dsig > 0.05).float().mean()):.4%}")
+    return n
+
+
+def run_slice_path(torch, ops, card, tracker, results, nxt):
+    """Phase 11 on the main path's tracked results; returns warp launches."""
+    import numpy as np
+    from mft_tpu_torch.core.flowou import chain_results, chain_results_packed
+    from mft_tpu_torch.tracker.point_tracking import convert_to_point_tracking_batch
+    H, W = results[0].occlusion.shape
+    T = len(results)
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
+    every = np.stack([xs.reshape(-1), ys.reshape(-1)], axis=1)
+    n = 0
+    for name, q in (("the demo's grid", demo_queries(H, W)), ("every pixel", every)):
+        k, (coords, occl) = slice_call(
+            torch, ops, f"convert_to_point_tracking_batch, {T} results x {len(q)} queries "
+                        f"({name})",
+            lambda plain: convert_to_point_tracking_batch(results, q, plain=plain), 1, card)
+        check(coords.shape == (T, len(q), 2) and occl.shape == (T, len(q))
+              and occl.dtype == np.float32, f"point tracks of {name}: wrong shapes")
+        log(f"point tracks ({name}): frame {T} mean displacement "
+            f"{(coords[-1] - q).mean(axis=0).round(3).tolist()} px, mean occlusion "
+            f"{float(occl[-1].mean()):.4f}")
+        n += k
+    k, chained = slice_call(torch, ops, "chain_results of frames 1 and 2",
+                            lambda plain: chain_results(results[0], results[1], plain), 3, card)
+    n += k
+    k, packed = slice_call(torch, ops, "chain_results_packed of frames 1 and 2",
+                           lambda plain: chain_results_packed(results[0], results[1], plain),
+                           1, card)
+    n += k
+    check_results(torch, [chained], H, W, "chain_results")
+    check(all(torch.equal(a, b) for a, b in zip(outputs(chained), outputs(packed))),
+          "chain_results_packed differs from chain_results")
+    n += chain_select_pallas_on(torch, ops, card, tracker, nxt, f"{H}x{W}")
+    return n
 
 
 # --------------------------------------------------------------------------- #
@@ -1031,8 +1263,8 @@ def run_hd(torch, ops, dev, card, H=1080, W=1920):
     """Phase 9: 'int8' and 'auto' at 1080x1920, then K6 at that size."""
     from mft_tpu_torch.tracker import MFT
     H8, W8 = H // 8, W // 8
-    frames = synthetic_clip(UHD_FRAMES, H=H, W=W)
-    peaks = {}
+    frames = synthetic_clip(UHD_FRAMES + 1, H=H, W=W)   # the last: phase 11's frame
+    peaks, warp_launches = {}, 0
     for method in ("int8", "auto"):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1041,7 +1273,7 @@ def run_hd(torch, ops, dev, card, H=1080, W=1920):
         iters = tracker.flower.iters
         ops.reset_launch_counts()
         t = time.perf_counter()
-        results, frame_ms = track_frames(torch, tracker, frames)
+        results, frame_ms = track_frames(torch, tracker, frames[:-1])
         seconds = time.perf_counter() - t
         counts = ops.launch_counts()
         if method == "auto":
@@ -1062,12 +1294,16 @@ def run_hd(torch, ops, dev, card, H=1080, W=1920):
         log(f"{method} at {H}x{W}: mean flow ({float(last.flow[..., 0].mean()):.3f}, "
             f"{float(last.flow[..., 1].mean()):.3f}) px, mean occlusion "
             f"{float(last.occlusion.mean()):.4f}, mean sigma {float(last.sigma.mean()):.4f}")
+        if method == "auto":
+            warp_launches += chain_select_pallas_on(torch, ops, card, tracker, frames[-1],
+                                                    f"{H}x{W}")
         del tracker, results, last
     check(peaks["int8"] < peaks["auto"],
           f"int8 peaks at {peaks['int8'] / 1e9:.2f} GB, not below auto's "
           f"{peaks['auto'] / 1e9:.2f} GB at {H}x{W}")
     torch.cuda.empty_cache()
     check_q_kernel_hd(torch, ops, dev, card, H8, W8)
+    return warp_launches
 
 
 def main() -> int:
@@ -1126,8 +1362,17 @@ def run() -> int:
         cv, cv_shapes = check_conv_kernel(torch, ops, dev, card)
         log(f"phase 3d seconds {time.perf_counter() - t:.2f}")
         t = time.perf_counter()
-        counts, volume_median, volume_tracker = run_main_path(torch, ops, dev, card)
+        wk = check_warp_kernel(torch, ops, dev, card)
+        log(f"phase 3e seconds {time.perf_counter() - t:.2f}")
+        t = time.perf_counter()
+        counts, volume_median, volume_tracker, results, nxt = run_main_path(torch, ops, dev,
+                                                                            card)
         log(f"phase 4-5 seconds {time.perf_counter() - t:.2f}")
+        t = time.perf_counter()
+        counts["bilinear_warp"] = run_slice_path(torch, ops, card, volume_tracker, results,
+                                                 nxt)
+        del results
+        log(f"phase 11 (512x512) seconds {time.perf_counter() - t:.2f}")
         t = time.perf_counter()
         for method in ("alt", "win"):
             c = run_method_path(torch, ops, dev, card, method, volume_tracker,
@@ -1154,9 +1399,10 @@ def run() -> int:
         run_uhd(torch, ops, dev, card)
         log(f"phase 7 seconds {time.perf_counter() - t:.2f}")
         t = time.perf_counter()
-        run_hd(torch, ops, dev, card)
-        log(f"phase 9 seconds {time.perf_counter() - t:.2f}")
-        for stats in (*lk.values(), cs, *fk.values(), *vk.values(), *fo.values(), cv):
+        counts["bilinear_warp"] += run_hd(torch, ops, dev, card)
+        log(f"phase 9 (and 11 at 1080x1920) seconds {time.perf_counter() - t:.2f}")
+        for stats in (*lk.values(), cs, *fk.values(), *vk.values(), *fo.values(), cv,
+                      *wk.values()):
             check(all(math.isfinite(stats[k]) for k in
                       ("max_abs_err", "ms", "plain_ms", "bound_ms")),
                   f"non-finite measurement {stats}")
@@ -1204,6 +1450,10 @@ def run() -> int:
     kernels.append(dict(name="conv_pallas", route="cuda", source=src + "product.cu",
                         replaces="mft_tpu/ops/conv_pallas.py:84",
                         launches=counts["conv_pallas"], **cv))
+    # the tracker's #14 shape (TPU path at 1080x1920); every shape in the log
+    kernels.append(dict(name="bilinear_warp", route="cuda", source=src + "warp.cu",
+                        replaces="mft_tpu/ops/warp_pallas.py:113",
+                        launches=counts["bilinear_warp"], **wk["pallas 7x1080x1920x6"]))
     log(f"total seconds {time.perf_counter() - t_all:.2f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

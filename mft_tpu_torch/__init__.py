@@ -4,11 +4,14 @@ written by hand for Hopper (sm_90a).
 A port of ``mft_tpu`` (JAX/Pallas on TPU) that stands beside it and imports
 nothing of it, nor of JAX:
 
-- ``mft_tpu_torch.core``     FlowOU value type, coordinate grids, bilinear sampling
+- ``mft_tpu_torch.core``     FlowOU value type and algebra, coordinate grids,
+                             bilinear sampling
 - ``mft_tpu_torch.models``   RAFT-OU optical flow network (nn.Modules, NCHW inside)
-- ``mft_tpu_torch.tracker``  MFT delta-chaining tracker with a feature ring
-- ``mft_tpu_torch.ops``      CUDA kernels (corr lookup, fused lookup+convc1,
-                             chain+select), each beside its plain PyTorch version
+- ``mft_tpu_torch.tracker``  MFT delta-chaining tracker with a feature ring,
+                             selection, point tracking
+- ``mft_tpu_torch.ops``      CUDA kernels (correlation lookups and builds,
+                             chain+select, convolution, bilinear warp), each
+                             beside its plain PyTorch version
 
 Entry points run on ``device="cuda"`` unless the caller passes ``"cpu"``;
 on the CPU every kernel wrapper uses its plain version.

@@ -108,10 +108,14 @@ class RAFT(nn.Module):
         return self.fnet.conv1.weight.dtype
 
     def set_compute_dtype(self, dtype: torch.dtype):
-        """Convs compute in ``dtype``; norm parameters stay float32."""
+        """Convs compute in ``dtype``; norm parameters and the biases of the
+        update block's routed convs (``BasicUpdateBlock.routed_convs``) stay
+        float32."""
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
                 m.to(dtype)
+        for m in self.update_block.routed_convs():
+            m.bias.data = m.bias.data.float()
         return self
 
     def encode(self, image, with_context: bool = True):

@@ -36,8 +36,8 @@ def conv_apply(x, weight, bias, padding, backend: str = "auto", plain: bool = Fa
     args: x (B, Cin, H, W); weight (Cout, Cin, kh, kw); bias (Cout,); padding
       ((top, bottom), (left, right)), SAME-size; backend the conv_backend;
       ``plain`` runs the kernel's plain version; act None or 'relu'.
-    'pallas' runs the product kernel, whose bias and relu act on the float32
-    sum before the one cast (relu commutes with that rounding, so the result
+    'pallas' runs the product kernel, whose float32 bias and relu act on the
+    float32 sum before the one cast (relu commutes with that rounding, so the result
     equals relu after the cast, as JAX applies it). As in JAX, a tiny-Cin
     conv (Cin <= 8, kh*kw > 1) does not. JAX also needs ``conv_fits_pallas``
     (its TPU memory budget and W of 64 or a multiple of 128); the port's
@@ -51,7 +51,8 @@ def conv_apply(x, weight, bias, padding, backend: str = "auto", plain: bool = Fa
     (pt, pb), (pl, pr) = padding
     if pt != pb or pl != pr:
         x, pt, pl = F.pad(x, (pl, pr, pt, pb)), 0, 0
-    return _ACT[act](F.conv2d(x, weight, bias, padding=(pt, pl)))
+    # the float32 bias in x's dtype, as JAX's lax-conv branch adds it
+    return _ACT[act](F.conv2d(x, weight, bias.to(x.dtype), padding=(pt, pl)))
 
 
 def _same(m: nn.Conv2d):
@@ -149,6 +150,16 @@ class BasicUpdateBlock(nn.Module):
         self.flow_head = FlowHead(hidden_dim, 256, 2)
         self.mask_conv1 = conv(hidden_dim, 256, 3)
         self.mask_conv2 = conv(256, 576, 1)
+
+    def routed_convs(self):
+        """The convs that :func:`conv_apply` runs (convc1 also inside the
+        fused lookup). Their biases stay float32 in a bf16 model, because JAX
+        adds the float32 parameter there (``mft_tpu/models/raft/update.py
+        conv_apply``, ``mft_tpu/ops/conv_pallas.py``)."""
+        enc, gru, head = self.encoder, self.gru, self.flow_head
+        return [enc.convc1, enc.convc2, enc.convf2, enc.conv,
+                *(getattr(gru, f"conv{gate}{s}") for s in "12" for gate in "zrq"),
+                head.conv1, head.conv2]
 
     def forward(self, net, inp, corr, flow, need_mask: bool = True, plain: bool = False):
         backend = self.conv_backend

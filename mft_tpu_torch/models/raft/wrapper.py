@@ -137,7 +137,7 @@ class RAFTFlow:
 
     def load_state_dict(self, state_dict):
         """Load float32 weights (e.g. from params_from_flax); convs keep the
-        compute dtype."""
+        compute dtype, the update block's routed conv biases float32."""
         self.model.load_state_dict(state_dict)
 
     # ------------------------------------------------------------------ #

@@ -15,6 +15,7 @@
 | corr_lookup_mixed (mft_corr_lookup_mixed) | corr_lookup_pallas.py corr_lookup_pallas_mixed       |
 | corr_build_folded (mft_corr_build_folded) | corr_lookup_pallas.py build_corr_pyramid_pallas      |
 | conv_pallas (mft_conv)                    | conv_pallas.py conv_pallas                           |
+| bilinear_warp (mft_warp)                  | warp_pallas.py bilinear_warp_pallas, _banded, _tiled |
 
 A wrapper launches its kernel for CUDA tensors and uses the plain version for
 CPU tensors; it raises for anything else. Each wrapper counts its launches in
@@ -32,11 +33,14 @@ from mft_tpu_torch.ops.corr_lookup import (
     corr_lookup_t_ref)
 from mft_tpu_torch.ops.product import (conv_pallas, conv_pallas_ref, corr_build_folded,
                                        corr_build_folded_ref)
+from mft_tpu_torch.ops.warp import (bilinear_warp, bilinear_warp_banded, bilinear_warp_blocked,
+                                    bilinear_warp_pallas, bilinear_warp_ref,
+                                    bilinear_warp_tiled, snap256, split_hi_lo)
 
 KERNELS = (corr_lookup_fused, corr_lookup, chain_select, corr_lookup_alt,
            corr_lookup_win, corr_lookup_q, corr_lookup_packed, corr_lookup_packed_i8,
            corr_lookup_t, corr_lookup_folded, corr_build_folded, corr_lookup_mixed,
-           conv_pallas)
+           conv_pallas, bilinear_warp)
 
 
 def launch_counts() -> dict:
@@ -56,5 +60,7 @@ __all__ = ["chain_select", "chain_select_ref", "corr_lookup", "corr_lookup_ref",
            "corr_lookup_packed_i8", "corr_lookup_packed_i8_ref", "corr_lookup_t",
            "corr_lookup_t_ref", "corr_lookup_folded", "corr_lookup_folded_ref",
            "corr_lookup_mixed", "corr_lookup_mixed_ref", "corr_build_folded",
-           "corr_build_folded_ref", "conv_pallas", "conv_pallas_ref", "KERNELS",
+           "corr_build_folded_ref", "conv_pallas", "conv_pallas_ref", "bilinear_warp",
+           "bilinear_warp_ref", "bilinear_warp_pallas", "bilinear_warp_banded",
+           "bilinear_warp_blocked", "bilinear_warp_tiled", "snap256", "split_hi_lo", "KERNELS",
            "launch_counts", "reset_launch_counts"]

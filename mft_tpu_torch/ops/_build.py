@@ -50,6 +50,7 @@ SIGNATURES = {
     "mft_corr_lookup_mixed": [_P] * 6 + [_I] * 13 + [_P],
     "mft_corr_build_folded": [_P] * 9 + [_I] * 8 + [_F, _I, _P],
     "mft_conv": [_P] * 4 + [_L] * 4 + [_I] * 12 + [_P],
+    "mft_warp": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()

@@ -149,20 +149,18 @@ class MFT:
         slots, valid = self._idx_cache[key]
         return slots, valid, t % self.ring
 
-    # ------------------------------------------------------------------ #
-    def track(self, input_img):
-        """Track one frame; returns meta.result = FlowOU template -> current.
+    def pairs(self, img, t):
+        """The frame step up to chain + select, for device image ``img`` as
+        frame ``t``, changing no state: encode ONLY the new frame (every left
+        frame's features are already in the ring, each was the current frame
+        once) and run all delta pairs as one batch.
 
-        Reference parity: MFT/MFT.py:55-154.
+        returns: left (the ring's results of the left frames) and right (the
+        pairs' flows) FlowOUs with a candidate axis (N, H, W, ...), valid
+        (N,) and the new frame's (fmap, cnet) features.
         """
-        self.current_frame_i += self.time_direction
-        t = self.current_frame_i
-        img = self._to_device(input_img)
-        slots, valid, wslot = self._step_indices(self._candidates(t), t)
+        slots, valid, _ = self._step_indices(self._candidates(t), t)
         N = len(self.deltas)
-
-        # encode ONLY the new frame; every left frame's features are already
-        # in the ring (each was the current frame once)
         f_new, c_new = self.flower.padded_encode(img[None])
         fmap1 = self.mem_fmap.index_select(0, slots)
         cnet1 = self.mem_cnet.index_select(0, slots)
@@ -173,9 +171,22 @@ class MFT:
                       occlusion=self.mem_occl.index_select(0, slots),
                       sigma=self.mem_sigma.index_select(0, slots))
         right = FlowOU(flow=flows, occlusion=occls, sigma=sigmas)
+        return left, right, valid, (f_new, c_new)
+
+    # ------------------------------------------------------------------ #
+    def track(self, input_img):
+        """Track one frame; returns meta.result = FlowOU template -> current.
+
+        Reference parity: MFT/MFT.py:55-154.
+        """
+        self.current_frame_i += self.time_direction
+        t = self.current_frame_i
+        img = self._to_device(input_img)
+        left, right, valid, (f_new, c_new) = self.pairs(img, t)
         select = chain_select_ref if self.plain_ops else chain_select
         result = select(left, right, valid, self.occlusion_threshold)
 
+        wslot = t % self.ring
         self.mem_imgs[wslot] = img
         self.mem_flow[wslot] = result.flow
         self.mem_occl[wslot] = result.occlusion

@@ -116,7 +116,7 @@ def test_wrappers_use_plain_version_on_cpu(rng):
     assert torch.equal(ops.corr_lookup_fused(tp, tc, tw, tb, R),
                        ops.corr_lookup_fused_ref(tp, tc, tw, tb, R))
     assert ops.launch_counts() == {k.__name__: 0 for k in ops.KERNELS}
-    assert len(ops.KERNELS) == 13
+    assert len(ops.KERNELS) == 14
 
 
 def test_wrappers_refuse_other_devices(rng):

@@ -52,7 +52,9 @@ def test_port_modules_list_is_complete():
                  "mft_tpu_torch.ops.chain_select", "mft_tpu_torch.ops.corr_alt",
                  "mft_tpu_torch.ops.product", "mft_tpu_torch.models.raft.update",
                  "mft_tpu_torch.models.raft.corr",
-                 "mft_tpu_torch.tracker.mft",
+                 "mft_tpu_torch.tracker.mft", "mft_tpu_torch.ops.warp",
+                 "mft_tpu_torch.core.flowou", "mft_tpu_torch.tracker.select",
+                 "mft_tpu_torch.tracker.point_tracking", "mft_tpu_torch.tracker.fused",
                  "mft_tpu_torch.models.raft.wrapper", "mft_tpu_torch.config"):
         assert want in mods
 

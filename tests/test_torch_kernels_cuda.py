@@ -381,3 +381,85 @@ def test_mft_new_paths_launch_their_kernels(cuda, key, value):
     want = {k: 0 for k in ops.launch_counts()}
     want.update({k: 2 * v for k, v in per_frame.items()}, chain_select=2)
     assert ops.launch_counts() == want
+
+
+def _warp_inputs(np_rng, dev, N=3, H=37, W=45, C=6):
+    """Maps, and coordinates: the grid plus U(-3, 3), a third of the pixels
+    anywhere up to 10 px beyond the map, a third at half-integer shifts or
+    odd multiples of 1/512 (the snap's ties)."""
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    maps = t(4 * np_rng.standard_normal((N, H, W, C)))
+    g = np.mgrid[0:H, 0:W].transpose(1, 2, 0)[..., ::-1].reshape(1, H * W, 2)
+    c = g + np_rng.uniform(-3, 3, (N, H * W, 2))
+    k = np_rng.integers(0, 3, (N, H * W, 1))
+    wild = np_rng.uniform(0, 1, (N, H * W, 2)) * [W + 20, H + 20] - 10
+    ties = g + np_rng.integers(-4, 5, (N, H * W, 2)) * 0.5 + np_rng.choice(
+        [0.0, 1 / 512, 3 / 512, -5 / 512], (N, H * W, 2))
+    c = np.where(k == 0, wild, np.where(k == 1, ties, c))
+    return maps, t(c)
+
+
+@pytest.mark.parametrize("planar", [False, True])
+@pytest.mark.parametrize("map_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["exact", "tpu", "snap", "bf16"])
+def test_warp_kernel_matches_plain(np_rng, cuda, mode, map_dtype, planar):
+    """mft_warp equals its plain version bit for bit in every mode, with f32
+    and bf16 maps, channel-last and planar output."""
+    maps, coords = _warp_inputs(np_rng, cuda)
+    maps = maps.to(DT[map_dtype])
+    got = ops.bilinear_warp(maps, coords, mode, planar=planar)
+    want = ops.bilinear_warp_ref(maps, coords, mode, planar=planar)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    torch.testing.assert_close(got, want, **EXACT)
+
+
+def test_warp_entry_points_launch_once(np_rng, cuda):
+    """Each JAX entry point is one launch, equal to the plain version; the
+    tiled one writes its C planes and shared coordinates broadcast."""
+    N, H, W, C = 2, 32, 64, 6
+    maps, coords = _warp_inputs(np_rng, cuda, N, H, W, C)
+    maps = maps.bfloat16()
+    sx, sy = coords[..., 0].reshape(N, H, W), coords[..., 1].reshape(N, H, W)
+    ops.reset_launch_counts()
+    outs = [ops.bilinear_warp_pallas(maps, coords), ops.bilinear_warp_banded(maps, coords),
+            ops.bilinear_warp_blocked(maps, coords),
+            torch.stack(ops.bilinear_warp_tiled(maps, sx, sy), -1).reshape(N, H * W, C)]
+    assert ops.launch_counts()["bilinear_warp"] == 4
+    want = ops.bilinear_warp_ref(maps, coords, "tpu")
+    for got in outs:
+        torch.testing.assert_close(got, want, **EXACT)
+    shared = coords[:1].expand(N, -1, -1)
+    torch.testing.assert_close(ops.bilinear_warp(maps, shared, "exact"),
+                               ops.bilinear_warp_ref(maps, coords[:1].repeat(N, 1, 1), "exact"),
+                               **EXACT)
+
+
+def test_slice_path_launches_the_warp(cuda):
+    """Point tracking and chain_select_pallas on a tracker's results: one
+    warp launch each, equal to the plain versions; tracked frames launch no
+    warp."""
+    from mft_tpu_torch.tracker.fused import chain_select_pallas
+    from mft_tpu_torch.tracker.point_tracking import convert_to_point_tracking_batch
+    cfg = default_config()
+    cfg.flow_config.flow_iters = 2
+    tracker = MFT(cfg, device=cuda)
+    rng = np.random.default_rng(0)
+    tex = (rng.random((80, 80, 3)) * 255).astype(np.uint8)
+    frames = [np.ascontiguousarray(tex[k:k + 64, 2 * k:2 * k + 64]) for k in range(4)]
+    ops.reset_launch_counts()
+    tracker.init(frames[0])
+    results = [tracker.track(f).result for f in frames[1:3]]
+    assert ops.launch_counts()["bilinear_warp"] == 0
+    q = rng.uniform(-2, 66, (50, 2)).astype(np.float32)
+    got = convert_to_point_tracking_batch(results, q)
+    assert ops.launch_counts()["bilinear_warp"] == 1
+    want = convert_to_point_tracking_batch(results, q, plain=True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    left, right, valid, _ = tracker.pairs(tracker._to_device(frames[3]), 3)
+    ops.reset_launch_counts()
+    a = chain_select_pallas(left, right, valid)
+    assert ops.launch_counts() == {**{k: 0 for k in ops.launch_counts()}, "bilinear_warp": 1}
+    b = chain_select_pallas(left, right, valid, plain=True)
+    for name in ("flow", "occlusion", "sigma"):
+        torch.testing.assert_close(getattr(a, name), getattr(b, name), **EXACT)

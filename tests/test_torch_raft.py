@@ -176,6 +176,51 @@ def test_conv_backend_pallas_matches_jax_f32(jax_variables):
     np.testing.assert_allclose(ts, js, atol=1e-4, rtol=1e-5)
 
 
+# the update block's convs that conv_apply runs, with the act the port fuses
+ROUTED_CONVS = {("encoder", "convc1"): "relu", ("encoder", "convc2"): "relu",
+                ("encoder", "convf2"): "relu", ("encoder", "conv"): "relu",
+                **{("gru", f"conv{g}{s}"): None for s in "12" for g in "zrq"},
+                ("flow_head", "conv1"): "relu", ("flow_head", "conv2"): None}
+
+
+def test_bf16_pallas_convs_add_float32_biases(jax_variables):
+    """A bf16 model with conv_backend 'pallas' adds each routed conv's
+    float32 bias parameter, as JAX's conv_apply(matmul='pallas') does
+    (mft_tpu/ops/conv_pallas.py, interpret mode). The flax params get
+    random nonzero biases, and kernels and inputs on a 2^-8 grid whose
+    products sum exactly in float32 in any order, so the two must agree bit
+    for bit; a bias rounded to bf16 first moves many outputs by an ulp."""
+    import jax.numpy as jnp
+    from mft_tpu.models.raft.update import conv_apply as jax_conv_apply
+    from mft_tpu_torch.models.raft.update import conv_apply
+
+    rng = np.random.default_rng(5)
+    variables = jax.tree.map(np.array, jax_variables)
+    block = variables["params"]["update_block"]
+    for mod, name in ROUTED_CONVS:
+        leaf = block[mod][name]
+        leaf["kernel"] = (rng.integers(-4, 5, leaf["kernel"].shape) / 256).astype(np.float32)
+        leaf["bias"] = rng.standard_normal(leaf["bias"].shape).astype(np.float32)
+    flower = RAFTFlow(_flow_config(Config, "bfloat16", conv_backend="pallas"), device="cpu")
+    flower.load_state_dict(params_from_flax(variables))
+    for (mod, name), act in ROUTED_CONVS.items():
+        m = getattr(getattr(flower.model.update_block, mod), name)
+        assert m.weight.dtype == torch.bfloat16 and m.bias.dtype == torch.float32
+        kernel, bias = block[mod][name]["kernel"], block[mod][name]["bias"]
+        kh, kw, cin, _ = kernel.shape
+        x = rng.integers(-1, 2, (1, 4, 64, cin)).astype(np.float32)   # W = 64: conv_pallas
+        pad = ((kh // 2, kh // 2), (kw // 2, kw // 2))
+        want = jax_conv_apply(jnp.asarray(x, jnp.bfloat16), jnp.asarray(kernel),
+                              jnp.asarray(bias), pad, jnp.bfloat16, "pallas")
+        if act:
+            want = jax.nn.relu(want)
+        got = conv_apply(torch.from_numpy(x).permute(0, 3, 1, 2).bfloat16(), m.weight,
+                         m.bias, pad, "pallas", act=act)
+        np.testing.assert_array_equal(got.float().permute(0, 2, 3, 1).numpy(),
+                                      np.asarray(want.astype(jnp.float32)),
+                                      err_msg=f"{mod}.{name}")
+
+
 def test_cuda_entry_point_raises_without_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present")
