@@ -207,19 +207,13 @@ def packable(H8: int, W8: int, num_levels: int) -> bool:
     return True
 
 
-def build_corr_pyramid_folded(fmap1: torch.Tensor, fmap2: torch.Tensor,
-                              num_levels: int = 4, plain: bool = False):
-    """The pyramid of :func:`build_corr_pyramid` in the folded layout, all
-    levels in one launch of the product kernel (``ops.corr_build_folded``).
+def folded_operands(fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int = 4):
+    """The operands of the folded build: (f1 (B, C, H*W), f2_levels, dims).
 
-    The target features are pooled per level; a level of fewer than 128
-    positions gets zero features up to 128, so its padding lanes are zero.
-    The sum runs over the channels in order, scaled by 1/sqrt(C) after it
-    and rounded once to the features' dtype. ``plain`` runs the kernel's
-    plain version.
-    returns: (levels, dims): levels[l] (B, H*W, max(h_l*w_l, 128)/128, 128),
-      dims[l] = (h_l, w_l). Raises ValueError for dims :func:`packable`
-      rejects, as the JAX model does for corr_method 'fold'.
+    The target features are pooled per level and flattened to (B, C, h*w); a
+    level of fewer than 128 positions gets zero features up to 128, so its
+    padding lanes are zero. dims[l] = (h_l, w_l). Raises ValueError for dims
+    :func:`packable` rejects, as the JAX model does for corr_method 'fold'.
     """
     B, C, H, W = fmap1.shape
     if not packable(H, W, num_levels):
@@ -234,8 +228,24 @@ def build_corr_pyramid_folded(fmap1: torch.Tensor, fmap2: torch.Tensor,
             flat = F.pad(flat, (0, FOLD_LANES - h * w))
         f2_levels.append(flat.contiguous())
         dims.append((h, w))
+    return fmap1.reshape(B, C, H * W).contiguous(), f2_levels, tuple(dims)
+
+
+def build_corr_pyramid_folded(fmap1: torch.Tensor, fmap2: torch.Tensor,
+                              num_levels: int = 4, plain: bool = False):
+    """The pyramid of :func:`build_corr_pyramid` in the folded layout, all
+    levels in one launch of the product kernel (``ops.corr_build_folded``) on
+    :func:`folded_operands`.
+
+    The sum runs over the channels, scaled by 1/sqrt(C) after it and rounded
+    once to the features' dtype. ``plain`` runs the kernel's plain version.
+    returns: (levels, dims): levels[l] (B, H*W, max(h_l*w_l, 128)/128, 128),
+      dims[l] = (h_l, w_l). Raises ValueError for dims :func:`packable`
+      rejects, as the JAX model does for corr_method 'fold'.
+    """
+    f1, f2_levels, dims = folded_operands(fmap1, fmap2, num_levels)
     build = ops.corr_build_folded_ref if plain else ops.corr_build_folded
-    return build(fmap1.reshape(B, C, H * W).contiguous(), f2_levels), tuple(dims)
+    return build(f1, f2_levels), dims
 
 
 def build_corr_pyramid_mixed(fmap1: torch.Tensor, fmap2: torch.Tensor,

@@ -24,7 +24,8 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 # -fmad=false: no implicit multiply-add contraction, so the kernels round each
-# operation as the plain PyTorch versions do (explicit __fmaf_rn still works);
+# operation as the plain PyTorch versions do (explicit __fmaf_rn still works;
+# tensor-core instructions are not touched);
 # -Xptxas=-v: registers, shared memory and spills of each kernel, kept in
 # ``build_log``
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -48,8 +49,10 @@ SIGNATURES = {
     "mft_corr_lookup_t": [_P] * 6 + [_I] * 13 + [_P],
     "mft_corr_lookup_folded": [_P] * 6 + [_I] * 17 + [_P],
     "mft_corr_lookup_mixed": [_P] * 6 + [_I] * 13 + [_P],
-    "mft_corr_build_folded": [_P] * 9 + [_I] * 8 + [_F, _I, _P],
-    "mft_conv": [_P] * 4 + [_L] * 4 + [_I] * 12 + [_P],
+    "mft_corr_build_folded": [_P] * 9 + [_I] * 8 + [_F, _P],
+    "mft_corr_build_folded_tc": [_P] * 9 + [_I] * 9 + [_F, _P],
+    "mft_conv": [_P] * 4 + [_L] * 4 + [_I] * 11 + [_P],
+    "mft_conv_tc": [_P] * 4 + [_L] * 4 + [_I] * 13 + [_P],
     "mft_warp": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_I] * 3 + [_P],
 }
 

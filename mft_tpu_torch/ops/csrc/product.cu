@@ -1,57 +1,49 @@
-// Tiled products with one fixed summation order, for Hopper (sm_90a): the
-// correlation volume written straight into the folded layout, and the update
-// block's SAME-size convolutions.
+// Tiled products in float32 with one fixed summation order, for Hopper
+// (sm_90a): the correlation volume written straight into the folded layout,
+// and the update block's SAME-size convolutions. Their bfloat16 versions run
+// on the tensor cores (product_tc.cu).
 //
 // mft_corr_build_folded  replaces mft_tpu/ops/corr_lookup_pallas.py
-//                        build_corr_pyramid_pallas (_build_kernel): for every
-//                        pair b, source pixel p and level l,
-//                        out_l[b, p, q] = (sum_c f1[b, c, p] * f2_l[b, c, q]) * s
-//                        with s = 1/sqrt(C) in f32 after the sum, cast once to
-//                        the feature dtype. f2_l is the level's pooled target
-//                        features, (B, C, Q_l) with Q_l a multiple of 128
-//                        (a level of fewer than 128 positions comes with zero
-//                        feature columns up to 128, so its padding lanes are
-//                        zero), so out_l is the folded (B, P, Q_l/128, 128)
-//                        level: lane u*w + x of row q is image row q*fold + u.
-//                        All levels of all pairs in one launch.
+//                        build_corr_pyramid_pallas (_build_kernel) for float32
+//                        features: for every pair b, source pixel p and level
+//                        l, out_l[b, p, q] = (sum_c f1[b, c, p] * f2_l[b, c, q])
+//                        * s with s = 1/sqrt(C) after the sum. f2_l is the
+//                        level's pooled target features, (B, C, Q_l) with Q_l
+//                        a multiple of 128 (a level of fewer than 128
+//                        positions comes with zero feature columns up to 128,
+//                        so its padding lanes are zero), so out_l is the
+//                        folded (B, P, Q_l/128, 128) level: lane u*w + x of
+//                        row q is image row q*fold + u. All levels of all
+//                        pairs in one launch.
 // mft_conv               replaces mft_tpu/ops/conv_pallas.py conv_pallas
-//                        (_conv_kernel): out[b, n, y, x] = act(sum_k
-//                        x[b, c, y + ky - pt, x + kx - pl] * w[n, c, ky, kx]
-//                        + bias[n]) in NCHW, zeros outside the image, the sum
-//                        and the bias in f32, one cast to the output dtype;
-//                        act none, relu, sigmoid or tanh. x may have any
-//                        strides (the lookup's channel-last samples feed
-//                        convc1 without a copy).
+//                        (_conv_kernel) for float32 inputs: out[b, n, y, x] =
+//                        act(sum_k x[b, c, y + ky - pt, x + kx - pl] *
+//                        w[n, c, ky, kx] + bias[n]) in NCHW, zeros outside the
+//                        image, one cast to the output dtype; act none, relu,
+//                        sigmoid or tanh. x may have any strides.
 //
 // Summation order. Every output is one f32 sum over k in ascending order from
-// 0.0f, acc = acc + a_k * b_k, with k = c for the volume and k = (c, ky, kx)
-// (the weight's own memory order) for the convolution. The plain PyTorch
-// versions (ops/product.py) take the same sum one k at a time, so kernel and
-// plain version give the same bits. For bf16 inputs a product of two bf16
-// values is exact in f32, so a fused multiply-add rounds as the plain
-// version's product-then-add does, and the kernel uses one; for f32 inputs
-// the product and the sum are rounded apart (__fmul_rn, __fadd_rn). That
-// rules out the tensor cores (mma/wgmma), whose internal summation order
-// cannot be reproduced in PyTorch.
+// 0.0f, acc = acc + a_k * b_k, the product and the sum rounded apart
+// (__fmul_rn, __fadd_rn), with k = c for the volume and k = (c, ky, kx) (the
+// weight's own memory order) for the convolution. The plain PyTorch versions
+// (ops/product.py) take the same sum one k at a time, so kernel and plain
+// version give the same bits. The tensor cores would take f32 operands as
+// TF32 (a 10-bit mantissa), well below what the plain versions compute, so
+// these stay on the FMA units.
 //
-// What bounds them on this card. The conv path's convolutions are ~1.7 TFLOP
-// per 512x512 frame and the volume 80.8 GFLOP: operations, at the f32 FMA
-// rate (67 TFLOP/s, half that for f32 inputs, which need two instructions
-// per term); the bytes (one read of x and w, one write of the output) are a
-// few percent of it. The TPU kernels ran the same products on the MXU in
-// bf16 (989 TFLOP/s on this card's tensor cores), so the gap to cuBLAS and
-// cuDNN is the price of exactness here.
+// What bounds them on this card: operations at the f32 rate (67 TFLOP/s,
+// half that here, with two instructions per term). No configuration runs
+// these products in f32 on its hot path; the compute dtype is bf16.
 //
 // What the design does about it. An SGEMM-style register-tiled product:
 // a block of 256 threads computes a BM x BN output tile, stages BK-deep
-// slices of both operands in shared memory as f32 (converting bf16 on the
-// way in, zero-filling the ragged edges and the convolution's padding), and
-// each thread accumulates a TM x TN micro-tile in registers, reading its
-// operands as float4 from shared memory. The next slice is loaded into
-// registers while the current one is summed. The m index runs along the
-// output's contiguous axis (pixels of an NCHW map; the target positions q of
-// the volume, whose roles of A and B are swapped for that), so the stores
-// coalesce.
+// slices of both operands in shared memory (zero-filling the ragged edges
+// and the convolution's padding), and each thread accumulates a TM x TN
+// micro-tile in registers, reading its operands as float4 from shared
+// memory. The next slice is loaded into registers while the current one is
+// summed. The m index runs along the output's contiguous axis (pixels of an
+// NCHW map; the target positions q of the volume, whose roles of A and B
+// are swapped for that), so the stores coalesce.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -64,9 +56,6 @@ constexpr int kThreads = 256;
 constexpr int kMaxLevels = 4;
 constexpr int kPad = 4;  // floats of padding per shared-memory row (banks)
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
@@ -74,13 +63,8 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 
 // acc + a*b rounded as the plain version rounds it (see the header).
-template <typename T> __device__ __forceinline__ float madd(float acc, float a, float b);
-template <> __device__ __forceinline__ float madd<float>(float acc, float a, float b) {
+__device__ __forceinline__ float madd(float acc, float a, float b) {
   return __fadd_rn(acc, __fmul_rn(a, b));
-}
-template <> __device__ __forceinline__ float madd<__nv_bfloat16>(float acc, float a,
-                                                                 float b) {
-  return __fmaf_rn(a, b, acc);  // a*b is exact: one rounding either way
 }
 
 // The tile loop. Ops supplies K, a(k, m) and b(k, n) as f32 (zero outside),
@@ -97,7 +81,7 @@ struct Tile {
   static constexpr int B_PER = (BK * BN + kThreads - 1) / kThreads;
   static_assert(BK * BM % kThreads == 0, "whole A slices");
 
-  template <typename T, typename Ops>
+  template <typename Ops>
   __device__ static void run(const Ops& op, int m0, int n0, float (&acc)[TM][TN]) {
     __shared__ __align__(16) float As[BK][BM + kPad];
     __shared__ __align__(16) float Bs[BK][BN + kPad];
@@ -166,7 +150,7 @@ struct Tile {
 #pragma unroll
         for (int i = 0; i < TM; ++i)
 #pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = madd<T>(acc[i][j], a[i], b[j]);
+          for (int j = 0; j < TN; ++j) acc[i][j] = madd(acc[i][j], a[i], b[j]);
       }
       __syncthreads();
     }
@@ -191,23 +175,21 @@ struct Levels {
   int num_levels;
 };
 
-template <typename T>
 struct BuildOps {
   static constexpr bool kBContiguousInK = false;
-  const T* f2;  // (C, Q) of this pair and level
-  const T* f1;  // (C, P) of this pair
+  const float* f2;  // (C, Q) of this pair and level
+  const float* f1;  // (C, P) of this pair
   int K, Q, P;
   __device__ float a(int k, int m) const {
-    return (k < K && m < Q) ? to_f32(f2[(long)k * Q + m]) : 0.0f;
+    return (k < K && m < Q) ? f2[(long)k * Q + m] : 0.0f;
   }
   __device__ float b(int k, int n) const {
-    return (k < K && n < P) ? to_f32(f1[(long)k * P + n]) : 0.0f;
+    return (k < K && n < P) ? f1[(long)k * P + n] : 0.0f;
   }
 };
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-build_folded_kernel(Levels lv, const T* __restrict__ f1, int C, int P, float scale) {
+build_folded_kernel(Levels lv, const float* __restrict__ f1, int C, int P, float scale) {
   using Tl = Tile<128, 128, 8, 8, 8>;
   const int b = blockIdx.z;
   int l = 0;
@@ -215,11 +197,11 @@ build_folded_kernel(Levels lv, const T* __restrict__ f1, int C, int P, float sca
   const int Q = lv.q[l];
   const int m0 = ((int)blockIdx.x - lv.tile0[l]) * 128;
   const int n0 = blockIdx.y * 128;
-  BuildOps<T> op{static_cast<const T*>(lv.f2[l]) + (long)b * C * Q,
-                 f1 + (long)b * C * P, C, Q, P};
+  BuildOps op{static_cast<const float*>(lv.f2[l]) + (long)b * C * Q, f1 + (long)b * C * P,
+              C, Q, P};
   float acc[8][8];
-  Tl::run<T>(op, m0, n0, acc);
-  T* out = static_cast<T*>(lv.out[l]) + (long)b * P * Q;
+  Tl::run(op, m0, n0, acc);
+  float* out = static_cast<float*>(lv.out[l]) + (long)b * P * Q;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int p = n0 + Tl::n_of(j);
@@ -227,7 +209,7 @@ build_folded_kernel(Levels lv, const T* __restrict__ f1, int C, int P, float sca
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int q = m0 + Tl::m_of(i);
-      if (q < Q) out[(long)p * Q + q] = from_f32<T>(__fmul_rn(acc[i][j], scale));
+      if (q < Q) out[(long)p * Q + q] = __fmul_rn(acc[i][j], scale);
     }
   }
 }
@@ -240,11 +222,10 @@ struct ConvShape {
   int B, Cin, H, W, Cout, kh, kw, pt, pl;
 };
 
-template <typename T>
 struct ConvOps {
   static constexpr bool kBContiguousInK = true;
-  const T* x;  // (B, Cin, H, W)
-  const T* w;  // (Cout, Cin, kh, kw) = (Cout, K)
+  const float* x;  // (B, Cin, H, W)
+  const float* w;  // (Cout, Cin, kh, kw) = (Cout, K)
   ConvShape s;
   int K, M;
   __device__ float a(int k, int m) const {
@@ -260,10 +241,10 @@ struct ConvOps {
     const int y = pix / s.W + ky - s.pt;
     const int xx = pix - (pix / s.W) * s.W + kx - s.pl;
     if (y < 0 || y >= s.H || xx < 0 || xx >= s.W) return 0.0f;
-    return to_f32(x[b * s.sb + c * s.sc + y * s.sy + xx * s.sx]);
+    return x[b * s.sb + c * s.sc + y * s.sy + xx * s.sx];
   }
   __device__ float b(int k, int n) const {
-    return (k < K && n < s.Cout) ? to_f32(w[(long)n * K + k]) : 0.0f;
+    return (k < K && n < s.Cout) ? w[(long)n * K + k] : 0.0f;
   }
 };
 
@@ -280,18 +261,18 @@ __device__ __forceinline__ float activate(float v, int act) {
   }
 }
 
-template <typename T, typename O, int BM, int BN, int TM, int TN>
+template <typename O, int BM, int BN, int TM, int TN>
 __global__ void __launch_bounds__(kThreads)
-conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
+conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
             const float* __restrict__ bias, O* __restrict__ out, ConvShape s, int act) {
   using Tl = Tile<BM, BN, 8, TM, TN>;
   const int K = s.Cin * s.kh * s.kw;
   const int M = s.B * s.H * s.W;
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
-  ConvOps<T> op{x, w, s, K, M};
+  ConvOps op{x, w, s, K, M};
   float acc[TM][TN];
-  Tl::template run<T>(op, m0, n0, acc);
+  Tl::run(op, m0, n0, acc);
   const int hw = s.H * s.W;
 #pragma unroll
   for (int j = 0; j < TN; ++j) {
@@ -310,36 +291,36 @@ conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-template <typename T, typename O, int BM, int BN, int TM, int TN>
+template <typename O, int BM, int BN, int TM, int TN>
 cudaError_t launch_conv(const void* x, const void* w, const void* bias, void* out,
                         const ConvShape& s, int act, cudaStream_t stream) {
   const long M = (long)s.B * s.H * s.W;
   const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((s.Cout + BN - 1) / BN));
-  conv_kernel<T, O, BM, BN, TM, TN><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
+  conv_kernel<O, BM, BN, TM, TN><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<O*>(out), s, act);
   return cudaGetLastError();
 }
 
 // Wide outputs take 128 x 128 tiles; outputs of at most 16 channels (the
 // flow head's 2) take 256 x 16 tiles, so few lanes compute padding.
-template <typename T, typename O>
+template <typename O>
 cudaError_t conv_by_width(const void* x, const void* w, const void* bias, void* out,
                           const ConvShape& s, int act, cudaStream_t stream) {
   if (s.Cout <= 16)
-    return launch_conv<T, O, 256, 16, 4, 4>(x, w, bias, out, s, act, stream);
-  return launch_conv<T, O, 128, 128, 8, 8>(x, w, bias, out, s, act, stream);
+    return launch_conv<O, 256, 16, 4, 4>(x, w, bias, out, s, act, stream);
+  return launch_conv<O, 128, 128, 8, 8>(x, w, bias, out, s, act, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (features and outputs). Levels beyond
-// num_levels are ignored; Q_l must be multiples of 128.
+// float32 features and outputs. Levels beyond num_levels are ignored; Q_l
+// must be multiples of 128.
 extern "C" int mft_corr_build_folded(const void* f1, const void* f2_0, const void* f2_1,
                                      const void* f2_2, const void* f2_3, void* out0,
                                      void* out1, void* out2, void* out3, int q0, int q1,
                                      int q2, int q3, int num_levels, int B, int C, int P,
-                                     float scale, int dtype, void* stream) {
+                                     float scale, void* stream) {
   if (num_levels < 1 || num_levels > kMaxLevels) return (int)cudaErrorInvalidValue;
   Levels lv = {};
   const void* f2[kMaxLevels] = {f2_0, f2_1, f2_2, f2_3};
@@ -356,35 +337,22 @@ extern "C" int mft_corr_build_folded(const void* f1, const void* f2_0, const voi
   }
   const dim3 grid((unsigned)lv.tile0[num_levels], (unsigned)((P + 127) / 128),
                   (unsigned)B);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    build_folded_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        lv, static_cast<const __nv_bfloat16*>(f1), C, P, scale);
-  else if (dtype == 0)
-    build_folded_kernel<float><<<grid, kThreads, 0, s>>>(
-        lv, static_cast<const float*>(f1), C, P, scale);
-  else
-    return (int)cudaErrorInvalidValue;
+  build_folded_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      lv, static_cast<const float*>(f1), C, P, scale);
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (x and w); out_dtype likewise; bias is
-// float32. x has strides (sb, sc, sy, sx) in elements, w and out are
-// contiguous. act: 0 none, 1 relu, 2 sigmoid, 3 tanh.
+// float32 x (strides sb, sc, sy, sx in elements) and w, w and out
+// contiguous, bias float32; out_dtype 0 = float32, 1 = bfloat16. act: 0 none,
+// 1 relu, 2 sigmoid, 3 tanh.
 extern "C" int mft_conv(const void* x, const void* w, const void* bias, void* out, long sb,
                         long sc, long sy, long sx, int B, int Cin, int H, int W, int Cout,
-                        int kh, int kw, int pt, int pl, int act, int dtype, int out_dtype,
+                        int kh, int kw, int pt, int pl, int act, int out_dtype,
                         void* stream) {
   if (act < kNone || act > kTanh) return (int)cudaErrorInvalidValue;
   const ConvShape s{sb, sc, sy, sx, B, Cin, H, W, Cout, kh, kw, pt, pl};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && out_dtype == 1)
-    return (int)conv_by_width<__nv_bfloat16, __nv_bfloat16>(x, w, bias, out, s, act, st);
-  if (dtype == 1 && out_dtype == 0)
-    return (int)conv_by_width<__nv_bfloat16, float>(x, w, bias, out, s, act, st);
-  if (dtype == 0 && out_dtype == 0)
-    return (int)conv_by_width<float, float>(x, w, bias, out, s, act, st);
-  if (dtype == 0 && out_dtype == 1)
-    return (int)conv_by_width<float, __nv_bfloat16>(x, w, bias, out, s, act, st);
+  if (out_dtype == 0) return (int)conv_by_width<float>(x, w, bias, out, s, act, st);
+  if (out_dtype == 1) return (int)conv_by_width<__nv_bfloat16>(x, w, bias, out, s, act, st);
   return (int)cudaErrorInvalidValue;
 }

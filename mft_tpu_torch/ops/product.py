@@ -1,24 +1,28 @@
-"""Tiled products in one fixed summation order: CUDA kernels and their plain versions.
+"""Tiled products: CUDA kernels, their plain versions and the bound that holds them.
 
-Each function is a wrapper that launches its kernel (``csrc/product.cu``) on
-CUDA tensors and uses its plain PyTorch version on CPU tensors:
+Each function is a wrapper that launches its kernel on CUDA tensors and uses
+its plain PyTorch version on CPU tensors:
 
-- :func:`corr_build_folded` (kernel ``mft_corr_build_folded``, replacing
-  ``mft_tpu/ops/corr_lookup_pallas.py build_corr_pyramid_pallas``): every
-  level of the all-pairs correlation volume of all pairs, written straight
-  into the folded (B, P, Q_l/128, 128) layout;
-- :func:`conv_pallas` (kernel ``mft_conv``, replacing
-  ``mft_tpu/ops/conv_pallas.py conv_pallas``): a SAME-size convolution of
-  NCHW activations with ``nn.Conv2d`` weights (Cout, Cin, kh, kw), bias and
-  an activation in float32, one cast at the end.
+- :func:`corr_build_folded` (replacing ``mft_tpu/ops/corr_lookup_pallas.py
+  build_corr_pyramid_pallas``): every level of the all-pairs correlation
+  volume of all pairs, written straight into the folded (B, P, Q_l/128, 128)
+  layout; kernel ``mft_corr_build_folded_tc`` (``csrc/product_tc.cu``) for
+  bfloat16, ``mft_corr_build_folded`` (``csrc/product.cu``) for float32;
+- :func:`conv_pallas` (replacing ``mft_tpu/ops/conv_pallas.py
+  conv_pallas``): a SAME-size convolution of NCHW activations with
+  ``nn.Conv2d`` weights (Cout, Cin, kh, kw), bias and an activation in
+  float32, one cast at the end; kernel ``mft_conv_tc`` for bfloat16,
+  ``mft_conv`` for float32.
 
-Summation order. Each output is one float32 sum over k, ascending from
-0.0, of a_k * b_k: k is the channel for the volume and (channel, ky, kx), the
-weight's own memory order, for the convolution. The plain versions add one k
-at a time over whole maps, so kernel and plain version give the same bits
-(the kernels are built with -fmad=false; a product of two bfloat16 values is
-exact in float32, so for bf16 inputs the product and the sum round once
-either way). A library product or convolution sums in an order of its own.
+Summation order. Each output is one float32 sum over k of a_k * b_k: k is
+the channel for the volume and (channel, ky, kx) for the convolution. The
+plain versions add one k at a time, ascending from 0.0, over whole maps.
+
+- float32 kernels take the same order (built with -fmad=false) and give the
+  same bits as the plain versions.
+- bfloat16 kernels run on the tensor cores, which sum the exact float32
+  products in an order of their own, as the TPU's MXU did for the JAX
+  kernels. They are held to :func:`product_error_bound` instead.
 """
 
 import contextlib
@@ -35,6 +39,13 @@ _ACT_FN = {None: lambda v: v, "relu": torch.relu, "sigmoid": torch.sigmoid,
            "tanh": torch.tanh}
 MAX_LEVELS = 4
 LANES = 128   # values per row of a folded level
+K_TILE = 64   # channels per k stage of the tensor-core kernels
+MAX_TAP = 7   # largest kh, kw of the tensor-core convolution (its halo fits)
+# the error bound: per added term four times float32's unit roundoff 2^-24
+# (any order of the sum, also the tensor cores' truncating alignment), and
+# one bfloat16 ulp of the output at the value
+SUM_UNIT = 2.0 ** -22
+OUT_ULP = 2.0 ** -7
 
 
 def corr_scale(C: int) -> float:
@@ -109,6 +120,42 @@ def conv_pallas_ref(x, weight, bias, padding, act=None, out_dtype=None):
 
 
 # --------------------------------------------------------------------------- #
+# the error bound of the bfloat16 kernels
+# --------------------------------------------------------------------------- #
+def product_error_bound(want, magnitude, K: int, scale: float = 1.0):
+    """Largest |got - want| allowed for a bfloat16 product: K*2^-22*S*scale +
+    2^-7*|want|, in float32.
+
+    The products of bfloat16 values are exact in float32, so two kernels
+    differ only in the order of K float32 additions and in the last rounding.
+    Any order stays within K*2^-22*S of the exact sum, S = sum_k |a_k*b_k|
+    (``magnitude``, with ``scale`` not applied); the one rounding to the output
+    type adds an ulp at the value (2^-7 relative for bfloat16). A bias added
+    in float32 and relu, sigmoid or tanh (1-Lipschitz) keep the bound.
+    """
+    return (K * SUM_UNIT * scale) * magnitude.float() + OUT_ULP * want.float().abs()
+
+
+def corr_build_folded_magnitude(f1, f2_levels) -> list:
+    """S of every output of :func:`corr_build_folded`: per level (B, P,
+    Q_l/128, 128) float32 sums over the channels of |f1| * |f2_l|, taken in
+    float64 (no TF32) and unscaled."""
+    a = f1.abs().double().transpose(1, 2)                # (B, P, C)
+    B, P, _ = a.shape
+    return [torch.bmm(a, f2.abs().double()).float().reshape(B, P, -1, LANES)
+            for f2 in f2_levels]
+
+
+def conv_pallas_magnitude(x, weight, padding):
+    """S of every output of :func:`conv_pallas`: (B, Cout, H, W) float32 sums
+    of |x| * |w| over (channel, ky, kx), zeros outside the image, taken in
+    float64 (no TF32); no bias, no activation."""
+    (pt, pb), (pl, pr) = _check_padding(padding, *weight.shape[2:])
+    xp = F.pad(x.abs().double(), (pl, pr, pt, pb))
+    return F.conv2d(xp, weight.to(x.dtype).abs().double()).float()
+
+
+# --------------------------------------------------------------------------- #
 # kernel wrappers
 # --------------------------------------------------------------------------- #
 def _check_padding(padding, kh, kw):
@@ -127,6 +174,26 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _check_aligned(name: str, *tensors):
+    """The tensor-core kernels copy 16-byte pieces: every base address must be
+    16-byte aligned (a fresh or contiguous allocation is)."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: tensors must start at 16-byte aligned addresses")
+
+
+def conv_weight_tiles(weight):
+    """nn.Conv2d weights (Cout, Cin, kh, kw) in the bfloat16 conv kernel's
+    layout: (kh*kw, npad, cpad), tap-major, then output channel, then input
+    channel, zeros past Cout and Cin; cpad a multiple of 64, npad 8 for
+    Cout <= 8, else a multiple of 64."""
+    Cout, Cin, kh, kw = weight.shape
+    npad = 8 if Cout <= 8 else -(-Cout // K_TILE) * K_TILE
+    cpad = -(-Cin // K_TILE) * K_TILE
+    tiles = weight.new_zeros((kh * kw, npad, cpad))
+    tiles[:, :Cout, :Cin] = weight.permute(2, 3, 0, 1).reshape(kh * kw, Cout, Cin)
+    return tiles
+
+
 def corr_build_folded(f1, f2_levels) -> list:
     """All levels of the correlation volume in the folded layout, one launch.
 
@@ -137,7 +204,8 @@ def corr_build_folded(f1, f2_levels) -> list:
       are zero.
     returns: per level (B, P, Q_l/128, 128) in the features' dtype,
       value = (sum_c f1[b, c, p] * f2_l[b, c, q]) * (1/sqrt(C)), summed in
-      float32 and rounded once.
+      float32 and rounded once (bfloat16: on the tensor cores, within
+      :func:`product_error_bound` of the plain version).
     """
     if f1.device.type == "cpu":
         return corr_build_folded_ref(f1, f2_levels)
@@ -159,16 +227,29 @@ def corr_build_folded(f1, f2_levels) -> list:
     outs = [torch.empty((B, P, q // LANES, LANES), dtype=f1.dtype, device=f1.device)
             for q in qs]
     pad = [None] * (MAX_LEVELS - len(qs))
-    err = _build.library().mft_corr_build_folded(
-        f1.data_ptr(), *[f2.data_ptr() for f2 in f2_levels], *pad,
-        *[o.data_ptr() for o in outs], *pad, *qs, *[0] * len(pad), len(qs), B, C, P,
-        corr_scale(C), _DTYPE_CODE[f1.dtype], _stream(f1))
-    _build.check(err, "mft_corr_build_folded")
+    ptrs = ([f2.data_ptr() for f2 in f2_levels] + pad + [o.data_ptr() for o in outs] + pad
+            + qs + [0] * len(pad))
+    lib = _build.library()
+    if f1.dtype == torch.bfloat16:
+        # the tensor maps need rows of a multiple of 16 bytes: zero columns
+        # past P (the kernel writes rows p < P only)
+        Pp = -(-P // 8) * 8
+        f1p = F.pad(f1, (0, Pp - P)) if Pp != P else f1
+        _check_aligned("corr_build_folded", f1p, *f2_levels, *outs)
+        err = lib.mft_corr_build_folded_tc(f1p.data_ptr(), *ptrs, len(qs), B, C, P, Pp,
+                                           corr_scale(C), _stream(f1))
+        _build.check(err, "mft_corr_build_folded_tc")
+        corr_build_folded.tensor_core_launches += 1
+    else:
+        err = lib.mft_corr_build_folded(f1.data_ptr(), *ptrs, len(qs), B, C, P,
+                                        corr_scale(C), _stream(f1))
+        _build.check(err, "mft_corr_build_folded")
     corr_build_folded.launches += 1
     return outs
 
 
 corr_build_folded.launches = 0
+corr_build_folded.tensor_core_launches = 0
 
 
 def conv_pallas(x, weight, bias, padding, act=None, out_dtype=None):
@@ -178,7 +259,9 @@ def conv_pallas(x, weight, bias, padding, act=None, out_dtype=None):
       (Cout, Cin, kh, kw), used in x's dtype; bias (Cout,), used in float32;
       padding ((top, bottom), (left, right)) with top + bottom = kh - 1 and
       left + right = kw - 1; act None, 'relu', 'sigmoid' or 'tanh', applied
-      to the float32 sum plus bias before the one cast.
+      to the float32 sum plus bias before the one cast. bfloat16 runs on the
+      tensor cores (kh, kw <= 7), within :func:`product_error_bound` of the
+      plain version.
     """
     if x.device.type == "cpu":
         return conv_pallas_ref(x, weight, bias, padding, act, out_dtype)
@@ -194,18 +277,33 @@ def conv_pallas(x, weight, bias, padding, act=None, out_dtype=None):
     B, Cin, H, W = x.shape
     Cout, _, kh, kw = weight.shape
     (pt, _), (pl, _) = _check_padding(padding, kh, kw)
-    w = weight.to(x.dtype).contiguous()
     b = bias.float().contiguous()
-    if b.shape != (Cout,) or w.device != x.device or b.device != x.device:
+    if b.shape != (Cout,) or weight.device != x.device or b.device != x.device:
         raise ValueError("bias must be (Cout,) and weight, bias on x's device")
     out = torch.empty((B, Cout, H, W), dtype=out_dtype, device=x.device)
-    err = _build.library().mft_conv(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), *x.stride(), B, Cin,
-        H, W, Cout, kh, kw, pt, pl, ACTS[act], _DTYPE_CODE[x.dtype],
-        _DTYPE_CODE[out_dtype], _stream(x))
-    _build.check(err, "mft_conv")
+    lib = _build.library()
+    if x.dtype == torch.bfloat16:
+        if kh > MAX_TAP or kw > MAX_TAP:
+            raise ValueError(f"the bfloat16 conv kernel takes kh, kw <= {MAX_TAP}, "
+                             f"got {kh}x{kw}")
+        if (H - 1) * x.stride(2) + (W - 1) * x.stride(3) >= 2 ** 31:
+            raise ValueError("one image of x spans more than 2^31 elements")
+        wt = conv_weight_tiles(weight.to(x.dtype))
+        err = lib.mft_conv_tc(
+            x.data_ptr(), wt.data_ptr(), b.data_ptr(), out.data_ptr(), *x.stride(), B, Cin,
+            H, W, Cout, kh, kw, pt, pl, wt.shape[2], wt.shape[1], ACTS[act],
+            _DTYPE_CODE[out_dtype], _stream(x))
+        _build.check(err, "mft_conv_tc")
+        conv_pallas.tensor_core_launches += 1
+    else:
+        w = weight.to(x.dtype).contiguous()
+        err = lib.mft_conv(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), *x.stride(), B, Cin,
+            H, W, Cout, kh, kw, pt, pl, ACTS[act], _DTYPE_CODE[out_dtype], _stream(x))
+        _build.check(err, "mft_conv")
     conv_pallas.launches += 1
     return out
 
 
 conv_pallas.launches = 0
+conv_pallas.tensor_core_launches = 0

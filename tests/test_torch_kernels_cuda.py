@@ -271,27 +271,60 @@ def _folded_inputs(np_rng, dtype, dev, kind, B=3, H8=16, W8=32, C=40):
     return f1, f2, t(coords).contiguous()
 
 
-# The product kernels (volume build, convolution) and the folded and mixed
-# lookups do the plain versions' float ops in the same order (one ascending
-# float32 sum per output; built with -fmad=false), so they are held to
-# bit-identical results: tolerance 0.
+# The folded and mixed lookups and the float32 product kernels (volume build,
+# convolution) do the plain versions' float ops in the same order (one
+# ascending float32 sum per output; built with -fmad=false), so they are held
+# to bit-identical results: tolerance 0. The bfloat16 product kernels sum on
+# the tensor cores in their own order and are held to
+# ops.product_error_bound on every element (_assert_within_bound).
 EXACT = dict(atol=0.0, rtol=0.0)
+
+
+def _assert_within_bound(got, want, magnitude, K, scale=1.0):
+    """|got - want| <= K*2^-22*S*scale + 2^-7*|want| on every element."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    bound = ops.product_error_bound(want, magnitude, K, scale)
+    err = (got.float() - want.float()).abs()
+    ratio = float((err / bound.clamp_min(1e-30)).max())
+    assert bool((err <= bound).all()), f"max |got - want| / bound = {ratio:.3f}"
+
+
+def _check_build(f1, f2, dtype):
+    """The folded build of (f1, f2) through the kernel, one launch (on the
+    tensor cores in bf16), against the plain version."""
+    ops.reset_launch_counts()
+    got, gdims = tcorr.build_corr_pyramid_folded(f1, f2, 4)
+    assert ops.launch_counts()["corr_build_folded"] == 1
+    assert ops.tensor_core_launch_counts()["corr_build_folded"] == (dtype == "bfloat16")
+    want, wdims = tcorr.build_corr_pyramid_folded(f1, f2, 4, plain=True)
+    assert gdims == wdims
+    if dtype == "bfloat16":
+        a, f2_levels, _ = tcorr.folded_operands(f1, f2, 4)
+        mags = ops.corr_build_folded_magnitude(a, f2_levels)
+    for lvl, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == DT[dtype] and g.shape == w.shape
+        if dtype == "bfloat16":
+            _assert_within_bound(g, w, mags[lvl], f1.shape[1],
+                                 ops.product.corr_scale(f1.shape[1]))
+        else:
+            torch.testing.assert_close(g, w, **EXACT)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("dims", [(16, 32), (8, 8)])
 def test_build_folded_kernel_matches_plain(np_rng, cuda, dtype, dims):
     """All levels of all pairs in one launch; 8x8 has 64 source pixels, a
-    ragged tile, and every level in one zero-padded row."""
+    ragged tile, and every level in one zero-padded row; C = 40 is a ragged
+    k stage."""
     f1, f2, _ = _folded_inputs(np_rng, dtype, cuda, "wild", H8=dims[0], W8=dims[1])
-    ops.reset_launch_counts()
-    got, gdims = tcorr.build_corr_pyramid_folded(f1, f2, 4)
-    assert ops.launch_counts()["corr_build_folded"] == 1
-    want, wdims = tcorr.build_corr_pyramid_folded(f1, f2, 4, plain=True)
-    assert gdims == wdims
-    for g, w in zip(got, want):
-        assert g.dtype == DT[dtype] and g.shape == w.shape
-        torch.testing.assert_close(g, w, **EXACT)
+    _check_build(f1, f2, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_build_folded_kernel_full_width(np_rng, cuda, dtype):
+    """The 512x512 frame's build: 7 pairs of (256, 64, 64) features."""
+    f1, f2, _ = _folded_inputs(np_rng, dtype, cuda, "wild", B=7, H8=64, W8=64, C=256)
+    _check_build(f1, f2, dtype)
 
 
 @pytest.mark.parametrize("kind", ["wild", "local"])
@@ -335,16 +368,13 @@ CONV_SHAPES = [(64, 81, 1, 1), (48, 64, 3, 3), (16, 32, 3, 3), (32, 64, 3, 3),
                (64, 96, 1, 5), (32, 96, 5, 1), (64, 32, 3, 3), (2, 64, 3, 3)]
 
 
-@pytest.mark.parametrize("act", [None, "relu", "sigmoid", "tanh"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", CONV_SHAPES)
-def test_conv_kernel_matches_plain(np_rng, cuda, shape, dtype, act):
-    """2 images of 12x20 (ragged pixel tiles), SAME padding; the 1x1 case
-    reads a channel-last (permuted) input, as convc1 reads the lookup."""
+def _check_conv(np_rng, dev, shape, dtype, act, channel_last, H=12, W=20):
+    """One conv of 2 images through the kernel, one launch (on the tensor
+    cores in bf16), against the plain version."""
     Cout, Cin, kh, kw = shape
-    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
-    x = t(np_rng.standard_normal((2, Cin, 12, 20))).to(DT[dtype])
-    if kh == kw == 1:
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    x = t(np_rng.standard_normal((2, Cin, H, W))).to(DT[dtype])
+    if channel_last:
         x = x.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
     w = t(np_rng.standard_normal((Cout, Cin, kh, kw)) / np.sqrt(Cin * kh * kw))
     b = t(np_rng.standard_normal((Cout,)) * 0.1)
@@ -352,9 +382,49 @@ def test_conv_kernel_matches_plain(np_rng, cuda, shape, dtype, act):
     ops.reset_launch_counts()
     got = ops.conv_pallas(x, w.to(DT[dtype]), b, pad, act=act)
     assert ops.launch_counts()["conv_pallas"] == 1
+    assert ops.tensor_core_launch_counts()["conv_pallas"] == (dtype == "bfloat16")
     want = ops.conv_pallas_ref(x, w.to(DT[dtype]), b, pad, act=act)
-    assert got.dtype == DT[dtype] and got.shape == (2, Cout, 12, 20)
-    torch.testing.assert_close(got, want, **EXACT)
+    assert got.dtype == DT[dtype] and got.shape == (2, Cout, H, W)
+    if dtype == "bfloat16":
+        mag = ops.conv_pallas_magnitude(x, w.to(DT[dtype]), pad)
+        _assert_within_bound(got, want, mag, Cin * kh * kw)
+    else:
+        torch.testing.assert_close(got, want, **EXACT)
+
+
+@pytest.mark.parametrize("act", [None, "relu", "sigmoid", "tanh"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+def test_conv_kernel_matches_plain(np_rng, cuda, shape, dtype, act):
+    """2 images of 12x20 (ragged pixel tiles, rows not 16-byte aligned),
+    SAME padding; the 1x1 case reads a channel-last (permuted) input, as
+    convc1 reads the lookup; Cin = 81 is a ragged channel chunk."""
+    _check_conv(np_rng, cuda, shape, dtype, act, channel_last=shape[2] == shape[3] == 1)
+
+
+def test_conv_kernel_bf16_to_float32_output(np_rng, cuda):
+    """bf16 inputs with a float32 output (``out_dtype``): the same tensor-core
+    sum, cast once to float32, within the bound of the plain version."""
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    x = t(np_rng.standard_normal((2, 64, 12, 20))).bfloat16()
+    w = t(np_rng.standard_normal((48, 64, 3, 3)) / 24.0).bfloat16()
+    b = t(np_rng.standard_normal((48,)) * 0.1)
+    pad = ((1, 1), (1, 1))
+    ops.reset_launch_counts()
+    got = ops.conv_pallas(x, w, b, pad, act="tanh", out_dtype=torch.float32)
+    assert ops.tensor_core_launch_counts()["conv_pallas"] == 1
+    want = ops.conv_pallas_ref(x, w, b, pad, act="tanh", out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    _assert_within_bound(got, want, ops.conv_pallas_magnitude(x, w, pad), 64 * 9)
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channel_last"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,act", [((192, 256, 3, 3), "relu"), ((2, 256, 3, 3), None)])
+def test_conv_kernel_full_width(np_rng, cuda, shape, act, dtype, layout):
+    """convc2 (256 -> 192, 3x3, relu) and the flow head's 256 -> 2 at the
+    frame's 64x64 maps, 2 images, on NCHW and on channel-last inputs."""
+    _check_conv(np_rng, cuda, shape, dtype, act, layout == "channel_last", H=64, W=64)
 
 
 @pytest.mark.parametrize("key,value", [("corr_method", "fold"), ("corr_method", "mixed"),

@@ -39,9 +39,9 @@ GROUPS = (  # first match wins
     # corr_volume.cu: corr_lookup_q, _packed, _packed_i8, _folded, _mixed
     # (pixel-major), _t (lane-major)
     ("volume-form lookup", re.compile(r"pixel_major_kernel|lane_major_kernel")),
-    # product.cu
-    ("corr_build_folded", re.compile(r"build_folded_kernel")),
-    ("conv_pallas", re.compile(r"conv_kernel")),
+    # product.cu (float32) and product_tc.cu (bfloat16, tensor cores)
+    ("corr_build_folded", re.compile(r"build_folded(_tc)?_kernel")),
+    ("conv_pallas", re.compile(r"conv(_tc)?_kernel")),
     ("convolution", re.compile(r"conv|fprop|implicit|winograd|cudnn", re.I)),
     ("matrix product", re.compile(r"gemm|cutlass|xmma|cublas", re.I)),
     ("reduction", re.compile(r"reduce|softmax|norm", re.I)),
