@@ -10,9 +10,12 @@ non-zero and prints no result line):
 1. the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``mft_tpu_torch/ops/csrc`` (one bare nvcc per
    source, started together) and check that the SASS of the tensor-core
-   kernels holds HGMMA (``cuobjdump -sass``);
+   kernels holds HGMMA (``cuobjdump -sass``) and that ptxas gave every
+   instance of the staged gather (``corr_gather.cu``) a 0-byte stack frame
+   and no spills;
 3. hold each kernel against its plain PyTorch version at the main path's
-   shapes, in bf16 and f32, and time kernel and plain version (CUDA events);
+   shapes, in bf16 and f32, and time it (device time by CUDA graph replay,
+   as every kernel and library call below; the plain versions eagerly);
 3b. the same for the window-correlation kernels of corr_method 'alt' and
    'win' (no volume), on wild and on local coordinates;
 3c. the same for the lookups of the volume's other stored forms,
@@ -57,9 +60,9 @@ non-zero and prints no result line):
    kernels (K3-K5) against their plain versions on sampled pixels at that
    size;
 9. 'int8' and 'auto' at 1080x1920: init + 2 tracked frames each, their peak
-   device memory ('int8' must peak lower), and K6 against its plain version
-   on sampled pixels at that size; then phase 11's chain_select_pallas on
-   the 'auto' tracker's next 7 candidates.
+   device memory ('int8' must peak lower), K6 and K2 against their plain
+   versions on sampled pixels at that size (K2 bit for bit); then phase 11's
+   chain_select_pallas on the 'auto' tracker's next 7 candidates.
 
 Where one PyTorch call computes a kernel's function, its time is taken beside
 the kernel's as a yardstick (``library_ms``; the port never calls it):
@@ -152,14 +155,14 @@ def within(got, want, atol, rtol) -> bool:
     return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
 
 
-def grid_sample_lookup(torch, levels, coords, reps=20):
+def grid_sample_lookup(torch, levels, coords):
     """The library's yardstick for a volume lookup: ``F.grid_sample``
     (bilinear, zeros outside, align_corners=True), one call per level on the
     (B*P, 1, h_l, w_l) view of the stored level (a copy where the layout has
     no such view, as the lane-major one), sampling each pixel's (2r+1)^2
     window. The grids are made beforehand, in the levels' dtype as
-    grid_sample needs. returns: (mean ms of the calls, (B, P, L*(2r+1)^2)
-    samples in the reference's channel order)."""
+    grid_sample needs. returns: (device ms of the calls by graph replay,
+    (B, P, L*(2r+1)^2) samples in the reference's channel order)."""
     import torch.nn.functional as F
     n = 2 * RADIUS + 1
     off = torch.arange(n, dtype=torch.float32, device=coords.device) - RADIUS
@@ -178,7 +181,7 @@ def grid_sample_lookup(torch, levels, coords, reps=20):
                               mode="bilinear", padding_mode="zeros", align_corners=True)
                 for corr, g in zip(levels, grids)]
     out = torch.cat([o.reshape(Bn, Pn, n * n) for o in run()], dim=-1)
-    return cuda_ms(run, reps), out
+    return graph_ms(run), out
 
 
 # --------------------------------------------------------------------------- #
@@ -207,12 +210,19 @@ def window_tap_bytes(dims, coords, itemsize) -> int:
 
 
 def check_lookups(torch, ops, dev, card):
+    """K1 (corr_lookup_fused) and K2 (corr_lookup) against their plain
+    versions at the 512x512 slice's shapes, on uniform coordinates (some
+    windows leave the map) and on local ones (the pixel grid + U(-2, 2), the
+    tracker's windows). returns: {(kind, dtype): stats of the uniform
+    coordinates, with the local ones' time, bound and library time under
+    ``*_local``}."""
     gen = torch.Generator(device=dev).manual_seed(1)
     coords = torch.empty((B, P, 2), device=dev)
     coords.uniform_(-10.0, 74.0, generator=gen)   # some windows leave the map
     wc32 = torch.randn((len(LEVELS) * (2 * RADIUS + 1) ** 2, F), device=dev,
                        generator=gen) / 18.0
     bias = 0.1 * torch.randn((F,), device=dev, generator=gen)
+    local = lookup_coords(torch, dev, "local", torch.Generator(device=dev).manual_seed(11))
     # stated tolerances |kernel - plain| <= atol + rtol*|plain|: the samples
     # are the same float ops in the same order (bit-identical expected); the
     # fused product sums 324 terms in another order than the f32 matmul, and
@@ -225,46 +235,61 @@ def check_lookups(torch, ops, dev, card):
         pyr = [torch.randn((B, P, h, w), device=dev, generator=gen).to(dtype)
                for h, w in LEVELS]
         wc = wc32.to(dtype)
-        runs = {
-            "lookup": (lambda: ops.corr_lookup(pyr, coords, RADIUS),
-                       lambda: ops.corr_lookup_ref(pyr, coords, RADIUS)),
-            "fused": (lambda: ops.corr_lookup_fused(pyr, coords, wc, bias, RADIUS),
-                      lambda: ops.corr_lookup_fused_ref(pyr, coords, wc, bias, RADIUS)),
-        }
-        for kind, (kernel, plain) in runs.items():
-            got = kernel()
-            torch.cuda.synchronize()
-            want = plain()
-            err = max_err(got, want)
-            atol, rtol = tol[(kind, name)]
-            ok = within(got, want, atol, rtol)
-            log(f"check {kind} {name}: max_abs_err {err:.3e} "
-                f"(tolerance atol {atol} + rtol {rtol}) {'ok' if ok else 'FAIL'}")
-            check(ok, f"{kind} {name} disagrees with its plain version")
-            ms = cuda_ms(kernel, reps=20)
-            plain_ms = cuda_ms(plain, reps=3, warmup=1)
-            tap = window_tap_bytes(LEVELS, coords, pyr[0].element_size())
-            out_bytes = got.numel() * got.element_size()
-            nbytes = tap + coords.numel() * 4 + out_bytes
-            ops_n = 0
-            if kind == "fused":
-                nbytes += wc.numel() * wc.element_size() + bias.numel() * 4
-                ops_n = 2 * B * P * wc.shape[0] * F
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = ops_n / PEAK_OPS_PER_S[name] * 1e3
-            log(f"time {kind} {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-                f"bound {max(bytes_ms, ops_ms):.4f} ms ({nbytes / 1e6:.1f} MB, "
-                f"{ops_n / 1e9:.2f} GFLOP) [{card}]")
-            stats[(kind, name)] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-            if kind == "lookup":
-                lib_ms, lib = grid_sample_lookup(torch, pyr, coords)
-                log(f"library lookup {name}: F.grid_sample per level {lib_ms:.4f} ms, "
-                    f"max_abs_err to the plain version {max_err(lib, want):.3e} "
-                    f"(its grid is in the volume dtype) [{card}]")
-                stats[(kind, name)]["library_ms"] = lib_ms
+        for kind in ("lookup", "fused"):
+            for where, c in (("uniform", coords), ("local", local)):
+                if kind == "lookup":
+                    kernel = lambda: ops.corr_lookup(pyr, c, RADIUS)
+                    plain = lambda: ops.corr_lookup_ref(pyr, c, RADIUS)
+                else:
+                    kernel = lambda: ops.corr_lookup_fused(pyr, c, wc, bias, RADIUS)
+                    plain = lambda: ops.corr_lookup_fused_ref(pyr, c, wc, bias, RADIUS)
+                got = kernel()
+                torch.cuda.synchronize()
+                want = plain()
+                err = max_err(got, want)
+                atol, rtol = tol[(kind, name)]
+                ok = within(got, want, atol, rtol)
+                log(f"check {kind} {name} {where}: max_abs_err {err:.3e} "
+                    f"(tolerance atol {atol} + rtol {rtol}) {'ok' if ok else 'FAIL'}")
+                check(ok, f"{kind} {name} {where} disagrees with its plain version")
+                call_ms = cuda_ms(kernel, reps=20)     # with the wrapper's host cost
+                ms = graph_ms(kernel)
+                plain_ms = cuda_ms(plain, reps=3, warmup=1)
+                tap = window_tap_bytes(LEVELS, c, pyr[0].element_size())
+                out_bytes = got.numel() * got.element_size()
+                nbytes = tap + c.numel() * 4 + out_bytes
+                ops_n = 0
+                if kind == "fused":
+                    nbytes += wc.numel() * wc.element_size() + bias.numel() * 4
+                    ops_n = 2 * B * P * wc.shape[0] * F
+                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                ops_ms = ops_n / PEAK_OPS_PER_S[name] * 1e3
+                bound = max(bytes_ms, ops_ms)
+                log(f"time {kind} {name} {where}: kernel {ms:.4f} ms (graph replay; "
+                    f"{call_ms:.4f} ms a call from Python), plain {plain_ms:.3f} ms, "
+                    f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
+                    f"{ops_n / 1e9:.2f} GFLOP) [{card}]")
+                lib_ms = None
+                if kind == "lookup":
+                    lib_ms, lib = grid_sample_lookup(torch, pyr, c)
+                    log(f"library lookup {name} {where}: F.grid_sample per level "
+                        f"{lib_ms:.4f} ms (graph replay), max_abs_err to the plain "
+                        f"version {max_err(lib, want):.3e} (its grid is in the volume "
+                        f"dtype) [{card}]")
+                    del lib
+                if where == "uniform":
+                    stats[(kind, name)] = dict(
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                        bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+                    if lib_ms is not None:
+                        stats[(kind, name)]["library_ms"] = lib_ms
+                else:
+                    st = stats[(kind, name)]
+                    st["max_abs_err"] = max(st["max_abs_err"], err)
+                    st.update(ms_local=ms, bound_ms_local=bound)
+                    if lib_ms is not None:
+                        st["library_ms_local"] = lib_ms
+                del got, want
         del pyr
     return stats
 
@@ -323,11 +348,11 @@ def check_chain_select(torch, ops, dev, card):
         f"sigma {errs[2]:.3e} (tolerance atol {tols} + rtol 1e-6) "
         f"{'ok' if ok else 'FAIL'}")
     check(ok, "chain_select disagrees with its plain version")
-    ms = cuda_ms(lambda: ops.chain_select(*maps), reps=50)
+    ms = graph_ms(lambda: ops.chain_select(*maps))
     plain_ms = cuda_ms(lambda: ops.chain_select_ref(*maps), reps=5, warmup=1)
     nbytes = chain_select_bytes(torch, maps)
     bound = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"time chain_select: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+    log(f"time chain_select: kernel {ms:.4f} ms (graph replay), plain {plain_ms:.3f} ms, "
         f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB) [{card}]")
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by="bytes")
@@ -425,8 +450,9 @@ def check_feature_kernels(torch, ops, dev, card):
                 log(f"check {kname} {name} {kind}: max_abs_err {err:.3e} (tolerance "
                     f"atol {atol} + rtol {rtol}) {'ok' if ok else 'FAIL'}{staged}")
                 check(ok, f"{kname} {name} {kind} disagrees with its plain version")
-                ms = cuda_ms(kernel, reps=20)
-                log(f"time {kname} {name} {kind}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+                ms = graph_ms(kernel)
+                log(f"time {kname} {name} {kind}: kernel {ms:.4f} ms (graph replay), plain "
+                    f"{plain_ms:.3f} ms, "
                     f"bound {max(bytes_ms, ops_ms):.4f} ms ({nbytes / 1e6:.1f} MB, "
                     f"{ops_n / 1e9:.2f} GFLOP) [{card}]")
                 stats[(kname, name, kind)] = dict(
@@ -507,12 +533,13 @@ def check_volume_kernels(torch, ops, dev, card):
                 log(f"check {label} {kind}: max_abs_err {err:.3e} (tolerance atol "
                     f"{VOLUME_TOL[0]} + rtol {VOLUME_TOL[1]}) {'ok' if ok else 'FAIL'}")
                 check(ok, f"{label} {kind} disagrees with its plain version")
-                ms = cuda_ms(kernel, reps=20)
+                ms = graph_ms(kernel)
                 plain_ms = cuda_ms(plain, reps=3, warmup=1)
                 nbytes = (window_tap_bytes(LEVELS, c, itemsize) + c.numel() * 4
                           + scale_bytes + got.numel() * got.element_size())
                 bound = nbytes / HBM_BYTES_PER_S * 1e3
-                log(f"time {label} {kind}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+                log(f"time {label} {kind}: kernel {ms:.4f} ms (graph replay), plain "
+                    f"{plain_ms:.3f} ms, "
                     f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB) [{card}]")
                 stats[(kname, name, kind)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                                   bound_ms=bound, bound_by="bytes")
@@ -520,7 +547,8 @@ def check_volume_kernels(torch, ops, dev, card):
                     views = (tcorr.unpack_levels(stored[1], stored[2]) if method == "packed"
                              else [lvl.movedim(3, 1) for lvl in stored[1]])
                     lib_ms, lib = grid_sample_lookup(torch, views, c)
-                    log(f"library {label} {kind}: F.grid_sample per level {lib_ms:.4f} ms, "
+                    log(f"library {label} {kind}: F.grid_sample per level {lib_ms:.4f} ms "
+                        f"(graph replay), "
                         f"max_abs_err to the plain version {max_err(lib, want):.3e} [{card}]")
                     stats[(kname, name, kind)]["library_ms"] = lib_ms
                 del got, want
@@ -647,14 +675,14 @@ def check_fold_kernels(torch, ops, dev, card):
                 torch.cuda.synchronize()
                 want = plain()
                 err = exact_check(torch, f"{kname} {name} {kind}", got, want)
-                ms = cuda_ms(kernel, reps=20)
+                ms = graph_ms(kernel)
                 plain_ms = cuda_ms(plain, reps=3, warmup=1)
                 lib_ms, lib = grid_sample_lookup(torch, views[kname], c)
                 nbytes = (window_tap_bytes(LEVELS, c, es) + c.numel() * 4
                           + got.numel() * got.element_size())
                 bound = nbytes / HBM_BYTES_PER_S * 1e3
-                log(f"time {kname} {name} {kind}: kernel {ms:.4f} ms, plain {plain_ms:.3f} "
-                    f"ms, F.grid_sample per level {lib_ms:.4f} ms (max_abs_err "
+                log(f"time {kname} {name} {kind}: kernel {ms:.4f} ms (graph replay), plain "
+                    f"{plain_ms:.3f} ms, F.grid_sample per level {lib_ms:.4f} ms (max_abs_err "
                     f"{max_err(lib, want):.3e}), bound {bound:.4f} ms "
                     f"({nbytes / 1e6:.1f} MB) [{card}]")
                 stats[(kname, name, kind)] = dict(
@@ -1022,6 +1050,28 @@ def check_sass(_build, path):
               f"{kernel}: no HGMMA in the SASS of some instance ({found})")
 
 
+def check_frames(_build, kernel="corr_gather_kernel", instances=8):
+    """ptxas (``-Xptxas=-v`` in ``_build.build_log``) gives every instance of
+    ``kernel`` (radius 1..4, f32 and bf16) a 0-byte stack frame and no
+    spills."""
+    import re
+    lines = _build.build_log.splitlines()
+    found = {}
+    for k, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m and kernel in m.group(1):
+            nums = None
+            for nxt in lines[k + 1:k + 4]:   # the function's properties line
+                nums = nums or re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                                         r"stores, (\d+) bytes spill loads", nxt)
+            found[m.group(1)] = tuple(map(int, nums.groups())) if nums else None
+    log(f"ptxas {kernel}: {len(found)} instances, (stack frame, spill stores, spill "
+        f"loads) bytes {sorted(set(found.values()), key=str)}")
+    check(len(found) == instances and all(v == (0, 0, 0) for v in found.values()),
+          f"{kernel}: want {instances} instances with 0-byte stack frames and no "
+          f"spills, ptxas says {found}")
+
+
 def expected_counts(ops, **counts):
     want = {name: 0 for name in ops.launch_counts()}
     want.update(counts)
@@ -1372,8 +1422,38 @@ def check_q_kernel_hd(torch, ops, dev, card, H8, W8, n_sample=4096):
     torch.cuda.empty_cache()
 
 
+def check_lookup_hd(torch, ops, dev, card, H8, W8, n_sample=4096):
+    """K2 (the staged gather) on a whole (7, H8*W8) call of the bf16 volume of
+    random features, whose levels' rows (w = 240, 120, 60, 30) are no
+    multiple of 16 bytes, held bit for bit against its plain version on
+    ``n_sample`` sampled pixels of each pair."""
+    from mft_tpu_torch.models.raft import corr as tcorr
+    gen = torch.Generator(device=dev).manual_seed(13)
+    f1 = torch.randn((B, FEAT_C, H8, W8), device=dev, generator=gen).to(torch.bfloat16)
+    f2 = torch.randn((B, FEAT_C, H8, W8), device=dev, generator=gen).to(torch.bfloat16)
+    pyr = tcorr.build_corr_pyramid(f1, f2, len(LEVELS))
+    del f1, f2
+    for kind in ("local", "uniform"):
+        coords = lookup_coords(torch, dev, kind, gen, H8, W8)
+        idx = torch.randperm(H8 * W8, device=dev, generator=gen)[:n_sample]
+        kernel = lambda: ops.corr_lookup(pyr, coords, RADIUS)
+        got = kernel()[:, idx]
+        torch.cuda.synchronize()
+        want = ops.corr_lookup_ref([lvl[:, idx].contiguous() for lvl in pyr],
+                                   coords[:, idx].contiguous(), RADIUS)
+        err = exact_check(torch, f"corr_lookup bfloat16 {kind} at {H8}x{W8} (7 pairs, levels "
+                                 f"{[tuple(lvl.shape[2:]) for lvl in pyr]}), {n_sample} sampled "
+                                 f"pixels per pair", got, want)
+        ms = graph_ms(kernel, reps=5)
+        log(f"time corr_lookup bfloat16 {kind} at {H8}x{W8}: kernel {ms:.4f} ms (graph replay), "
+            f"max_abs_err {err:.3e} [{card}]")
+        del got, want
+    del pyr
+    torch.cuda.empty_cache()
+
+
 def run_hd(torch, ops, dev, card, H=1080, W=1920):
-    """Phase 9: 'int8' and 'auto' at 1080x1920, then K6 at that size."""
+    """Phase 9: 'int8' and 'auto' at 1080x1920, then K6 and K2 at that size."""
     from mft_tpu_torch.tracker import MFT
     H8, W8 = H // 8, W // 8
     frames = synthetic_clip(UHD_FRAMES + 1, H=H, W=W)   # the last: phase 11's frame
@@ -1416,6 +1496,7 @@ def run_hd(torch, ops, dev, card, H=1080, W=1920):
           f"{peaks['auto'] / 1e9:.2f} GB at {H}x{W}")
     torch.cuda.empty_cache()
     check_q_kernel_hd(torch, ops, dev, card, H8, W8)
+    check_lookup_hd(torch, ops, dev, card, H8, W8)
     return warp_launches
 
 
@@ -1461,6 +1542,7 @@ def run() -> int:
 
     try:
         check_sass(_build, path)
+        check_frames(_build)
         t = time.perf_counter()
         lk = check_lookups(torch, ops, dev, card)
         cs = check_chain_select(torch, ops, dev, card)
@@ -1530,7 +1612,7 @@ def run() -> int:
              replaces="mft_tpu/ops/corr_lookup_pallas.py:281",
              launches=counts["corr_lookup_fused"], **lk[("fused", "bfloat16")],
              library_ms=None),
-        dict(name="corr_lookup", route="cuda", source=src + "corr_lookup.cu",
+        dict(name="corr_lookup", route="cuda", source=src + "corr_gather.cu",
              replaces="mft_tpu/ops/corr_lookup_pallas.py:168",
              launches=counts["corr_lookup"], **lk[("lookup", "bfloat16")]),
         dict(name="chain_select", route="cuda", source=src + "chain_select.cu",
@@ -1552,10 +1634,13 @@ def run() -> int:
                             replaces=f"mft_tpu/ops/corr_lookup_pallas.py:{line}",
                             launches=counts[kname], **{"library_ms": None,
                                                        **vk[(kname, "bfloat16", "uniform")]}))
-    for kname, line in (("corr_lookup_folded", 456), ("corr_lookup_mixed", 1028)):
-        kernels.append(dict(name=kname, route="cuda", source=src + "corr_volume.cu",
+    for kname, line, source in (("corr_lookup_folded", 456, "corr_volume.cu"),
+                                ("corr_lookup_mixed", 1028, "corr_gather.cu")):
+        local = fo[(kname, "bfloat16", "local")]
+        kernels.append(dict(name=kname, route="cuda", source=src + source,
                             replaces=f"mft_tpu/ops/corr_lookup_pallas.py:{line}",
-                            launches=counts[kname], **fo[(kname, "bfloat16", "uniform")]))
+                            launches=counts[kname], **fo[(kname, "bfloat16", "uniform")],
+                            ms_local=local["ms"], library_ms_local=local["library_ms"]))
     # the bf16 products on the tensor cores (their f32 versions, product.cu,
     # run on no path)
     kernels.append(dict(name="corr_build_folded_tc", route="cuda",

@@ -59,7 +59,7 @@ SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 build_seconds = None  # wall time of the build (or load) that made the library
-build_log = ""        # nvcc's messages of that build (empty if it was cached)
+build_log = ""        # nvcc's messages of the build that made the library
 
 
 def find_nvcc() -> str:
@@ -103,7 +103,9 @@ def build() -> Path:
     """Compile all kernel sources into one shared library (if not yet built)."""
     global build_log
     out = library_path()
+    log_path = out.with_suffix(".log")
     if out.exists():
+        build_log = log_path.read_text() if log_path.exists() else ""
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}.tmp"
@@ -115,6 +117,7 @@ def build() -> Path:
                         for src, obj in zip(sources(), objs)])
         log += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
                           *map(str, objs)]])
+        log_path.write_text(log)
         os.replace(tmp, out)
     finally:
         tmp.unlink(missing_ok=True)

@@ -5,7 +5,8 @@ uses its plain PyTorch version on a CPU tensor:
 
 - :func:`corr_lookup` (kernel ``mft_corr_lookup``, replacing
   ``mft_tpu/ops/corr_lookup_pallas.py corr_lookup_pallas``) returns the
-  (B, P, L*(2r+1)^2) bilinear window samples in the volume dtype;
+  (B, P, L*(2r+1)^2) bilinear window samples in the volume dtype, through
+  the staged per-pixel gather of ``csrc/corr_gather.cu``;
 - :func:`corr_lookup_fused` (kernel ``mft_corr_lookup_conv``, replacing
   ``corr_lookup_pallas_fused``) returns relu(samples @ wc + bias), (B, P, F)
   in the volume dtype, with the samples rounded through the volume dtype and
@@ -22,16 +23,18 @@ uses its plain PyTorch version on a CPU tensor:
   :func:`corr_lookup_t` (``mft_corr_lookup_t``, replacing
   ``corr_lookup_pallas_t``) from lane-major (B, h_l, w_l, P) levels. The int8
   forms return bfloat16 samples, the others the volume dtype;
-- two lookups of the same samples from folded levels (kernels in
-  ``csrc/corr_volume.cu``): :func:`corr_lookup_folded`
-  (``mft_corr_lookup_folded``, replacing ``corr_lookup_pallas_folded``) from
+- two lookups of the same samples from folded levels:
+  :func:`corr_lookup_folded` (``mft_corr_lookup_folded`` in
+  ``csrc/corr_volume.cu``, replacing ``corr_lookup_pallas_folded``) from
   (B, P, rows_l, 128) levels, lane u*w + x of row q holding image row
   q*fold + u, the smallest levels one zero-padded row; and
-  :func:`corr_lookup_mixed` (``mft_corr_lookup_mixed``, replacing
-  ``corr_lookup_pallas_mixed``) from folded big levels followed by plain
-  (B, P, h_l, w_l) ones. Where fold*w = 128 a folded level is its dense map
-  under another shape (value (y, x) is element y*w + x), so both address the
-  levels with strides and sample as :func:`corr_lookup` does.
+  :func:`corr_lookup_mixed` (``mft_corr_lookup_mixed`` in
+  ``csrc/corr_gather.cu``, replacing ``corr_lookup_pallas_mixed``) from
+  folded big levels followed by plain (B, P, h_l, w_l) ones. Where
+  fold*w = 128 a folded level is its dense map under another shape (value
+  (y, x) is element y*w + x): the folded lookup addresses the levels with
+  strides, and the mixed one hands their dense views to :func:`corr_lookup`'s
+  gather. The two gather kernels take radius 1..4.
 
 Layouts are those of the JAX kernels: the pyramid is a list of (B, P, h_l, w_l)
 maps (f32 or bf16), coords (B, P, 2) float32 (x, y) centres at level-0 scale.
@@ -51,6 +54,7 @@ from mft_tpu_torch.core.interp import sample_stacked
 from mft_tpu_torch.ops import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+GATHER_MAX_RADIUS = 4   # corr_gather.cu's kernels are compiled for radius 1..4
 
 
 def unpack_levels(packed: torch.Tensor, dims) -> list:
@@ -249,11 +253,18 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _check_gather_radius(radius: int):
+    if not 1 <= radius <= GATHER_MAX_RADIUS:
+        raise ValueError(f"the gather kernel takes radius 1..{GATHER_MAX_RADIUS}, "
+                         f"got {radius}")
+
+
 def corr_lookup(pyramid, coords, radius: int = 4) -> torch.Tensor:
     """Window lookup: (B, P, L*(2r+1)^2) samples in the volume dtype."""
     if coords.device.type == "cpu":
         return corr_lookup_ref(pyramid, coords, radius)
     _require_cuda(coords, "corr_lookup")
+    _check_gather_radius(radius)
     dt, B, P, ptrs, hw = _check_levels(pyramid, coords, tuple(_DTYPE_CODE))
     C = _channels(len(pyramid), radius)
     out = torch.empty((B, P, C), dtype=dt, device=coords.device)
@@ -436,6 +447,7 @@ def corr_lookup_mixed(folded, fdims, padded, coords, radius: int = 4) -> torch.T
     if coords.device.type == "cpu":
         return corr_lookup_mixed_ref(folded, fdims, padded, coords, radius)
     _require_cuda(coords, "corr_lookup_mixed")
+    _check_gather_radius(radius)
     levels = unfold_levels(folded, fdims) + list(padded)
     if folded:
         _check_folded(folded, fdims, coords, tuple(_DTYPE_CODE), dense_only=True)

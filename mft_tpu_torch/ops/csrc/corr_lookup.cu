@@ -1,12 +1,10 @@
-// RAFT correlation-pyramid window lookup for Hopper (sm_90a), two entry points.
+// RAFT correlation-pyramid window lookup fused with convc1, for Hopper (sm_90a).
 //
-// mft_corr_lookup       replaces mft_tpu/ops/corr_lookup_pallas.py
-//                       corr_lookup_pallas (_kernel_pixel_major): per pixel, a
-//                       bilinear zero-padded (2r+1)^2 window from each level of
-//                       its own (h_l, w_l) correlation map, written (B, P, L*(2r+1)^2)
-//                       in the volume dtype.
-// mft_corr_lookup_conv  replaces corr_lookup_pallas_fused
-//                       (_kernel_pixel_major_fused): the same samples, rounded
+// mft_corr_lookup_conv  replaces mft_tpu/ops/corr_lookup_pallas.py
+//                       corr_lookup_pallas_fused (_kernel_pixel_major_fused):
+//                       per pixel, a bilinear zero-padded (2r+1)^2 window from
+//                       each level of its own (h_l, w_l) correlation map (the
+//                       samples of mft_corr_lookup, corr_gather.cu), rounded
 //                       through the volume dtype, then relu(samples @ Wc + b),
 //                       the motion encoder's 324->256 1x1 convc1, accumulated in
 //                       f32 and written (B, P, F) in the volume dtype.
@@ -23,16 +21,14 @@
 // form adds 2*324*256 operations per pixel (4.75 GFLOP per launch at the slice),
 // which would take about 5 us on the tensor cores.
 //
-// What the design does about it. One thread per output sample in the plain
-// lookup; the four taps of neighbouring window cells share L1 lines. The
-// fused kernel stages a tile of 32 pixels' samples in shared memory (k-major,
-// so the 32 pixel values of one k are one broadcast read of 8 float4) and each
-// of 256 threads owns one output channel, walking k with 32 f32 FMAs per
-// weight it reads. This is the simple form: the contraction runs on the CUDA
+// What the design does about it. The kernel stages a tile of 32 pixels'
+// samples in shared memory (k-major, so the 32 pixel values of one k are one
+// broadcast read of 8 float4) and each of 256 threads owns one output
+// channel, walking k with 32 f32 FMAs per weight it reads. This is the simple form: the contraction runs on the CUDA
 // cores, not the tensor cores, and is the first thing to move to wgmma.
 //
 // Arithmetic is written in the order of the plain PyTorch version
-// (ops/corr_lookup.py) and built with -fmad=false, so the lookup samples are
+// (ops/corr_lookup.py) and built with -fmad=false, so the window samples are
 // bit-identical to it; only the fused contraction's sum order differs.
 
 #include <cuda_runtime.h>
@@ -98,19 +94,6 @@ __device__ float window_sample(const Pyramid& pyr, long bp, float cx, float cy,
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-lookup_kernel(Pyramid pyr, const float* __restrict__ coords, T* __restrict__ out,
-              long total, int C, int radius) {
-  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const long bp = idx / C;
-  const int k = (int)(idx - bp * C);
-  const float cx = coords[2 * bp];
-  const float cy = coords[2 * bp + 1];
-  out[idx] = from_f32<T>(window_sample<T>(pyr, bp, cx, cy, k, radius));
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
 lookup_conv_kernel(Pyramid pyr, const float* __restrict__ coords,
                    const T* __restrict__ wc, const float* __restrict__ bias,
                    T* __restrict__ out, long BP, int C, int F, int radius) {
@@ -170,16 +153,6 @@ Pyramid make_pyramid(const void* l0, const void* l1, const void* l2, const void*
 }
 
 template <typename T>
-cudaError_t launch_lookup(const Pyramid& pyr, const float* coords, void* out, long BP,
-                          int C, int radius, cudaStream_t stream) {
-  const long total = BP * C;
-  const long blocks = (total + kThreads - 1) / kThreads;
-  lookup_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      pyr, coords, static_cast<T*>(out), total, C, radius);
-  return cudaGetLastError();
-}
-
-template <typename T>
 cudaError_t launch_lookup_conv(const Pyramid& pyr, const float* coords, const void* wc,
                                const float* bias, void* out, long BP, int C, int F,
                                int radius, cudaStream_t stream) {
@@ -199,24 +172,7 @@ cudaError_t launch_lookup_conv(const Pyramid& pyr, const float* coords, const vo
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Levels beyond num_levels are ignored
-// (their pointers may be null). hw holds (h_l, w_l) for 4 levels.
-extern "C" int mft_corr_lookup(void* out, const void* coords, const void* l0,
-                               const void* l1, const void* l2, const void* l3,
-                               int h0, int w0, int h1, int w1, int h2, int w2,
-                               int h3, int w3, int num_levels, long BP, int radius,
-                               int dtype, void* stream) {
-  const int hw[2 * kMaxLevels] = {h0, w0, h1, w1, h2, w2, h3, w3};
-  if (num_levels < 1 || num_levels > kMaxLevels) return (int)cudaErrorInvalidValue;
-  const Pyramid pyr = make_pyramid(l0, l1, l2, l3, hw);
-  const int n = 2 * radius + 1;
-  const int C = num_levels * n * n;
-  const float* c = static_cast<const float*>(coords);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return (int)launch_lookup<__nv_bfloat16>(pyr, c, out, BP, C, radius, s);
-  if (dtype == 0) return (int)launch_lookup<float>(pyr, c, out, BP, C, radius, s);
-  return (int)cudaErrorInvalidValue;
-}
-
+// (their pointers may be null); (h_l, w_l) are given for 4 levels.
 extern "C" int mft_corr_lookup_conv(void* out, const void* coords, const void* wc,
                                     const void* bias, const void* l0, const void* l1,
                                     const void* l2, const void* l3, int h0, int w0,

@@ -18,11 +18,9 @@
 //                            row q holding image row q*fold + u (fold = 128/w);
 //                            a level of fewer than 128 values fills the first
 //                            h_l*w_l lanes of its one zero-padded row.
-// mft_corr_lookup_mixed      replaces corr_lookup_pallas_mixed (_kernel_mixed):
-//                            folded big levels, then plain (B, P, h_l, w_l) ones.
 //
 // Each writes the same (B, P, L*(2r+1)^2) window samples as mft_corr_lookup
-// (corr_lookup.cu): per pixel, a bilinear zero-padded (2r+1)^2 window from
+// (corr_gather.cu): per pixel, a bilinear zero-padded (2r+1)^2 window from
 // each level of its own correlation map, channel k = l*(2r+1)^2 + i*(2r+1) + j
 // sampled at (x/2^l + i - r, y/2^l + j - r). A tap outside its level's own
 // h_l x w_l map is zero: in the packed map a tap never reads the columns of a
@@ -50,8 +48,9 @@
 //
 // A folded level whose rows hold whole image rows (fold*w = 128) is its
 // dense (h_l, w_l) map under another shape: value (y, x) is element y*w + x.
-// So the folded and mixed forms need only their strides, not the TPU's
-// per-fold dots, and reuse the pixel-major gather.
+// So the folded form needs only its strides, not the TPU's per-fold dots,
+// and reuses the pixel-major gather (the mixed form, whose levels are all
+// dense, is corr_gather.cu's mft_corr_lookup_mixed).
 //
 // Arithmetic is written in the order of the plain PyTorch versions
 // (ops/corr_lookup.py) and built with -fmad=false, so each kernel is
@@ -364,27 +363,6 @@ extern "C" int mft_corr_lookup_folded(void* out, const void* coords, const void*
   const int hw[2 * kMaxLevels] = {h0, w0, h1, w1, h2, w2, h3, w3};
   const int rows[kMaxLevels] = {r0, r1, r2, r3};
   const Layout lay = folded_levels(lv, hw, rows, num_levels, P);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return (int)launch_pixel_major<__nv_bfloat16, __nv_bfloat16>(lay, coords, out, B, P,
-                                                                  radius, s);
-  if (dtype == 0)
-    return (int)launch_pixel_major<float, float>(lay, coords, out, B, P, radius, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// Levels in their order in the pyramid: the folded ones (fold*w = 128, so
-// dense) first, then the plain (B, P, h_l, w_l) ones; both are addressed as
-// dense maps.
-extern "C" int mft_corr_lookup_mixed(void* out, const void* coords, const void* l0,
-                                     const void* l1, const void* l2, const void* l3,
-                                     int h0, int w0, int h1, int w1, int h2, int w2,
-                                     int h3, int w3, int num_levels, int B, int P,
-                                     int radius, int dtype, void* stream) {
-  if (bad_levels(num_levels)) return (int)cudaErrorInvalidValue;
-  const void* lv[kMaxLevels] = {l0, l1, l2, l3};
-  const int hw[2 * kMaxLevels] = {h0, w0, h1, w1, h2, w2, h3, w3};
-  const Layout lay = pixel_major_levels(lv, hw, num_levels, P);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return (int)launch_pixel_major<__nv_bfloat16, __nv_bfloat16>(lay, coords, out, B, P,

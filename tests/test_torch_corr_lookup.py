@@ -77,6 +77,60 @@ def test_lookup_plain_matches_mxu_and_pallas_f32(rng):
     np.testing.assert_allclose(got, pallas, atol=2e-5, rtol=2e-5)
 
 
+def _window_samples_np(level, coords, radius):
+    """float32 numpy model of one level's window samples, every operation
+    rounded where the plain version rounds it: x = c/2^l + (i - r), taps at
+    floor(x) and floor(x) + 1, zeros outside the map, the four weighted taps
+    summed in order."""
+    B_, P_, h, w = level.shape
+    off = np.arange(-radius, radius + 1, dtype=np.float32)
+    x = (coords[..., 0, None, None] + off[:, None]).astype(np.float32)   # i offsets x
+    y = (coords[..., 1, None, None] + off[None, :]).astype(np.float32)
+    x0, y0 = np.floor(x), np.floor(y)
+    wx, wy = x - x0, y - y0
+    one = np.float32(1.0)
+    flat = level.reshape(B_ * P_, h * w)
+    pix = np.arange(B_ * P_).reshape(B_, P_, 1, 1)
+
+    def tap(xi, yi):
+        ok = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        idx = np.clip(yi, 0, h - 1).astype(np.int64) * w + np.clip(xi, 0, w - 1).astype(np.int64)
+        return np.where(ok, flat[pix, idx], np.float32(0.0))
+
+    acc = tap(x0, y0) * ((one - wx) * (one - wy))
+    acc = acc + tap(x0 + 1, y0) * (wx * (one - wy))
+    acc = acc + tap(x0, y0 + 1) * ((one - wx) * wy)
+    acc = acc + tap(x0 + 1, y0 + 1) * (wx * wy)
+    return acc.reshape(B_, P_, -1)
+
+
+def test_lookup_plain_at_round_up_positions(rng):
+    """Coordinates c with c/2^l = nextafter(m, -inf) for integers m != 0: for
+    the window offsets k that carry |m + k| past a power of two, c/2^l + k
+    rounds up to the integer m + k, so that sample's taps start one column
+    (row) past floor(c/2^l) + k, the margin a kernel's staged tap box must
+    keep. The port's plain lookup samples there as JAX's Pallas kernel does
+    (f32, 2e-5, as above) and equals the float32 model of the positions
+    rounded as written, bit for bit."""
+    pyr, _, _, _ = _inputs(rng, jnp.float32)
+    m = rng.integers(-3, 11, (B, P, 2))
+    m = np.where(m >= 0, m + 1, m).astype(np.float32)
+    level = rng.integers(0, 4, (B, P, 1)).astype(np.float32)
+    coords = (np.nextafter(m, np.float32(-np.inf)) * np.float32(2.0) ** level).astype(np.float32)
+    off = np.arange(-R, R + 1, dtype=np.float32)
+    ups = sum(int((np.floor((coords / np.float32(2.0 ** l))[..., None] + off)
+                   != np.floor(coords / np.float32(2.0 ** l))[..., None] + off).sum())
+              for l in range(4))
+    assert ups > 0
+    got = ops.corr_lookup_ref(_torch_pyr(pyr, "float32"), torch.from_numpy(coords), R).numpy()
+    pallas = np.asarray(corr_lookup_pallas([jnp.asarray(l) for l in pyr],
+                                           jnp.asarray(coords), R, tile_p=64))
+    np.testing.assert_allclose(got, pallas, atol=2e-5, rtol=2e-5)
+    model = np.concatenate([_window_samples_np(l, coords / np.float32(2.0 ** i), R)
+                            for i, l in enumerate(pyr)], axis=-1)
+    np.testing.assert_array_equal(got, model)
+
+
 def test_lookup_plain_matches_pallas_bf16(rng):
     """bf16: the Pallas kernel rounds its tent weights and row contraction to
     bf16, the port samples exactly and rounds once: a few bf16 ulps of
@@ -117,6 +171,19 @@ def test_wrappers_use_plain_version_on_cpu(rng):
                        ops.corr_lookup_fused_ref(tp, tc, tw, tb, R))
     assert ops.launch_counts() == {k.__name__: 0 for k in ops.KERNELS}
     assert len(ops.KERNELS) == 14
+
+
+@pytest.mark.parametrize("radius", [0, 1, 4, 5])
+def test_gather_radius_is_checked(radius):
+    """The gather kernel (corr_gather.cu) is compiled for radius 1..4; its
+    wrappers refuse any other radius before they launch."""
+    from mft_tpu_torch.ops.corr_lookup import GATHER_MAX_RADIUS, _check_gather_radius
+    assert GATHER_MAX_RADIUS == 4
+    if 1 <= radius <= 4:
+        _check_gather_radius(radius)
+    else:
+        with pytest.raises(ValueError, match="radius 1..4"):
+            _check_gather_radius(radius)
 
 
 def test_wrappers_refuse_other_devices(rng):

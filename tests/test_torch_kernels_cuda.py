@@ -362,6 +362,136 @@ def test_mixed_lookup_kernel_matches_plain(np_rng, cuda, dtype, dims):
     torch.testing.assert_close(got, want, **EXACT)
 
 
+def round_up_coords(np_rng, n, level, lo=-3, hi=12):
+    """(n, 2) level-0 coords c with c/2^level = nextafter(m, -inf) for
+    integers m != 0 in [lo, hi): c/2^level + k rounds up to the integer m + k
+    for the window offsets k that carry |m + k| past a power of two, so
+    floor(c/2^level + k) is floor(c/2^level) + k + 1 there."""
+    m = np_rng.integers(lo, hi - 1, (n, 2))
+    m = np.where(m >= 0, m + 1, m).astype(np.float32)
+    return np.nextafter(m, np.float32(-np.inf)) * np.float32(2.0 ** level)
+
+
+def _gather_coords(np_rng, B, P, dims, radius):
+    """(B, P, 2) level-0 coords for the levels ``dims``: a third of the pixels
+    uniform over the map and well beyond it (windows wholly outside at every
+    level, or partly), a third on the pixel grid + U(-2, 2), a third at
+    coordinates whose window positions round up to an integer at some level
+    (the staged box's margin)."""
+    h0, w0 = dims[0]
+    span = (radius + 3) * 2 ** len(dims)
+    c = np.empty((B * P, 2), np.float32)
+    k = np.arange(B * P) % 3
+    n0, n1, n2 = (int((k == v).sum()) for v in range(3))
+    c[k == 0] = np_rng.uniform((-span, -span), (w0 + span, h0 + span), (n0, 2))
+    g = np.stack([np_rng.integers(0, w0, n1), np_rng.integers(0, h0, n1)], -1)
+    c[k == 1] = g + np_rng.uniform(-2, 2, (n1, 2))
+    c[k == 2] = np.concatenate([round_up_coords(np_rng, 1, int(l)) for l in
+                                np_rng.integers(0, len(dims), n2)])
+    return c.reshape(B, P, 2)
+
+
+def _assert_rounds_up(coords, num_levels, radius):
+    """Some window position of these coords rounds up to an integer."""
+    c = coords.reshape(-1, 2).astype(np.float32)
+    off = np.arange(-radius, radius + 1, dtype=np.float32)
+    ups = 0
+    for l in range(num_levels):
+        a = c / np.float32(2.0 ** l)
+        pos = a[:, :, None] + off                         # float32 adds
+        ups += int((np.floor(pos) != np.floor(a)[:, :, None] + off).sum())
+    assert ups > 0
+
+
+# level dims of the gather's edge cases: rows of 30 and 15 values (60 and 30
+# bytes in bf16, 120 and 60 in f32: no multiple of 16), odd maps (misaligned
+# pixel bases), 1 to 4 levels, 1x1 and 2x2 levels
+GATHER_LEVELS = {
+    "1 level 17x30": [(17, 30)],
+    "2 levels w30 w15": [(17, 30), (9, 15)],
+    "3 levels": [(12, 30), (6, 15), (3, 7)],
+    "4 levels": [(16, 16), (8, 8), (2, 2), (1, 1)],
+}
+
+
+@pytest.mark.parametrize("levels", sorted(GATHER_LEVELS))
+@pytest.mark.parametrize("radius", [3, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_lookup_kernel_matches_plain(np_rng, cuda, dtype, radius, levels):
+    """K2 (corr_gather.cu) bit for bit against corr_lookup_ref on windows
+    wholly and partly outside the maps, local windows and round-up
+    positions; B*P = 87 pixels, not a multiple of the block's 8."""
+    dims = GATHER_LEVELS[levels]
+    B, P = 3, 29
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    pyr = [t(np_rng.standard_normal((B, P, h, w))).to(DT[dtype]) for h, w in dims]
+    coords = _gather_coords(np_rng, B, P, dims, radius)
+    _assert_rounds_up(coords, len(dims), radius)
+    ops.reset_launch_counts()
+    got = ops.corr_lookup(pyr, t(coords), radius)
+    assert ops.launch_counts()["corr_lookup"] == 1
+    want = ops.corr_lookup_ref(pyr, t(coords), radius)
+    assert got.dtype == DT[dtype] and got.shape == (B, P, len(dims) * (2 * radius + 1) ** 2)
+    torch.testing.assert_close(got, want, **EXACT)
+
+
+# (folded (h, w) with fold*w = 128, plain (h, w)) of the mixed lookup's cases
+MIXED_LEVELS = {
+    "1 folded + 2 plain w15 w7": ([(8, 32)], [(5, 15), (3, 7)]),
+    "2 folded + 2 plain": ([(16, 32), (8, 16)], [(4, 8), (2, 4)]),
+    "1 folded": ([(4, 64)], []),
+    "1 plain w30": ([], [(9, 30)]),
+}
+
+
+@pytest.mark.parametrize("levels", sorted(MIXED_LEVELS))
+@pytest.mark.parametrize("radius", [3, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_mixed_kernel_matches_plain(np_rng, cuda, dtype, radius, levels):
+    """#9 (corr_gather.cu) bit for bit against corr_lookup_mixed_ref on the
+    gather's edge cases, with folded levels of 1 to 4 rows of 128 values;
+    B*P = 87 pixels."""
+    fdims, pdims = MIXED_LEVELS[levels]
+    B, P = 3, 29
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    folded = [t(np_rng.standard_normal((B, P, h * w // 128, 128))).to(DT[dtype])
+              for h, w in fdims]
+    padded = [t(np_rng.standard_normal((B, P, h, w))).to(DT[dtype]) for h, w in pdims]
+    dims = fdims + pdims
+    coords = _gather_coords(np_rng, B, P, dims, radius)
+    _assert_rounds_up(coords, len(dims), radius)
+    ops.reset_launch_counts()
+    got = ops.corr_lookup_mixed(folded, fdims, padded, t(coords), radius)
+    assert ops.launch_counts()["corr_lookup_mixed"] == 1
+    want = ops.corr_lookup_mixed_ref(folded, fdims, padded, t(coords), radius)
+    assert got.dtype == DT[dtype] and got.shape == (B, P, len(dims) * (2 * radius + 1) ** 2)
+    torch.testing.assert_close(got, want, **EXACT)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_kernel_samples_match_plain(np_rng, cuda, dtype):
+    """K1 (corr_lookup.cu) with each output channel f reading one window
+    sample (wc[k, f] = +-1 for k = f, else 0; no bias): every f32 sum is
+    exact, so K1's samples must equal the plain version's bit for bit, on
+    the gather's edge-case coordinates."""
+    B, P = 3, 29
+    dims = [(16, 30), (8, 15), (4, 7), (2, 3)]
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    pyr = [t(np_rng.standard_normal((B, P, h, w))).to(DT[dtype]) for h, w in dims]
+    coords = t(_gather_coords(np_rng, B, P, dims, 4))
+    wc = torch.zeros((324, 256), device=cuda)
+    f = torch.arange(256, device=cuda)
+    wc[f, f] = torch.where(f % 2 == 0, 1.0, -1.0)
+    bias = torch.zeros(256, device=cuda)
+    got = ops.corr_lookup_fused(pyr, coords, wc, bias, 4)
+    want = ops.corr_lookup_fused_ref(pyr, coords, wc, bias, 4)
+    assert got.dtype == DT[dtype] and got.shape == (B, P, 256)
+    torch.testing.assert_close(got, want, **EXACT)
+    samples = ops.corr_lookup(pyr, coords, 4)[..., :256]
+    torch.testing.assert_close(got, torch.relu(samples.float() * wc[f, f]).to(got.dtype),
+                               **EXACT)
+
+
 # the update block's convs with their channels cut by 4 (Cout 2 kept):
 # (Cout, Cin, kh, kw)
 CONV_SHAPES = [(64, 81, 1, 1), (48, 64, 3, 3), (16, 32, 3, 3), (32, 64, 3, 3),

@@ -32,11 +32,12 @@ REPO = os.path.dirname(HERE)
 
 GROUPS = (  # first match wins
     ("corr_lookup_fused", re.compile(r"lookup_conv_kernel")),
-    ("corr_lookup", re.compile(r"lookup_kernel")),
+    # corr_gather.cu: corr_lookup and corr_lookup_mixed
+    ("corr_lookup, corr_lookup_mixed", re.compile(r"corr_gather_kernel")),
     ("chain_select", re.compile(r"chain_select_kernel")),
     ("corr_lookup_alt", re.compile(r"alt_kernel")),
     ("corr_lookup_win", re.compile(r"win_kernel")),
-    # corr_volume.cu: corr_lookup_q, _packed, _packed_i8, _folded, _mixed
+    # corr_volume.cu: corr_lookup_q, _packed, _packed_i8, _folded
     # (pixel-major), _t (lane-major)
     ("volume-form lookup", re.compile(r"pixel_major_kernel|lane_major_kernel")),
     # product.cu (float32) and product_tc.cu (bfloat16, tensor cores)
