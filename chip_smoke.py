@@ -10,12 +10,16 @@ non-zero and prints no result line):
 1. the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``mft_tpu_torch/ops/csrc`` (one bare nvcc per
    source, started together) and check that the SASS of the tensor-core
-   kernels holds HGMMA (``cuobjdump -sass``) and that ptxas gave every
-   instance of the staged gather (``corr_gather.cu``) a 0-byte stack frame
-   and no spills;
+   kernels (#5, #13 and the bf16 fused lookup K1) holds HGMMA in every
+   instance (``cuobjdump -sass``) and that ptxas gave every instance of the
+   staged gather (``corr_gather.cu``), of K1 (``corr_lookup.cu``) and of
+   the warp (``warp.cu``) a 0-byte stack frame and no spills;
 3. hold each kernel against its plain PyTorch version at the main path's
    shapes, in bf16 and f32, and time it (device time by CUDA graph replay,
-   as every kernel and library call below; the plain versions eagerly);
+   as every kernel and library call below; the plain versions eagerly); K1
+   in bf16 sums on the tensor cores and is also held to
+   ``ops.product_error_bound`` on every element (largest ratio logged), and
+   timed beside the unfused pair K2 + ``torch.addmm`` + relu;
 3b. the same for the window-correlation kernels of corr_method 'alt' and
    'win' (no volume), on wild and on local coordinates;
 3c. the same for the lookups of the volume's other stored forms,
@@ -60,9 +64,13 @@ non-zero and prints no result line):
    kernels (K3-K5) against their plain versions on sampled pixels at that
    size;
 9. 'int8' and 'auto' at 1080x1920: init + 2 tracked frames each, their peak
-   device memory ('int8' must peak lower), K6 and K2 against their plain
-   versions on sampled pixels at that size (K2 bit for bit); then phase 11's
-   chain_select_pallas on the 'auto' tracker's next 7 candidates.
+   device memory ('int8' must peak lower), K6, K2 and K1 against their plain
+   versions on sampled pixels at that size (K2 bit for bit, K1 within the
+   bound); then phase 11's chain_select_pallas on the 'auto' tracker's next
+   7 candidates.
+
+Every bf16 launch of K1, #5 and #13 on the main path, conv_backend 'pallas'
+and 'auto' at 1080x1920 must go through the tensor-core entry points.
 
 Where one PyTorch call computes a kernel's function, its time is taken beside
 the kernel's as a yardstick (``library_ms``; the port never calls it):
@@ -234,7 +242,9 @@ def check_lookups(torch, ops, dev, card):
         name = str(dtype).split(".")[1]
         pyr = [torch.randn((B, P, h, w), device=dev, generator=gen).to(dtype)
                for h, w in LEVELS]
-        wc = wc32.to(dtype)
+        # as the model passes it: bf16 the (C, F) view of the (F, C) conv
+        # weight, which the tensor-core kernel reads with no copy
+        wc = wc32.to(dtype) if dtype == torch.float32 else wc32.t().contiguous().to(dtype).t()
         for kind in ("lookup", "fused"):
             for where, c in (("uniform", coords), ("local", local)):
                 if kind == "lookup":
@@ -252,6 +262,16 @@ def check_lookups(torch, ops, dev, card):
                 log(f"check {kind} {name} {where}: max_abs_err {err:.3e} "
                     f"(tolerance atol {atol} + rtol {rtol}) {'ok' if ok else 'FAIL'}")
                 check(ok, f"{kind} {name} {where} disagrees with its plain version")
+                ratio = None
+                if kind == "fused" and dtype == torch.bfloat16:
+                    # on the tensor cores: also every element within the bound
+                    mag = ops.corr_lookup_fused_magnitude(pyr, c, wc, RADIUS)
+                    _, ratio = bound_check(torch, ops, f"fused {name} {where} (tensor cores)",
+                                           got, want, mag, wc.shape[0])
+                    del mag
+                    # not gated: the rounding repair should leave none
+                    log(f"fused {name} {where}: {int((got != want).sum())} of {got.numel()} "
+                        f"outputs differ from the plain version's")
                 call_ms = cuda_ms(kernel, reps=20)     # with the wrapper's host cost
                 ms = graph_ms(kernel)
                 plain_ms = cuda_ms(plain, reps=3, warmup=1)
@@ -269,7 +289,17 @@ def check_lookups(torch, ops, dev, card):
                     f"{call_ms:.4f} ms a call from Python), plain {plain_ms:.3f} ms, "
                     f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
                     f"{ops_n / 1e9:.2f} GFLOP) [{card}]")
-                lib_ms = None
+                lib_ms = unfused_ms = None
+                if kind == "fused":
+                    # a yardstick, not a library call: K2, then cuBLAS's
+                    # addmm and relu on its samples (the unfused pair)
+                    bias_dt = bias.to(dtype)
+                    unfused = lambda: torch.relu(torch.addmm(
+                        bias_dt, ops.corr_lookup(pyr, c, RADIUS).reshape(B * P, -1), wc))
+                    unfused_ms = graph_ms(unfused)
+                    log(f"time fused {name} {where}: unfused pair (K2, torch.addmm, relu) "
+                        f"{unfused_ms:.4f} ms (graph replay) against the kernel's {ms:.4f} "
+                        f"ms [{card}]")
                 if kind == "lookup":
                     lib_ms, lib = grid_sample_lookup(torch, pyr, c)
                     log(f"library lookup {name} {where}: F.grid_sample per level "
@@ -283,12 +313,20 @@ def check_lookups(torch, ops, dev, card):
                         bound_by="bytes" if bytes_ms >= ops_ms else "operations")
                     if lib_ms is not None:
                         stats[(kind, name)]["library_ms"] = lib_ms
+                    if unfused_ms is not None:
+                        stats[(kind, name)]["unfused_ms"] = unfused_ms
+                    if ratio is not None:
+                        stats[(kind, name)]["bound_ratio"] = ratio
                 else:
                     st = stats[(kind, name)]
                     st["max_abs_err"] = max(st["max_abs_err"], err)
                     st.update(ms_local=ms, bound_ms_local=bound)
                     if lib_ms is not None:
                         st["library_ms_local"] = lib_ms
+                    if unfused_ms is not None:
+                        st["unfused_ms_local"] = unfused_ms
+                    if ratio is not None:
+                        st["bound_ratio"] = max(st["bound_ratio"], ratio)
                 del got, want
         del pyr
     return stats
@@ -1033,7 +1071,8 @@ def check_tensor_cores(ops, label):
 
 
 def check_sass(_build, path):
-    """The tensor-core kernels' machine code holds wgmma (HGMMA)."""
+    """The tensor-core kernels' machine code holds wgmma (HGMMA): #5, #13 and
+    the bf16 fused lookup K1, in every instance."""
     from pathlib import Path
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(path)], capture_output=True, text=True,
@@ -1042,7 +1081,7 @@ def check_sass(_build, path):
     for part in sass.split("Function : ")[1:]:
         name, _, body = part.partition("\n")
         functions[name.strip()] = body.count("HGMMA")
-    for kernel in ("build_folded_tc_kernel", "conv_tc_kernel"):
+    for kernel in ("build_folded_tc_kernel", "conv_tc_kernel", "lookup_conv_tc_kernel"):
         found = {n: c for n, c in functions.items() if kernel in n}
         log(f"sass {kernel}: {len(found)} instances, HGMMA per instance "
             f"{sorted(found.values())}")
@@ -1050,10 +1089,17 @@ def check_sass(_build, path):
               f"{kernel}: no HGMMA in the SASS of some instance ({found})")
 
 
-def check_frames(_build, kernel="corr_gather_kernel", instances=8):
+# kernel -> instances that ptxas must give a 0-byte stack frame and no
+# spills: the staged gather (K2, #9; radius 1..4 x f32, bf16), the fused
+# lookup K1 (radius 1..4; f32 and, on the tensor cores, bf16) and the warp
+# (f32, bf16 maps x 4 modes x C of 1, 2, 4, 6 and any other)
+FRAME_CHECKED = {"corr_gather_kernel": 8, "lookup_conv_kernel": 4,
+                 "lookup_conv_tc_kernel": 4, "warp_kernel": 40}
+
+
+def check_frames(_build, kernel, instances):
     """ptxas (``-Xptxas=-v`` in ``_build.build_log``) gives every instance of
-    ``kernel`` (radius 1..4, f32 and bf16) a 0-byte stack frame and no
-    spills."""
+    ``kernel`` a 0-byte stack frame and no spills."""
     import re
     lines = _build.build_log.splitlines()
     found = {}
@@ -1374,6 +1420,7 @@ def run_uhd(torch, ops, dev, card, H=2160, W=3840):
         want = expected_counts(ops, **{KERNEL_OF[method]: UHD_FRAMES * iters},
                                chain_select=UHD_FRAMES)
         check(counts == want, f"{method} {H}x{W}: launch counts {counts} != {want}")
+        check_tensor_cores(ops, f"{method} {H}x{W}")
         check_results(torch, results, H, W, f"{method} {H}x{W}")
         peak = torch.cuda.max_memory_allocated()
         log(f"{method} at {H}x{W}: frame ms {', '.join(f'{m:.1f}' for m in frame_ms)} "
@@ -1426,13 +1473,18 @@ def check_lookup_hd(torch, ops, dev, card, H8, W8, n_sample=4096):
     """K2 (the staged gather) on a whole (7, H8*W8) call of the bf16 volume of
     random features, whose levels' rows (w = 240, 120, 60, 30) are no
     multiple of 16 bytes, held bit for bit against its plain version on
-    ``n_sample`` sampled pixels of each pair."""
+    ``n_sample`` sampled pixels of each pair; K1 on the same calls, on the
+    tensor cores, held to ops.product_error_bound there."""
     from mft_tpu_torch.models.raft import corr as tcorr
     gen = torch.Generator(device=dev).manual_seed(13)
     f1 = torch.randn((B, FEAT_C, H8, W8), device=dev, generator=gen).to(torch.bfloat16)
     f2 = torch.randn((B, FEAT_C, H8, W8), device=dev, generator=gen).to(torch.bfloat16)
     pyr = tcorr.build_corr_pyramid(f1, f2, len(LEVELS))
     del f1, f2
+    # convc1's (F, C) weight as the model passes it, and its bias
+    wc = (torch.randn((F, len(LEVELS) * (2 * RADIUS + 1) ** 2), device=dev, generator=gen)
+          / 18.0).to(torch.bfloat16).t()
+    bias = 0.1 * torch.randn((F,), device=dev, generator=gen)
     for kind in ("local", "uniform"):
         coords = lookup_coords(torch, dev, kind, gen, H8, W8)
         idx = torch.randperm(H8 * W8, device=dev, generator=gen)[:n_sample]
@@ -1447,7 +1499,21 @@ def check_lookup_hd(torch, ops, dev, card, H8, W8, n_sample=4096):
         ms = graph_ms(kernel, reps=5)
         log(f"time corr_lookup bfloat16 {kind} at {H8}x{W8}: kernel {ms:.4f} ms (graph replay), "
             f"max_abs_err {err:.3e} [{card}]")
-        del got, want
+        sub = [lvl[:, idx].contiguous() for lvl in pyr]
+        fused = lambda: ops.corr_lookup_fused(pyr, coords, wc, bias, RADIUS)
+        got = fused()[:, idx]
+        torch.cuda.synchronize()
+        want = ops.corr_lookup_fused_ref(sub, coords[:, idx].contiguous(), wc, bias, RADIUS)
+        mag = ops.corr_lookup_fused_magnitude(sub, coords[:, idx].contiguous(), wc, RADIUS)
+        bound_check(torch, ops, f"fused bfloat16 {kind} at {H8}x{W8} (tensor cores), "
+                                f"{n_sample} sampled pixels per pair", got, want, mag,
+                    wc.shape[0])
+        log(f"fused bfloat16 {kind} at {H8}x{W8}: {int((got != want).sum())} of {got.numel()} "
+            f"sampled outputs differ from the plain version's (not gated)")
+        ms = graph_ms(fused, reps=5)
+        log(f"time fused bfloat16 {kind} at {H8}x{W8}: kernel {ms:.4f} ms (graph replay) "
+            f"[{card}]")
+        del got, want, sub, mag
     del pyr
     torch.cuda.empty_cache()
 
@@ -1476,6 +1542,7 @@ def run_hd(torch, ops, dev, card, H=1080, W=1920):
             want = expected_counts(ops, **{KERNEL_OF[method]: UHD_FRAMES * iters},
                                    chain_select=UHD_FRAMES)
         check(counts == want, f"{method} {H}x{W}: launch counts {counts} != {want}")
+        check_tensor_cores(ops, f"{method} {H}x{W}")
         check_results(torch, results, H, W, f"{method} {H}x{W}")
         peaks[method] = torch.cuda.max_memory_allocated()
         log(f"{method} at {H}x{W}: frame ms {', '.join(f'{m:.1f}' for m in frame_ms)} "
@@ -1542,7 +1609,8 @@ def run() -> int:
 
     try:
         check_sass(_build, path)
-        check_frames(_build)
+        for kernel, instances in FRAME_CHECKED.items():
+            check_frames(_build, kernel, instances)
         t = time.perf_counter()
         lk = check_lookups(torch, ops, dev, card)
         cs = check_chain_select(torch, ops, dev, card)

@@ -87,22 +87,13 @@ def build_corr_pyramid_t(fmap1: torch.Tensor, fmap2: torch.Tensor,
     """The pyramid of :func:`build_corr_pyramid` in lane-major layout.
 
     returns: ``num_levels`` maps, level l: (B, h_l, w_l, H*W), the source
-    pixel on the fastest axis. Built by swapping the product's operands, the
-    f32 accumulator scaled by 1/sqrt(C) before the one rounding to dtype.
+    pixel on the fastest axis. The levels of :func:`build_corr_pyramid`,
+    moved: the same values bit for bit, whatever order the BLAS library of
+    the device sums a product with swapped operands in.
     """
-    B, C, H, W = fmap1.shape
-    f1 = fmap1.reshape(B, C, H * W)
-    f2 = fmap2
-    scale = 1.0 / math.sqrt(C)
-    zero = f1.new_zeros(())
-    pyramid = []
-    for lvl in range(num_levels):
-        if lvl > 0:
-            f2 = avg_pool2x2(f2)
-        h, w = f2.shape[2], f2.shape[3]
-        corr = torch.baddbmm(zero, f2.reshape(B, C, h * w).transpose(1, 2), f1,
-                             beta=0.0, alpha=scale)
-        pyramid.append(corr.view(B, h, w, H * W))
+    pyramid = build_corr_pyramid(fmap1, fmap2, num_levels)
+    for l in range(num_levels):   # one level in both layouts at a time
+        pyramid[l] = pyramid[l].permute(0, 2, 3, 1).contiguous()
     return pyramid
 
 

@@ -38,8 +38,8 @@ _F = ctypes.c_float
 # argtypes of every extern "C" entry point; all return a cudaError_t as int
 SIGNATURES = {
     "mft_corr_lookup": [_P, _P, _P, _P, _P, _P] + [_I] * 9 + [_L, _I, _I, _P],
-    "mft_corr_lookup_conv": [_P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 9
-                            + [_L, _I, _I, _I, _P],
+    "mft_corr_lookup_conv": [_P] * 8 + [_I] * 9 + [_L, _I, _I, _P],
+    "mft_corr_lookup_conv_tc": [_P] * 8 + [_I] * 9 + [_L, _I, _I, _P],
     "mft_chain_select": [_P] * 10 + [_F, _I, _I, _I, _P],
     "mft_corr_alt": [_P] * 7 + [_I] * 14 + [_F, _I, _P],
     "mft_corr_win": [_P] * 7 + [_I] * 14 + [_F, _I, _P, _P],
@@ -81,8 +81,9 @@ def sources():
 
 
 def library_path() -> Path:
+    """The library's path, keyed by the flags and every source and header."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libmft_kernels_{digest.hexdigest()[:16]}.so"

@@ -7,10 +7,14 @@ uses its plain PyTorch version on a CPU tensor:
   ``mft_tpu/ops/corr_lookup_pallas.py corr_lookup_pallas``) returns the
   (B, P, L*(2r+1)^2) bilinear window samples in the volume dtype, through
   the staged per-pixel gather of ``csrc/corr_gather.cu``;
-- :func:`corr_lookup_fused` (kernel ``mft_corr_lookup_conv``, replacing
-  ``corr_lookup_pallas_fused``) returns relu(samples @ wc + bias), (B, P, F)
-  in the volume dtype, with the samples rounded through the volume dtype and
-  the product accumulated in float32;
+- :func:`corr_lookup_fused` (kernels ``mft_corr_lookup_conv_tc`` for
+  bfloat16 and ``mft_corr_lookup_conv`` for float32, ``csrc/corr_lookup.cu``,
+  replacing ``corr_lookup_pallas_fused``) returns relu(samples @ wc + bias),
+  (B, P, F) in the volume dtype, with the samples rounded through the volume
+  dtype and the product accumulated in float32: in bfloat16 on the tensor
+  cores, in their order of summation, held to
+  :func:`mft_tpu_torch.ops.product.product_error_bound`; its samples come
+  from the same gather as :func:`corr_lookup`'s;
 - four lookups of the same samples from other stored forms of the volume
   (kernels in ``csrc/corr_volume.cu``):
   :func:`corr_lookup_q` (``mft_corr_lookup_q``, replacing
@@ -34,7 +38,7 @@ uses its plain PyTorch version on a CPU tensor:
   fold*w = 128 a folded level is its dense map under another shape (value
   (y, x) is element y*w + x): the folded lookup addresses the levels with
   strides, and the mixed one hands their dense views to :func:`corr_lookup`'s
-  gather. The two gather kernels take radius 1..4.
+  gather. The gather kernels (K2, #9 and the fused lookup) take radius 1..4.
 
 Layouts are those of the JAX kernels: the pyramid is a list of (B, P, h_l, w_l)
 maps (f32 or bf16), coords (B, P, 2) float32 (x, y) centres at level-0 scale.
@@ -54,7 +58,8 @@ from mft_tpu_torch.core.interp import sample_stacked
 from mft_tpu_torch.ops import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-GATHER_MAX_RADIUS = 4   # corr_gather.cu's kernels are compiled for radius 1..4
+GATHER_MAX_RADIUS = 4   # corr_gather.cuh's gather is compiled for radius 1..4
+FUSED_TC_MAX_F = 256    # wgmma's widest N: the tensor-core fused lookup's F
 
 
 def unpack_levels(packed: torch.Tensor, dims) -> list:
@@ -259,6 +264,15 @@ def _check_gather_radius(radius: int):
                          f"got {radius}")
 
 
+def _check_fused_width(F: int):
+    """The tensor-core fused lookup writes rows of F bf16 outputs with
+    16-byte stores and holds Wc (F rows) in shared memory: F a multiple of 8
+    up to 256."""
+    if F % 8 or not 8 <= F <= FUSED_TC_MAX_F:
+        raise ValueError(f"the tensor-core fused lookup takes F a multiple of 8 up to "
+                         f"{FUSED_TC_MAX_F}, got {F}")
+
+
 def corr_lookup(pyramid, coords, radius: int = 4) -> torch.Tensor:
     """Window lookup: (B, P, L*(2r+1)^2) samples in the volume dtype."""
     if coords.device.type == "cpu":
@@ -282,31 +296,44 @@ corr_lookup.launches = 0
 def corr_lookup_fused(pyramid, coords, wc, bias, radius: int = 4) -> torch.Tensor:
     """Lookup fused with a 1x1 conv + relu: (B, P, F) in the volume dtype.
 
-    args: wc (L*(2r+1)^2, F) conv kernel, bias (F,).
+    args: wc (L*(2r+1)^2, F) conv kernel, any strides: the transposed view of
+      a (F, L*(2r+1)^2) conv weight is passed to the bfloat16 kernel as it is,
+      with no copy; bias (F,). bfloat16 runs on the tensor cores (F a
+      multiple of 8 up to 256), float32 on the CUDA cores.
     """
     if coords.device.type == "cpu":
         return corr_lookup_fused_ref(pyramid, coords, wc, bias, radius)
     _require_cuda(coords, "corr_lookup_fused")
+    _check_gather_radius(radius)
     dt, B, P, ptrs, hw = _check_levels(pyramid, coords, tuple(_DTYPE_CODE))
     C = _channels(len(pyramid), radius)
     F = wc.shape[-1]
     if wc.shape != (C, F):
         raise ValueError(f"wc must be (L*(2r+1)^2, F) = ({C}, F), got {tuple(wc.shape)}")
-    wc = wc.to(dt).contiguous()
     bias = bias.float().contiguous()
     if bias.shape != (F,) or wc.device != coords.device or bias.device != coords.device:
         raise ValueError("bias must be (F,) and wc, bias on the coords' device")
     out = torch.empty((B, P, F), dtype=dt, device=coords.device)
-    err = _build.library().mft_corr_lookup_conv(
-        out.data_ptr(), coords.data_ptr(), wc.data_ptr(), bias.data_ptr(), *ptrs,
-        *hw, len(pyramid), B * P, radius, F, _DTYPE_CODE[dt],
-        _stream(coords))
-    _build.check(err, "mft_corr_lookup_conv")
+    lib = _build.library()
+    args = (*ptrs, *hw, len(pyramid), B * P, radius, F, _stream(coords))
+    if dt == torch.bfloat16:
+        _check_fused_width(F)
+        wt = wc.to(dt).t().contiguous()   # (F, C): wgmma's K-major operand
+        err = lib.mft_corr_lookup_conv_tc(out.data_ptr(), coords.data_ptr(), wt.data_ptr(),
+                                          bias.data_ptr(), *args)
+        _build.check(err, "mft_corr_lookup_conv_tc")
+        corr_lookup_fused.tensor_core_launches += 1
+    else:
+        wc = wc.to(dt).contiguous()
+        err = lib.mft_corr_lookup_conv(out.data_ptr(), coords.data_ptr(), wc.data_ptr(),
+                                       bias.data_ptr(), *args)
+        _build.check(err, "mft_corr_lookup_conv")
     corr_lookup_fused.launches += 1
     return out
 
 
 corr_lookup_fused.launches = 0
+corr_lookup_fused.tensor_core_launches = 0
 
 
 def corr_lookup_q(levels, scales, coords, radius: int = 4) -> torch.Tensor:

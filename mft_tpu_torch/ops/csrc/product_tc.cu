@@ -66,6 +66,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tensor_core.cuh"
+
 namespace {
 
 constexpr int kMaxLevels = 4;
@@ -74,12 +76,9 @@ constexpr int kKTile = 64;             // k of one stage: 64 bf16 = 128 bytes
 constexpr int kBox = 64 * 64 * 2;      // one 64 x 64 bf16 TMA box
 
 // ------------------------------------------------------------------------- //
-// PTX wrappers: shared-memory addresses, mbarriers, TMA, wgmma, ldmatrix
+// PTX wrappers: mbarriers, TMA, wgmma, ldmatrix (the ones shared with
+// corr_lookup.cu are in tensor_core.cuh)
 // ------------------------------------------------------------------------- //
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
                : "memory");
@@ -137,36 +136,12 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Keeps the compiler from moving accumulator accesses across wgmma.
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 __device__ __forceinline__ void fence_a(uint32_t (&a)[4][4]) {
 #pragma unroll
   for (int k = 0; k < 4; ++k)
 #pragma unroll
     for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
 }
-
-#define MFT_D8(o)                                                                        \
-  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), "+f"(d[o + 4]),          \
-      "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
-#define MFT_D32 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-                "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
-                "%30, %31}"
 
 // d += A * B, m64n64k16, A and B from shared memory, both MN-major.
 __device__ __forceinline__ void wgmma_ss_n64_mn(float (&d)[32], uint64_t da, uint64_t db) {
@@ -207,32 +182,10 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
                : "memory");
 }
 
-// The dynamic shared memory rounded up to 1024 bytes (the 128-byte swizzle's
-// period), as an offset from the array, so the compiler keeps it in the
-// shared space (STS/LDS, not generic stores).
-__device__ __forceinline__ uint8_t* align1024(uint8_t* base) {
-  return base + ((1024 - (smem_u32(base) & 1023)) & 1023);
-}
-
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const uint32_t l = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
-  const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(hi));
-  return l | (h << 16);
-}
-
-// The accumulator of m64nN: thread t of the warpgroup holds d[i] at row
-// 16 * warp + lane / 4 + 8 * ((i / 2) % 2), column 8 * (i / 4) + 2 * (lane % 4) + i % 2.
-__device__ __forceinline__ int acc_row(int i) {
-  return ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2) + 8 * ((i >> 1) & 1);
-}
-__device__ __forceinline__ int acc_col(int i) {
-  return (i >> 2) * 8 + (threadIdx.x & 3) * 2 + (i & 1);
 }
 
 // ------------------------------------------------------------------------- //

@@ -23,6 +23,10 @@ plain versions add one k at a time, ascending from 0.0, over whole maps.
 - bfloat16 kernels run on the tensor cores, which sum the exact float32
   products in an order of their own, as the TPU's MXU did for the JAX
   kernels. They are held to :func:`product_error_bound` instead.
+
+The fused lookup (``ops/corr_lookup.py corr_lookup_fused``, bfloat16) sums
+on the tensor cores too; :func:`corr_lookup_fused_magnitude` gives the S of
+its bound.
 """
 
 import contextlib
@@ -32,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from mft_tpu_torch.ops import _build
+from mft_tpu_torch.ops.corr_lookup import corr_lookup_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 ACTS = {None: 0, "relu": 1, "sigmoid": 2, "tanh": 3}
@@ -144,6 +149,16 @@ def corr_build_folded_magnitude(f1, f2_levels) -> list:
     B, P, _ = a.shape
     return [torch.bmm(a, f2.abs().double()).float().reshape(B, P, -1, LANES)
             for f2 in f2_levels]
+
+
+def corr_lookup_fused_magnitude(pyramid, coords, wc, radius: int = 4):
+    """S of every output of :func:`mft_tpu_torch.ops.corr_lookup.corr_lookup_fused`:
+    (B, P, F) float32 sums over the window samples k of |sample_k| * |wc[k, f]|,
+    the samples rounded through the volume dtype and wc taken in it (the
+    operands the kernel multiplies), summed in float64 (no TF32); no bias."""
+    dt = pyramid[0].dtype
+    samples = corr_lookup_ref(pyramid, coords, radius).abs().double()
+    return torch.matmul(samples, wc.to(dt).abs().double()).float()
 
 
 def conv_pallas_magnitude(x, weight, padding):

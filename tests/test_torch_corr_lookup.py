@@ -186,9 +186,41 @@ def test_gather_radius_is_checked(radius):
             _check_gather_radius(radius)
 
 
+@pytest.mark.parametrize("F", [8, 96, 100, 256, 264])
+def test_fused_width_is_checked(F):
+    """The tensor-core fused lookup takes F a multiple of 8 up to 256 (its
+    16-byte output stores, wgmma's widest N); its wrapper refuses any other
+    F before it launches."""
+    from mft_tpu_torch.ops.corr_lookup import FUSED_TC_MAX_F, _check_fused_width
+    assert FUSED_TC_MAX_F == 256
+    if F % 8 == 0 and F <= 256:
+        _check_fused_width(F)
+    else:
+        with pytest.raises(ValueError, match="multiple of 8 up to 256"):
+            _check_fused_width(F)
+
+
 def test_wrappers_refuse_other_devices(rng):
     pyr, coords, _, _ = _inputs(rng, jnp.float32)
     meta = [torch.empty(l.shape, device="meta") for l in pyr]
     with pytest.raises(ValueError, match="unsupported device"):
         ops.corr_lookup(meta, torch.empty(coords.shape, device="meta"), R)
 
+
+
+def test_k1_repair_tool_finds_its_anchors():
+    """tools/torch_k1_repair.py edits corr_lookup.cu's text into its two
+    variants: each anchor it edits at is in the source once, the hooked
+    variant records and counts, and the other has no window test left."""
+    import importlib.util
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("torch_k1_repair",
+                                                  root / "tools" / "torch_k1_repair.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = (root / "mft_tpu_torch" / "ops" / "csrc" / "corr_lookup.cu").read_text()
+    out = tool.variants(src)
+    assert set(out) == {"hooked", "no repair"}
+    assert "g_values[" in out["hooked"] and "atomicAdd(&g_listed" in out["hooked"]
+    assert "near |= pair" in src and "near |= pair" not in out["no repair"]

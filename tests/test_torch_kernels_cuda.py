@@ -34,15 +34,16 @@ def np_rng():
     return np.random.default_rng(0)
 
 
-def _lookup_inputs(np_rng, dtype, dev, B=2, H8=6, W8=10):
-    """P = 60 pixels: not a multiple of the fused kernel's 32-pixel tile."""
+def _lookup_inputs(np_rng, dtype, dev, B=2, H8=6, W8=10, L=4, radius=4, F=256):
+    """P = 60 pixels: not a multiple of the fused kernels' 32- and 64-pixel
+    tiles; wc the (C, F) view of a (F, C) conv weight, as the model passes it."""
     P = H8 * W8
-    levels = [(H8, W8), (H8 // 2, W8 // 2), (H8 // 4, W8 // 4), (1, 1)]
+    levels = [(H8, W8), (H8 // 2, W8 // 2), (H8 // 4, W8 // 4), (1, 1)][:L]
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
     pyr = [t(np_rng.standard_normal((B, P, h, w))).to(DT[dtype]) for h, w in levels]
     coords = t(np_rng.uniform(-6, W8 + 6, (B, P, 2)))
-    wc = t(np_rng.standard_normal((4 * 81, 256)) * 0.05)
-    bias = t(np_rng.standard_normal((256,)) * 0.1)
+    wc = t(np_rng.standard_normal((F, L * (2 * radius + 1) ** 2)) * 0.05).t()
+    bias = t(np_rng.standard_normal((F,)) * 0.1)
     return pyr, coords, wc, bias
 
 
@@ -56,16 +57,78 @@ def test_lookup_kernel_matches_plain(np_rng, cuda, dtype):
     torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_fused_kernel_matches_plain(np_rng, cuda, dtype):
-    """f32: the 324-term sum in another order (1e-4); bf16: that difference
-    may move the output's rounding by one ulp (rtol 8e-3)."""
-    pyr, coords, wc, bias = _lookup_inputs(np_rng, dtype, cuda)
-    got = ops.corr_lookup_fused(pyr, coords, wc, bias, 4)
-    want = ops.corr_lookup_fused_ref(pyr, coords, wc, bias, 4)
+def _check_fused(pyr, coords, wc, bias, radius, dtype):
+    """K1 against its plain version: f32 on the CUDA cores, the 324-term sum
+    in another order (1e-4); bf16 on the tensor cores, every element within
+    ops.product_error_bound (K = C) and within the stated tolerance, which
+    allows the sum order to move the output's rounding by one ulp (rtol 8e-3)."""
+    ops.reset_launch_counts()
+    got = ops.corr_lookup_fused(pyr, coords, wc, bias, radius)
+    assert ops.launch_counts()["corr_lookup_fused"] == 1
+    assert ops.tensor_core_launch_counts()["corr_lookup_fused"] == (dtype == "bfloat16")
+    want = ops.corr_lookup_fused_ref(pyr, coords, wc, bias, radius)
     assert got.dtype == DT[dtype] and got.shape == want.shape
+    if dtype == "bfloat16":
+        mag = ops.corr_lookup_fused_magnitude(pyr, coords, wc, radius)
+        _assert_within_bound(got, want, mag, wc.shape[0])
     atol, rtol = (1e-4, 1e-4) if dtype == "float32" else (1e-2, 8e-3)
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("F", [96, 256])
+@pytest.mark.parametrize("levels", [1, 2, 3, 4])
+@pytest.mark.parametrize("radius", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_kernel_matches_plain(np_rng, cuda, dtype, radius, levels, F):
+    """K1 at every radius and level count of its kernels, the big model's F
+    (256) and the small model's (96), on B*P = 120 pixels (a ragged tile)."""
+    pyr, coords, wc, bias = _lookup_inputs(np_rng, dtype, cuda, L=levels, radius=radius, F=F)
+    _check_fused(pyr, coords, wc, bias, radius, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_kernel_many_tiles(np_rng, cuda, dtype):
+    """K1 on 3 x 3000 pixels: more 64-pixel tiles than SMs, so persistent
+    blocks take several, the last one ragged; wc a contiguous (C, F) tensor."""
+    pyr, coords, wc, bias = _lookup_inputs(np_rng, dtype, cuda, B=3, H8=50, W8=60)
+    _check_fused(pyr, coords, wc.contiguous(), bias, 4, dtype)
+
+
+@pytest.mark.parametrize("radius,levels", [(1, 1), (4, 4)])
+def test_fused_kernel_repairs_every_tile(cuda, radius, levels):
+    """K1's rounding repair on its list and past its end: one output channel
+    with weights of 2^10 widens the repair's window past the bf16 spacing of
+    every other channel's outputs, so all of those are recomputed in the
+    plain version's order. Each pixel's maps hold one value of its own and
+    each channel its own bias, so the outputs differ, and every sum is
+    exact: the result must equal the plain version's bit for bit."""
+    B, P, F = 2, 200, 256
+    dims = [(32, 32), (16, 16), (8, 8), (4, 4)][:levels]
+    C = levels * (2 * radius + 1) ** 2
+    p = torch.arange(P, device=cuda, dtype=torch.float32)
+    value = (1.0 + (p % 64) / 128.0).view(1, P, 1, 1)
+    pyr = [value.expand(B, P, h, w).contiguous().bfloat16() for h, w in dims]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    # whole positions at every level: samples are the map's value or 0
+    coords = (torch.randint(1, 4, (B, P, 2), device=cuda, generator=gen) * 8).float()
+    weight = torch.full((F, C), 2.0 ** -10, device=cuda)
+    weight[F - 1] = 2.0 ** 10
+    bias = torch.arange(F, device=cuda, dtype=torch.float32) / 64.0
+    ops.reset_launch_counts()
+    got = ops.corr_lookup_fused(pyr, coords, weight.bfloat16().t(), bias, radius)
+    assert ops.tensor_core_launch_counts()["corr_lookup_fused"] == 1
+    want = ops.corr_lookup_fused_ref(pyr, coords, weight.bfloat16().t(), bias, radius)
+    assert got.shape == (B, P, F) and got.unique().numel() > F
+    torch.testing.assert_close(got, want, **EXACT)
+
+
+def test_fused_kernel_refuses_bad_widths(np_rng, cuda):
+    """The tensor-core route takes F a multiple of 8 up to 256."""
+    pyr, coords, _, _ = _lookup_inputs(np_rng, "bfloat16", cuda)
+    for F in (100, 264):
+        wc = torch.zeros((324, F), device=cuda)
+        with pytest.raises(ValueError, match="multiple of 8 up to 256"):
+            ops.corr_lookup_fused(pyr, coords, wc, torch.zeros(F, device=cuda), 4)
 
 
 def test_chain_select_kernel_matches_plain(np_rng, cuda):
@@ -599,18 +662,48 @@ def _warp_inputs(np_rng, dev, N=3, H=37, W=45, C=6):
     return maps, t(c)
 
 
+@pytest.mark.parametrize("C", [1, 4, 6, 16])
 @pytest.mark.parametrize("planar", [False, True])
 @pytest.mark.parametrize("map_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mode", ["exact", "tpu", "snap", "bf16"])
-def test_warp_kernel_matches_plain(np_rng, cuda, mode, map_dtype, planar):
+def test_warp_kernel_matches_plain(np_rng, cuda, mode, map_dtype, planar, C):
     """mft_warp equals its plain version bit for bit in every mode, with f32
-    and bf16 maps, channel-last and planar output."""
-    maps, coords = _warp_inputs(np_rng, cuda)
+    and bf16 maps, channel-last (staged) and planar output, at the compiled
+    channel counts (1, 4, 6) and the generic instance (16); 3 x 1665 pixels
+    leave a ragged block of 131."""
+    maps, coords = _warp_inputs(np_rng, cuda, C=C)
     maps = maps.to(DT[map_dtype])
     got = ops.bilinear_warp(maps, coords, mode, planar=planar)
     want = ops.bilinear_warp_ref(maps, coords, mode, planar=planar)
     assert got.dtype == torch.float32 and got.shape == want.shape
     torch.testing.assert_close(got, want, **EXACT)
+
+
+@pytest.mark.parametrize("C", [1, 2, 4, 6, 16])
+@pytest.mark.parametrize("layout", ["pairs", "strided", "planes", "offset maps"])
+def test_warp_kernel_coordinate_layouts(np_rng, cuda, layout, C):
+    """Bit for bit with the plain version whatever the coordinates' layout:
+    (N, P, 2) pairs (one 8-byte load), pairs at a stride of 3 from an odd
+    offset (two loads), separate x and y planes; and maps that do not start
+    16-byte aligned (the generic instance), in 'tpu' mode on bf16 maps and
+    'exact' mode on f32 maps."""
+    maps, coords = _warp_inputs(np_rng, cuda, C=C)
+    N, P = coords.shape[:2]
+    if layout == "strided":
+        buf = torch.zeros((N, P, 3), device=cuda)
+        buf[..., 1:] = coords
+        coords = buf[..., 1:]
+    elif layout == "planes":
+        coords = (coords[..., 0].contiguous(), coords[..., 1].contiguous())
+    for mode, dtype in (("tpu", torch.bfloat16), ("exact", torch.float32)):
+        m = maps.to(dtype)
+        if layout == "offset maps":
+            flat = torch.empty(m.numel() + 1, dtype=dtype, device=cuda)
+            m = flat[1:].view(m.shape).copy_(m)
+            assert m.data_ptr() % 16 and m.is_contiguous()
+        got = ops.bilinear_warp(m, coords, mode)
+        want = ops.bilinear_warp_ref(m, coords, mode)
+        torch.testing.assert_close(got, want, **EXACT)
 
 
 def test_warp_entry_points_launch_once(np_rng, cuda):

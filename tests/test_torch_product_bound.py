@@ -1,12 +1,13 @@
 """The error bound that holds the bfloat16 tensor-core products to their plain versions.
 
-On the card the bf16 volume build (#5) and convolution (#13) sum on the
-tensor cores in an order of their own and are held to
+On the card the bf16 volume build (#5), convolution (#13) and fused lookup
+(K1) sum on the tensor cores in an order of their own and are held to
 ``ops.product_error_bound`` against the plain versions on every element
 (tests/test_torch_kernels_cuda.py, chip_smoke.py). Here, on the CPU:
 - the bound covers an independent summation order: JAX's Pallas kernels in
   interpret mode, in bf16, against the port's plain versions;
-- it covers a float32 sum of the same exact products in a random order;
+- it covers a float32 sum of the same exact products in a random order
+  (K1: reversed, and in blocks of 16 as wgmma's k16 steps sum);
 - it has teeth: the plain result with one channel or one tap dropped, or
   without the bias, breaks it on some element, at the cuda tests' shapes;
 - the conv kernel's weight reordering round-trips.
@@ -178,3 +179,101 @@ def test_conv_weight_tiles_round_trip(rng, shape):
     assert torch.equal(back, w)
     assert not tiles[:, Cout:].any() and not tiles[:, :, Cin:].any()
     assert torch.equal(tiles[kw * (kh // 2) + kw // 2, :Cout, :Cin], w[:, :, kh // 2, kw // 2])
+
+
+def _fused_inputs(rng, B=2, H8=6, W8=8, F=48):
+    """K1's operands: a bf16 pyramid of 4 levels of random values, coords
+    leaving the maps, a bf16 (C, F) convc1 kernel (C = 324) and an f32 bias."""
+    dims = [(H8, W8), (H8 // 2, W8 // 2), (H8 // 4, W8 // 4), (1, 1)]
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    pyr = [t(rng.standard_normal((B, H8 * W8, h, w))).bfloat16() for h, w in dims]
+    coords = t(rng.uniform(-6, W8 + 6, (B, H8 * W8, 2)))
+    wc = t(rng.standard_normal((324, F)) * 0.05).bfloat16()
+    return pyr, coords, wc, t(0.1 * rng.standard_normal(F))
+
+
+def test_fused_magnitude_matches_numpy(rng):
+    """ops.corr_lookup_fused_magnitude is sum_k |sample_k| * |wc[k, f]| of
+    the bf16 samples and kernel, against a float64 numpy sum."""
+    pyr, coords, wc, _ = _fused_inputs(rng)
+    s = ops.corr_lookup_ref(pyr, coords, 4).float().numpy().astype(np.float64)
+    want = np.abs(s) @ np.abs(wc.float().numpy().astype(np.float64))
+    got = ops.corr_lookup_fused_magnitude(pyr, coords, wc, 4)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+
+
+def _fused_acc(samples, w, order):
+    """samples @ w, the float32 sum of the exact products over k taken
+    ``order``: 'in order' (the plain version's sequential sum: each product
+    is exact, so each step rounds once, as a fused multiply-add), 'reversed',
+    'blocked by 16' (a partial sum per 16 k, the partials added in order), or
+    with sample k = 100 'dropped'."""
+    C = w.shape[0]
+    acc = torch.zeros((*samples.shape[:-1], w.shape[1]))
+    if order == "blocked by 16":
+        for k0 in range(0, C, 16):
+            part = torch.zeros_like(acc)
+            for k in range(k0, min(k0 + 16, C)):
+                part += samples[..., k, None] * w[k]
+            acc += part
+    else:
+        for k in (reversed(range(C)) if order == "reversed" else range(C)):
+            if not (order == "dropped" and k == 100):
+                acc += samples[..., k, None] * w[k]
+    return acc
+
+
+def _fused_sum(samples, w, bias, order):
+    """relu(samples @ w + bias) in bf16, summed as :func:`_fused_acc`."""
+    return torch.relu(_fused_acc(samples, w, order) + bias).bfloat16()
+
+
+@pytest.mark.parametrize("order", ["reversed", "blocked by 16", "dropped"])
+def test_bound_covers_fused_sum_orders(rng, order):
+    """K1's 324-term sum in bf16, reversed or blocked by 16 (wgmma's k16
+    steps), stays within the bound of corr_lookup_fused_ref on every element:
+    the bound admits any order. With one window sample dropped it breaks."""
+    pyr, coords, wc, bias = _fused_inputs(rng)
+    want = ops.corr_lookup_fused_ref(pyr, coords, wc, bias, 4)
+    samples = ops.corr_lookup_ref(pyr, coords, 4).float()
+    got = _fused_sum(samples, wc.float(), bias, order)
+    mag = ops.corr_lookup_fused_magnitude(pyr, coords, wc, 4)
+    assert got.shape == want.shape
+    if order == "dropped":
+        assert _violations(got, want, mag, 324) > 0
+    else:
+        assert _violations(got, want, mag, 324) == 0
+
+
+# corr_lookup.cu kWindow: the bf16 K1's rounding repair recomputes an output
+# in the plain version's order where relu(acc - e + b) and relu(acc + e + b)
+# round to two bf16 values, e = REPAIR_WINDOW * ||a_p|| * max_f ||w_f||
+REPAIR_WINDOW = 2.0 ** -20
+
+
+@pytest.mark.parametrize("order", ["reversed", "blocked by 16"])
+def test_repair_window_covers_sum_orders(rng, order):
+    """The premise of K1's rounding repair, on every element at convc1's
+    width (F = 256): a float32 sum of the 324 exact products in another
+    order differs from the plain version's sequential sum by less than a
+    quarter of the window e (room for the tensor cores' sums, which differ
+    from the plain one about twice as much as a round-to-nearest blocked
+    sum does), so the outputs that the window passes round as the plain
+    version's, and the repaired result equals the plain one bit for bit;
+    the window flags under 3% of the outputs."""
+    pyr, coords, wc, bias = _fused_inputs(rng, H8=16, W8=16, F=256)
+    samples = ops.corr_lookup_ref(pyr, coords, 4).float()
+    w = wc.float()
+    plain = _fused_acc(samples, w, "in order")
+    other = _fused_acc(samples, w, order)
+    e = (REPAIR_WINDOW * samples.double().norm(dim=-1, keepdim=True)
+         * w.double().norm(dim=0).max()).float()
+    assert bool(((other - plain).abs() < e / 4).all())
+    flagged = (torch.relu(other - e + bias).bfloat16().view(torch.int16)
+               != torch.relu(other + e + bias).bfloat16().view(torch.int16))
+    repaired = torch.where(flagged, plain, other)
+    want = torch.relu(plain + bias).bfloat16()
+    assert torch.equal(torch.relu(repaired + bias).bfloat16().view(torch.int16),
+                       want.view(torch.int16))
+    assert float(flagged.float().mean()) < 0.03

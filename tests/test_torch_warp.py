@@ -66,11 +66,13 @@ def _assert_close(got, want, mode, maps):
         np.testing.assert_allclose(got, want, atol=1e-5 * float(np.abs(maps).max()), rtol=0)
 
 
+@pytest.mark.parametrize("C", [1, 4, 6, 16])
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("mode", sorted(MODES))
-def test_warp_pallas_matches_jax(rng, mode, kind):
-    """#14 bilinear_warp_pallas in each of its modes (dot dtype x snap)."""
-    N, H, W, C, P = 2, 32, 16, 4, 64
+def test_warp_pallas_matches_jax(rng, mode, kind, C):
+    """#14 bilinear_warp_pallas in each of its modes (dot dtype x snap), at
+    the channel counts the kernel compiles (1, 4, 6) and a generic one (16)."""
+    N, H, W, P = 2, 32, 16, 64
     maps, coords = _maps(rng, N, H, W, C), _coords(rng, kind, N, H, W, P)
     dot, snap = MODES[mode]
     want = jw.bilinear_warp_pallas(jnp.asarray(maps), jnp.asarray(coords), dot_dtype=dot,

@@ -1,15 +1,21 @@
 #!/usr/bin/env python3
-"""The dense window lookups of two checkouts of the port, side by side on one card.
+"""The dense window lookups and the warp of two checkouts of the port, side by side on one card.
 
 Builds the kernel library of this checkout and of ``--other`` (each with its
-own ``mft_tpu_torch/ops/_build.py``, into its own build directory), then, at
-the 512x512 slice's shapes (7 pairs, 4096 pixels, levels 64^2..8^2, radius
-4), in float32 and bfloat16, on uniform coordinates (some windows leave the
-maps) and on local ones (the pixel grid + U(-2, 2)):
+own ``mft_tpu_torch/ops/_build.py``, into its own build directory), then:
 
-- calls ``mft_corr_lookup`` (K2), ``mft_corr_lookup_mixed`` (#9, on the same
-  dense levels) and ``mft_corr_lookup_conv`` (K1) of both libraries on the
-  same inputs and requires identical bits between them;
+- at the 512x512 slice's shapes (7 pairs, 4096 pixels, levels 64^2..8^2,
+  radius 4), in float32 and bfloat16, on uniform coordinates (some windows
+  leave the maps) and on local ones (the pixel grid + U(-2, 2)), calls
+  ``mft_corr_lookup`` (K2), ``mft_corr_lookup_mixed`` (#9, on the same dense
+  levels) and the fused lookup K1 of both libraries on the same inputs. K2,
+  #9 and the float32 K1 must give identical bits; the bfloat16 K1, whose
+  sum order may differ between checkouts (a checkout with
+  ``mft_corr_lookup_conv_tc`` sums on the tensor cores), must stay within
+  ``ops.product_error_bound`` (K = 324) of the other's on every element;
+- at chip_smoke.py's ``WARP_SHAPES``, calls ``mft_warp`` of both libraries
+  through the arguments of the JAX entry point of each shape and requires
+  identical bits;
 - times each by CUDA graph replay, in the order other, this, this, other,
   and prints both checkouts' times and their ratio.
 
@@ -45,7 +51,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("torch_lookup_ab: needs an NVIDIA card", file=sys.stderr)
         return 2
-    from chip_smoke import B, F, LEVELS, P, RADIUS, card_line, graph_ms, lookup_coords
+    from chip_smoke import (B, F, LEVELS, P, RADIUS, card_line, graph_ms, lookup_coords,
+                            WARP_SHAPES, warp_coords)
+    from mft_tpu_torch import ops
     card = card_line()
     print(card, flush=True)
     libs = {}
@@ -54,60 +62,125 @@ def main(argv=None) -> int:
         libs[label] = mod.library()
         print(f"{label}: {root}, built in {mod.build_seconds:.2f} s", flush=True)
 
+    def side_by_side(what, call, outs, compare):
+        """Both checkouts' outputs compared, then timed: other, this, this,
+        other. returns: False if the comparison failed."""
+        for label in ("other", "this"):
+            call(label, outs[label])
+        torch.cuda.synchronize()
+        ok, how = compare(outs["other"], outs["this"])
+        ms = {"other": [], "this": []}
+        for label in ("other", "this", "this", "other"):
+            out = outs[label]
+            ms[label].append(graph_ms(lambda: call(label, out)))
+        other, this = (sum(ms[k]) / 2 for k in ("other", "this"))
+        print(f"{what}: other {other:.4f} ms ({ms['other'][0]:.4f}, {ms['other'][1]:.4f}), "
+              f"this {this:.4f} ms ({ms['this'][0]:.4f}, {ms['this'][1]:.4f}), this/other "
+              f"{this / other:.3f}; {how} [{card}]", flush=True)
+        return ok
+
+    def identical(a, b):
+        ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+        same = torch.equal(a.view(ints), b.view(ints))
+        return same, "bits identical" if same else "bits DIFFER"
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(12)
     coords = {kind: lookup_coords(torch, dev, kind, gen) for kind in ("uniform", "local")}
-    wc32 = torch.randn((len(LEVELS) * (2 * RADIUS + 1) ** 2, F), device=dev,
-                       generator=gen) / 18.0
+    C = len(LEVELS) * (2 * RADIUS + 1) ** 2
+    wt32 = torch.randn((F, C), device=dev, generator=gen) / 18.0   # convc1's (F, C) weight
     bias = 0.1 * torch.randn((F,), device=dev, generator=gen)
     stream = torch.cuda.current_stream
-    C = len(LEVELS) * (2 * RADIUS + 1) ** 2
     hw = [v for d in LEVELS for v in d]
     failed = False
     for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
         pyr = [torch.randn((B, P, h, w), device=dev, generator=gen).to(dtype)
                for h, w in LEVELS]
         ptrs = [t.data_ptr() for t in pyr]
-        wc = wc32.to(dtype)
+        wt = wt32.to(dtype)                 # (F, C), the tensor-core kernel's
+        wc = wt.t().contiguous()            # (C, F), the CUDA-core kernels'
         for kind, c in coords.items():
-            outs = {}
-
-            def call(label, kernel, out):
+            def fused(label, out):
                 lib = libs[label]
                 s = stream().cuda_stream
-                if kernel == "mft_corr_lookup":
-                    err = lib.mft_corr_lookup(out.data_ptr(), c.data_ptr(), *ptrs, *hw, 4,
-                                              B * P, RADIUS, code, s)
-                elif kernel == "mft_corr_lookup_mixed":
-                    err = lib.mft_corr_lookup_mixed(out.data_ptr(), c.data_ptr(), *ptrs, *hw,
-                                                    4, B, P, RADIUS, code, s)
+                common = (*ptrs, *hw, 4, B * P, RADIUS, F)
+                if not hasattr(lib, "mft_corr_lookup_conv_tc"):   # one entry, a dtype code
+                    err = lib.mft_corr_lookup_conv(out.data_ptr(), c.data_ptr(), wc.data_ptr(),
+                                                   bias.data_ptr(), *common, code, s)
+                elif code == 1:
+                    err = lib.mft_corr_lookup_conv_tc(out.data_ptr(), c.data_ptr(),
+                                                      wt.data_ptr(), bias.data_ptr(), *common, s)
                 else:
-                    err = lib.mft_corr_lookup_conv(out.data_ptr(), c.data_ptr(),
-                                                   wc.data_ptr(), bias.data_ptr(), *ptrs,
-                                                   *hw, 4, B * P, RADIUS, F, code, s)
+                    err = lib.mft_corr_lookup_conv(out.data_ptr(), c.data_ptr(), wc.data_ptr(),
+                                                   bias.data_ptr(), *common, s)
                 if err != 0:
-                    raise RuntimeError(f"{label} {kernel}: cudaError {err}")
+                    raise RuntimeError(f"{label} fused lookup: cudaError {err}")
 
-            for kernel in ("mft_corr_lookup", "mft_corr_lookup_mixed", "mft_corr_lookup_conv"):
-                width = F if kernel == "mft_corr_lookup_conv" else C
-                for label in ("other", "this"):
-                    outs[label] = torch.empty((B, P, width), dtype=dtype, device=dev)
-                    call(label, kernel, outs[label])
-                torch.cuda.synchronize()
-                same = torch.equal(outs["other"].view(torch.int16 if code else torch.int32),
-                                   outs["this"].view(torch.int16 if code else torch.int32))
-                failed |= not same
-                ms = {"other": [], "this": []}
-                for label in ("other", "this", "this", "other"):
-                    out = outs[label]
-                    ms[label].append(graph_ms(lambda: call(label, kernel, out)))
-                other, this = (sum(ms[k]) / 2 for k in ("other", "this"))
-                print(f"{kernel} {str(dtype).split('.')[1]} {kind}: other {other:.4f} ms "
-                      f"({ms['other'][0]:.4f}, {ms['other'][1]:.4f}), this {this:.4f} ms "
-                      f"({ms['this'][0]:.4f}, {ms['this'][1]:.4f}), this/other "
-                      f"{this / other:.3f}; bits {'identical' if same else 'DIFFER'} "
-                      f"[{card}]", flush=True)
+            def lookup(kernel):
+                def call(label, out):
+                    lib = libs[label]
+                    s = stream().cuda_stream
+                    if kernel == "mft_corr_lookup":
+                        err = lib.mft_corr_lookup(out.data_ptr(), c.data_ptr(), *ptrs, *hw, 4,
+                                                  B * P, RADIUS, code, s)
+                    else:
+                        err = lib.mft_corr_lookup_mixed(out.data_ptr(), c.data_ptr(), *ptrs,
+                                                        *hw, 4, B, P, RADIUS, code, s)
+                    if err != 0:
+                        raise RuntimeError(f"{label} {kernel}: cudaError {err}")
+                return call
+
+            name = str(dtype).split(".")[1]
+            for kernel in ("mft_corr_lookup", "mft_corr_lookup_mixed"):
+                outs = {k: torch.empty((B, P, C), dtype=dtype, device=dev)
+                        for k in ("other", "this")}
+                failed |= not side_by_side(f"{kernel} {name} {kind}", lookup(kernel), outs,
+                                           identical)
+            outs = {k: torch.empty((B, P, F), dtype=dtype, device=dev) for k in ("other", "this")}
+            if code == 1:
+                mag = ops.corr_lookup_fused_magnitude(pyr, c, wc, RADIUS)
+
+                def within_bound(a, b):
+                    bound = ops.product_error_bound(a, mag, C)
+                    diff = (b.float() - a.float()).abs()
+                    ratio = float((diff / bound.clamp_min(1e-30)).max())
+                    ok = bool((diff <= bound).all())
+                    return ok, (f"largest |this - other| / bound {ratio:.4f} "
+                                f"{'within' if ok else 'OUTSIDE'} ops.product_error_bound")
+                failed |= not side_by_side(f"fused lookup (K1) {name} {kind}", fused, outs,
+                                           within_bound)
+            else:
+                failed |= not side_by_side(f"fused lookup (K1) {name} {kind}", fused, outs,
+                                           identical)
         del pyr
+
+    # the warp (#14-#16): mft_warp as each JAX entry point calls it
+    wgen = torch.Generator(device=dev).manual_seed(10)
+    for label, (entry, mode, N, H, W, Cw) in WARP_SHAPES.items():
+        dtype = torch.bfloat16 if mode == "tpu" else torch.float32
+        maps = (4.0 * torch.randn((N, H, W, Cw), device=dev, generator=wgen)).to(dtype)
+        xy = warp_coords(torch, dev, wgen, N, H, W)
+        Pw = H * W
+        if entry == "bilinear_warp_tiled":   # x and y planes, C output planes
+            sx, sy = xy[..., 0].contiguous(), xy[..., 1].contiguous()
+            shape, c_strides, o_strides = (Cw, N, Pw), (Pw, 1), (Pw, 1, N * Pw)
+        else:
+            sx, sy = xy[..., 0], xy[..., 1]
+            shape, c_strides, o_strides = (N, Pw, Cw), (2 * Pw, 2), (Pw * Cw, Cw, 1)
+        snap, bf16 = ops.warp.MODES[mode]
+
+        def warp(lib_label, out):
+            err = libs[lib_label].mft_warp(
+                out.data_ptr(), maps.data_ptr(), sx.data_ptr(), sy.data_ptr(), N, H, W, Cw, Pw,
+                *c_strides, *o_strides, int(dtype == torch.bfloat16), int(snap), int(bf16),
+                stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"{lib_label} mft_warp: cudaError {err}")
+
+        outs = {k: torch.empty(shape, dtype=torch.float32, device=dev) for k in ("other", "this")}
+        failed |= not side_by_side(f"mft_warp {label} ({entry}, {mode})", warp, outs, identical)
+        del maps, xy, sx, sy, outs
+        torch.cuda.empty_cache()
     print("ok" if not failed else "FAILED: outputs differ between the checkouts")
     return 1 if failed else 0
 

@@ -31,7 +31,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 
 GROUPS = (  # first match wins
-    ("corr_lookup_fused", re.compile(r"lookup_conv_kernel")),
+    # corr_lookup.cu: bf16 on the tensor cores (_tc), f32 on the CUDA cores
+    ("corr_lookup_fused", re.compile(r"lookup_conv(_tc)?_kernel")),
     # corr_gather.cu: corr_lookup and corr_lookup_mixed
     ("corr_lookup, corr_lookup_mixed", re.compile(r"corr_gather_kernel")),
     ("chain_select", re.compile(r"chain_select_kernel")),
