@@ -10,10 +10,12 @@ non-zero and prints no result line):
 1. the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``mft_tpu_torch/ops/csrc`` (one bare nvcc per
    source, started together) and check that the SASS of the tensor-core
-   kernels (#5, #13 and the bf16 fused lookup K1) holds HGMMA in every
-   instance (``cuobjdump -sass``) and that ptxas gave every instance of the
-   staged gather (``corr_gather.cu``), of K1 (``corr_lookup.cu``) and of
-   the warp (``warp.cu``) a 0-byte stack frame and no spills;
+   kernels (#5, #13, the bf16 fused lookup K1 and the bf16 window
+   correlations K4/K5) holds HGMMA in every instance (``cuobjdump -sass``)
+   and that ptxas gave every instance of the staged gather
+   (``corr_gather.cu``), of K1 (``corr_lookup.cu``), of the warp
+   (``warp.cu``) and of the bf16 window correlations (``corr_alt.cu``) a
+   0-byte stack frame and no spills;
 3. hold each kernel against its plain PyTorch version at the main path's
    shapes, in bf16 and f32, and time it (device time by CUDA graph replay,
    as every kernel and library call below; the plain versions eagerly); K1
@@ -21,7 +23,10 @@ non-zero and prints no result line):
    ``ops.product_error_bound`` on every element (largest ratio logged), and
    timed beside the unfused pair K2 + ``torch.addmm`` + relu;
 3b. the same for the window-correlation kernels of corr_method 'alt' and
-   'win' (no volume), on wild and on local coordinates;
+   'win' (no volume), on wild and on local coordinates: float32 bit for
+   bit; bfloat16, one tile product on the tensor cores for both, within
+   ``ops.product_error_bound`` on every element (largest ratio logged), its
+   outputs that differ from the plain version's counted;
 3c. the same for the lookups of the volume's other stored forms,
    corr_method 'int8', 'packed', 'packed_i8' and 'pallas_t' (K6-K9), on
    uniform and on local coordinates;
@@ -60,17 +65,19 @@ non-zero and prints no result line):
    against the plain versions ('fold' and 'pallas' relative to the volume
    path's gap to the same plain frame) and (not gated) the volume path;
 7. 'alt' and 'win' at 2160x3840, where the all-pairs volume would not fit on
-   the card: init + 2 tracked frames each, peak device memory, and the
-   kernels (K3-K5) against their plain versions on sampled pixels at that
-   size;
+   the card: init + 2 tracked frames each, peak device memory, the share of
+   'win''s (tile, level) boxes that were staged, and the kernels (K3-K5)
+   against their plain versions on sampled pixels at that size (K4/K5 within
+   the bound, their differing outputs counted);
 9. 'int8' and 'auto' at 1080x1920: init + 2 tracked frames each, their peak
    device memory ('int8' must peak lower), K6, K2 and K1 against their plain
    versions on sampled pixels at that size (K2 bit for bit, K1 within the
    bound); then phase 11's chain_select_pallas on the 'auto' tracker's next
    7 candidates.
 
-Every bf16 launch of K1, #5 and #13 on the main path, conv_backend 'pallas'
-and 'auto' at 1080x1920 must go through the tensor-core entry points.
+Every bf16 launch of K1, #5, #13, K4 and K5 on the main path, conv_backend
+'pallas', 'alt' and 'win' at 512x512 and 2160x3840 and 'auto' at 1080x1920
+must go through the tensor-core entry points.
 
 Where one PyTorch call computes a kernel's function, its time is taken beside
 the kernel's as a yardstick (``library_ms``; the port never calls it):
@@ -400,11 +407,15 @@ def check_chain_select(torch, ops, dev, card):
 # phase 3b: the window-correlation kernels of corr_method 'alt' and 'win'
 # --------------------------------------------------------------------------- #
 FEAT_C = 256                                       # fnet channels
-# stated tolerances |kernel - plain| <= atol + rtol*|plain|: kernels and plain
-# version do the same float ops in the same order (each dot in one fixed tree
-# order; built with -fmad=false), so identical results are expected and the
-# tolerance admits last-bit differences only
-ALT_TOL = {"float32": (1e-6, 1e-6), "bfloat16": (1e-6, 1e-6)}
+# stated tolerance of the float32 kernels |kernel - plain| <= atol +
+# rtol*|plain|: kernels and plain version do the same float ops in the same
+# order (each dot in one fixed tree order; built with -fmad=false), so
+# identical results are expected and the tolerance admits last-bit
+# differences only. bfloat16 sums each tap dot on the tensor cores and is
+# held to ops.product_error_bound (K = C, scale 1/sqrt(C), S from
+# ops.corr_window_magnitude) on every element; its outputs that differ from
+# the plain version's are counted (the rounding repair expects none)
+ALT_TOL = {"float32": (1e-6, 1e-6)}
 
 
 def feature_inputs(torch, dev, dtype, kind, H8, W8, seed):
@@ -459,7 +470,10 @@ def feature_work(torch, f1, pyr, coords):
 
 def check_feature_kernels(torch, ops, dev, card):
     """K4 (corr_lookup_alt) and K5 (corr_lookup_win) against their plain
-    version at the 512x512 slice's shapes: B=7, 64x64, C=256, 4 levels, r=4."""
+    version at the 512x512 slice's shapes: B=7, 64x64, C=256, 4 levels, r=4;
+    float32 bit for bit, bfloat16 (one tile product on the tensor cores for
+    both) within the bound, its outputs differing from the plain version's
+    counted."""
     H8, W8 = LEVELS[0]
     stats = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -472,22 +486,32 @@ def check_feature_kernels(torch, ops, dev, card):
             nbytes, ops_n = feature_work(torch, f1, pyr, coords)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = ops_n / PEAK_OPS_PER_S[name] * 1e3
+            mag = (ops.corr_window_magnitude(f1, pyr, coords, RADIUS) if name == "bfloat16"
+                   else None)
             for kname in ("corr_lookup_alt", "corr_lookup_win"):
                 kernel = lambda: getattr(ops, kname)(f1, pyr, coords, RADIUS)
                 got = kernel()
                 torch.cuda.synchronize()
-                err = max_err(got, want)
-                atol, rtol = ALT_TOL[name]
-                ok = within(got, want, atol, rtol)
+                label = f"{kname} {name} {kind}"
                 staged = ""
                 if kname == "corr_lookup_win":
                     counters = torch.zeros(2, dtype=torch.int32, device=dev)
                     ops.corr_lookup_win(f1, pyr, coords, RADIUS, stats=counters)
                     n_st, n_un = counters.tolist()
-                    staged = f", staged (tile, level) boxes {n_st}/{n_st + n_un}"
-                log(f"check {kname} {name} {kind}: max_abs_err {err:.3e} (tolerance "
-                    f"atol {atol} + rtol {rtol}) {'ok' if ok else 'FAIL'}{staged}")
-                check(ok, f"{kname} {name} {kind} disagrees with its plain version")
+                    staged = f"; staged (tile, level) boxes {n_st}/{n_st + n_un}"
+                ratio = differ = None
+                if mag is not None:
+                    err, ratio = window_check(torch, ops, label, got, want, mag)
+                    differ = differing(torch, got, want)
+                    log(f"check {label}: {differ} of {got.numel()} outputs differ from the plain "
+                        f"version's bits{staged}")
+                else:
+                    err = max_err(got, want)
+                    atol, rtol = ALT_TOL[name]
+                    ok = within(got, want, atol, rtol)
+                    log(f"check {label}: max_abs_err {err:.3e} (tolerance atol {atol} + rtol "
+                        f"{rtol}) {'ok' if ok else 'FAIL'}{staged}")
+                    check(ok, f"{label} disagrees with its plain version")
                 ms = graph_ms(kernel)
                 log(f"time {kname} {name} {kind}: kernel {ms:.4f} ms (graph replay), plain "
                     f"{plain_ms:.3f} ms, "
@@ -496,9 +520,24 @@ def check_feature_kernels(torch, ops, dev, card):
                 stats[(kname, name, kind)] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=max(bytes_ms, ops_ms),
-                    bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-            del f1, pyr, coords, want
+                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                    bound_ratio=ratio, outputs_differing=differ)
+            del f1, pyr, coords, want, mag
     return stats
+
+
+def differing(torch, got, want) -> int:
+    """Outputs whose bits differ (same dtype and shape)."""
+    ints = {2: torch.int16, 4: torch.int32}[got.element_size()]
+    return int((got.view(ints) != want.view(ints)).sum())
+
+
+def window_check(torch, ops, label, got, want, magnitude):
+    """The bf16 window correlations (tensor cores) within
+    ops.product_error_bound of the plain version on every element: K = C,
+    scale 1/sqrt(C), S from ops.corr_window_magnitude."""
+    from mft_tpu_torch.ops.product import corr_scale
+    return bound_check(torch, ops, label, got, want, magnitude, FEAT_C, corr_scale(FEAT_C))
 
 
 # --------------------------------------------------------------------------- #
@@ -1062,17 +1101,18 @@ def check_kernels_vs_plain(torch, tracker, nxt, label, volume_tracker=None):
 
 
 def check_tensor_cores(ops, label):
-    """Every launch of the two tiled products in this run (a bf16 model) went
-    through their tensor-core entry points."""
+    """Every launch in this run (a bf16 model) of the kernels with a
+    tensor-core path (#5, #13, K1, K4, K5) went through it."""
     counts, tc = ops.launch_counts(), ops.tensor_core_launch_counts()
     check(all(tc[k] == counts[k] for k in tc),
           f"{label}: tensor-core launches {tc} != launches "
-          f"{ {k: counts[k] for k in tc} } of the bf16 products")
+          f"{ {k: counts[k] for k in tc} } of the bf16 kernels")
 
 
 def check_sass(_build, path):
-    """The tensor-core kernels' machine code holds wgmma (HGMMA): #5, #13 and
-    the bf16 fused lookup K1, in every instance."""
+    """The tensor-core kernels' machine code holds wgmma (HGMMA): #5, #13,
+    the bf16 fused lookup K1 and the bf16 window correlations K4/K5, in every
+    instance."""
     from pathlib import Path
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(path)], capture_output=True, text=True,
@@ -1081,7 +1121,8 @@ def check_sass(_build, path):
     for part in sass.split("Function : ")[1:]:
         name, _, body = part.partition("\n")
         functions[name.strip()] = body.count("HGMMA")
-    for kernel in ("build_folded_tc_kernel", "conv_tc_kernel", "lookup_conv_tc_kernel"):
+    for kernel in ("build_folded_tc_kernel", "conv_tc_kernel", "lookup_conv_tc_kernel",
+                   "window_tc_kernel"):
         found = {n: c for n, c in functions.items() if kernel in n}
         log(f"sass {kernel}: {len(found)} instances, HGMMA per instance "
             f"{sorted(found.values())}")
@@ -1091,10 +1132,11 @@ def check_sass(_build, path):
 
 # kernel -> instances that ptxas must give a 0-byte stack frame and no
 # spills: the staged gather (K2, #9; radius 1..4 x f32, bf16), the fused
-# lookup K1 (radius 1..4; f32 and, on the tensor cores, bf16) and the warp
-# (f32, bf16 maps x 4 modes x C of 1, 2, 4, 6 and any other)
+# lookup K1 (radius 1..4; f32 and, on the tensor cores, bf16), the warp
+# (f32, bf16 maps x 4 modes x C of 1, 2, 4, 6 and any other) and the bf16
+# window correlations K4/K5 (one instance for both entry points)
 FRAME_CHECKED = {"corr_gather_kernel": 8, "lookup_conv_kernel": 4,
-                 "lookup_conv_tc_kernel": 4, "warp_kernel": 40}
+                 "lookup_conv_tc_kernel": 4, "warp_kernel": 40, "window_tc_kernel": 1}
 
 
 def check_frames(_build, kernel, instances):
@@ -1363,27 +1405,33 @@ def volume_bytes(H8, W8, pairs=7, levels=4, itemsize=2):
 
 
 def check_kernels_uhd(torch, ops, dev, card, H8, W8, n_sample=4096):
-    """K4 and K5 on a whole (7, H8*W8) call, held against the plain version
-    on ``n_sample`` sampled pixels of each pair; K3 on 7 candidates at the
-    frame size against its plain version at every pixel."""
+    """K4 and K5 (bf16, the tensor-core tile product) on a whole (7, H8*W8)
+    call, held to the bound against the plain version on ``n_sample``
+    sampled pixels of each pair, the outputs differing from the plain
+    version's counted; K3 on 7 candidates at the frame size against its
+    plain version at every pixel."""
     gen = torch.Generator(device=dev).manual_seed(5)
     for kind in ("local", "wild"):
         f1, pyr, coords = feature_inputs(torch, dev, torch.bfloat16, kind, H8, W8, seed=4)
         idx = torch.randperm(H8 * W8, device=dev, generator=gen)[:n_sample]
-        want = ops.corr_lookup_alt_ref(f1.reshape(B, H8 * W8, -1)[:, idx], pyr,
-                                       coords[:, idx].contiguous(), RADIUS)
-        atol, rtol = ALT_TOL["bfloat16"]
+        f1s, cs = f1.reshape(B, H8 * W8, -1)[:, idx], coords[:, idx].contiguous()
+        want = ops.corr_lookup_alt_ref(f1s, pyr, cs, RADIUS)
+        mag = ops.corr_window_magnitude(f1s, pyr, cs, RADIUS)
         for kname in ("corr_lookup_alt", "corr_lookup_win"):
             kernel = lambda: getattr(ops, kname)(f1, pyr, coords, RADIUS)
             got = kernel()[:, idx]
             torch.cuda.synchronize()
-            ok = within(got, want, atol, rtol)
+            label = (f"{kname} bfloat16 {kind} at {H8}x{W8} (7 pairs), {n_sample} sampled "
+                     f"pixels per pair")
+            window_check(torch, ops, label, got, want, mag)
             ms = cuda_ms(kernel, reps=3, warmup=1)
-            log(f"check {kname} bfloat16 {kind} at {H8}x{W8} (7 pairs), {n_sample} sampled "
-                f"pixels per pair: max_abs_err {max_err(got, want):.3e} (tolerance atol "
-                f"{atol} + rtol {rtol}) {'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms [{card}]")
-            check(ok, f"{kname} {kind} disagrees with its plain version at {H8}x{W8}")
-        del f1, pyr, coords, want
+            counters = torch.zeros(2, dtype=torch.int32, device=dev)
+            ops.corr_lookup_win(f1, pyr, coords, RADIUS, stats=counters)
+            n_st, n_un = counters.tolist()
+            log(f"check {label}: {differing(torch, got, want)} of {got.numel()} outputs differ "
+                f"from the plain version's bits; kernel {ms:.3f} ms a call; staged (tile, level) "
+                f"boxes {n_st}/{n_st + n_un} [{card}]")
+        del f1, pyr, coords, want, mag, f1s, cs
     torch.cuda.empty_cache()
     maps = chain_select_inputs(torch, dev, N=7, H=8 * H8, W=8 * W8)
     got = ops.chain_select(*maps)
@@ -1414,7 +1462,14 @@ def run_uhd(torch, ops, dev, card, H=2160, W=3840):
         iters = tracker.flower.iters
         ops.reset_launch_counts()
         t = time.perf_counter()
-        results, frame_ms = track_frames(torch, tracker, frames)
+        # every launch of corr_lookup_win adds its staged and unstaged
+        # (tile, level) pairs here
+        staged = torch.zeros(2, dtype=torch.int32, device=dev)
+        ops.corr_lookup_win.stats = staged
+        try:
+            results, frame_ms = track_frames(torch, tracker, frames)
+        finally:
+            ops.corr_lookup_win.stats = None
         seconds = time.perf_counter() - t
         counts = ops.launch_counts()
         want = expected_counts(ops, **{KERNEL_OF[method]: UHD_FRAMES * iters},
@@ -1427,6 +1482,11 @@ def run_uhd(torch, ops, dev, card, H=2160, W=3840):
             f"(init + {UHD_FRAMES} frames {seconds:.2f} s); launches {counts}; peak device "
             f"memory {peak / 1e9:.2f} GB, against {need / 1e9:.1f} GB for the bf16 volume "
             f"of 7 pairs [{card}]")
+        if method == "win":
+            n_st, n_un = staged.tolist()
+            log(f"win at {H}x{W}: staged (tile, level) boxes over the tracked frames "
+                f"{n_st}/{n_st + n_un} ({n_st / max(n_st + n_un, 1):.2%}); the rest read their "
+                f"taps per pixel on the CUDA cores")
         last = results[-1]
         log(f"{method} at {H}x{W}: mean flow ({float(last.flow[..., 0].mean()):.3f}, "
             f"{float(last.flow[..., 1].mean()):.3f}) px, mean occlusion "

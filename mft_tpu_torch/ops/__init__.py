@@ -5,8 +5,8 @@
 | corr_lookup_fused (mft_corr_lookup_conv_tc; f32: mft_corr_lookup_conv) | corr_lookup_pallas.py corr_lookup_pallas_fused |
 | corr_lookup (mft_corr_lookup)             | corr_lookup_pallas.py corr_lookup_pallas             |
 | chain_select (mft_chain_select)           | warp_pallas.py bilinear_warp_blocked (+ chain/select) |
-| corr_lookup_alt (mft_corr_alt)            | alt_corr_pallas.py corr_lookup_alt                   |
-| corr_lookup_win (mft_corr_win)            | alt_corr_pallas.py corr_lookup_win                   |
+| corr_lookup_alt (mft_corr_alt; bf16: window_tc_kernel) | alt_corr_pallas.py corr_lookup_alt      |
+| corr_lookup_win (mft_corr_win; bf16: window_tc_kernel) | alt_corr_pallas.py corr_lookup_win      |
 | corr_lookup_q (mft_corr_lookup_q)         | corr_lookup_pallas.py corr_lookup_pallas_q           |
 | corr_lookup_packed (mft_corr_lookup_packed) | corr_lookup_pallas.py corr_lookup_pallas_packed    |
 | corr_lookup_packed_i8 (mft_corr_lookup_packed_i8) | corr_lookup_pallas.py corr_lookup_pallas_packed_i8 |
@@ -20,9 +20,9 @@
 A wrapper launches its kernel for CUDA tensors and uses the plain version for
 CPU tensors; it raises for anything else. Each wrapper counts its launches in
 its ``launches`` attribute (:func:`launch_counts`, :func:`reset_launch_counts`);
-the two tiled products and the fused lookup also count their bfloat16
-launches, which run on the tensor cores, in ``tensor_core_launches``
-(:func:`tensor_core_launch_counts`).
+the two tiled products, the fused lookup and the two window correlations
+also count their bfloat16 launches, which run on the tensor cores, in
+``tensor_core_launches`` (:func:`tensor_core_launch_counts`).
 """
 
 from mft_tpu_torch.ops.chain_select import chain_select, chain_select_ref
@@ -37,7 +37,8 @@ from mft_tpu_torch.ops.corr_lookup import (
 from mft_tpu_torch.ops.product import (conv_pallas, conv_pallas_magnitude, conv_pallas_ref,
                                        conv_weight_tiles, corr_build_folded,
                                        corr_build_folded_magnitude, corr_build_folded_ref,
-                                       corr_lookup_fused_magnitude, product_error_bound)
+                                       corr_lookup_fused_magnitude, corr_window_magnitude,
+                                       product_error_bound)
 from mft_tpu_torch.ops.warp import (bilinear_warp, bilinear_warp_banded, bilinear_warp_blocked,
                                     bilinear_warp_pallas, bilinear_warp_ref,
                                     bilinear_warp_tiled, snap256, split_hi_lo)
@@ -75,7 +76,7 @@ __all__ = ["chain_select", "chain_select_ref", "corr_lookup", "corr_lookup_ref",
            "corr_lookup_t_ref", "corr_lookup_folded", "corr_lookup_folded_ref",
            "corr_lookup_mixed", "corr_lookup_mixed_ref", "corr_build_folded",
            "corr_build_folded_ref", "corr_build_folded_magnitude",
-           "corr_lookup_fused_magnitude", "conv_pallas",
+           "corr_lookup_fused_magnitude", "corr_window_magnitude", "conv_pallas",
            "conv_pallas_ref", "conv_pallas_magnitude", "conv_weight_tiles",
            "product_error_bound", "bilinear_warp",
            "bilinear_warp_ref", "bilinear_warp_pallas", "bilinear_warp_banded",

@@ -10,6 +10,17 @@ tensors:
   ``corr_lookup_win``): the same samples, with the target features a tile of
   source pixels needs staged once in shared memory.
 
+In bfloat16 both entry points run one kernel on the tensor cores
+(``csrc/corr_alt.cu window_tc_kernel``): per 8x8 tile of source pixels and
+per level, the tile's features times the box of target positions its
+windows touch, then a rounding repair that recomputes in the plain order
+the tap dots of every sample near a bf16 rounding boundary. Its samples are
+held to :func:`mft_tpu_torch.ops.product.product_error_bound` (K = C, scale
+1/sqrt(C), S from :func:`mft_tpu_torch.ops.product.corr_window_magnitude`)
+and equal the plain version's wherever the repair's premise holds; each
+wrapper counts those launches in ``tensor_core_launches``. In float32 the
+kernels run on the CUDA cores and give the plain version's bits.
+
 For pair b, source pixel p, level l and window channel k = i*(2r+1) + j the
 output is the bilinear sample, zeros outside the map, at
 (x/2^l + i - r, y/2^l + j - r) of the map q -> <f1[b,p], f2_l[b,q]> / sqrt(C),
@@ -28,8 +39,7 @@ The plain version computes, per pixel and level, the (2r+2)^2 dots with the
 integer taps around the window and combines them bilinearly, which is what
 the kernels do; it works in chunks of pixels, so it also runs on a sample of
 pixels of a 2160x3840 frame. Each dot is summed in one fixed order, the one
-the kernels' lanes follow (:func:`_tree_dots`), so kernels and plain version
-give the same bits.
+the CUDA-core kernels' lanes follow (:func:`_tree_dots`).
 """
 
 import math
@@ -47,7 +57,8 @@ MAX_CHANNELS = 256      # 8 lanes x 4 chunks of 8 channels per tap dot
 # plain version
 # --------------------------------------------------------------------------- #
 def _tree_dots(g: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
-    """(R, T) float32 dots of taps g (R, T, C) with features f (R, C).
+    """(R, T) float32 dots of taps g (R, T, C) with features f (R, C), both
+    taken in float32.
 
     The order of the kernels: channel c = 64*m + 8*s + q (zeros beyond C),
     products in f32, then halving trees over q (8 -> 1), over m (4 -> 1, more
@@ -56,7 +67,7 @@ def _tree_dots(g: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     """
     R, T, C = g.shape
     M = 4 if C <= 256 else 1 << (math.ceil(C / 64) - 1).bit_length()
-    prod = g * f[:, None, :]
+    prod = g.float() * f.float()[:, None, :]
     if 64 * M > C:
         prod = torch.nn.functional.pad(prod, (0, 64 * M - C))
     y = prod.view(R, T, M, 8, 8)                           # [m, s, q]
@@ -71,11 +82,13 @@ def _tree_dots(g: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     return y[..., 0]
 
 
-def _level_ref(f1, f2, coords, lvl, radius, scale, chunk):
-    """(R, (2r+1)^2) float32 samples of one level for R flat pixels.
+def _level_ref(f1, f2, coords, lvl, radius, scale, chunk, dot=_tree_dots):
+    """(R, (2r+1)^2) samples of one level for R flat pixels, in the dtype of
+    ``dot``'s result (float32 for :func:`_tree_dots`).
 
     args: f1 (R, C) in the pyramid dtype, f2 (B, h, w, C), coords (R, 2)
-    level-0 float32; row r belongs to pair r // (R // B).
+    level-0 float32; row r belongs to pair r // (R // B); ``dot(g, f)``
+    gives the (r, T) dots of taps g (r, T, C) with features f (r, C).
     """
     B, h, w, C = f2.shape
     R = f1.shape[0]
@@ -84,7 +97,7 @@ def _level_ref(f1, f2, coords, lvl, radius, scale, chunk):
     flat = f2.reshape(B * h * w, C)
     taps = torch.arange(n + 1, device=dev) - radius        # -r .. r+1
     per_pair = R // B
-    out = torch.empty((R, n * n), dtype=torch.float32, device=dev)
+    out = None
     for s in range(0, R, chunk):
         e = min(R, s + chunk)
         c = coords[s:e] * (1.0 / 2.0 ** lvl)
@@ -97,16 +110,34 @@ def _level_ref(f1, f2, coords, lvl, radius, scale, chunk):
         b = torch.arange(s, e, device=dev) // per_pair
         idx = (b[:, None, None] * (h * w) + ys.clamp(0, h - 1)[:, None, :] * w
                + xs.clamp(0, w - 1)[:, :, None])               # (r, n+1, n+1)
-        g = flat[idx.reshape(e - s, -1)].float()               # (r, taps, C)
-        dots = _tree_dots(g, f1[s:e].float()) * scale
+        dots = dot(flat[idx.reshape(e - s, -1)], f1[s:e]) * scale
         d = torch.where(valid, dots.view(e - s, n + 1, n + 1), 0.0)
         # d[tx, ty]: the four taps of sample (i, j) are d[i|i+1, j|j+1]
         smp = (d[:, :-1, :-1] * ((1.0 - wx) * (1.0 - wy))
                + d[:, 1:, :-1] * (wx * (1.0 - wy))
                + d[:, :-1, 1:] * ((1.0 - wx) * wy)
                + d[:, 1:, 1:] * (wx * wy))
+        if out is None:
+            out = torch.empty((R, n * n), dtype=smp.dtype, device=dev)
         out[s:e] = smp.reshape(e - s, n * n)
     return out
+
+
+def window_samples(f1, f2_pyramid, coords, radius: int = 4, chunk: int = 1024,
+                   dot=_tree_dots, scale=None) -> torch.Tensor:
+    """(B, N, L*(2r+1)^2) samples of the dots ``dot`` gives, scaled by
+    ``scale`` (default 1/sqrt(C) in float32), unrounded: the plain version
+    before its one rounding. Arguments as :func:`corr_lookup_alt_ref`; f1 is
+    taken in the pyramid dtype."""
+    B, N = coords.shape[:2]
+    C = f2_pyramid[0].shape[-1]
+    f1 = f1.reshape(B * N, C).to(f2_pyramid[0].dtype)
+    coords = coords.float().reshape(B * N, 2)
+    if scale is None:
+        scale = 1.0 / math.sqrt(C)
+    out = torch.cat([_level_ref(f1, f2, coords, lvl, radius, scale, chunk, dot)
+                     for lvl, f2 in enumerate(f2_pyramid)], dim=-1)
+    return out.reshape(B, N, -1)
 
 
 def corr_lookup_alt_ref(f1, f2_pyramid, coords, radius: int = 4,
@@ -120,15 +151,7 @@ def corr_lookup_alt_ref(f1, f2_pyramid, coords, radius: int = 4,
       floats).
     returns: (B, N, L*(2r+1)^2) in the pyramid dtype.
     """
-    B, N = coords.shape[:2]
-    C = f2_pyramid[0].shape[-1]
-    dt = f2_pyramid[0].dtype
-    f1 = f1.reshape(B * N, C).to(dt)
-    coords = coords.float().reshape(B * N, 2)
-    scale = 1.0 / math.sqrt(C)
-    out = torch.cat([_level_ref(f1, f2, coords, lvl, radius, scale, chunk)
-                     for lvl, f2 in enumerate(f2_pyramid)], dim=-1)
-    return out.reshape(B, N, -1).to(dt)
+    return window_samples(f1, f2_pyramid, coords, radius, chunk).to(f2_pyramid[0].dtype)
 
 
 # --------------------------------------------------------------------------- #
@@ -176,8 +199,10 @@ def _launch_args(name, f1, f2_pyramid, coords, radius):
 
 
 def corr_lookup_alt(f1, f2_pyramid, coords, radius: int = 4) -> torch.Tensor:
-    """Window correlations, one warp per pixel reading the target features
-    from device memory: (B, H8*W8, L*(2r+1)^2) in the pyramid dtype."""
+    """Window correlations: (B, H8*W8, L*(2r+1)^2) in the pyramid dtype.
+    float32: one warp per pixel reading the target features from device
+    memory; bfloat16: the tile product on the tensor cores (module
+    docstring), as :func:`corr_lookup_win`."""
     if coords.device.type == "cpu":
         return corr_lookup_alt_ref(f1, f2_pyramid, coords, radius)
     out, args = _launch_args("corr_lookup_alt", f1, f2_pyramid, coords, radius)
@@ -185,24 +210,31 @@ def corr_lookup_alt(f1, f2_pyramid, coords, radius: int = 4) -> torch.Tensor:
         *args, torch.cuda.current_stream(coords.device).cuda_stream)
     _build.check(err, "mft_corr_alt")
     corr_lookup_alt.launches += 1
+    corr_lookup_alt.tensor_core_launches += out.dtype == torch.bfloat16
     return out
 
 
 corr_lookup_alt.launches = 0
+corr_lookup_alt.tensor_core_launches = 0
 
 
 def corr_lookup_win(f1, f2_pyramid, coords, radius: int = 4, stats=None) -> torch.Tensor:
     """Window correlations of 8x8 source-pixel tiles that stage, per level,
-    the box of target features their windows touch in shared memory (in
-    bands of whole rows of up to 80 KB) when the box holds at most 1600
-    positions, else read the features from device memory as
-    :func:`corr_lookup_alt` does. The result is the same either way.
+    the box of target features their windows touch in shared memory when the
+    box holds at most 1600 positions (float32: in bands of whole rows of up
+    to 80 KB, the dots on the CUDA cores; bfloat16: in chunks of 32
+    positions, the tile product on the tensor cores), else read each pixel's
+    taps from device memory in the plain order, as the float32
+    :func:`corr_lookup_alt` does.
 
     ``stats``, if given, is a CUDA int32 tensor of 2 counters to which the
-    kernel adds the (tile, level) pairs that were staged and that were not.
+    kernel adds the (tile, level) pairs that were staged and that were not;
+    without it, the wrapper's ``stats`` attribute (None by default) is
+    taken, so a caller can count a whole tracked clip's launches.
     """
     if coords.device.type == "cpu":
         return corr_lookup_alt_ref(f1, f2_pyramid, coords, radius)
+    stats = corr_lookup_win.stats if stats is None else stats
     out, args = _launch_args("corr_lookup_win", f1, f2_pyramid, coords, radius)
     if stats is not None and (stats.shape != (2,) or stats.dtype != torch.int32
                               or stats.device != coords.device):
@@ -213,7 +245,10 @@ def corr_lookup_win(f1, f2_pyramid, coords, radius: int = 4, stats=None) -> torc
         torch.cuda.current_stream(coords.device).cuda_stream)
     _build.check(err, "mft_corr_win")
     corr_lookup_win.launches += 1
+    corr_lookup_win.tensor_core_launches += out.dtype == torch.bfloat16
     return out
 
 
 corr_lookup_win.launches = 0
+corr_lookup_win.tensor_core_launches = 0
+corr_lookup_win.stats = None

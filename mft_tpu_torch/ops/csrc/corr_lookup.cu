@@ -177,22 +177,6 @@ struct TcStatic {
 };
 constexpr int kTcDynMax = kSmemPerBlock - (int)sizeof(TcStatic);
 
-// Byte offset of value (row, k) of a K-major operand of `rows` rows with the
-// 32-byte swizzle: K in chunks of 16 values, each chunk rows x 32 bytes
-// (8-row groups of 256 bytes), the two 16-byte halves of a row swapped in
-// rows 4-7 of each group (16-byte unit ^= bit 7 of the address).
-__device__ __forceinline__ uint32_t sw32_offset(int row, int k, int rows) {
-  return (uint32_t)((k >> 4) * rows * 32 + row * 32) +
-         ((((uint32_t)k << 1) & 16u) ^ (((uint32_t)row << 2) & 16u)) + (((uint32_t)k & 7u) << 1);
-}
-
-// wgmma shared-memory descriptor of a K-major operand with the 32-byte
-// swizzle: 8-row groups 256 bytes apart (the leading offset is unused).
-__device__ __forceinline__ uint64_t sw32_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(256 >> 4) << 32) |
-         ((uint64_t)3 << 62);
-}
-
 // d += A * B, m64n64k16, A and B K-major in shared memory.
 __device__ __forceinline__ void wgmma_ss_n64_k(float (&d)[32], uint64_t da, uint64_t db) {
   asm volatile(
@@ -205,21 +189,6 @@ __device__ __forceinline__ void wgmma_ss_n64_k(float (&d)[32], uint64_t da, uint
 
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
-}
-
-// Generic-proxy writes to shared memory, made visible to wgmma's reads.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-// The dynamic shared memory rounded up to 256 bytes (the 32-byte swizzle's
-// period), as an offset from the array.
-__device__ __forceinline__ uint8_t* align256(uint8_t* base) {
-  return base + ((256 - (smem_u32(base) & 255)) & 255);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -717,7 +717,8 @@ conv_tc_kernel(__grid_constant__ const CUtensorMap wmap, const ConvTc p) {
 template <int BN, typename O>
 cudaError_t launch_conv_tc(const CUtensorMap& wmap, ConvTc p, int B, int nblocks,
                            cudaStream_t stream) {
-  static cudaError_t allowed = cudaFuncSetAttribute(
+  // set on the current device at every call: another device may come next
+  const cudaError_t allowed = cudaFuncSetAttribute(
       conv_tc_kernel<BN, O>, cudaFuncAttributeMaxDynamicSharedMemorySize, kConvDynMax);
   if (allowed != cudaSuccess) return allowed;
   const int stage = BN * 128;
@@ -761,7 +762,8 @@ extern "C" int mft_corr_build_folded_tc(const void* f1, const void* f2_0, const 
                                         int Pp, float scale, void* stream) {
   if (num_levels < 1 || num_levels > kMaxLevels || Pp % 8 || Pp < P || P < 1)
     return (int)cudaErrorInvalidValue;
-  static cudaError_t allowed = cudaFuncSetAttribute(
+  // set on the current device at every call: another device may come next
+  const cudaError_t allowed = cudaFuncSetAttribute(
       build_folded_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBuildSmem);
   if (allowed != cudaSuccess) return (int)allowed;
   BuildMaps maps;

@@ -24,9 +24,11 @@ plain versions add one k at a time, ascending from 0.0, over whole maps.
   products in an order of their own, as the TPU's MXU did for the JAX
   kernels. They are held to :func:`product_error_bound` instead.
 
-The fused lookup (``ops/corr_lookup.py corr_lookup_fused``, bfloat16) sums
-on the tensor cores too; :func:`corr_lookup_fused_magnitude` gives the S of
-its bound.
+The fused lookup (``ops/corr_lookup.py corr_lookup_fused``, bfloat16) and
+the window correlations (``ops/corr_alt.py corr_lookup_alt``,
+``corr_lookup_win``, bfloat16) sum on the tensor cores too;
+:func:`corr_lookup_fused_magnitude` and :func:`corr_window_magnitude` give
+the S of their bounds.
 """
 
 import contextlib
@@ -36,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from mft_tpu_torch.ops import _build
+from mft_tpu_torch.ops.corr_alt import window_samples
 from mft_tpu_torch.ops.corr_lookup import corr_lookup_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -159,6 +162,22 @@ def corr_lookup_fused_magnitude(pyramid, coords, wc, radius: int = 4):
     dt = pyramid[0].dtype
     samples = corr_lookup_ref(pyramid, coords, radius).abs().double()
     return torch.matmul(samples, wc.to(dt).abs().double()).float()
+
+
+def _abs_dots64(g, f):
+    """(R, T) float64 sums over the channels of |g| * |f| (no TF32)."""
+    return torch.einsum("rtc,rc->rt", g.double().abs(), f.double().abs())
+
+
+def corr_window_magnitude(f1, f2_pyramid, coords, radius: int = 4):
+    """S of every output of :func:`mft_tpu_torch.ops.corr_alt.corr_lookup_alt`
+    and ``corr_lookup_win``: (B, N, L*(2r+1)^2) float32, the plain function
+    on |f1| and |f2_l| in float64 and unscaled, i.e. the bilinear sample, zeros
+    outside the map, of q -> sum_c |f1[b,p,c]| * |f2_l[b,q,c]|, the features
+    taken in the pyramid dtype. A sample is a convex combination of four tap
+    dots, so the bound of each dot carries over to it with this S."""
+    return window_samples(f1, f2_pyramid, coords, radius, dot=_abs_dots64,
+                          scale=1.0).float()
 
 
 def conv_pallas_magnitude(x, weight, padding):

@@ -184,10 +184,27 @@ def _alt_inputs(np_rng, dtype, dev, kind, B=2, H8=13, W8=21, C=64, levels=4):
     return f1, build_feature_pyramid(f2, levels), t(coords).contiguous()
 
 
-# stated tolerances against the plain version: the same float ops in the same
-# order (every dot in one fixed tree order), so bit-identical samples are
-# expected; the tolerance admits last-bit differences only
-ALT_TOL = {"float32": (1e-6, 1e-6), "bfloat16": (1e-6, 1e-6)}
+# stated tolerance of the float32 kernels against the plain version: the same
+# float ops in the same order (every dot in one fixed tree order), so
+# bit-identical samples are expected; the tolerance admits last-bit
+# differences only
+ALT_TOL = {"float32": (1e-6, 1e-6)}
+
+
+def _check_window(got, f1, pyr, coords, dtype):
+    """K4/K5 against their plain version: float32 to ALT_TOL; bfloat16 (the
+    tile product on the tensor cores) within ops.product_error_bound (K = C,
+    scale 1/sqrt(C), S from ops.corr_window_magnitude) on every element."""
+    want = ops.corr_lookup_alt_ref(f1, pyr, coords, 4)
+    assert got.dtype == DT[dtype] and got.shape == want.shape
+    if dtype == "bfloat16":
+        C = f1.shape[-1]
+        _assert_within_bound(got, want, ops.corr_window_magnitude(f1, pyr, coords, 4), C,
+                             ops.product.corr_scale(C))
+    else:
+        atol, rtol = ALT_TOL[dtype]
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    return want
 
 
 @pytest.mark.parametrize("kind", ["wild", "local"])
@@ -198,10 +215,9 @@ def test_alt_kernels_match_plain(np_rng, cuda, dtype, kind, name):
     ops.reset_launch_counts()
     got = getattr(ops, name)(f1, pyr, coords, 4)
     assert ops.launch_counts()[name] == 1
-    want = ops.corr_lookup_alt_ref(f1, pyr, coords, 4)
-    assert got.dtype == DT[dtype] and got.shape == want.shape == (2, 13 * 21, 324)
-    atol, rtol = ALT_TOL[dtype]
-    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    assert ops.tensor_core_launch_counts()[name] == (dtype == "bfloat16")
+    assert got.shape == (2, 13 * 21, 324)
+    _check_window(got, f1, pyr, coords, dtype)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -209,17 +225,65 @@ def test_win_kernel_staged_and_unstaged_agree(np_rng, cuda, dtype):
     """Wild coordinates on a 48x48 map: at level 0 a tile's tap box is the
     whole map (2304 positions > 1600) and the tile reads device memory; the
     smaller levels stage their boxes. Local coordinates stage every box.
-    Both give the plain version's samples; with C=40 (5 chunks of 8
-    channels) most lanes of a tap dot add zeros."""
+    Both stay with the plain version's samples; with C=40 (5 chunks of 8
+    channels) most lanes of a tap dot add zeros, and the bf16 kernel pads K
+    to 48 with zeros."""
     tiles = 2 * 6 * 6                      # pairs x 8x8 tiles of 48x48
     for kind, want_unstaged in (("wild", tiles), ("local", 0)):
         f1, pyr, coords = _alt_inputs(np_rng, dtype, cuda, kind, H8=48, W8=48, C=40)
         stats = torch.zeros(2, dtype=torch.int32, device=cuda)
         got = ops.corr_lookup_win(f1, pyr, coords, 4, stats=stats)
         assert stats.tolist() == [4 * tiles - want_unstaged, want_unstaged], kind
-        want = ops.corr_lookup_alt_ref(f1, pyr, coords, 4)
-        atol, rtol = ALT_TOL[dtype]
-        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+        _check_window(got, f1, pyr, coords, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_win_kernel_boxes_straddle_the_cap(np_rng, cuda, dtype):
+    """One launch on a 64x64 map whose tiles' level-0 boxes lie on both
+    sides of the 1600-position cap: tile (0, 0) has its pixels at x, y in
+    {10, 40} (box 40 x 40 = 1600: staged), tile (0, 1) at x in {10, 41},
+    y in {10, 40} (41 x 40: read from device memory per pixel), the rest
+    local. The smaller levels stage every box."""
+    H8 = W8 = 64
+    f1, pyr, coords = _alt_inputs(np_rng, dtype, cuda, "local", H8=H8, W8=W8, C=64)
+    c = coords.view(2, H8, W8, 2)
+    corner = torch.tensor([[10.5, 10.5], [40.5, 10.5], [10.5, 40.5], [40.5, 40.5]], device=cuda)
+    c[:, :8, :8] = corner.repeat(16, 1).view(8, 8, 2)
+    c[:, :8, 8:16] = (corner + torch.tensor([[0.0, 0.0], [1.0, 0.0], [0.0, 0.0], [1.0, 0.0]],
+                                            device=cuda)).repeat(16, 1).view(8, 8, 2)
+    stats = torch.zeros(2, dtype=torch.int32, device=cuda)
+    got = ops.corr_lookup_win(f1, pyr, coords, 4, stats=stats)
+    tiles = 2 * 8 * 8
+    assert stats.tolist() == [4 * tiles - 2, 2]   # tile (0, 1) of each pair, level 0
+    _check_window(got, f1, pyr, coords, dtype)
+
+
+@pytest.mark.parametrize("overlap", [2.0 ** -6, 2.0 ** -12])
+def test_window_kernel_repairs_near_orthogonal_features(cuda, overlap):
+    """The bf16 rounding repair under load: f1 lives on channels 0..31 and f2
+    on 32..63 plus ``overlap`` times a random part on all channels, so every
+    dot is small against ||f1|| ||f2|| and many samples lie within the repair's
+    window of a bf16 rounding boundary. At 2^-6 about twice the usual share
+    of taps is marked, in long lists for the second sweep; at 2^-12 nearly
+    every sample is, more taps than the list holds (2,048 at C = 64), and the
+    level recomputes every dot on the CUDA cores. Either way every sample
+    must equal the plain version's bits."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    B, H8, W8, C = 2, 24, 24, 64
+    f1 = torch.zeros((B, H8, W8, C), device=cuda)
+    f1[..., :32] = torch.randn((B, H8, W8, 32), device=cuda, generator=gen)
+    f2 = overlap * torch.randn((B, C, H8, W8), device=cuda, generator=gen)
+    f2[:, 32:] += torch.randn((B, 32, H8, W8), device=cuda, generator=gen)
+    f1, f2 = f1.bfloat16(), f2.bfloat16()
+    ys, xs = torch.meshgrid(torch.arange(H8, device=cuda), torch.arange(W8, device=cuda),
+                            indexing="ij")
+    coords = (torch.stack([xs, ys], -1).reshape(1, -1, 2).float()
+              + 4 * torch.rand((B, H8 * W8, 2), device=cuda, generator=gen) - 2).contiguous()
+    pyr = build_feature_pyramid(f2, 4)
+    for name in ("corr_lookup_alt", "corr_lookup_win"):
+        got = getattr(ops, name)(f1, pyr, coords, 4)
+        want = _check_window(got, f1, pyr, coords, "bfloat16")
+        torch.testing.assert_close(got, want, **EXACT)
 
 
 @pytest.mark.parametrize("method", ["alt", "win"])
@@ -241,6 +305,7 @@ def test_mft_feature_path_launches_its_kernel(cuda, method):
     want = {k: 0 for k in ops.launch_counts()}
     want.update({name: 6, "chain_select": 2})
     assert ops.launch_counts() == want
+    assert ops.tensor_core_launch_counts()[name] == 6   # the model is bf16
 
 
 VOLUME_KERNELS = {"int8": "corr_lookup_q", "packed": "corr_lookup_packed",

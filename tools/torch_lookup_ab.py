@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""The dense window lookups and the warp of two checkouts of the port, side by side on one card.
+"""The window lookups and the warp of two checkouts of the port, side by side on one card.
 
 Builds the kernel library of this checkout and of ``--other`` (each with its
-own ``mft_tpu_torch/ops/_build.py``, into its own build directory), then:
+own ``mft_tpu_torch/ops/_build.py``, into its own build directory), then,
+for the groups ``--only`` names (default: all three):
 
 - at the 512x512 slice's shapes (7 pairs, 4096 pixels, levels 64^2..8^2,
   radius 4), in float32 and bfloat16, on uniform coordinates (some windows
@@ -12,16 +13,26 @@ own ``mft_tpu_torch/ops/_build.py``, into its own build directory), then:
   #9 and the float32 K1 must give identical bits; the bfloat16 K1, whose
   sum order may differ between checkouts (a checkout with
   ``mft_corr_lookup_conv_tc`` sums on the tensor cores), must stay within
-  ``ops.product_error_bound`` (K = 324) of the other's on every element;
+  ``ops.product_error_bound`` (K = 324) of the other's on every element
+  ('dense');
 - at chip_smoke.py's ``WARP_SHAPES``, calls ``mft_warp`` of both libraries
   through the arguments of the JAX entry point of each shape and requires
-  identical bits;
+  identical bits ('warp');
+- at the 512x512 slice's shapes of chip_smoke.py's phase 3b (7 pairs, 64x64,
+  C = 256, 4 levels, radius 4), in float32 and bfloat16, on wild and local
+  coordinates, calls the window correlations ``mft_corr_alt`` (K4) and
+  ``mft_corr_win`` (K5) of both libraries: float32 must give identical
+  bits; bfloat16, which a checkout may sum on the tensor cores, must stay
+  within ``ops.product_error_bound`` (K = C, S from
+  ``ops.corr_window_magnitude``) of the other's, and the outputs whose bits
+  differ are counted ('window');
 - times each by CUDA graph replay, in the order other, this, this, other,
   and prints both checkouts' times and their ratio.
 
 Imports nothing of JAX. Usage (on the card):
 
     python3 tools/torch_lookup_ab.py --other PATH_TO_OTHER_CHECKOUT
+        [--only dense] [--only warp] [--only window]
 """
 
 import argparse
@@ -31,6 +42,9 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
+
+
+GROUPS = ("dense", "warp", "window")
 
 
 def load_build(root: str, name: str):
@@ -45,14 +59,17 @@ def load_build(root: str, name: str):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True, help="root of the other checkout")
+    ap.add_argument("--only", action="append", choices=GROUPS,
+                    help="a group of kernels to compare (repeatable; default all)")
     args = ap.parse_args(argv)
+    groups = args.only or GROUPS
     sys.path.insert(0, REPO)
     import torch
     if not torch.cuda.is_available():
         print("torch_lookup_ab: needs an NVIDIA card", file=sys.stderr)
         return 2
-    from chip_smoke import (B, F, LEVELS, P, RADIUS, card_line, graph_ms, lookup_coords,
-                            WARP_SHAPES, warp_coords)
+    from chip_smoke import (B, F, LEVELS, P, RADIUS, card_line, feature_inputs, graph_ms,
+                            lookup_coords, WARP_SHAPES, warp_coords)
     from mft_tpu_torch import ops
     card = card_line()
     print(card, flush=True)
@@ -79,10 +96,13 @@ def main(argv=None) -> int:
               f"{this / other:.3f}; {how} [{card}]", flush=True)
         return ok
 
-    def identical(a, b):
+    def differing(a, b):
         ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
-        same = torch.equal(a.view(ints), b.view(ints))
-        return same, "bits identical" if same else "bits DIFFER"
+        return int((a.view(ints) != b.view(ints)).sum())
+
+    def identical(a, b):
+        n = differing(a, b)
+        return n == 0, "bits identical" if n == 0 else f"bits DIFFER in {n} outputs"
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -93,7 +113,7 @@ def main(argv=None) -> int:
     stream = torch.cuda.current_stream
     hw = [v for d in LEVELS for v in d]
     failed = False
-    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)) if "dense" in groups else ():
         pyr = [torch.randn((B, P, h, w), device=dev, generator=gen).to(dtype)
                for h, w in LEVELS]
         ptrs = [t.data_ptr() for t in pyr]
@@ -104,10 +124,7 @@ def main(argv=None) -> int:
                 lib = libs[label]
                 s = stream().cuda_stream
                 common = (*ptrs, *hw, 4, B * P, RADIUS, F)
-                if not hasattr(lib, "mft_corr_lookup_conv_tc"):   # one entry, a dtype code
-                    err = lib.mft_corr_lookup_conv(out.data_ptr(), c.data_ptr(), wc.data_ptr(),
-                                                   bias.data_ptr(), *common, code, s)
-                elif code == 1:
+                if code == 1:
                     err = lib.mft_corr_lookup_conv_tc(out.data_ptr(), c.data_ptr(),
                                                       wt.data_ptr(), bias.data_ptr(), *common, s)
                 else:
@@ -156,7 +173,7 @@ def main(argv=None) -> int:
 
     # the warp (#14-#16): mft_warp as each JAX entry point calls it
     wgen = torch.Generator(device=dev).manual_seed(10)
-    for label, (entry, mode, N, H, W, Cw) in WARP_SHAPES.items():
+    for label, (entry, mode, N, H, W, Cw) in WARP_SHAPES.items() if "warp" in groups else ():
         dtype = torch.bfloat16 if mode == "tpu" else torch.float32
         maps = (4.0 * torch.randn((N, H, W, Cw), device=dev, generator=wgen)).to(dtype)
         xy = warp_coords(torch, dev, wgen, N, H, W)
@@ -181,6 +198,46 @@ def main(argv=None) -> int:
         failed |= not side_by_side(f"mft_warp {label} ({entry}, {mode})", warp, outs, identical)
         del maps, xy, sx, sy, outs
         torch.cuda.empty_cache()
+    # the window correlations K4 and K5: the arguments of mft_corr_alt and
+    # mft_corr_win, the same in both checkouts
+    H8, W8 = LEVELS[0]
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)) if "window" in groups else ():
+        name = str(dtype).split(".")[1]
+        for kind in ("wild", "local"):
+            f1, pyr, c = feature_inputs(torch, dev, dtype, kind, H8, W8, seed=3)
+            C = f1.shape[-1]
+            ptrs = [t.data_ptr() for t in pyr]
+            hw = [v for t in pyr for v in t.shape[1:3]]
+            args = (f1.data_ptr(), c.data_ptr(), *ptrs, *hw, len(pyr), B, H8, W8, C, RADIUS,
+                    ops.product.corr_scale(C), code)
+            mag = ops.corr_window_magnitude(f1, pyr, c, RADIUS) if code == 1 else None
+
+            def within_window_bound(a, b):
+                bound = ops.product_error_bound(a, mag, C, ops.product.corr_scale(C))
+                diff = (b.float() - a.float()).abs()
+                ratio = float((diff / bound.clamp_min(1e-30)).max())
+                ok = bool((diff <= bound).all())
+                return ok, (f"largest |this - other| / bound {ratio:.4f} "
+                            f"{'within' if ok else 'OUTSIDE'} ops.product_error_bound; "
+                            f"{differing(a, b)} outputs differ")
+
+            for kernel in ("mft_corr_alt", "mft_corr_win"):
+                def call(label, out, kernel=kernel):
+                    lib = libs[label]
+                    s = stream().cuda_stream
+                    if kernel == "mft_corr_alt":
+                        err = lib.mft_corr_alt(out.data_ptr(), *args, s)
+                    else:
+                        err = lib.mft_corr_win(out.data_ptr(), *args, None, s)
+                    if err != 0:
+                        raise RuntimeError(f"{label} {kernel}: cudaError {err}")
+
+                outs = {k: torch.empty((B, H8 * W8, len(pyr) * (2 * RADIUS + 1) ** 2),
+                                       dtype=dtype, device=dev) for k in ("other", "this")}
+                failed |= not side_by_side(f"{kernel} {name} {kind}", call, outs,
+                                           within_window_bound if code == 1 else identical)
+            del f1, pyr, c, mag
+            torch.cuda.empty_cache()
     print("ok" if not failed else "FAILED: outputs differ between the checkouts")
     return 1 if failed else 0
 

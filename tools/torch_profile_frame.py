@@ -36,6 +36,9 @@ GROUPS = (  # first match wins
     # corr_gather.cu: corr_lookup and corr_lookup_mixed
     ("corr_lookup, corr_lookup_mixed", re.compile(r"corr_gather_kernel")),
     ("chain_select", re.compile(r"chain_select_kernel")),
+    # corr_alt.cu: bf16 'alt' and 'win' both run window_tc_kernel (tensor
+    # cores); f32 'alt' alt_kernel, f32 'win' win_kernel
+    ("corr_lookup_alt/win (bf16)", re.compile(r"window_tc_kernel")),
     ("corr_lookup_alt", re.compile(r"alt_kernel")),
     ("corr_lookup_win", re.compile(r"win_kernel")),
     # corr_volume.cu: corr_lookup_q, _packed, _packed_i8, _folded
