@@ -13,8 +13,9 @@ non-zero and prints no result line):
    kernels (#5, #13, the bf16 fused lookup K1 and the bf16 window
    correlations K4/K5) holds HGMMA in every instance (``cuobjdump -sass``)
    and that ptxas gave every instance of the staged gather
-   (``corr_gather.cu``), of K1 (``corr_lookup.cu``), of the warp
-   (``warp.cu``) and of the bf16 window correlations (``corr_alt.cu``) a
+   (``corr_gather.cu``: K2, #9 and the int8 K6), of K1 (``corr_lookup.cu``),
+   of the warp (``warp.cu``), of the bf16 window correlations
+   (``corr_alt.cu``) and of the lane-major lookup K9 (``corr_volume.cu``) a
    0-byte stack frame and no spills;
 3. hold each kernel against its plain PyTorch version at the main path's
    shapes, in bf16 and f32, and time it (device time by CUDA graph replay,
@@ -29,7 +30,9 @@ non-zero and prints no result line):
    outputs that differ from the plain version's counted;
 3c. the same for the lookups of the volume's other stored forms,
    corr_method 'int8', 'packed', 'packed_i8' and 'pallas_t' (K6-K9), on
-   uniform and on local coordinates;
+   uniform and on local coordinates; for K6 and K9 the outputs that differ
+   from the plain version's bits are counted (not gated: 0 expected), and
+   for K9 the share of (group, level) union boxes it staged;
 3d. the same for the folded volume's build and lookup (corr_method 'fold'),
    the mixed lookup ('mixed') and the update block's convolution
    (conv_backend 'pallas') at every conv shape of the frame and each
@@ -57,7 +60,9 @@ non-zero and prints no result line):
    times, peak memory, 12 launches of the method's kernel and 1 chain +
    select per frame, a frame against the plain versions, and (printed, not
    gated) a frame against the volume path;
-8. the same for 'int8', 'packed', 'packed_i8' and 'pallas_t';
+8. the same for 'int8', 'packed', 'packed_i8' and 'pallas_t', with the
+   share of K9's (group, level) union boxes staged over the tracked
+   'pallas_t' frames;
 10. the same for corr_method 'fold', for 'mixed' and for conv_backend
    'pallas': each path's launches per frame ('fold' one build and 12 folded
    lookups, 'mixed' 12 mixed lookups, 'pallas' 11 fused lookups, 1 lookup
@@ -602,13 +607,23 @@ def check_volume_kernels(torch, ops, dev, card):
             for kind, c in coords.items():
                 kernel = lambda: tcorr.corr_lookup(stored, c, RADIUS)
                 plain = lambda: tcorr.corr_lookup(stored, c, RADIUS, plain=True)
+                if method == "pallas_t":
+                    ops.lane_major_staged_counts(reset=True)
                 got = kernel()
                 torch.cuda.synchronize()
+                extra = ""
+                if method == "pallas_t":
+                    n_st, n_pp = ops.lane_major_staged_counts(reset=True)
+                    extra = (f"; staged (group, level) union boxes {n_st}/{n_st + n_pp} "
+                             f"({n_st / max(n_st + n_pp, 1):.2%}), the rest read per pixel")
                 want = plain()
                 err = max_err(got, want)
                 ok = within(got, want, *VOLUME_TOL)
+                if method in ("int8", "pallas_t"):   # not gated: 0 expected
+                    extra = (f"; {differing(torch, got, want)} of {got.numel()} outputs "
+                             f"differ from the plain version's bits") + extra
                 log(f"check {label} {kind}: max_abs_err {err:.3e} (tolerance atol "
-                    f"{VOLUME_TOL[0]} + rtol {VOLUME_TOL[1]}) {'ok' if ok else 'FAIL'}")
+                    f"{VOLUME_TOL[0]} + rtol {VOLUME_TOL[1]}) {'ok' if ok else 'FAIL'}{extra}")
                 check(ok, f"{label} {kind} disagrees with its plain version")
                 ms = graph_ms(kernel)
                 plain_ms = cuda_ms(plain, reps=3, warmup=1)
@@ -1131,12 +1146,14 @@ def check_sass(_build, path):
 
 
 # kernel -> instances that ptxas must give a 0-byte stack frame and no
-# spills: the staged gather (K2, #9; radius 1..4 x f32, bf16), the fused
-# lookup K1 (radius 1..4; f32 and, on the tensor cores, bf16), the warp
-# (f32, bf16 maps x 4 modes x C of 1, 2, 4, 6 and any other) and the bf16
-# window correlations K4/K5 (one instance for both entry points)
-FRAME_CHECKED = {"corr_gather_kernel": 8, "lookup_conv_kernel": 4,
-                 "lookup_conv_tc_kernel": 4, "warp_kernel": 40, "window_tc_kernel": 1}
+# spills: the staged gather (radius 1..4 x K2 and #9 in f32 and bf16, K6 on
+# int8), the fused lookup K1 (radius 1..4; f32 and, on the tensor cores,
+# bf16), the warp (f32, bf16 maps x 4 modes x C of 1, 2, 4, 6 and any
+# other), the bf16 window correlations K4/K5 (one instance for both entry
+# points) and the lane-major lookup K9 (radius 1..4 x f32, bf16)
+FRAME_CHECKED = {"corr_gather_kernel": 12, "lookup_conv_kernel": 4,
+                 "lookup_conv_tc_kernel": 4, "warp_kernel": 40, "window_tc_kernel": 1,
+                 "lane_group_kernel": 8}
 
 
 def check_frames(_build, kernel, instances):
@@ -1356,8 +1373,15 @@ def run_method_path(torch, ops, dev, card, method, volume_tracker, volume_median
     iters = tracker.flower.iters
     frames = synthetic_clip(FEATURE_FRAMES + 1)
     ops.reset_launch_counts()
+    if method == "pallas_t":
+        ops.lane_major_staged_counts(reset=True)
     results, frame_ms = track_frames(torch, tracker, frames[:FEATURE_FRAMES + 1])
     counts = ops.launch_counts()
+    if method == "pallas_t":
+        n_st, n_pp = ops.lane_major_staged_counts(reset=True)
+        log(f"pallas_t: staged (group, level) union boxes over the tracked frames "
+            f"{n_st}/{n_st + n_pp} ({n_st / max(n_st + n_pp, 1):.2%}); the rest read their "
+            f"taps per pixel")
     peak = torch.cuda.max_memory_allocated()
     log(f"{method}: launches over {FEATURE_FRAMES} tracked frames: {counts}")
     per_frame = path_per_frame(method, iters)
@@ -1758,7 +1782,8 @@ def run() -> int:
     replaces = {"corr_lookup_q": 654, "corr_lookup_packed": 808,
                 "corr_lookup_packed_i8": 868, "corr_lookup_t": 1151}
     for kname, line in replaces.items():
-        kernels.append(dict(name=kname, route="cuda", source=src + "corr_volume.cu",
+        source = "corr_gather.cu" if kname == "corr_lookup_q" else "corr_volume.cu"
+        kernels.append(dict(name=kname, route="cuda", source=src + source,
                             replaces=f"mft_tpu/ops/corr_lookup_pallas.py:{line}",
                             launches=counts[kname], **{"library_ms": None,
                                                        **vk[(kname, "bfloat16", "uniform")]}))

@@ -22,7 +22,9 @@ CPU tensors; it raises for anything else. Each wrapper counts its launches in
 its ``launches`` attribute (:func:`launch_counts`, :func:`reset_launch_counts`);
 the two tiled products, the fused lookup and the two window correlations
 also count their bfloat16 launches, which run on the tensor cores, in
-``tensor_core_launches`` (:func:`tensor_core_launch_counts`).
+``tensor_core_launches`` (:func:`tensor_core_launch_counts`). The lane-major
+lookup counts on the card the (group, level)s it staged and those it read
+per pixel (:func:`lane_major_staged_counts`).
 """
 
 from mft_tpu_torch.ops.chain_select import chain_select, chain_select_ref
@@ -33,7 +35,7 @@ from mft_tpu_torch.ops.corr_lookup import (
     corr_lookup_fused_ref, corr_lookup_mixed, corr_lookup_mixed_ref, corr_lookup_packed,
     corr_lookup_packed_i8, corr_lookup_packed_i8_ref, corr_lookup_packed_ref,
     corr_lookup_q, corr_lookup_q_ref, corr_lookup_ref, corr_lookup_t,
-    corr_lookup_t_ref)
+    corr_lookup_t_ref, lane_major_staged_counts)
 from mft_tpu_torch.ops.product import (conv_pallas, conv_pallas_magnitude, conv_pallas_ref,
                                        conv_weight_tiles, corr_build_folded,
                                        corr_build_folded_magnitude, corr_build_folded_ref,
@@ -73,7 +75,7 @@ __all__ = ["chain_select", "chain_select_ref", "corr_lookup", "corr_lookup_ref",
            "corr_lookup_alt_ref", "corr_lookup_win", "corr_lookup_q",
            "corr_lookup_q_ref", "corr_lookup_packed", "corr_lookup_packed_ref",
            "corr_lookup_packed_i8", "corr_lookup_packed_i8_ref", "corr_lookup_t",
-           "corr_lookup_t_ref", "corr_lookup_folded", "corr_lookup_folded_ref",
+           "corr_lookup_t_ref", "lane_major_staged_counts", "corr_lookup_folded", "corr_lookup_folded_ref",
            "corr_lookup_mixed", "corr_lookup_mixed_ref", "corr_build_folded",
            "corr_build_folded_ref", "corr_build_folded_magnitude",
            "corr_lookup_fused_magnitude", "corr_window_magnitude", "conv_pallas",

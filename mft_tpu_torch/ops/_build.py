@@ -47,6 +47,7 @@ SIGNATURES = {
     "mft_corr_lookup_packed": [_P] * 3 + [_I] * 15 + [_P],
     "mft_corr_lookup_packed_i8": [_P] * 4 + [_I] * 14 + [_P],
     "mft_corr_lookup_t": [_P] * 6 + [_I] * 13 + [_P],
+    "mft_corr_lookup_t_counts": [_P, _I],
     "mft_corr_lookup_folded": [_P] * 6 + [_I] * 17 + [_P],
     "mft_corr_lookup_mixed": [_P] * 6 + [_I] * 13 + [_P],
     "mft_corr_build_folded": [_P] * 9 + [_I] * 8 + [_F, _P],

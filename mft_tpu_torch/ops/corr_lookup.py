@@ -16,17 +16,20 @@ uses its plain PyTorch version on a CPU tensor:
   :func:`mft_tpu_torch.ops.product.product_error_bound`; its samples come
   from the same gather as :func:`corr_lookup`'s;
 - four lookups of the same samples from other stored forms of the volume
-  (kernels in ``csrc/corr_volume.cu``):
-  :func:`corr_lookup_q` (``mft_corr_lookup_q``, replacing
-  ``corr_lookup_pallas_q``) from int8 levels with a scale per (pair, level),
+  (kernels in ``csrc/corr_volume.cu`` but the first):
+  :func:`corr_lookup_q` (``mft_corr_lookup_q`` in ``csrc/corr_gather.cu``,
+  replacing ``corr_lookup_pallas_q``) from int8 levels with a scale per
+  (pair, level), on :func:`corr_lookup`'s gather, dequantized as it stages,
   :func:`corr_lookup_packed` (``mft_corr_lookup_packed``, replacing
   ``corr_lookup_pallas_packed``) from all levels side by side in one
   zero-row-padded (B, P, H0, sum w_l) map,
   :func:`corr_lookup_packed_i8` (``mft_corr_lookup_packed_i8``, replacing
   ``corr_lookup_pallas_packed_i8``) from that map in int8, and
   :func:`corr_lookup_t` (``mft_corr_lookup_t``, replacing
-  ``corr_lookup_pallas_t``) from lane-major (B, h_l, w_l, P) levels. The int8
-  forms return bfloat16 samples, the others the volume dtype;
+  ``corr_lookup_pallas_t``) from lane-major (B, h_l, w_l, P) levels, staging
+  per group of pixels the union of their windows' boxes
+  (:func:`lane_major_staged_counts` counts the staged (group, level)s). The
+  int8 forms return bfloat16 samples, the others the volume dtype;
 - two lookups of the same samples from folded levels:
   :func:`corr_lookup_folded` (``mft_corr_lookup_folded`` in
   ``csrc/corr_volume.cu``, replacing ``corr_lookup_pallas_folded``) from
@@ -38,7 +41,8 @@ uses its plain PyTorch version on a CPU tensor:
   fold*w = 128 a folded level is its dense map under another shape (value
   (y, x) is element y*w + x): the folded lookup addresses the levels with
   strides, and the mixed one hands their dense views to :func:`corr_lookup`'s
-  gather. The gather kernels (K2, #9 and the fused lookup) take radius 1..4.
+  gather. The gather kernels (K2, #9, K6 and the fused lookup) and the
+  lane-major one take radius 1..4.
 
 Layouts are those of the JAX kernels: the pyramid is a list of (B, P, h_l, w_l)
 maps (f32 or bf16), coords (B, P, 2) float32 (x, y) centres at level-0 scale.
@@ -345,6 +349,7 @@ def corr_lookup_q(levels, scales, coords, radius: int = 4) -> torch.Tensor:
     if coords.device.type == "cpu":
         return corr_lookup_q_ref(levels, scales, coords, radius)
     _require_cuda(coords, "corr_lookup_q")
+    _check_gather_radius(radius)
     _, B, P, ptrs, hw = _check_levels(levels, coords, (torch.int8,))
     _check_scales(scales, B, len(levels), coords.device)
     out = torch.empty((B, P, _channels(len(levels), radius)), dtype=torch.bfloat16,
@@ -419,6 +424,7 @@ def corr_lookup_t(levels_t, coords, radius: int = 4) -> torch.Tensor:
     if coords.device.type == "cpu":
         return corr_lookup_t_ref(levels_t, coords, radius)
     _require_cuda(coords, "corr_lookup_t")
+    _check_gather_radius(radius)
     dt, B, P, ptrs, hw = _check_levels(levels_t, coords, tuple(_DTYPE_CODE),
                                        lane_major=True)
     out = torch.empty((B, P, _channels(len(levels_t), radius)), dtype=dt,
@@ -432,6 +438,19 @@ def corr_lookup_t(levels_t, coords, radius: int = 4) -> torch.Tensor:
 
 
 corr_lookup_t.launches = 0
+
+
+def lane_major_staged_counts(reset: bool = False):
+    """(staged, read per pixel): the (group, level)s of :func:`corr_lookup_t`'s
+    launches on the card since the last reset whose union box was staged in
+    shared memory and that read their taps from device memory per pixel
+    (unions over the kernel's cap). Waits for the card; ``reset`` zeroes the
+    counts after reading them."""
+    import ctypes
+    counts = (ctypes.c_longlong * 2)()
+    _build.check(_build.library().mft_corr_lookup_t_counts(counts, int(reset)),
+                 "mft_corr_lookup_t_counts")
+    return int(counts[0]), int(counts[1])
 
 
 def corr_lookup_folded(levels, dims, coords, radius: int = 4, ywin: int = 0) -> torch.Tensor:

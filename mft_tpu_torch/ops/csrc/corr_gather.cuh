@@ -1,7 +1,9 @@
 // The staged per-pixel window gather of the correlation pyramid, as device
-// code shared by the lookup (corr_gather.cu: K2 mft_corr_lookup, #9
-// mft_corr_lookup_mixed) and the lookup fused with convc1 (corr_lookup.cu:
-// K1 mft_corr_lookup_conv and mft_corr_lookup_conv_tc).
+// code shared by the lookups (corr_gather.cu: K2 mft_corr_lookup, #9
+// mft_corr_lookup_mixed, K6 mft_corr_lookup_q on int8 levels) and the lookup
+// fused with convc1 (corr_lookup.cu: K1 mft_corr_lookup_conv and
+// mft_corr_lookup_conv_tc). box_origin and box_index also place the union
+// boxes of the lane-major lookup K9 (corr_volume.cu).
 //
 // One warp gathers one pixel's window samples: channel k = l*(2r+1)^2 +
 // i*(2r+1) + j samples level l of the pixel's own (h_l, w_l) map at
@@ -17,7 +19,9 @@
 // - store_rows: the loaded rows into the pixel's boxes in shared memory, taps
 //   outside [0, h_l) x [0, w_l) written as zeros, so sampling has no bounds
 //   checks. Boxes are float32, or bfloat16 for a bfloat16 volume where
-//   shared memory is short (the taps are bfloat16 values: no loss).
+//   shared memory is short (the taps are bfloat16 values: no loss). int8
+//   taps are dequantized here, float(q) * scale of (pair, level) in f32, as
+//   the plain version's dequant_levels does, into float32 boxes.
 // - sample: lane (i, g) samples window column i for the rows of group g: the
 //   column's x-position and weights are computed once, each row's once per
 //   row, each position as the plain version's own c/2^l + offset (one
@@ -90,6 +94,7 @@ struct Geometry {
   static constexpr int words = 2 * loads;                    // 32-bit words per box row
   static constexpr int slots = (kMaxLevels * side + 31) / 32;  // box rows per lane
   static_assert(sizeof(BoxT) == 4 || sizeof(T) == 2, "bfloat16 boxes hold bfloat16 taps");
+  static_assert(sizeof(T) == 1 || sizeof(T) == 2 || sizeof(T) == 4, "int8, bf16 or f32 taps");
 };
 
 // One level of the pyramid, in shared memory so that a lane can read the
@@ -107,6 +112,10 @@ template <> __device__ __forceinline__ float word_value<__nv_bfloat16>(const uin
                                                                        int c) {
   const uint32_t word = a[c >> 1];   // little-endian: value c is half c & 1
   return __uint_as_float((c & 1) ? (word & 0xffff0000u) : (word << 16));
+}
+template <> __device__ __forceinline__ float word_value<int8_t>(const uint32_t* a, int c) {
+  // byte c & 3 of word c >> 2, sign-extended: float(q), exact
+  return (float)((int)(a[c >> 2] << (24 - 8 * (c & 3))) >> 24);
 }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
@@ -177,11 +186,14 @@ __device__ __forceinline__ void load_rows(
 
 // Unpack this lane's loaded box rows into the pixel's boxes, zeros outside
 // the map: float32 values, or the bfloat16 taps as they are, two to a word.
+// int8 taps (scales: the pixel's pair's L level scales) become float(q) *
+// scale.
 template <int R, typename T, typename BoxT = float>
 __device__ __forceinline__ void store_rows(
     int L, int lane, BoxT* boxes,
     const uint32_t (&wd)[Geometry<R, T, BoxT>::slots][Geometry<R, T, BoxT>::words],
-    const uint32_t (&info)[Geometry<R, T, BoxT>::slots]) {
+    const uint32_t (&info)[Geometry<R, T, BoxT>::slots],
+    const float* __restrict__ scales = nullptr) {
   using G = Geometry<R, T, BoxT>;
 #pragma unroll
   for (int s = 0; s < G::slots; ++s) {
@@ -192,11 +204,17 @@ __device__ __forceinline__ void store_rows(
 #pragma unroll
       for (int q = 0; q < G::words; ++q)
         a[q] = (sb & 4u) && q + 1 < G::words ? wd[s][q + 1] : wd[s][q];
-      if (sizeof(T) == 2) {
-        const uint32_t sh = (sb & 2u) * 8u;
+      if (sizeof(T) < 4) {
+        const uint32_t sh = (sizeof(T) == 2 ? sb & 2u : sb & 3u) * 8u;
 #pragma unroll
         for (int q = 0; q + 1 < G::words; ++q) a[q] = __funnelshift_r(a[q], a[q + 1], sh);
       }
+      // the level's scale for int8 taps (1 otherwise, and not applied)
+      const float sc = sizeof(T) == 1 ? __ldg(scales + (lane + 32 * s) / G::side) : 1.0f;
+      auto tap = [&](int c) {
+        const float v = word_value<T>(a, c);
+        return sizeof(T) == 1 ? v * sc : v;
+      };
       BoxT* row = boxes + (info[s] >> 19);
       if constexpr (sizeof(BoxT) == 2) {
         // the even pitch keeps every row word-aligned; column side (past
@@ -210,9 +228,9 @@ __device__ __forceinline__ void store_rows(
       } else {
 #pragma unroll
         for (int c = 0; c < G::side; c += 2) {
-          const float v0 = keep & (1u << c) ? word_value<T>(a, c) : 0.0f;
+          const float v0 = keep & (1u << c) ? tap(c) : 0.0f;
           if (c + 1 < G::side) {
-            const float v1 = keep & (2u << c) ? word_value<T>(a, c + 1) : 0.0f;
+            const float v1 = keep & (2u << c) ? tap(c + 1) : 0.0f;
             *reinterpret_cast<float2*>(row + c) = make_float2(v0, v1);
           } else {
             row[c] = v0;

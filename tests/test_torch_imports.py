@@ -103,7 +103,8 @@ def test_chip_smoke_alone_fails(tmp_path):
                                   "tools/torch_profile_frame.py",
                                   "tools/torch_lookup_ab.py",
                                   "tools/torch_k1_repair.py",
-                                  "tools/torch_window_probe.py"])
+                                  "tools/torch_window_probe.py",
+                                  "tools/torch_lookup_probe.py"])
 def test_no_jax_import_statements(path):
     """Also by text: no import line names jax, flax or mft_tpu (the port's
     own package name aside)."""

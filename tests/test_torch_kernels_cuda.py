@@ -350,6 +350,65 @@ def test_volume_kernels_match_plain(np_rng, cuda, method, dtype, kind):
     out_dt = torch.bfloat16 if method in ("int8", "packed_i8") else DT[dtype]
     assert got.dtype == want.dtype == out_dt and got.shape == (2, 13 * 21, 324)
     torch.testing.assert_close(got.float(), want.float(), atol=1e-6, rtol=1e-6)
+    _assert_same_bits(got, want)
+
+
+def _assert_same_bits(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    ints = {2: torch.int16, 4: torch.int32}[got.element_size()]
+    differ = int((got.view(ints) != want.view(ints)).sum())
+    assert differ == 0, f"{differ} of {got.numel()} outputs differ from the plain version's bits"
+
+
+def _pyramid_dims(H8, W8):
+    return [(H8, W8), (H8 // 2, W8 // 2), (H8 // 4, W8 // 4), (max(H8 // 8, 1), max(W8 // 8, 1))]
+
+
+def _mixed_coords(np_rng, B, H8, W8, wild=0.1):
+    """(B, H8*W8, 2): the pixel grid + U(-2, 2), a share ``wild`` of the
+    pixels uniform over the map and 6 px past it."""
+    P = H8 * W8
+    g = np.mgrid[0:H8, 0:W8].transpose(1, 2, 0)[..., ::-1].reshape(1, P, 2)
+    local = g + np_rng.uniform(-2, 2, (B, P, 2))
+    far = np_rng.uniform(-6, W8 + 6, (B, P, 2))
+    return np.where(np_rng.random((B, P, 1)) < wild, far, local).astype(np.float32)
+
+
+# level-0 maps of the lane-major kernel's cases: P odd and a width of 21 (no
+# run 16-byte aligned, groups straddle rows); whole 16-pixel groups, every
+# run aligned; a width of 20 (groups straddle rows, runs aligned)
+LANE_MAPS = {"13x21": (13, 21), "16x32": (16, 32), "12x20": (12, 20)}
+
+
+@pytest.mark.parametrize("shape", sorted(LANE_MAPS))
+@pytest.mark.parametrize("radius", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lane_major_kernel_matches_plain(np_rng, cuda, dtype, radius, shape):
+    """K9 bit for bit against corr_lookup_t_ref, wild and local pixels in
+    one launch: some (group, level) union boxes are staged, others read per
+    pixel."""
+    H8, W8 = LANE_MAPS[shape]
+    B, P = 2, H8 * W8
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    levels = [t(np_rng.standard_normal((B, h, w, P))).to(DT[dtype])
+              for h, w in _pyramid_dims(H8, W8)]
+    coords = t(_mixed_coords(np_rng, B, H8, W8))
+    ops.reset_launch_counts()
+    ops.lane_major_staged_counts(reset=True)
+    got = ops.corr_lookup_t(levels, coords, radius)
+    staged, per_pixel = ops.lane_major_staged_counts(reset=True)
+    assert ops.launch_counts()["corr_lookup_t"] == 1
+    groups = -(-P // (32 // levels[0].element_size()))
+    assert staged + per_pixel == B * groups * 4 and staged > 0 and per_pixel > 0
+    _assert_same_bits(got, ops.corr_lookup_t_ref(levels, coords, radius))
+
+
+@pytest.mark.parametrize("method", ["int8", "pallas_t"])
+def test_gather_volume_kernels_refuse_radius_5(np_rng, cuda, method):
+    """K6 and K9 are compiled for radius 1..4: radius 5 raises on the card."""
+    stored, coords = _stored_volume(np_rng, method, "bfloat16", cuda, "local")
+    with pytest.raises(ValueError, match="radius"):
+        tcorr.corr_lookup(stored, coords, 5)
 
 
 def test_packed_kernel_stays_in_each_level(np_rng, cuda):
@@ -561,6 +620,55 @@ def test_gather_lookup_kernel_matches_plain(np_rng, cuda, dtype, radius, levels)
     want = ops.corr_lookup_ref(pyr, t(coords), radius)
     assert got.dtype == DT[dtype] and got.shape == (B, P, len(dims) * (2 * radius + 1) ** 2)
     torch.testing.assert_close(got, want, **EXACT)
+
+
+def _int8_levels(np_rng, B, P, dims, dev):
+    """int8 levels of random values, the extremes -128 and 127 at every
+    level, and (B, L) scales that are no powers of two."""
+    levels = []
+    for h, w in dims:
+        q = np_rng.integers(-128, 128, (B, P, h, w))
+        flat = q.reshape(-1)
+        flat[np_rng.integers(0, flat.size, max(flat.size // 8, 2))] = -128
+        flat[np_rng.integers(0, flat.size, max(flat.size // 8, 2))] = 127
+        levels.append(torch.from_numpy(q.astype(np.int8)).to(dev))
+    scales = torch.from_numpy(np_rng.uniform(0.011, 0.093, (B, len(dims))).astype(np.float32))
+    return levels, scales.to(dev)
+
+
+@pytest.mark.parametrize("levels", sorted(GATHER_LEVELS))
+@pytest.mark.parametrize("radius", [1, 2, 3, 4])
+def test_q_kernel_matches_plain(np_rng, cuda, radius, levels):
+    """K6 (the gather on int8 levels) bit for bit against corr_lookup_q_ref:
+    odd level widths (rows start at any byte), windows outside the maps,
+    local windows and round-up positions."""
+    dims = GATHER_LEVELS[levels]
+    B, P = 3, 29
+    lv, scales = _int8_levels(np_rng, B, P, dims, cuda)
+    assert all(int(q.min()) == -128 and int(q.max()) == 127 for q in lv)
+    coords = torch.from_numpy(_gather_coords(np_rng, B, P, dims, radius)).to(cuda)
+    ops.reset_launch_counts()
+    got = ops.corr_lookup_q(lv, scales, coords, radius)
+    assert ops.launch_counts()["corr_lookup_q"] == 1
+    assert got.dtype == torch.bfloat16 and got.shape == (B, P, len(dims) * (2 * radius + 1) ** 2)
+    _assert_same_bits(got, ops.corr_lookup_q_ref(lv, scales, coords, radius))
+
+
+def test_gather_bits_unchanged_after_q(np_rng, cuda):
+    """K2 on bf16 levels gives the plain version's bits before and after a
+    K6 launch on int8 levels of the same shapes (one shared gather)."""
+    dims = GATHER_LEVELS["3 levels"]
+    B, P = 3, 29
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    pyr = [t(np_rng.standard_normal((B, P, h, w))).to(torch.bfloat16) for h, w in dims]
+    coords = t(_gather_coords(np_rng, B, P, dims, 4))
+    want = ops.corr_lookup_ref(pyr, coords, 4)
+    before = ops.corr_lookup(pyr, coords, 4)
+    lv, scales = _int8_levels(np_rng, B, P, dims, cuda)
+    ops.corr_lookup_q(lv, scales, coords, 4)
+    after = ops.corr_lookup(pyr, coords, 4)
+    _assert_same_bits(before, want)
+    _assert_same_bits(after, want)
 
 
 # (folded (h, w) with fold*w = 128, plain (h, w)) of the mixed lookup's cases

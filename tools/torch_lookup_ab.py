@@ -26,13 +26,20 @@ for the groups ``--only`` names (default: all three):
   within ``ops.product_error_bound`` (K = C, S from
   ``ops.corr_window_magnitude``) of the other's, and the outputs whose bits
   differ are counted ('window');
+- at the 512x512 slice's shapes, on uniform and local coordinates, calls
+  the lookups of the volume's other stored forms of both libraries on the
+  same inputs: ``mft_corr_lookup_q`` (K6) and ``mft_corr_lookup_packed_i8``
+  (K8) on the int8 quantization of a bfloat16 pyramid,
+  ``mft_corr_lookup_packed`` (K7), ``mft_corr_lookup_t`` (K9) and
+  ``mft_corr_lookup_folded`` (#4) in float32 and bfloat16; all must give
+  identical bits ('volume');
 - times each by CUDA graph replay, in the order other, this, this, other,
   and prints both checkouts' times and their ratio.
 
 Imports nothing of JAX. Usage (on the card):
 
     python3 tools/torch_lookup_ab.py --other PATH_TO_OTHER_CHECKOUT
-        [--only dense] [--only warp] [--only window]
+        [--only dense] [--only warp] [--only window] [--only volume]
 """
 
 import argparse
@@ -44,7 +51,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 
 
-GROUPS = ("dense", "warp", "window")
+GROUPS = ("dense", "warp", "window", "volume")
 
 
 def load_build(root: str, name: str):
@@ -54,6 +61,80 @@ def load_build(root: str, name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def volume_calls(torch, stored, coords):
+    """{entry point: (args before the stream, out shape, out dtype)} of the
+    lookups of one stored volume, as the wrappers of ops/corr_lookup.py
+    pass them (the same C signatures in both checkouts)."""
+    from chip_smoke import RADIUS
+    cl = importlib.import_module("mft_tpu_torch.ops.corr_lookup")
+    tag, c = stored[0], coords.data_ptr()
+    code = {torch.float32: 0, torch.bfloat16: 1}
+    if tag == "i8":
+        levels, scales = stored[1], stored[2]
+        _, B, P, ptrs, hw = cl._check_levels(levels, coords, (torch.int8,))
+        return "mft_corr_lookup_q", (c, scales.data_ptr(), *ptrs, *hw, len(levels), B, P,
+                                     RADIUS), torch.bfloat16, len(levels)
+    if tag == "t":
+        dt, B, P, ptrs, hw = cl._check_levels(stored[1], coords, tuple(code), lane_major=True)
+        return "mft_corr_lookup_t", (c, *ptrs, *hw, len(stored[1]), B, P, RADIUS,
+                                     code[dt]), dt, len(stored[1])
+    if tag == "fold":
+        levels, dims = stored[1], stored[2]
+        dt, B, P, rows, hw = cl._check_folded(levels, dims, coords, tuple(code))
+        ptrs = [t.data_ptr() for t in levels]
+        return "mft_corr_lookup_folded", (c, *ptrs, *hw, *rows, len(levels), B, P, RADIUS,
+                                          code[dt]), dt, len(levels)
+    if tag == "packed":
+        packed, dims = stored[1], stored[2]
+        dt, B, P, H0, Wp, hw = cl._check_packed(packed, dims, coords, tuple(code))
+        return "mft_corr_lookup_packed", (c, packed.data_ptr(), H0, Wp, *hw, len(dims), B, P,
+                                          RADIUS, code[dt]), dt, len(dims)
+    packed, scales, dims = stored[1], stored[2], stored[3]
+    _, B, P, H0, Wp, hw = cl._check_packed(packed, dims, coords, (torch.int8,))
+    return "mft_corr_lookup_packed_i8", (c, scales.data_ptr(), packed.data_ptr(), H0, Wp, *hw,
+                                         len(dims), B, P, RADIUS), torch.bfloat16, len(dims)
+
+
+def compare_volume(torch, dev, libs, side_by_side, identical) -> bool:
+    """The 'volume' group: K6-K9 and #4 of both checkouts on the same stored
+    volumes. returns: False if any comparison failed."""
+    from chip_smoke import B, FEAT_C, LEVELS, P, RADIUS, lookup_coords, stored_volume
+    from mft_tpu_torch.models.raft import corr as tcorr
+    gen = torch.Generator(device=dev).manual_seed(14)
+    coords = {kind: lookup_coords(torch, dev, kind, gen) for kind in ("uniform", "local")}
+    n = (2 * RADIUS + 1) ** 2
+    ok = True
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        pyr = [torch.randn((B, P, h, w), device=dev, generator=gen).to(dtype)
+               for h, w in LEVELS]
+        f1 = torch.randn((B, FEAT_C, *LEVELS[0]), device=dev, generator=gen).to(dtype)
+        f2 = torch.randn((B, FEAT_C, *LEVELS[0]), device=dev, generator=gen).to(dtype)
+        stores = {m: stored_volume(torch, tcorr, m, pyr) for m in ("packed", "pallas_t")}
+        if dtype == torch.bfloat16:
+            stores.update({m: stored_volume(torch, tcorr, m, pyr) for m in ("int8", "packed_i8")})
+        stores["fold"] = ("fold", *tcorr.build_corr_pyramid_folded(f1, f2, len(LEVELS)))
+        del f1, f2
+        for method, stored in stores.items():
+            for kind, c in coords.items():
+                entry, args, out_dt, L = volume_calls(torch, stored, c)
+
+                def call(label, out, entry=entry, args=args):
+                    err = getattr(libs[label], entry)(
+                        out.data_ptr(), *args, torch.cuda.current_stream().cuda_stream)
+                    if err != 0:
+                        raise RuntimeError(f"{label} {entry}: cudaError {err}")
+
+                outs = {k: torch.empty((B, P, L * n), dtype=out_dt, device=dev)
+                        for k in ("other", "this")}
+                what = f"{entry} {'int8 of bfloat16' if out_dt != dtype else name} {kind}"
+                ok &= side_by_side(what, call, outs, identical)
+                del outs
+        del pyr, stores
+        torch.cuda.empty_cache()
+    return ok
 
 
 def main(argv=None) -> int:
@@ -238,6 +319,8 @@ def main(argv=None) -> int:
                                            within_window_bound if code == 1 else identical)
             del f1, pyr, c, mag
             torch.cuda.empty_cache()
+    if "volume" in groups:
+        failed |= not compare_volume(torch, dev, libs, side_by_side, identical)
     print("ok" if not failed else "FAILED: outputs differ between the checkouts")
     return 1 if failed else 0
 
