@@ -13,10 +13,10 @@ non-zero and prints no result line):
    kernels (#5, #13, the bf16 fused lookup K1 and the bf16 window
    correlations K4/K5) holds HGMMA in every instance (``cuobjdump -sass``)
    and that ptxas gave every instance of the staged gather
-   (``corr_gather.cu``: K2, #9 and the int8 K6), of K1 (``corr_lookup.cu``),
-   of the warp (``warp.cu``), of the bf16 window correlations
-   (``corr_alt.cu``) and of the lane-major lookup K9 (``corr_volume.cu``) a
-   0-byte stack frame and no spills;
+   (``corr_gather.cu``: K2, #9, the int8 K6 and the packed K7, K8), of K1
+   (``corr_lookup.cu``), of the warp (``warp.cu``), of the bf16 window
+   correlations (``corr_alt.cu``) and of the lane-major lookup K9
+   (``corr_volume.cu``) a 0-byte stack frame and no spills;
 3. hold each kernel against its plain PyTorch version at the main path's
    shapes, in bf16 and f32, and time it (device time by CUDA graph replay,
    as every kernel and library call below; the plain versions eagerly); K1
@@ -30,9 +30,9 @@ non-zero and prints no result line):
    outputs that differ from the plain version's counted;
 3c. the same for the lookups of the volume's other stored forms,
    corr_method 'int8', 'packed', 'packed_i8' and 'pallas_t' (K6-K9), on
-   uniform and on local coordinates; for K6 and K9 the outputs that differ
-   from the plain version's bits are counted (not gated: 0 expected), and
-   for K9 the share of (group, level) union boxes it staged;
+   uniform and on local coordinates; for each of them the outputs that
+   differ from the plain version's bits are counted (not gated: 0
+   expected), and for K9 the share of (group, level) union boxes it staged;
 3d. the same for the folded volume's build and lookup (corr_method 'fold'),
    the mixed lookup ('mixed') and the update block's convolution
    (conv_backend 'pallas') at every conv shape of the frame and each
@@ -619,9 +619,8 @@ def check_volume_kernels(torch, ops, dev, card):
                 want = plain()
                 err = max_err(got, want)
                 ok = within(got, want, *VOLUME_TOL)
-                if method in ("int8", "pallas_t"):   # not gated: 0 expected
-                    extra = (f"; {differing(torch, got, want)} of {got.numel()} outputs "
-                             f"differ from the plain version's bits") + extra
+                extra = (f"; {differing(torch, got, want)} of {got.numel()} outputs differ "
+                         f"from the plain version's bits") + extra   # not gated: 0 expected
                 log(f"check {label} {kind}: max_abs_err {err:.3e} (tolerance atol "
                     f"{VOLUME_TOL[0]} + rtol {VOLUME_TOL[1]}) {'ok' if ok else 'FAIL'}{extra}")
                 check(ok, f"{label} {kind} disagrees with its plain version")
@@ -1146,8 +1145,8 @@ def check_sass(_build, path):
 
 
 # kernel -> instances that ptxas must give a 0-byte stack frame and no
-# spills: the staged gather (radius 1..4 x K2 and #9 in f32 and bf16, K6 on
-# int8), the fused lookup K1 (radius 1..4; f32 and, on the tensor cores,
+# spills: the staged gather (radius 1..4 x K2, #9 and K7 in f32 and bf16, K6
+# and K8 on int8), the fused lookup K1 (radius 1..4; f32 and, on the tensor cores,
 # bf16), the warp (f32, bf16 maps x 4 modes x C of 1, 2, 4, 6 and any
 # other), the bf16 window correlations K4/K5 (one instance for both entry
 # points) and the lane-major lookup K9 (radius 1..4 x f32, bf16)
@@ -1782,7 +1781,7 @@ def run() -> int:
     replaces = {"corr_lookup_q": 654, "corr_lookup_packed": 808,
                 "corr_lookup_packed_i8": 868, "corr_lookup_t": 1151}
     for kname, line in replaces.items():
-        source = "corr_gather.cu" if kname == "corr_lookup_q" else "corr_volume.cu"
+        source = "corr_volume.cu" if kname == "corr_lookup_t" else "corr_gather.cu"
         kernels.append(dict(name=kname, route="cuda", source=src + source,
                             replaces=f"mft_tpu/ops/corr_lookup_pallas.py:{line}",
                             launches=counts[kname], **{"library_ms": None,

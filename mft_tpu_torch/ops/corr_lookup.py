@@ -15,19 +15,19 @@ uses its plain PyTorch version on a CPU tensor:
   cores, in their order of summation, held to
   :func:`mft_tpu_torch.ops.product.product_error_bound`; its samples come
   from the same gather as :func:`corr_lookup`'s;
-- four lookups of the same samples from other stored forms of the volume
-  (kernels in ``csrc/corr_volume.cu`` but the first):
-  :func:`corr_lookup_q` (``mft_corr_lookup_q`` in ``csrc/corr_gather.cu``,
-  replacing ``corr_lookup_pallas_q``) from int8 levels with a scale per
-  (pair, level), on :func:`corr_lookup`'s gather, dequantized as it stages,
-  :func:`corr_lookup_packed` (``mft_corr_lookup_packed``, replacing
-  ``corr_lookup_pallas_packed``) from all levels side by side in one
-  zero-row-padded (B, P, H0, sum w_l) map,
+- four lookups of the same samples from other stored forms of the volume,
+  the first three on :func:`corr_lookup`'s gather (``csrc/corr_gather.cu``):
+  :func:`corr_lookup_q` (``mft_corr_lookup_q``, replacing
+  ``corr_lookup_pallas_q``) from int8 levels with a scale per (pair, level),
+  dequantized as it stages, :func:`corr_lookup_packed`
+  (``mft_corr_lookup_packed``, replacing ``corr_lookup_pallas_packed``) from
+  all levels side by side in one zero-row-padded (B, P, H0, sum w_l) map,
+  each level addressed through its column offset and the map's row stride,
   :func:`corr_lookup_packed_i8` (``mft_corr_lookup_packed_i8``, replacing
   ``corr_lookup_pallas_packed_i8``) from that map in int8, and
-  :func:`corr_lookup_t` (``mft_corr_lookup_t``, replacing
-  ``corr_lookup_pallas_t``) from lane-major (B, h_l, w_l, P) levels, staging
-  per group of pixels the union of their windows' boxes
+  :func:`corr_lookup_t` (``mft_corr_lookup_t`` in ``csrc/corr_volume.cu``,
+  replacing ``corr_lookup_pallas_t``) from lane-major (B, h_l, w_l, P)
+  levels, staging per group of pixels the union of their windows' boxes
   (:func:`lane_major_staged_counts` counts the staged (group, level)s). The
   int8 forms return bfloat16 samples, the others the volume dtype;
 - two lookups of the same samples from folded levels:
@@ -41,7 +41,7 @@ uses its plain PyTorch version on a CPU tensor:
   fold*w = 128 a folded level is its dense map under another shape (value
   (y, x) is element y*w + x): the folded lookup addresses the levels with
   strides, and the mixed one hands their dense views to :func:`corr_lookup`'s
-  gather. The gather kernels (K2, #9, K6 and the fused lookup) and the
+  gather. The gather kernels (K2, #9, K6-K8 and the fused lookup) and the
   lane-major one take radius 1..4.
 
 Layouts are those of the JAX kernels: the pyramid is a list of (B, P, h_l, w_l)
@@ -376,6 +376,7 @@ def corr_lookup_packed(packed, dims, coords, radius: int = 4) -> torch.Tensor:
     if coords.device.type == "cpu":
         return corr_lookup_packed_ref(packed, dims, coords, radius)
     _require_cuda(coords, "corr_lookup_packed")
+    _check_gather_radius(radius)
     dt, B, P, H0, Wp, hw = _check_packed(packed, dims, coords, tuple(_DTYPE_CODE))
     out = torch.empty((B, P, _channels(len(dims), radius)), dtype=dt,
                       device=coords.device)
@@ -399,6 +400,7 @@ def corr_lookup_packed_i8(packed, scales, dims, coords, radius: int = 4) -> torc
     if coords.device.type == "cpu":
         return corr_lookup_packed_i8_ref(packed, scales, dims, coords, radius)
     _require_cuda(coords, "corr_lookup_packed_i8")
+    _check_gather_radius(radius)
     _, B, P, H0, Wp, hw = _check_packed(packed, dims, coords, (torch.int8,))
     _check_scales(scales, B, len(dims), coords.device)
     out = torch.empty((B, P, _channels(len(dims), radius)), dtype=torch.bfloat16,

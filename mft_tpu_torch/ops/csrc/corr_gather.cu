@@ -1,19 +1,29 @@
 // Dense correlation-pyramid window lookup for Hopper (sm_90a): one staged
-// per-pixel gather behind three entry points.
+// per-pixel gather behind five entry points.
 //
-// mft_corr_lookup        replaces mft_tpu/ops/corr_lookup_pallas.py
-//                        corr_lookup_pallas (_kernel_pixel_major): separate
-//                        (B, P, h_l, w_l) levels.
-// mft_corr_lookup_mixed  replaces corr_lookup_pallas_mixed (_kernel_mixed):
-//                        folded big levels, then plain (B, P, h_l, w_l) ones.
-//                        A folded level with fold*w = 128 holds each pixel's
-//                        dense h_l x w_l map (value (y, x) is element y*w + x),
-//                        so the wrapper passes its dense view and both entry
-//                        points read the same layout.
-// mft_corr_lookup_q      replaces corr_lookup_pallas_q (_kernel_pixel_major_q):
-//                        int8 (B, P, h_l, w_l) levels, value = q * scale[b, l],
-//                        dequantized as the boxes are staged (corr_gather.cuh
-//                        store_rows); it writes bfloat16.
+// mft_corr_lookup            replaces mft_tpu/ops/corr_lookup_pallas.py
+//                            corr_lookup_pallas (_kernel_pixel_major):
+//                            separate (B, P, h_l, w_l) levels.
+// mft_corr_lookup_mixed      replaces corr_lookup_pallas_mixed (_kernel_mixed):
+//                            folded big levels, then plain (B, P, h_l, w_l)
+//                            ones. A folded level with fold*w = 128 holds each
+//                            pixel's dense h_l x w_l map (value (y, x) is
+//                            element y*w + x), so the wrapper passes its dense
+//                            view and both entry points read the same layout.
+// mft_corr_lookup_q          replaces corr_lookup_pallas_q (_kernel_pixel_major_q):
+//                            int8 (B, P, h_l, w_l) levels, value = q * scale[b, l],
+//                            dequantized as the boxes are staged (corr_gather.cuh
+//                            store_rows); it writes bfloat16.
+// mft_corr_lookup_packed     replaces corr_lookup_pallas_packed (_kernel_packed):
+//                            all levels side by side in one (B, P, H0, sum w_l)
+//                            map per pixel, level l in columns [off_l, off_l +
+//                            w_l) and rows [0, h_l), zeros below. The level
+//                            table (corr_gather.cuh packed_levels) gives each
+//                            level the map's rows and row stride and its column
+//                            offset; a tap outside the level's own h_l x w_l
+//                            map is zero, never a neighbouring level's value.
+// mft_corr_lookup_packed_i8  replaces corr_lookup_pallas_packed_i8: that map in
+//                            int8, dequantized as mft_corr_lookup_q's levels.
 //
 // Each writes, per pixel, a bilinear zero-padded (2r+1)^2 window from each
 // level of its own correlation map: channel k = l*(2r+1)^2 + i*(2r+1) + j
@@ -34,7 +44,9 @@
 //   the plain version's operation order
 //   (the staging and sampling device code is corr_gather.cuh, shared with
 //   the fused lookup K1 in corr_lookup.cu), so every sample equals the plain
-//   PyTorch version bit for bit.
+//   PyTorch version bit for bit. A packed level's box rows lie sum w_l
+//   values apart and start at any byte, as separate levels' rows of odd
+//   widths do: the staging reads aligned 8-byte chunks and shifts them.
 // - The samples go to a shared tile in the output dtype. The warps of the
 //   pixels whose outputs together start and end 16-byte aligned (2 pixels in
 //   bf16 with 4 levels, 1 in f32) meet at a barrier of their own and write
@@ -179,14 +191,12 @@ cudaError_t launch_radius(const Levels& lv, const float* coords, const float* sc
 
 // dtype 0 float32, 1 bfloat16, 2 int8 (with its (B, L) scales and P pixels a
 // pair; out in bfloat16)
-int gather(void* out, const void* coords, const void* l0, const void* l1, const void* l2,
-           const void* l3, const int* hw, int num_levels, long BP, int radius, int dtype,
-           void* stream, const void* scales = nullptr, int P = 1) {
+int gather(void* out, const void* coords, const Levels& lv, int num_levels, long BP,
+           int radius, int dtype, void* stream, const void* scales = nullptr, int P = 1) {
   if (num_levels < 1 || num_levels > kMaxLevels || radius < 1 || radius > kMaxRadius
       || (reinterpret_cast<uintptr_t>(out) & 15) != 0 || (dtype == 2 && scales == nullptr))
     return (int)cudaErrorInvalidValue;
   if (BP <= 0) return (int)cudaSuccess;   // no pixels: nothing to write
-  const Levels lv = make_levels(l0, l1, l2, l3, hw);
   const float* c = static_cast<const float*>(coords);
   const float* sc = static_cast<const float*>(scales);
   const int L = num_levels;
@@ -197,6 +207,29 @@ int gather(void* out, const void* coords, const void* l0, const void* l1, const 
     return (int)launch_radius<__nv_bfloat16>(lv, c, sc, P, out, BP, L, radius, s);
   if (dtype == 0) return (int)launch_radius<float>(lv, c, sc, P, out, BP, L, radius, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Separate levels: (h_l, w_l) given for 4 levels, pointers beyond
+// num_levels ignored.
+int gather_levels(void* out, const void* coords, const void* l0, const void* l1,
+                  const void* l2, const void* l3, const int* hw, int num_levels, long BP,
+                  int radius, int dtype, void* stream, const void* scales = nullptr,
+                  int P = 1) {
+  Levels lv;
+  if (!make_levels(l0, l1, l2, l3, hw, lv)) return (int)cudaErrorInvalidValue;
+  return gather(out, coords, lv, num_levels, BP, radius, dtype, stream, scales, P);
+}
+
+// The packed (B, P, H0, Wp) map.
+int gather_packed(void* out, const void* coords, const void* packed, int H0, int Wp,
+                  const int* hw, int num_levels, int B, int P, int radius, int dtype,
+                  void* stream, const void* scales = nullptr) {
+  constexpr int kItemsize[3] = {4, 2, 1};   // by dtype
+  Levels lv;
+  if (dtype < 0 || dtype > 2 || num_levels < 1 || num_levels > kMaxLevels
+      || !packed_levels(packed, kItemsize[dtype], H0, Wp, hw, num_levels, lv))
+    return (int)cudaErrorInvalidValue;
+  return gather(out, coords, lv, num_levels, (long)B * P, radius, dtype, stream, scales, P);
 }
 
 }  // namespace
@@ -210,7 +243,8 @@ extern "C" int mft_corr_lookup(void* out, const void* coords, const void* l0,
                                int h3, int w3, int num_levels, long BP, int radius,
                                int dtype, void* stream) {
   const int hw[2 * kMaxLevels] = {h0, w0, h1, w1, h2, w2, h3, w3};
-  return gather(out, coords, l0, l1, l2, l3, hw, num_levels, BP, radius, dtype, stream);
+  return gather_levels(out, coords, l0, l1, l2, l3, hw, num_levels, BP, radius, dtype,
+                       stream);
 }
 
 // Levels in their order in the pyramid: the folded ones (fold*w = 128) as
@@ -221,8 +255,8 @@ extern "C" int mft_corr_lookup_mixed(void* out, const void* coords, const void* 
                                      int h3, int w3, int num_levels, int B, int P,
                                      int radius, int dtype, void* stream) {
   const int hw[2 * kMaxLevels] = {h0, w0, h1, w1, h2, w2, h3, w3};
-  return gather(out, coords, l0, l1, l2, l3, hw, num_levels, (long)B * P, radius, dtype,
-                stream);
+  return gather_levels(out, coords, l0, l1, l2, l3, hw, num_levels, (long)B * P, radius,
+                       dtype, stream);
 }
 
 // int8 levels with their (B, L) float32 scales, value = q * scale[b, l];
@@ -233,6 +267,30 @@ extern "C" int mft_corr_lookup_q(void* out, const void* coords, const void* scal
                                  int w2, int h3, int w3, int num_levels, int B, int P,
                                  int radius, void* stream) {
   const int hw[2 * kMaxLevels] = {h0, w0, h1, w1, h2, w2, h3, w3};
-  return gather(out, coords, l0, l1, l2, l3, hw, num_levels, (long)B * P, radius, 2, stream,
-                scales, P);
+  return gather_levels(out, coords, l0, l1, l2, l3, hw, num_levels, (long)B * P, radius, 2,
+                       stream, scales, P);
+}
+
+// The packed (B, P, H0, Wp) map, Wp = sum w_l; dtype: 0 = float32,
+// 1 = bfloat16; radius 1..4. (h_l, w_l) are given for 4 levels, those beyond
+// num_levels ignored. out must be 16-byte aligned.
+extern "C" int mft_corr_lookup_packed(void* out, const void* coords, const void* packed,
+                                      int H0, int Wp, int h0, int w0, int h1, int w1,
+                                      int h2, int w2, int h3, int w3, int num_levels,
+                                      int B, int P, int radius, int dtype, void* stream) {
+  const int hw[2 * kMaxLevels] = {h0, w0, h1, w1, h2, w2, h3, w3};
+  return gather_packed(out, coords, packed, H0, Wp, hw, num_levels, B, P, radius, dtype,
+                       stream);
+}
+
+// That map in int8 with its (B, L) float32 scales, value = q * scale[b, l];
+// bfloat16 samples; radius 1..4. out must be 16-byte aligned.
+extern "C" int mft_corr_lookup_packed_i8(void* out, const void* coords, const void* scales,
+                                         const void* packed, int H0, int Wp, int h0,
+                                         int w0, int h1, int w1, int h2, int w2, int h3,
+                                         int w3, int num_levels, int B, int P,
+                                         int radius, void* stream) {
+  const int hw[2 * kMaxLevels] = {h0, w0, h1, w1, h2, w2, h3, w3};
+  return gather_packed(out, coords, packed, H0, Wp, hw, num_levels, B, P, radius, 2, stream,
+                       scales);
 }

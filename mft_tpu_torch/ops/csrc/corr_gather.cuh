@@ -1,14 +1,21 @@
 // The staged per-pixel window gather of the correlation pyramid, as device
 // code shared by the lookups (corr_gather.cu: K2 mft_corr_lookup, #9
-// mft_corr_lookup_mixed, K6 mft_corr_lookup_q on int8 levels) and the lookup
-// fused with convc1 (corr_lookup.cu: K1 mft_corr_lookup_conv and
-// mft_corr_lookup_conv_tc). box_origin and box_index also place the union
-// boxes of the lane-major lookup K9 (corr_volume.cu).
+// mft_corr_lookup_mixed, K6 mft_corr_lookup_q on int8 levels, K7
+// mft_corr_lookup_packed and K8 mft_corr_lookup_packed_i8 on the packed
+// volume) and the lookup fused with convc1 (corr_lookup.cu: K1
+// mft_corr_lookup_conv and mft_corr_lookup_conv_tc). box_origin and
+// box_index also place the union boxes of the lane-major lookup K9
+// (corr_volume.cu).
 //
 // One warp gathers one pixel's window samples: channel k = l*(2r+1)^2 +
 // i*(2r+1) + j samples level l of the pixel's own (h_l, w_l) map at
 // (x/2^l + i - r, y/2^l + j - r), the FIRST window axis offsets x (the
 // reference's transposed order), bilinear with zeros outside the map.
+// Where the maps lie is the level table's (Level): row y of pixel bp's map
+// of level l starts at value (bp*rows_l + y)*stride_l from the level's base.
+// Separate (B, P, h_l, w_l) levels have rows = h_l and stride = w_l; the
+// packed (B, P, H0, sum w_l) map has rows = H0 and stride = sum w_l for every
+// level, and level l's base is the map's plus its column offset.
 // - load_rows: the pixel's box of (2r+3)^2 taps per level. Each lane takes
 //   box rows (row job % side of level job / side) and reads each with aligned
 //   8-byte loads along the map row into registers, issuing only the loads
@@ -48,12 +55,6 @@ namespace {
 constexpr int kMaxLevels = 4;
 constexpr int kMaxRadius = 4;
 constexpr int kChunk = 8;               // bytes per staging load
-
-struct Levels {
-  const void* base[kMaxLevels];
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-};
 
 // Lanes (i, g), i < n, g < groups, read box row g*rows + t and column i + c:
 // is every bank of one such read distinct across the lanes?
@@ -98,10 +99,18 @@ struct Geometry {
 };
 
 // One level of the pyramid, in shared memory so that a lane can read the
-// level of its box row with one load.
+// level of its box row with one 16-byte load: its (h, w) map, and where the
+// map lies, row y of pixel bp at value (bp*rows + y)*stride from base. The
+// sizes are 16-bit (make_levels and packed_levels refuse larger ones): a
+// 2160x3840 frame's level 0 is 270x480, its packed rows 900 values.
 struct __align__(16) Level {
-  long long base;   // byte address of the level
-  int h, w;
+  long long base;   // byte address of the level's value (0, 0) of pixel 0
+  unsigned short h, w, rows, stride;
+};
+
+// The levels as the kernels take them, an argument.
+struct Levels {
+  Level level[kMaxLevels];
 };
 
 template <typename T> __device__ __forceinline__ float word_value(const uint32_t* a, int c);
@@ -161,7 +170,7 @@ __device__ __forceinline__ void load_rows(
       const int gy = oy + by;
       const int lo = max(0, -ox), hi = min(G::side, lvl.w - ox);   // box columns in the map
       const long long start =
-          lvl.base + (((long long)bp * lvl.h + gy) * lvl.w + ox) * (long long)sizeof(T);
+          lvl.base + (((long long)bp * lvl.rows + gy) * lvl.stride + ox) * (long long)sizeof(T);
       const int sb = (int)start & (kChunk - 1);
       const bool row_in = gy >= 0 && gy < lvl.h;
       info[s] = (row_in ? ((1u << hi) - 1u) & ~((1u << lo) - 1u) : 0u) | (uint32_t)sb << 16
@@ -297,22 +306,43 @@ __device__ __forceinline__ void sample(const BoxT* boxes, float cx, float cy, in
 __device__ __forceinline__ void fill_levels(Level* levels, const Levels& lv) {
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int l = 0; l < kMaxLevels; ++l)
-      levels[l] = Level{(long long)reinterpret_cast<uintptr_t>(lv.base[l]), lv.h[l], lv.w[l]};
+    for (int l = 0; l < kMaxLevels; ++l) levels[l] = lv.level[l];
   }
 }
 
-// The pyramid's pointers and sizes, (h_l, w_l) given for 4 levels.
-inline Levels make_levels(const void* l0, const void* l1, const void* l2, const void* l3,
-                          const int* hw) {
-  Levels lv = {};
+inline bool fits_16_bits(long v) { return v >= 0 && v <= 0xffff; }
+
+// Separate (B, P, h_l, w_l) levels, (h_l, w_l) given for 4 levels. false if
+// a size exceeds 16 bits.
+inline bool make_levels(const void* l0, const void* l1, const void* l2, const void* l3,
+                        const int* hw, Levels& lv) {
   const void* base[kMaxLevels] = {l0, l1, l2, l3};
   for (int l = 0; l < kMaxLevels; ++l) {
-    lv.base[l] = base[l];
-    lv.h[l] = hw[2 * l];
-    lv.w[l] = hw[2 * l + 1];
+    const int h = hw[2 * l], w = hw[2 * l + 1];
+    if (!fits_16_bits(h) || !fits_16_bits(w)) return false;
+    lv.level[l] = Level{(long long)reinterpret_cast<uintptr_t>(base[l]), (unsigned short)h,
+                        (unsigned short)w, (unsigned short)h, (unsigned short)w};
   }
-  return lv;
+  return true;
+}
+
+// The packed (B, P, H0, Wp) map of values of `itemsize` bytes, level l in
+// rows [0, h_l) and columns [off_l, off_l + w_l), off_l = sum_{m<l} w_m.
+// false if a level does not fit the map or a size exceeds 16 bits.
+inline bool packed_levels(const void* packed, int itemsize, int H0, int Wp, const int* hw,
+                          int num_levels, Levels& lv) {
+  if (!fits_16_bits(H0) || !fits_16_bits(Wp)) return false;
+  lv = Levels{};
+  long off = 0;
+  for (int l = 0; l < num_levels; ++l) {
+    const int h = hw[2 * l], w = hw[2 * l + 1];
+    if (h < 0 || h > H0 || w < 0 || off + w > Wp) return false;
+    lv.level[l] = Level{(long long)reinterpret_cast<uintptr_t>(packed) + off * itemsize,
+                        (unsigned short)h, (unsigned short)w, (unsigned short)H0,
+                        (unsigned short)Wp};
+    off += w;
+  }
+  return true;
 }
 
 }  // namespace

@@ -548,7 +548,8 @@ extern "C" int mft_corr_lookup_conv_tc(void* out, const void* coords, const void
     return (int)cudaErrorInvalidValue;
   if (BP == 0) return (int)cudaSuccess;
   const int hw[2 * kMaxLevels] = {h0, w0, h1, w1, h2, w2, h3, w3};
-  const Levels lv = make_levels(l0, l1, l2, l3, hw);
+  Levels lv;
+  if (!make_levels(l0, l1, l2, l3, hw, lv)) return (int)cudaErrorInvalidValue;
   const float* c = static_cast<const float*>(coords);
   const float* b = static_cast<const float*>(bias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -571,7 +572,8 @@ extern "C" int mft_corr_lookup_conv(void* out, const void* coords, const void* w
   if (!valid_args(num_levels, radius, BP) || F < 1) return (int)cudaErrorInvalidValue;
   if (BP == 0) return (int)cudaSuccess;
   const int hw[2 * kMaxLevels] = {h0, w0, h1, w1, h2, w2, h3, w3};
-  const Levels lv = make_levels(l0, l1, l2, l3, hw);
+  Levels lv;
+  if (!make_levels(l0, l1, l2, l3, hw, lv)) return (int)cudaErrorInvalidValue;
   const float* c = static_cast<const float*>(coords);
   const float* w = static_cast<const float*>(wc);
   const float* b = static_cast<const float*>(bias);

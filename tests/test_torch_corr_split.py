@@ -1,16 +1,17 @@
-"""The plain versions of 'int8' and 'pallas_t' against the JAX package on the
-inputs where their kernels take different routes.
+"""The plain versions of 'int8', 'packed', 'packed_i8' and 'pallas_t' against
+the JAX package on the inputs where their kernels take different routes.
 
-On the card, the int8 lookup stages each pixel's boxes (the gather of
-``csrc/corr_gather.cuh``), and the lane-major lookup stages, per group of 16
-pixels (8 in float32) and level, the union of the pixels' boxes, or reads
-each pixel's taps from device memory where that union is too large. The
-routes split on the coordinates (local: the pixel grid + U(-2, 2); uniform:
-windows anywhere over the map and past it), on the radius and on a level-0
-width that is no multiple of 16 (groups then straddle two image rows). The
-kernels are held bit for bit to these plain versions on the card
-(tests/test_torch_kernels_cuda.py); here the plain versions are held to JAX
-on the same inputs.
+On the card, the int8 and the packed lookups stage each pixel's boxes (the
+gather of ``csrc/corr_gather.cuh``; the packed map's rows of sum w_l values
+start at any byte: 74 bytes a row in bf16 and 37 in int8 at 12x20), and the
+lane-major lookup stages, per group of 16 pixels (8 in float32) and level,
+the union of the pixels' boxes, or reads each pixel's taps from device
+memory where that union is too large. The routes split on the coordinates
+(local: the pixel grid + U(-2, 2); uniform: windows anywhere over the map
+and past it), on the radius and on a level-0 width that is no multiple of 16
+(groups then straddle two image rows). The kernels are held bit for bit to
+these plain versions on the card (tests/test_torch_kernels_cuda.py); here
+the plain versions are held to JAX on the same inputs.
 
 JAX's Pallas lane-major kernel needs a power-of-two divisor of P of at least
 128 and takes tens of seconds a call in interpret mode at radius 4, so at
@@ -28,7 +29,11 @@ from mft_tpu.models.raft.corr import build_corr_pyramid as jax_build_pyramid
 from mft_tpu.models.raft.corr import corr_lookup as jax_corr_lookup
 from mft_tpu.models.raft.corr import quantize_pyramid as jax_quantize
 from mft_tpu.ops.corr_lookup_pallas import build_corr_pyramid_t as jax_build_t
-from mft_tpu.ops.corr_lookup_pallas import corr_lookup_pallas_q, corr_lookup_pallas_t
+from mft_tpu.ops.corr_lookup_pallas import (corr_lookup_pallas_packed,
+                                            corr_lookup_pallas_packed_i8,
+                                            corr_lookup_pallas_q, corr_lookup_pallas_t)
+from mft_tpu.ops.corr_lookup_pallas import pack_corr_pyramid as jax_pack
+from mft_tpu.ops.corr_lookup_pallas import pack_corr_pyramid_i8 as jax_pack_i8
 from mft_tpu_torch.models.raft import corr as tcorr
 
 B, C = 2, 16
@@ -58,9 +63,14 @@ def _volumes(rng, method, H8, W8):
     feature maps."""
     f1, f2 = _features(rng, H8, W8)
     pyr = jax_build_pyramid(jnp.asarray(f1), jnp.asarray(f2), 4)
+    port = [torch.from_numpy(np.array(lvl)) for lvl in pyr]
     if method == "int8":
-        port = [torch.from_numpy(np.array(lvl)) for lvl in pyr]
         return ("i8", *jax_quantize(pyr)), ("i8", *tcorr.quantize_pyramid(port)), pyr
+    if method == "packed":
+        return ("packed", *jax_pack(pyr)), ("packed", *tcorr.pack_corr_pyramid(port)), pyr
+    if method == "packed_i8":
+        return (("packed_i8", *jax_pack_i8(pyr)),
+                ("packed_i8", *tcorr.pack_corr_pyramid_i8(port)), pyr)
     jt = jax_build_t(jnp.asarray(f1), jnp.asarray(f2), 4)
     return ("t", jt), ("t", tcorr.build_corr_pyramid_t(_nchw(f1), _nchw(f2), 4)), pyr
 
@@ -73,11 +83,13 @@ def _bf16_ulp(x: np.ndarray) -> np.ndarray:
 
 @pytest.mark.parametrize("radius", [1, 2, 3, 4])
 @pytest.mark.parametrize("kind", ["uniform", "local"])
-@pytest.mark.parametrize("method", ["int8", "pallas_t"])
+@pytest.mark.parametrize("method", ["int8", "packed", "packed_i8", "pallas_t"])
 def test_plain_matches_jax_dispatch_at_12x20(rng, method, kind, radius):
     """Level 0 of 12x20 (P = 240): a 16-pixel group straddles two image
-    rows. Against JAX's exact dispatch path: f32 1e-4; the int8 form, which
-    both round once to bf16: at most one bf16 ulp of the output."""
+    rows, and the packed map's rows of 37 values start 8-byte aligned only
+    at the first. Against JAX's exact dispatch path: f32 1e-4; the int8
+    forms, which both round once to bf16: at most one bf16 ulp of the
+    output."""
     H8, W8 = 12, 20
     jvol, tvol, _ = _volumes(rng, method, H8, W8)
     coords = _coords(rng, kind, H8, W8)
@@ -86,7 +98,7 @@ def test_plain_matches_jax_dispatch_at_12x20(rng, method, kind, radius):
     want = want.reshape(B, H8 * W8, -1)
     got = tcorr.corr_lookup(tvol, torch.from_numpy(coords), radius)
     assert tuple(got.shape) == (B, H8 * W8, 4 * (2 * radius + 1) ** 2)
-    if method == "int8":
+    if method in ("int8", "packed_i8"):
         assert got.dtype == torch.bfloat16
         err = np.abs(got.float().numpy() - want)
         assert (err <= _bf16_ulp(want) + 1e-30).all(), float(err.max())
@@ -97,24 +109,31 @@ def test_plain_matches_jax_dispatch_at_12x20(rng, method, kind, radius):
 
 @pytest.mark.parametrize("method,H8,W8,radius", [
     ("int8", 16, 24, 1), ("int8", 16, 24, 2), ("int8", 16, 24, 3), ("int8", 16, 24, 4),
+    ("packed", 16, 24, 1), ("packed", 16, 24, 2), ("packed", 16, 24, 3),
+    ("packed", 16, 24, 4), ("packed_i8", 16, 24, 1), ("packed_i8", 16, 24, 2),
+    ("packed_i8", 16, 24, 3), ("packed_i8", 16, 24, 4),
     ("pallas_t", 8, 16, 1), ("pallas_t", 8, 16, 2)])
 def test_plain_matches_jax_pallas_kernel_local(rng, method, H8, W8, radius):
     """Local coordinates against the JAX Pallas kernels in interpret mode:
-    'pallas_t' in f32 1e-4 (at P = 128 and radius 1-2, where interpret mode
-    takes seconds); the int8 kernel rounds its tent weights and row
-    contraction to bf16, so it is held to the bound JAX's own test uses,
-    4 * max|corr| / 200."""
+    'packed' and 'pallas_t' in f32 1e-4 ('pallas_t' at P = 128 and radius
+    1-2, where interpret mode takes seconds); the int8 kernels round their
+    tent weights and row contraction to bf16, so they are held to the bound
+    JAX's own test uses, 4 * max|corr| / 200."""
     jvol, tvol, pyr = _volumes(rng, method, H8, W8)
     coords = _coords(rng, "local", H8, W8)
     jc = jnp.asarray(coords)
     if method == "int8":
         want = corr_lookup_pallas_q(jvol[1], jvol[2], jc, radius)
+    elif method == "packed":
+        want = corr_lookup_pallas_packed(jvol[1], jvol[2], jc, radius, tile_p=128)
+    elif method == "packed_i8":
+        want = corr_lookup_pallas_packed_i8(jvol[1], jvol[2], jvol[3], jc, radius, tile_p=128)
     else:
         want = corr_lookup_pallas_t(jvol[1], jc, radius, tile_p=128)
     want = np.asarray(want.astype(jnp.float32))
     got = tcorr.corr_lookup(tvol, torch.from_numpy(coords), radius).float().numpy()
     assert got.shape == want.shape
-    if method == "int8":
+    if method in ("int8", "packed_i8"):
         bound = float(np.max(np.abs(np.asarray(pyr[0], np.float32)))) / 200.0
         np.testing.assert_allclose(got, want, atol=4 * bound)
     else:

@@ -403,23 +403,27 @@ def test_lane_major_kernel_matches_plain(np_rng, cuda, dtype, radius, shape):
     _assert_same_bits(got, ops.corr_lookup_t_ref(levels, coords, radius))
 
 
-@pytest.mark.parametrize("method", ["int8", "pallas_t"])
+@pytest.mark.parametrize("method", ["int8", "packed", "packed_i8", "pallas_t"])
 def test_gather_volume_kernels_refuse_radius_5(np_rng, cuda, method):
-    """K6 and K9 are compiled for radius 1..4: radius 5 raises on the card."""
+    """K6-K9 are compiled for radius 1..4: radius 5 raises on the card."""
     stored, coords = _stored_volume(np_rng, method, "bfloat16", cuda, "local")
     with pytest.raises(ValueError, match="radius"):
         tcorr.corr_lookup(stored, coords, 5)
 
 
-def test_packed_kernel_stays_in_each_level(np_rng, cuda):
-    """Filling the other levels' columns with 1e3 changes no level-0 sample,
-    also where the windows pass the level's right edge."""
-    (tag, packed, dims), coords = _stored_volume(np_rng, "packed", "float32", cuda, "wild")
-    want = ops.corr_lookup_packed(packed, dims, coords, 4)
+@pytest.mark.parametrize("form", ["float32", "bfloat16", "int8 of bfloat16"])
+def test_packed_kernel_stays_in_each_level(np_rng, cuda, form):
+    """Filling the other levels' columns with large values (1e3; 127 in
+    int8) changes no level-0 sample, also where the windows pass the
+    level's right edge; K7 in f32 and bf16, K8 on int8."""
+    method = "packed_i8" if form.startswith("int8") else "packed"
+    stored, coords = _stored_volume(np_rng, method, form.split()[-1], cuda, "wild")
+    packed, dims = stored[1], stored[-1]
+    want = tcorr.corr_lookup(stored, coords, 4)
     for view in tcorr.unpack_levels(packed, dims)[1:]:
-        view.fill_(1e3)
-    got = ops.corr_lookup_packed(packed, dims, coords, 4)
-    torch.testing.assert_close(got[..., :81], want[..., :81], atol=0.0, rtol=0.0)
+        view.fill_(127 if packed.dtype == torch.int8 else 1e3)
+    got = tcorr.corr_lookup(stored, coords, 4)
+    _assert_same_bits(got[..., :81].contiguous(), want[..., :81].contiguous())
 
 
 @pytest.mark.parametrize("method", sorted(VOLUME_KERNELS))
@@ -669,6 +673,76 @@ def test_gather_bits_unchanged_after_q(np_rng, cuda):
     after = ops.corr_lookup(pyr, coords, 4)
     _assert_same_bits(before, want)
     _assert_same_bits(after, want)
+
+
+# level dims of the packed lookups' cases: the pyramid of a 12x20 map (rows
+# of 20+10+5+2 = 37 values: 148, 74 and 37 bytes, no row but the first
+# 8-byte aligned, level 3 one row of the map's 12), of a 13x21 map (38
+# values a row) and 3 levels of rows of 52 values
+PACKED_LEVELS = {
+    "12x20": _pyramid_dims(12, 20),
+    "13x21": _pyramid_dims(13, 21),
+    "3 levels w30 w15 w7": [(12, 30), (6, 15), (3, 7)],
+}
+
+
+def _packed_volume(np_rng, form, dims, B, P, dev):
+    """A tagged packed volume of random values: float32 or bfloat16, or int8
+    with the extremes -128 and 127 and scales that are no powers of two."""
+    if form == "int8":
+        levels, scales = _int8_levels(np_rng, B, P, dims, dev)
+        return ("packed_i8", *tcorr.pack_corr_pyramid(levels)[:1], scales, tuple(dims))
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    levels = [t(np_rng.standard_normal((B, P, h, w))).to(DT[form]) for h, w in dims]
+    return ("packed", *tcorr.pack_corr_pyramid(levels))
+
+
+@pytest.mark.parametrize("shape", sorted(PACKED_LEVELS))
+@pytest.mark.parametrize("radius", [1, 2, 3, 4])
+@pytest.mark.parametrize("form", ["float32", "bfloat16", "int8"])
+def test_packed_kernels_match_plain(np_rng, cuda, form, radius, shape):
+    """K7 (f32, bf16) and K8 (int8) on the gather bit for bit against
+    corr_lookup_packed(_i8)_ref: rows of the packed map that start at any
+    byte, windows wholly and partly outside the maps (wild and uniform),
+    local windows and round-up positions; B*P = 87 pixels."""
+    dims = PACKED_LEVELS[shape]
+    B, P = 3, 29
+    stored = _packed_volume(np_rng, form, dims, B, P, cuda)
+    coords = _gather_coords(np_rng, B, P, dims, radius)
+    _assert_rounds_up(coords, len(dims), radius)
+    coords = torch.from_numpy(coords).to(cuda)
+    name = VOLUME_KERNELS[stored[0]]
+    ops.reset_launch_counts()
+    got = tcorr.corr_lookup(stored, coords, radius)
+    assert ops.launch_counts()[name] == 1
+    want = tcorr.corr_lookup(stored, coords, radius, plain=True)
+    assert got.dtype == (torch.bfloat16 if form == "int8" else DT[form])
+    assert got.shape == (B, P, len(dims) * (2 * radius + 1) ** 2)
+    _assert_same_bits(got, want)
+
+
+def test_gather_bits_unchanged_after_packed(np_rng, cuda):
+    """K2 on bf16 levels and K6 on int8 levels give the plain versions' bits
+    before and after K7 and K8 launches on the same levels packed (one
+    shared gather, one level table)."""
+    dims = PACKED_LEVELS["12x20"]
+    B, P = 3, 29
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    pyr = [t(np_rng.standard_normal((B, P, h, w))).to(torch.bfloat16) for h, w in dims]
+    lv, scales = _int8_levels(np_rng, B, P, dims, cuda)
+    coords = t(_gather_coords(np_rng, B, P, dims, 4))
+    want = (ops.corr_lookup_ref(pyr, coords, 4), ops.corr_lookup_q_ref(lv, scales, coords, 4))
+    calls = (lambda: ops.corr_lookup(pyr, coords, 4),
+             lambda: ops.corr_lookup_q(lv, scales, coords, 4))
+    before = [call() for call in calls]
+    packed, pdims = tcorr.pack_corr_pyramid(pyr)
+    packed_i8, _ = tcorr.pack_corr_pyramid(lv)
+    _assert_same_bits(ops.corr_lookup_packed(packed, pdims, coords, 4), want[0])
+    _assert_same_bits(ops.corr_lookup_packed_i8(packed_i8, scales, pdims, coords, 4), want[1])
+    after = [call() for call in calls]
+    for b, a, w in zip(before, after, want):
+        _assert_same_bits(b, w)
+        _assert_same_bits(a, w)
 
 
 # (folded (h, w) with fold*w = 128, plain (h, w)) of the mixed lookup's cases

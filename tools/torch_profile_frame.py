@@ -33,19 +33,20 @@ REPO = os.path.dirname(HERE)
 GROUPS = (  # first match wins
     # corr_lookup.cu: bf16 on the tensor cores (_tc), f32 on the CUDA cores
     ("corr_lookup_fused", re.compile(r"lookup_conv(_tc)?_kernel")),
-    # corr_gather.cu: corr_lookup_q (int8 levels), then corr_lookup and
-    # corr_lookup_mixed
-    ("corr_lookup_q", re.compile(r"corr_gather_kernel(<\d+, signed char|ILi\dEa)")),
-    ("corr_lookup, corr_lookup_mixed", re.compile(r"corr_gather_kernel")),
+    # corr_gather.cu: corr_lookup_q and corr_lookup_packed_i8 (int8 taps),
+    # then corr_lookup, corr_lookup_mixed and corr_lookup_packed
+    ("corr_lookup_q, corr_lookup_packed_i8",
+     re.compile(r"corr_gather_kernel(<\d+, signed char|ILi\dEa)")),
+    ("corr_lookup, corr_lookup_mixed, corr_lookup_packed", re.compile(r"corr_gather_kernel")),
     ("chain_select", re.compile(r"chain_select_kernel")),
     # corr_alt.cu: bf16 'alt' and 'win' both run window_tc_kernel (tensor
     # cores); f32 'alt' alt_kernel, f32 'win' win_kernel
     ("corr_lookup_alt/win (bf16)", re.compile(r"window_tc_kernel")),
     ("corr_lookup_alt", re.compile(r"alt_kernel")),
     ("corr_lookup_win", re.compile(r"win_kernel")),
-    # corr_volume.cu: corr_lookup_packed, _packed_i8, _folded (pixel-major),
-    # _t (lane_group_kernel; lane_major_kernel and the pixel-major int8
-    # lookup in checkouts before the staged ones, for profiling those)
+    # corr_volume.cu: corr_lookup_folded (pixel-major), _t
+    # (lane_group_kernel); lane_major_kernel and the pixel-major packed and
+    # int8 lookups in checkouts before the staged ones, for profiling those
     ("volume-form lookup",
      re.compile(r"pixel_major_kernel|lane_group_kernel|lane_major_kernel")),
     # product.cu (float32) and product_tc.cu (bfloat16, tensor cores)
