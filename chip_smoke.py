@@ -13,16 +13,20 @@ non-zero and prints no result line):
    kernels (#5, #13, the bf16 fused lookup K1 and the bf16 window
    correlations K4/K5) holds HGMMA in every instance (``cuobjdump -sass``)
    and that ptxas gave every instance of the staged gather
-   (``corr_gather.cu``: K2, #9, the int8 K6 and the packed K7, K8), of K1
-   (``corr_lookup.cu``), of the warp (``warp.cu``), of the bf16 window
-   correlations (``corr_alt.cu``) and of the lane-major lookup K9
-   (``corr_volume.cu``) a 0-byte stack frame and no spills;
+   (``corr_gather.cu``: K2, the folded #4, #9, the int8 K6 and the packed K7,
+   K8), of K1 (``corr_lookup.cu``), of the warp (``warp.cu``), of the bf16
+   window correlations (``corr_alt.cu``), of the lane-major lookup K9
+   (``corr_volume.cu``) and of chain + select K3 (``chain_select.cu``) a
+   0-byte stack frame and no spills;
 3. hold each kernel against its plain PyTorch version at the main path's
    shapes, in bf16 and f32, and time it (device time by CUDA graph replay,
    as every kernel and library call below; the plain versions eagerly); K1
    in bf16 sums on the tensor cores and is also held to
    ``ops.product_error_bound`` on every element (largest ratio logged), and
-   timed beside the unfused pair K2 + ``torch.addmm`` + relu;
+   timed beside the unfused pair K2 + ``torch.addmm`` + relu; K3 bit for bit
+   (NaN positions equal) on uniform flows, on local ones, on local ones
+   with every candidate valid (each timed with its own bound) and on maps
+   with NaN occlusions and sigmas;
 3b. the same for the window-correlation kernels of corr_method 'alt' and
    'win' (no volume), on wild and on local coordinates: float32 bit for
    bit; bfloat16, one tile product on the tensor cores for both, within
@@ -39,7 +43,8 @@ non-zero and prints no result line):
    activation: the lookups and the f32 products held to bit-identical
    results, the bf16 products (tensor cores, ``product_tc.cu``) to
    ``ops.product_error_bound`` on every element, with the largest ratio to
-   the bound logged;
+   the bound logged; the lookups' outputs that differ from the plain
+   version's bits are counted;
 3e. the same for the bilinear warp (``mft_warp``) through each of its JAX
    entry points, in 'tpu' mode at the shapes where JAX takes each of its
    three warp kernels and bilinear_warp_blocked, and in 'exact' mode on
@@ -344,20 +349,46 @@ def check_lookups(torch, ops, dev, card):
     return stats
 
 
-def chain_select_inputs(torch, dev, N=7, H=512, W=512):
+def chain_select_inputs(torch, dev, N=7, H=512, W=512, kind="uniform"):
+    """K3's candidate maps: 'uniform' draws every flow in +-20 px per pixel
+    (every warp's taps scattered), 'local' gives candidate n the shift
+    (n + 1)*(2, 1) px plus U(-0.5, 0.5), as tracking does; occlusions in
+    [0, 0.03), sigmas in [0.1, 2); candidates 5 and 6 invalid (MFT's deltas
+    16 and 32, as in frames 8-15 after the start), except in 'steady', the
+    local maps with every candidate valid (frame 32 after the start on)."""
     gen = torch.Generator(device=dev).manual_seed(2)
     u = lambda *s, lo=0.0, hi=1.0: torch.empty(s, device=dev).uniform_(lo, hi, generator=gen)
-    lflow = u(N, H, W, 2, lo=-20.0, hi=20.0)
-    rflow = u(N, H, W, 2, lo=-20.0, hi=20.0)
-    valid = torch.tensor([True] * 5 + [False] * (N - 5), device=dev)
+    if kind == "uniform":
+        lflow = u(N, H, W, 2, lo=-20.0, hi=20.0)
+        rflow = u(N, H, W, 2, lo=-20.0, hi=20.0)
+    else:
+        shift = (torch.arange(N, device=dev, dtype=torch.float32)[:, None, None, None] + 1.0
+                 ) * torch.tensor([2.0, 1.0], device=dev)
+        lflow = shift + u(N, H, W, 2, lo=-0.5, hi=0.5)
+        rflow = shift + u(N, H, W, 2, lo=-0.5, hi=0.5)
+    valid = torch.tensor([True] * 5 + [kind == "steady"] * (N - 5), device=dev)
     return (lflow, u(N, H, W, hi=0.03), u(N, H, W, lo=0.1, hi=2.0),
             rflow, u(N, H, W, hi=0.03), u(N, H, W, lo=0.1, hi=2.0), valid)
 
 
+def chain_select_nan_inputs(torch, dev, N=7, H=512, W=512):
+    """The uniform maps with NaN in 1% of the values of each candidate
+    occlusion and sigma map (left and right): NaN scores, which argmax takes
+    as the maximum, and NaN occlusions, which torch.maximum propagates."""
+    maps = list(chain_select_inputs(torch, dev, N, H, W))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for k in (1, 2, 4, 5):
+        hit = torch.rand(maps[k].shape, device=dev, generator=gen) < 0.01
+        maps[k] = maps[k].masked_fill(hit, float("nan"))
+    return tuple(maps)
+
+
 def chain_select_bytes(torch, maps) -> int:
-    """Compulsory bytes: left maps and valid read once, the right occlusion
-    and sigma taps each pixel's candidates touch, the winners' right-flow
-    taps, and the outputs."""
+    """Compulsory bytes: valid read once; the left maps and the right
+    occlusion and sigma taps of the candidates a pixel needs, which are the
+    valid ones and its winner (an invalid candidate scores -inf whatever its
+    maps hold, so it is needed only where it wins: candidate 0 where every
+    score is -inf); the winners' right-flow taps; the outputs."""
     from mft_tpu_torch.ops.chain_select import select_candidates
     lflow, locc, lsig, rflow, rocc, rsig, valid = maps
     N, H, W = locc.shape
@@ -375,37 +406,56 @@ def chain_select_bytes(torch, maps) -> int:
                 mask[(cand * H * W + yi * W + xi)[ok]] = True
         return int(mask.sum().item())
 
-    cand = torch.arange(N, device=dev)[:, None, None].expand(N, H, W)
-    n_occ_sig = touched(xs + lflow[..., 0], ys + lflow[..., 1], cand)
     best, _, _ = select_candidates(lflow, locc, lsig, rocc, rsig, valid)
+    cand = torch.arange(N, device=dev)[:, None, None].expand(N, H, W)
+    needed = valid.to(dev)[:, None, None] | (cand == best)
+    n_occ_sig = touched((xs + lflow[..., 0])[needed], (ys + lflow[..., 1])[needed],
+                        cand[needed])
     sel = torch.gather(lflow, 0, best[None, ..., None].expand(1, H, W, 2))[0]
     n_flow = touched(xs + sel[..., 0], ys + sel[..., 1], best)
-    left = N * H * W * (8 + 4 + 4) + N
+    left = int(needed.sum()) * (8 + 4 + 4) + N
     return left + n_occ_sig * 8 + n_flow * 8 + H * W * 4 * 4   # + flow, occl, sigma out
 
 
 def check_chain_select(torch, ops, dev, card):
-    maps = chain_select_inputs(torch, dev)
-    got = ops.chain_select(*maps)
-    torch.cuda.synchronize()
-    want = ops.chain_select_ref(*maps)
-    # same float ops in the same order (built with -fmad=false): identical
-    # results are expected; the tolerance admits last-bit differences only
-    tols = (1e-4, 1e-5, 1e-5)
-    errs = [max_err(g, w) for g, w in zip(got, want)]
-    ok = all(within(g, w, a, 1e-6) for g, w, a in zip(got, want, tols))
-    log(f"check chain_select: max_abs_err flow {errs[0]:.3e} occlusion {errs[1]:.3e} "
-        f"sigma {errs[2]:.3e} (tolerance atol {tols} + rtol 1e-6) "
-        f"{'ok' if ok else 'FAIL'}")
-    check(ok, "chain_select disagrees with its plain version")
-    ms = graph_ms(lambda: ops.chain_select(*maps))
-    plain_ms = cuda_ms(lambda: ops.chain_select_ref(*maps), reps=5, warmup=1)
-    nbytes = chain_select_bytes(torch, maps)
-    bound = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"time chain_select: kernel {ms:.4f} ms (graph replay), plain {plain_ms:.3f} ms, "
-        f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB) [{card}]")
-    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by="bytes")
+    """K3 against its plain version on the uniform, the local, the steady and
+    the NaN maps, bit for bit (NaN positions equal): the same float ops in
+    the same order, built with -fmad=false, and the same argmax and maximum
+    on NaN; then timed on all but the NaN maps, each with its own bound."""
+    stats = {}
+    for kind in ("uniform", "local", "steady", "nan"):
+        maps = (chain_select_nan_inputs(torch, dev) if kind == "nan"
+                else chain_select_inputs(torch, dev, kind=kind))
+        got = ops.chain_select(*maps)
+        torch.cuda.synchronize()
+        want = ops.chain_select_ref(*maps)
+        n_diff = sum(differing(torch, g, w) for g, w in zip(got, want))
+        n_nan = sum(int(torch.isnan(w).sum()) for w in want)
+        finite = [torch.isfinite(w) for w in want]
+        errs = [float((g.float() - w.float()).abs()[f].max()) for g, w, f in zip(got, want, finite)]
+        log(f"check chain_select {kind}: {n_diff} of {sum(w.numel() for w in want)} outputs "
+            f"differ from the plain version's (NaN positions and bits; {n_nan} NaN outputs); "
+            f"max_abs_err flow {errs[0]:.3e} occlusion {errs[1]:.3e} sigma {errs[2]:.3e} "
+            f"(tolerance 0) {'ok' if n_diff == 0 else 'FAIL'}")
+        check(n_diff == 0, f"chain_select disagrees with its plain version on the {kind} maps")
+        if kind == "nan":
+            stats["nan_outputs_differing"] = n_diff
+            continue
+        ms = graph_ms(lambda: ops.chain_select(*maps))
+        plain_ms = cuda_ms(lambda: ops.chain_select_ref(*maps), reps=5, warmup=1)
+        nbytes = chain_select_bytes(torch, maps)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"time chain_select {kind}: kernel {ms:.4f} ms (graph replay), plain "
+            f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB), "
+            f"{ms / bound:.2f}x the bound [{card}]")
+        if kind == "uniform":
+            stats.update(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                         bound_by="bytes")
+        else:
+            stats.update({f"ms_{kind}": ms, f"plain_ms_{kind}": plain_ms,
+                          f"bound_ms_{kind}": bound})
+        del maps, got, want
+    return stats
 
 
 # --------------------------------------------------------------------------- #
@@ -532,9 +582,12 @@ def check_feature_kernels(torch, ops, dev, card):
 
 
 def differing(torch, got, want) -> int:
-    """Outputs whose bits differ (same dtype and shape)."""
+    """Outputs that differ (same dtype and shape): a NaN against a number,
+    or the bits of two numbers; two NaNs count as equal."""
     ints = {2: torch.int16, 4: torch.int32}[got.element_size()]
-    return int((got.view(ints) != want.view(ints)).sum())
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    bits = (got.view(ints) != want.view(ints)) & ~nan_g & ~nan_w
+    return int(((nan_g != nan_w) | bits).sum())
 
 
 def window_check(torch, ops, label, got, want, magnitude):
@@ -766,6 +819,9 @@ def check_fold_kernels(torch, ops, dev, card):
                 torch.cuda.synchronize()
                 want = plain()
                 err = exact_check(torch, f"{kname} {name} {kind}", got, want)
+                n_diff = differing(torch, got, want)
+                log(f"check {kname} {name} {kind}: {n_diff} of {got.numel()} outputs differ "
+                    f"from the plain version's bits")
                 ms = graph_ms(kernel)
                 plain_ms = cuda_ms(plain, reps=3, warmup=1)
                 lib_ms, lib = grid_sample_lookup(torch, views[kname], c)
@@ -778,7 +834,7 @@ def check_fold_kernels(torch, ops, dev, card):
                     f"({nbytes / 1e6:.1f} MB) [{card}]")
                 stats[(kname, name, kind)] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                    bound_by="bytes", library_ms=lib_ms)
+                    bound_by="bytes", library_ms=lib_ms, outputs_differing=n_diff)
                 del got, want, lib
         del levels, mixed, views, forms, f1, f2, f1r
         torch.cuda.empty_cache()
@@ -1145,14 +1201,15 @@ def check_sass(_build, path):
 
 
 # kernel -> instances that ptxas must give a 0-byte stack frame and no
-# spills: the staged gather (radius 1..4 x K2, #9 and K7 in f32 and bf16, K6
-# and K8 on int8), the fused lookup K1 (radius 1..4; f32 and, on the tensor cores,
-# bf16), the warp (f32, bf16 maps x 4 modes x C of 1, 2, 4, 6 and any
+# spills: the staged gather (radius 1..4 x K2, #4, #9 and K7 in f32 and bf16,
+# K6 and K8 on int8), the fused lookup K1 (radius 1..4; f32 and, on the tensor
+# cores, bf16), the warp (f32, bf16 maps x 4 modes x C of 1, 2, 4, 6 and any
 # other), the bf16 window correlations K4/K5 (one instance for both entry
-# points) and the lane-major lookup K9 (radius 1..4 x f32, bf16)
+# points), the lane-major lookup K9 (radius 1..4 x f32, bf16) and chain +
+# select K3 (1..8 candidates and any other count)
 FRAME_CHECKED = {"corr_gather_kernel": 12, "lookup_conv_kernel": 4,
                  "lookup_conv_tc_kernel": 4, "warp_kernel": 40, "window_tc_kernel": 1,
-                 "lane_group_kernel": 8}
+                 "lane_group_kernel": 8, "chain_select_kernel": 9}
 
 
 def check_frames(_build, kernel, instances):
@@ -1786,7 +1843,7 @@ def run() -> int:
                             replaces=f"mft_tpu/ops/corr_lookup_pallas.py:{line}",
                             launches=counts[kname], **{"library_ms": None,
                                                        **vk[(kname, "bfloat16", "uniform")]}))
-    for kname, line, source in (("corr_lookup_folded", 456, "corr_volume.cu"),
+    for kname, line, source in (("corr_lookup_folded", 456, "corr_gather.cu"),
                                 ("corr_lookup_mixed", 1028, "corr_gather.cu")):
         local = fo[(kname, "bfloat16", "local")]
         kernels.append(dict(name=kname, route="cuda", source=src + source,

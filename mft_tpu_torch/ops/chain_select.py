@@ -7,8 +7,10 @@ chaining, argmax and winner pick around it. It launches its kernel on CUDA
 tensors and uses :func:`chain_select_ref` on CPU tensors.
 
 Both hold to the exact float32 math of ``mft_tpu.tracker.fused.chain_select_ref``
-(not to the TPU path's 1/256-px snap and bf16 hi/lo split). Inputs are the
-stacked candidate maps: left/right flow (N, H, W, 2), occlusion and sigma
+(not to the TPU path's 1/256-px snap and bf16 hi/lo split), NaN included: a
+chained occlusion is NaN where either operand is, a NaN score counts as the
+maximum (the first NaN candidate wins, as ``argmax`` picks it). Inputs are
+the stacked candidate maps: left/right flow (N, H, W, 2), occlusion and sigma
 (N, H, W), valid (N,) bool. Outputs: flow (H, W, 2), occlusion and sigma (H, W).
 """
 
@@ -18,6 +20,17 @@ from mft_tpu_torch.core.coords import grid_coords
 from mft_tpu_torch.core.flowou import invalid_mask
 from mft_tpu_torch.core.interp import sample_stacked
 from mft_tpu_torch.ops import _build
+
+
+def chained_sigma(lsig, s_sig):
+    """sqrt(lsig² + s_sig²) in float32, each square and the sum rounded as
+    JAX's ``jnp.sqrt(jnp.square(a) + jnp.square(b))`` rounds them, and the
+    sqrt correctly rounded, as XLA's and CUDA's ``sqrtf`` are: taken in
+    float64 and rounded once (PyTorch's vectorised sqrt on the CPU is not
+    always correctly rounded; its float64 one errs by at most an ulp there,
+    too little to move a float32 result)."""
+    sq = torch.square(lsig.float()) + torch.square(s_sig.float())
+    return torch.sqrt(sq.double()).float()
 
 
 def select_candidates(lflow, locc, lsig, rocc, rsig, valid,
@@ -34,7 +47,7 @@ def select_candidates(lflow, locc, lsig, rocc, rsig, valid,
     packed = torch.stack([rocc.float(), rsig.float()], dim=-1)  # (N, H, W, 2)
     sampled = sample_stacked(packed, grid + lflow.float(), cand)
     c_occ = torch.maximum(locc.float(), sampled[..., 0])
-    c_sig = torch.sqrt(torch.square(lsig.float()) + torch.square(sampled[..., 1]))
+    c_sig = chained_sigma(lsig, sampled[..., 1])
     scores = torch.where(c_occ > occlusion_threshold, -torch.inf, -c_sig)
     scores = torch.where(valid.to(lflow.device)[:, None, None], scores, -torch.inf)
     return torch.argmax(scores, dim=0), c_occ, c_sig
@@ -75,6 +88,9 @@ def chain_select(lflow, locc, lsig, rflow, rocc, rsig, valid,
                              f"on {dev}, got {tuple(m.shape)} {m.dtype} {m.device}")
     if valid.shape != (N,) or valid.device != dev:
         raise ValueError(f"valid must be ({N},) on {dev}")
+    if lflow.data_ptr() % 8 or rflow.data_ptr() % 8:
+        raise ValueError("chain_select reads the flows' (x, y) pairs as 8-byte words: "
+                         "lflow and rflow must start 8-byte aligned")
     valid = valid.to(torch.uint8).contiguous()
     oflow = torch.empty((H, W, 2), dtype=torch.float32, device=dev)
     oocc = torch.empty((H, W), dtype=torch.float32, device=dev)

@@ -30,18 +30,18 @@ uses its plain PyTorch version on a CPU tensor:
   levels, staging per group of pixels the union of their windows' boxes
   (:func:`lane_major_staged_counts` counts the staged (group, level)s). The
   int8 forms return bfloat16 samples, the others the volume dtype;
-- two lookups of the same samples from folded levels:
-  :func:`corr_lookup_folded` (``mft_corr_lookup_folded`` in
-  ``csrc/corr_volume.cu``, replacing ``corr_lookup_pallas_folded``) from
-  (B, P, rows_l, 128) levels, lane u*w + x of row q holding image row
-  q*fold + u, the smallest levels one zero-padded row; and
-  :func:`corr_lookup_mixed` (``mft_corr_lookup_mixed`` in
-  ``csrc/corr_gather.cu``, replacing ``corr_lookup_pallas_mixed``) from
-  folded big levels followed by plain (B, P, h_l, w_l) ones. Where
-  fold*w = 128 a folded level is its dense map under another shape (value
-  (y, x) is element y*w + x): the folded lookup addresses the levels with
-  strides, and the mixed one hands their dense views to :func:`corr_lookup`'s
-  gather. The gather kernels (K2, #9, K6-K8 and the fused lookup) and the
+- two lookups of the same samples from folded levels, both on
+  :func:`corr_lookup`'s gather (``csrc/corr_gather.cu``):
+  :func:`corr_lookup_folded` (``mft_corr_lookup_folded``, replacing
+  ``corr_lookup_pallas_folded``) from (B, P, rows_l, 128) levels, lane
+  u*w + x of row q holding image row q*fold + u, the smallest levels one
+  zero-padded row; and :func:`corr_lookup_mixed` (``mft_corr_lookup_mixed``,
+  replacing ``corr_lookup_pallas_mixed``) from folded big levels followed by
+  plain (B, P, h_l, w_l) ones. A folded level's value (y, x) is element
+  y*w + x of the pixel's rows: the folded lookup gives each level a pixel
+  stride of rows_l*128 values and a row stride of w_l, and the mixed one
+  hands the folded levels' dense views (fold*w = 128) to the gather. The
+  gather kernels (K2, #4, #9, K6-K8 and the fused lookup) and the
   lane-major one take radius 1..4.
 
 Layouts are those of the JAX kernels: the pyramid is a list of (B, P, h_l, w_l)
@@ -469,6 +469,7 @@ def corr_lookup_folded(levels, dims, coords, radius: int = 4, ywin: int = 0) -> 
     if coords.device.type == "cpu":
         return corr_lookup_folded_ref(levels, dims, coords, radius, ywin)
     _require_cuda(coords, "corr_lookup_folded")
+    _check_gather_radius(radius)
     dt, B, P, rows, hw = _check_folded(levels, dims, coords, tuple(_DTYPE_CODE))
     ptrs = [lvl.data_ptr() for lvl in levels] + [None] * (4 - len(levels))
     out = torch.empty((B, P, _channels(len(levels), radius)), dtype=dt,

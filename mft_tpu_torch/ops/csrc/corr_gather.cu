@@ -1,5 +1,5 @@
 // Dense correlation-pyramid window lookup for Hopper (sm_90a): one staged
-// per-pixel gather behind five entry points.
+// per-pixel gather behind six entry points.
 //
 // mft_corr_lookup            replaces mft_tpu/ops/corr_lookup_pallas.py
 //                            corr_lookup_pallas (_kernel_pixel_major):
@@ -10,6 +10,16 @@
 //                            pixel's dense h_l x w_l map (value (y, x) is
 //                            element y*w + x), so the wrapper passes its dense
 //                            view and both entry points read the same layout.
+// mft_corr_lookup_folded     replaces corr_lookup_pallas_folded (_kernel_folded):
+//                            every level folded, (B, P, rows_l, 128), lane
+//                            u*w + x of row q holding image row q*fold + u; a
+//                            level of fewer than 128 values fills the first
+//                            h_l*w_l lanes of its one zero-padded row, whatever
+//                            w_l is. The level table (corr_gather.cuh
+//                            folded_table) gives each level a pixel stride of
+//                            rows_l*128 values and a row stride of w_l; the
+//                            padding lanes hold no tap of the map and are never
+//                            sampled.
 // mft_corr_lookup_q          replaces corr_lookup_pallas_q (_kernel_pixel_major_q):
 //                            int8 (B, P, h_l, w_l) levels, value = q * scale[b, l],
 //                            dequantized as the boxes are staged (corr_gather.cuh
@@ -79,7 +89,7 @@ corr_gather_kernel(Levels lv, const float* __restrict__ coords, O* __restrict__ 
   constexpr int kTile = kPix * kMaxLevels * G::nn;
   __shared__ __align__(16) float boxes[kPix][kMaxLevels * G::box];
   __shared__ __align__(16) unsigned char tile_bytes[2][kTile * sizeof(O)];
-  __shared__ Level levels[kMaxLevels];
+  __shared__ Levels levels;
   fill_levels(levels, lv);
   __syncthreads();
 
@@ -220,6 +230,18 @@ int gather_levels(void* out, const void* coords, const void* l0, const void* l1,
   return gather(out, coords, lv, num_levels, BP, radius, dtype, stream, scales, P);
 }
 
+// Folded (B, P, rows_l, 128) levels: (h_l, w_l) and rows_l given for 4
+// levels, pointers beyond num_levels ignored.
+int gather_folded(void* out, const void* coords, const void* l0, const void* l1,
+                  const void* l2, const void* l3, const int* hw, const int* rows,
+                  int num_levels, long BP, int radius, int dtype, void* stream) {
+  Levels lv;
+  if (num_levels < 1 || num_levels > kMaxLevels || dtype < 0 || dtype > 1
+      || !folded_table(l0, l1, l2, l3, hw, rows, num_levels, lv))
+    return (int)cudaErrorInvalidValue;
+  return gather(out, coords, lv, num_levels, BP, radius, dtype, stream);
+}
+
 // The packed (B, P, H0, Wp) map.
 int gather_packed(void* out, const void* coords, const void* packed, int H0, int Wp,
                   const int* hw, int num_levels, int B, int P, int radius, int dtype,
@@ -256,6 +278,22 @@ extern "C" int mft_corr_lookup_mixed(void* out, const void* coords, const void* 
                                      int radius, int dtype, void* stream) {
   const int hw[2 * kMaxLevels] = {h0, w0, h1, w1, h2, w2, h3, w3};
   return gather_levels(out, coords, l0, l1, l2, l3, hw, num_levels, (long)B * P, radius,
+                       dtype, stream);
+}
+
+// Folded (B, P, rows_l, 128) levels, value (y, x) at lane offset y*w_l + x;
+// dtype: 0 = float32, 1 = bfloat16; radius 1..4. (h_l, w_l) and rows_l are
+// given for 4 levels, those beyond num_levels ignored. out must be 16-byte
+// aligned.
+extern "C" int mft_corr_lookup_folded(void* out, const void* coords, const void* l0,
+                                      const void* l1, const void* l2, const void* l3,
+                                      int h0, int w0, int h1, int w1, int h2, int w2,
+                                      int h3, int w3, int r0, int r1, int r2, int r3,
+                                      int num_levels, int B, int P, int radius, int dtype,
+                                      void* stream) {
+  const int hw[2 * kMaxLevels] = {h0, w0, h1, w1, h2, w2, h3, w3};
+  const int rows[kMaxLevels] = {r0, r1, r2, r3};
+  return gather_folded(out, coords, l0, l1, l2, l3, hw, rows, num_levels, (long)B * P, radius,
                        dtype, stream);
 }
 

@@ -1,8 +1,8 @@
 // The staged per-pixel window gather of the correlation pyramid, as device
 // code shared by the lookups (corr_gather.cu: K2 mft_corr_lookup, #9
-// mft_corr_lookup_mixed, K6 mft_corr_lookup_q on int8 levels, K7
-// mft_corr_lookup_packed and K8 mft_corr_lookup_packed_i8 on the packed
-// volume) and the lookup fused with convc1 (corr_lookup.cu: K1
+// mft_corr_lookup_mixed, #4 mft_corr_lookup_folded, K6 mft_corr_lookup_q on
+// int8 levels, K7 mft_corr_lookup_packed and K8 mft_corr_lookup_packed_i8 on
+// the packed volume) and the lookup fused with convc1 (corr_lookup.cu: K1
 // mft_corr_lookup_conv and mft_corr_lookup_conv_tc). box_origin and
 // box_index also place the union boxes of the lane-major lookup K9
 // (corr_volume.cu).
@@ -11,11 +11,14 @@
 // i*(2r+1) + j samples level l of the pixel's own (h_l, w_l) map at
 // (x/2^l + i - r, y/2^l + j - r), the FIRST window axis offsets x (the
 // reference's transposed order), bilinear with zeros outside the map.
-// Where the maps lie is the level table's (Level): row y of pixel bp's map
-// of level l starts at value (bp*rows_l + y)*stride_l from the level's base.
-// Separate (B, P, h_l, w_l) levels have rows = h_l and stride = w_l; the
-// packed (B, P, H0, sum w_l) map has rows = H0 and stride = sum w_l for every
-// level, and level l's base is the map's plus its column offset.
+// Where the maps lie is the level table's (Levels): row y of pixel bp's map
+// of level l starts at value bp*pixel_l + y*stride_l from the level's base.
+// Separate (B, P, h_l, w_l) levels have pixel = h_l*w_l and stride = w_l;
+// the packed (B, P, H0, sum w_l) map has pixel = H0*sum w_l and stride =
+// sum w_l for every level, and level l's base is the map's plus its column
+// offset; a folded (B, P, rows_l, 128) level has pixel = 128*rows_l and
+// stride = w_l (a small level's h_l*w_l values fill the first lanes of its
+// one row, whatever w_l is).
 // - load_rows: the pixel's box of (2r+3)^2 taps per level. Each lane takes
 //   box rows (row job % side of level job / side) and reads each with aligned
 //   8-byte loads along the map row into registers, issuing only the loads
@@ -99,18 +102,24 @@ struct Geometry {
 };
 
 // One level of the pyramid, in shared memory so that a lane can read the
-// level of its box row with one 16-byte load: its (h, w) map, and where the
-// map lies, row y of pixel bp at value (bp*rows + y)*stride from base. The
-// sizes are 16-bit (make_levels and packed_levels refuse larger ones): a
-// 2160x3840 frame's level 0 is 270x480, its packed rows 900 values.
+// level of its box row with one 16-byte load: its (h, w) map, its row stride
+// and where pixel 0's map lies. The sizes are 16-bit (make_levels,
+// packed_levels and folded_table refuse larger ones): a 2160x3840 frame's
+// level 0 is 270x480, its packed rows 900 values.
 struct __align__(16) Level {
   long long base;   // byte address of the level's value (0, 0) of pixel 0
-  unsigned short h, w, rows, stride;
+  unsigned short h, w, stride, unused;
 };
 
-// The levels as the kernels take them, an argument.
-struct Levels {
+// The level table, an argument of the kernels and a copy in their shared
+// memory: row y of pixel bp's map of level l at value bp*pixel[l] +
+// y*level[l].stride from level[l].base. The pixel strides sit beside the
+// levels, one 4-byte load more per box row: 32 bits cover a product of two
+// 16-bit sizes (65,535^2 values), and a Level of 32 bytes would not fit K1's
+// tensor-core kernel.
+struct __align__(16) Levels {
   Level level[kMaxLevels];
+  unsigned pixel[kMaxLevels];
 };
 
 template <typename T> __device__ __forceinline__ float word_value(const uint32_t* a, int c);
@@ -152,7 +161,7 @@ __device__ __forceinline__ int box_origin(float o, int extent, int side) {
 // for every tap the mask leaves out.
 template <int R, typename T, typename BoxT = float>
 __device__ __forceinline__ void load_rows(
-    const Level* levels, long bp, float cx, float cy, int L, int lane,
+    const Levels& levels, long bp, float cx, float cy, int L, int lane,
     uint32_t (&wd)[Geometry<R, T, BoxT>::slots][Geometry<R, T, BoxT>::words],
     uint32_t (&info)[Geometry<R, T, BoxT>::slots]) {
   using G = Geometry<R, T, BoxT>;
@@ -163,14 +172,16 @@ __device__ __forceinline__ void load_rows(
     if (job < L * G::side) {
       const int l = job / G::side;
       const int by = job - l * G::side;
-      const Level lvl = levels[l];
+      const Level lvl = levels.level[l];
+      const unsigned pixel = levels.pixel[l];
       const float inv = __int_as_float((127 - l) << 23);   // 2^-l, exact
       const int ox = box_origin(floorf(cx * inv + (float)(-R)), lvl.w, G::side);
       const int oy = box_origin(floorf(cy * inv + (float)(-R)), lvl.h, G::side);
       const int gy = oy + by;
       const int lo = max(0, -ox), hi = min(G::side, lvl.w - ox);   // box columns in the map
       const long long start =
-          lvl.base + (((long long)bp * lvl.rows + gy) * lvl.stride + ox) * (long long)sizeof(T);
+          lvl.base
+          + ((long long)bp * pixel + (long long)gy * lvl.stride + ox) * (long long)sizeof(T);
       const int sb = (int)start & (kChunk - 1);
       const bool row_in = gy >= 0 && gy < lvl.h;
       info[s] = (row_in ? ((1u << hi) - 1u) & ~((1u << lo) - 1u) : 0u) | (uint32_t)sb << 16
@@ -303,11 +314,8 @@ __device__ __forceinline__ void sample(const BoxT* boxes, float cx, float cy, in
 }
 
 // The level table in shared memory, written by thread 0.
-__device__ __forceinline__ void fill_levels(Level* levels, const Levels& lv) {
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int l = 0; l < kMaxLevels; ++l) levels[l] = lv.level[l];
-  }
+__device__ __forceinline__ void fill_levels(Levels& levels, const Levels& lv) {
+  if (threadIdx.x == 0) levels = lv;
 }
 
 inline bool fits_16_bits(long v) { return v >= 0 && v <= 0xffff; }
@@ -321,7 +329,8 @@ inline bool make_levels(const void* l0, const void* l1, const void* l2, const vo
     const int h = hw[2 * l], w = hw[2 * l + 1];
     if (!fits_16_bits(h) || !fits_16_bits(w)) return false;
     lv.level[l] = Level{(long long)reinterpret_cast<uintptr_t>(base[l]), (unsigned short)h,
-                        (unsigned short)w, (unsigned short)h, (unsigned short)w};
+                        (unsigned short)w, (unsigned short)w, 0};
+    lv.pixel[l] = (unsigned)h * (unsigned)w;
   }
   return true;
 }
@@ -338,9 +347,31 @@ inline bool packed_levels(const void* packed, int itemsize, int H0, int Wp, cons
     const int h = hw[2 * l], w = hw[2 * l + 1];
     if (h < 0 || h > H0 || w < 0 || off + w > Wp) return false;
     lv.level[l] = Level{(long long)reinterpret_cast<uintptr_t>(packed) + off * itemsize,
-                        (unsigned short)h, (unsigned short)w, (unsigned short)H0,
-                        (unsigned short)Wp};
+                        (unsigned short)h, (unsigned short)w, (unsigned short)Wp, 0};
+    lv.pixel[l] = (unsigned)H0 * (unsigned)Wp;
     off += w;
+  }
+  return true;
+}
+
+// Folded (B, P, rows_l, 128) levels, value (y, x) of level l at lane offset
+// y*w_l + x of the pixel's rows_l*128 values: a level whose rows hold whole
+// image rows (fold*w = 128) or a small one (h_l*w_l < 128 values in one
+// zero-padded row). false if a level's h_l*w_l values exceed its rows or a
+// size exceeds 16 bits (the pixel stride, 32).
+inline bool folded_table(const void* l0, const void* l1, const void* l2, const void* l3,
+                          const int* hw, const int* rows, int num_levels, Levels& lv) {
+  const void* base[kMaxLevels] = {l0, l1, l2, l3};
+  lv = Levels{};
+  for (int l = 0; l < num_levels; ++l) {
+    const int h = hw[2 * l], w = hw[2 * l + 1];
+    const long pixel = (long)rows[l] * 128;
+    if (!fits_16_bits(h) || !fits_16_bits(w) || rows[l] < 1 || pixel > 0xffffffffL
+        || (long)h * w > pixel)
+      return false;
+    lv.level[l] = Level{(long long)reinterpret_cast<uintptr_t>(base[l]), (unsigned short)h,
+                        (unsigned short)w, (unsigned short)w, 0};
+    lv.pixel[l] = (unsigned)pixel;
   }
   return true;
 }

@@ -60,9 +60,10 @@
 //   differ by less than e; its samples always do (with +-1 diagonal
 //   weights every sum is exact).
 // Shared memory at F = 256, r = 4, 4 levels: Wc 172,032 + A 43,008 + boxes
-// 16 x 1,056 = 231,936 bytes, and 208 static (the level table, the row
-// norms in bf16, max_f ||w_f||), of the 232,448 a block may use, one block
-// an SM; the boxes' rows use the least even pitch (12 values) to fit.
+// 16 x 1,056 = 231,936 bytes (+ 256 to align the base), and 224 static (the
+// level table, the row norms in bf16, max_f ||w_f||), of the 232,448 a block
+// may use, one block an SM; the boxes' rows use the least even pitch (12
+// values) to fit.
 //
 // The float32 form (lookup_conv_kernel) keeps a CUDA-core contraction, exact
 // to its stated tolerance and free of TF32: 8 warps gather a tile of 32
@@ -94,7 +95,7 @@ lookup_conv_kernel(Levels lv, const float* __restrict__ coords, const float* __r
   extern __shared__ float4 smem4[];
   float* s = reinterpret_cast<float*>(smem4);  // [C][kTileP], k-major
   __shared__ __align__(16) float boxes[kWarps][kMaxLevels * G::box];
-  __shared__ Level levels[kMaxLevels];
+  __shared__ Levels levels;
   fill_levels(levels, lv);
   __syncthreads();
   const int warp = threadIdx.x >> 5;
@@ -170,7 +171,7 @@ constexpr float kWindow = 1.0f / (1 << 20);   // the repair's window, over ||a_p
 
 // The tensor-core kernel's static shared memory.
 struct TcStatic {
-  Level levels[kMaxLevels];
+  Levels levels;
   __nv_bfloat16 norm[kRows];   // ||a_p|| of the tile's rows, rounded up
   float wmax;                  // max_f ||w_f||
   int listed;                  // outputs on the repair's list
@@ -264,7 +265,7 @@ lookup_conv_tc_kernel(Levels lv, const float* __restrict__ coords,
   using G = Geometry<R, T, T>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ TcStatic st;
-  Level* levels = st.levels;
+  Levels& levels = st.levels;
   uint8_t* bsm = align256(smem_raw);           // Wc: NP x K
   uint8_t* asm_ = bsm + NP * K * 2;            // samples: 64 x K; then the outputs
   const int tid = threadIdx.x;

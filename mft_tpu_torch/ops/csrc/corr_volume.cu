@@ -1,45 +1,33 @@
-// Window lookups on the other stored forms of the RAFT correlation volume,
-// for Hopper (sm_90a).
+// Window lookup on the lane-major form of the RAFT correlation volume, for
+// Hopper (sm_90a).
 //
 // mft_corr_lookup_t          replaces mft_tpu/ops/corr_lookup_pallas.py
 //                            corr_lookup_pallas_t (_kernel_lane_major):
 //                            lane-major (B, h_l, w_l, P) levels, the source pixel
 //                            on the fastest axis.
-// mft_corr_lookup_folded     replaces corr_lookup_pallas_folded (_kernel_folded):
-//                            folded (B, P, rows_l, 128) levels, lane u*w + x of
-//                            row q holding image row q*fold + u (fold = 128/w);
-//                            a level of fewer than 128 values fills the first
-//                            h_l*w_l lanes of its one zero-padded row.
-// (The int8 form of separate levels, mft_corr_lookup_q, and the packed forms,
-// mft_corr_lookup_packed and mft_corr_lookup_packed_i8, run the staged gather
-// of corr_gather.cu.)
+// (The other stored forms, int8, packed and folded, run the staged per-pixel
+// gather of corr_gather.cu.)
 //
-// Each writes the same (B, P, L*(2r+1)^2) window samples as mft_corr_lookup
+// It writes the same (B, P, L*(2r+1)^2) window samples as mft_corr_lookup
 // (corr_gather.cu): per pixel, a bilinear zero-padded (2r+1)^2 window from
 // each level of its own correlation map, channel k = l*(2r+1)^2 + i*(2r+1) + j
-// sampled at (x/2^l + i - r, y/2^l + j - r), in the volume dtype. A tap
-// outside its level's own h_l x w_l map is zero: in a folded level it never
-// reads the padding lanes.
+// sampled at (x/2^l + i - r, y/2^l + j - r), in the volume dtype.
 //
-// What bounds them on this card. Like mft_corr_lookup, the bytes of the taps
+// What bounds it on this card. Like mft_corr_lookup, the bytes of the taps
 // the windows touch plus the output: about 23 MB of bf16 taps and 18.6 MB of
-// bf16 samples per launch at 512x512 with 7 pairs. The TPU kernels
-// contracted tent-weight matrices against each pixel's whole map (or,
-// lane-major, against every map position for 128 pixels at once) because the
-// TPU has no fast gather; here every sample gathers its own four taps.
+// bf16 samples per launch at 512x512 with 7 pairs. The TPU kernel contracted
+// tent-weight matrices against every map position for 128 pixels at once,
+// because the TPU has no fast gather; here every sample gathers its own four
+// taps.
 //
-// What the design does about it. The folded form takes one thread per output
-// sample: consecutive threads write consecutive samples of one pixel and
-// share its taps in L1.
-//
-// The lane-major form (lane_group_kernel) takes a group of G consecutive
-// pixels of one pair a block (G = 16 in bf16, 8 in f32: 32 bytes, one
-// sector, a map position). A pixel's own window reads one value of each
-// sector it touches, so per level the block stages the group's union box,
-// the bounding box of its pixels' (2r+3)^2 boxes (the gather's box, one tap
-// wider than the window because floor(c/2^l + k) can round up), as G-value
-// runs: 16-byte cp.async copies where every run is 16-byte aligned (P *
-// itemsize a multiple of 16) and the group is whole, else value by value;
+// What the design does about it (lane_group_kernel). A group of G
+// consecutive pixels of one pair a block (G = 16 in bf16, 8 in f32: 32
+// bytes, one sector, a map position). A pixel's own window reads one value of
+// each sector it touches, so per level the block stages the group's union
+// box, the bounding box of its pixels' (2r+3)^2 boxes (the gather's box, one
+// tap wider than the window because floor(c/2^l + k) can round up), as
+// G-value runs: 16-byte cp.async copies where every run is 16-byte aligned (P
+// * itemsize a multiple of 16) and the group is whole, else value by value;
 // zeros outside the map, so sampling has no bounds checks. Level l + 1 is
 // copied while level l is sampled. Thread (column i, pixel g) samples its
 // pixel's window column at each level in the plain version's operation order
@@ -56,20 +44,15 @@
 // while the union's size changes from group to group, and P not a multiple
 // of 8 needs the value-by-value route anyway.
 //
-// A folded level whose rows hold whole image rows (fold*w = 128) is its
-// dense (h_l, w_l) map under another shape: value (y, x) is element y*w + x.
-// So the folded form needs only its strides, not the TPU's per-fold dots.
-//
-// Arithmetic is written in the order of the plain PyTorch versions
-// (ops/corr_lookup.py) and built with -fmad=false, so each kernel is
-// bit-identical to its plain version. All offsets are 64-bit: the
-// lane-major level 0 of 7 pairs at 1080x1920 holds 7.3e9 values.
+// Arithmetic is written in the order of the plain PyTorch version
+// (ops/corr_lookup.py) and built with -fmad=false, so the kernel is
+// bit-identical to it. All offsets are 64-bit: the lane-major level 0 of 7
+// pairs at 1080x1920 holds 7.3e9 values.
 
 #include "corr_gather.cuh"   // kMaxLevels, from_f32, box_value, box_origin, box_index
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kCap = 512;   // map positions of a staged union box (lane-major)
 
 // (group, level)s of the lane-major lookup: staged ones in the low 32 bits,
@@ -79,13 +62,12 @@ constexpr int kCap = 512;   // map positions of a staged union box (lane-major)
 __device__ unsigned long long g_lane_group_counts;
 
 // Where level l's value at (pair b, source pixel p, row y, column x) lies:
-// base[l] + b*bstride + p*pstride + y*rstride + x*cstride (elements).
+// base[l] + b*bstride + p + y*rstride + x*cstride (elements).
 struct Layout {
   const void* base[kMaxLevels];
   int h[kMaxLevels];
   int w[kMaxLevels];
   long bstride[kMaxLevels];
-  long pstride[kMaxLevels];
   long rstride[kMaxLevels];
   long cstride[kMaxLevels];
   int num_levels;
@@ -97,53 +79,6 @@ __device__ __forceinline__ float tap(const T* map, long rstride, long cstride, i
                                      int w, int xi, int yi) {
   const bool valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h);
   return valid ? box_value(map[(long)yi * rstride + (long)xi * cstride]) : 0.0f;
-}
-
-// Window sample k of pixel p of pair b at level-0 centre (cx, cy).
-template <typename T>
-__device__ float window_sample(const Layout& lay, int b, int p, float cx, float cy,
-                               int k, int radius) {
-  const int n = 2 * radius + 1;
-  const int nn = n * n;
-  const int l = k / nn;
-  const int rem = k - l * nn;
-  const int i = rem / n;
-  const int j = rem - i * n;
-  const int h = lay.h[l];
-  const int w = lay.w[l];
-  const T* map = static_cast<const T*>(lay.base[l]) + (long)b * lay.bstride[l]
-                 + (long)p * lay.pstride[l];
-  const long rs = lay.rstride[l];
-  const long cs = lay.cstride[l];
-  const float inv = 1.0f / (float)(1 << l);  // a power of two: exact
-  const float x = cx * inv + (float)(i - radius);
-  const float y = cy * inv + (float)(j - radius);
-  const float x0f = floorf(x);
-  const float y0f = floorf(y);
-  const float wx = x - x0f;
-  const float wy = y - y0f;
-  const int x0 = (int)x0f;
-  const int y0 = (int)y0f;
-  float acc = tap(map, rs, cs, h, w, x0, y0) * ((1.0f - wx) * (1.0f - wy));
-  acc = acc + tap(map, rs, cs, h, w, x0 + 1, y0) * (wx * (1.0f - wy));
-  acc = acc + tap(map, rs, cs, h, w, x0, y0 + 1) * ((1.0f - wx) * wy);
-  acc = acc + tap(map, rs, cs, h, w, x0 + 1, y0 + 1) * (wx * wy);
-  return acc;
-}
-
-// Pixel-major: one thread per output sample, out[(b*P + p)*C + k].
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-pixel_major_kernel(Layout lay, const float* __restrict__ coords, T* __restrict__ out,
-                   long total, int P, int C, int radius) {
-  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const long bp = idx / C;
-  const int k = (int)(idx - bp * C);
-  const int b = (int)(bp / P);
-  const int p = (int)(bp - (long)b * P);
-  out[idx] = from_f32<T>(
-      window_sample<T>(lay, b, p, coords[2 * bp], coords[2 * bp + 1], k, radius));
 }
 
 // The lane-major kernel's shape: a group of G pixels a block, 32 bytes a map
@@ -336,11 +271,6 @@ lane_group_kernel(Layout lay, const float* __restrict__ coords, T* __restrict__ 
   for (int e = done + threadIdx.x; e < values; e += S::threads) dst[e] = tile[e];
 }
 
-int channels(int num_levels, int radius) {
-  const int n = 2 * radius + 1;
-  return num_levels * n * n;
-}
-
 bool bad_levels(int num_levels) { return num_levels < 1 || num_levels > kMaxLevels; }
 
 // Separate (B, h_l, w_l, P) levels.
@@ -352,41 +282,11 @@ Layout lane_major_levels(const void* const* lv, const int* hw, int num_levels, i
     lay.h[l] = hw[2 * l];
     lay.w[l] = hw[2 * l + 1];
     lay.bstride[l] = (long)hw[2 * l] * w * P;
-    lay.pstride[l] = 1;
     lay.rstride[l] = w * P;
     lay.cstride[l] = P;
   }
   lay.num_levels = num_levels;
   return lay;
-}
-
-// Folded (B, P, rows_l, 128) levels, value (y, x) at lane offset y*w + x.
-Layout folded_levels(const void* const* lv, const int* hw, const int* rows, int num_levels,
-                     int P) {
-  Layout lay = {};
-  for (int l = 0; l < num_levels; ++l) {
-    const long pstride = (long)rows[l] * 128;
-    lay.base[l] = lv[l];
-    lay.h[l] = hw[2 * l];
-    lay.w[l] = hw[2 * l + 1];
-    lay.bstride[l] = (long)P * pstride;
-    lay.pstride[l] = pstride;
-    lay.rstride[l] = hw[2 * l + 1];
-    lay.cstride[l] = 1;
-  }
-  lay.num_levels = num_levels;
-  return lay;
-}
-
-template <typename T>
-cudaError_t launch_pixel_major(const Layout& lay, const void* coords, void* out, int B,
-                               int P, int radius, cudaStream_t stream) {
-  const int C = channels(lay.num_levels, radius);
-  const long total = (long)B * P * C;
-  const long blocks = (total + kThreads - 1) / kThreads;
-  pixel_major_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      lay, static_cast<const float*>(coords), static_cast<T*>(out), total, P, C, radius);
-  return cudaGetLastError();
 }
 
 template <int R, typename T>
@@ -449,22 +349,4 @@ extern "C" int mft_corr_lookup_t_counts(void* counts, int reset) {
   c[0] = (long long)(v & 0xffffffffull);
   c[1] = (long long)(v >> 32);
   return (int)err;
-}
-
-extern "C" int mft_corr_lookup_folded(void* out, const void* coords, const void* l0,
-                                      const void* l1, const void* l2, const void* l3,
-                                      int h0, int w0, int h1, int w1, int h2, int w2,
-                                      int h3, int w3, int r0, int r1, int r2, int r3,
-                                      int num_levels, int B, int P, int radius, int dtype,
-                                      void* stream) {
-  if (bad_levels(num_levels)) return (int)cudaErrorInvalidValue;
-  const void* lv[kMaxLevels] = {l0, l1, l2, l3};
-  const int hw[2 * kMaxLevels] = {h0, w0, h1, w1, h2, w2, h3, w3};
-  const int rows[kMaxLevels] = {r0, r1, r2, r3};
-  const Layout lay = folded_levels(lv, hw, rows, num_levels, P);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return (int)launch_pixel_major<__nv_bfloat16>(lay, coords, out, B, P, radius, s);
-  if (dtype == 0) return (int)launch_pixel_major<float>(lay, coords, out, B, P, radius, s);
-  return (int)cudaErrorInvalidValue;
 }

@@ -123,6 +123,31 @@ def test_folded_lookup_matches_jax(rng, ywin):
         atol=0.0, rtol=0.0)
 
 
+@pytest.mark.parametrize("dims", [(8, 12), (11, 11)])
+def test_folded_lookup_small_levels_match_jax(rng, dims):
+    """Pyramids whose level 0 fits one row of 128 lanes (8x12: 96 values,
+    11x11: 121): every level is one zero-padded row and no w but 1 divides
+    128, which the kernel addresses with a pixel stride of 128 and a row
+    stride of w. corr_lookup_folded against corr_lookup_pallas_folded
+    (interpret mode) on the same random levels, f32: 1e-4, coordinates
+    inside and past every level's edges."""
+    H8, W8 = dims
+    level_dims = ((H8, W8), (H8 // 2, W8 // 2), (H8 // 4, W8 // 4), (H8 // 8, W8 // 8))
+    B, P = 2, 64
+    levels = []
+    for h, w in level_dims:
+        v = rng.standard_normal((B, P, 128)).astype(np.float32)
+        v[..., h * w:] = 0.0                    # zero padding, as the build leaves it
+        levels.append(v.reshape(B, P, 1, 128))
+    coords = rng.uniform(-6, W8 + 6, (B, P, 2)).astype(np.float32)
+    want = _np(corr_lookup_pallas_folded([jnp.asarray(v) for v in levels], level_dims,
+                                         jnp.asarray(coords), R, tile_p=64))
+    got = ops.corr_lookup_folded([torch.from_numpy(v) for v in levels], level_dims,
+                                 torch.from_numpy(coords), R)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B, P, 324)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
+
+
 def test_folded_lookup_through_corr_lookup_tag(rng):
     """The ("fold", levels, dims) tag against JAX's corr_lookup on its own
     tagged tuple (the Pallas kernel in interpret mode), f32: 1e-4."""

@@ -1,24 +1,28 @@
 """A numpy mirror of the staged gather's addressing against the plain versions.
 
-On the card, K2 ``mft_corr_lookup``, K6 ``mft_corr_lookup_q``, K7
-``mft_corr_lookup_packed`` and K8 ``mft_corr_lookup_packed_i8`` run one gather
+On the card, K2 ``mft_corr_lookup``, #4 ``mft_corr_lookup_folded``, K6
+``mft_corr_lookup_q``, K7 ``mft_corr_lookup_packed`` and K8
+``mft_corr_lookup_packed_i8`` run one gather
 (``mft_tpu_torch/ops/csrc/corr_gather.cuh``): per pixel and level, ``load_rows``
 reads the rows of a box of (2r+3)^2 taps with aligned 8-byte loads from the
-level table's address, row y of pixel bp at value (bp*rows + y)*stride from the
+level table's address, row y of pixel bp at value bp*pixel + y*stride from the
 level's base; ``store_rows`` shifts each row to its first column, keeps the
 columns and rows inside the level's own h x w map (zeros elsewhere) and
 dequantizes int8 taps; ``sample`` weights four taps of the box per window
-position. Separate levels have rows = h and stride = w; the packed map has
-rows = H0 and stride = sum w_l for every level, and a level's base is the
-map's plus its column offset.
+position. Separate levels have pixel = h*w and stride = w; the packed map has
+pixel = H0*sum w_l and stride = sum w_l for every level, and a level's base is
+the map's plus its column offset; a folded (B, P, rows, 128) level has pixel =
+rows*128 and stride = w, whatever w is (a small level's h*w values fill the
+first lanes of its one zero-padded row).
 
 Here the same steps run in numpy, word by word as the kernel does them, over
-flat byte buffers laid out as on the card (each separate level 256-byte
-aligned; the packed map one buffer). Each byte a kept tap uses must have been
-loaded, no load may leave its buffer's aligned extent, and shared memory that
-is never written reads as NaN. Sampled in the plain order, the mirror must
-equal the plain versions (``ops.corr_lookup_ref``, ``corr_lookup_q_ref``,
-``corr_lookup_packed_ref``, ``corr_lookup_packed_i8_ref``) bit for bit.
+flat byte buffers laid out as on the card (each separate or folded level
+256-byte aligned; the packed map one buffer). Each byte a kept tap uses must
+have been loaded, no load may leave its buffer's aligned extent, and shared
+memory that is never written reads as NaN. Sampled in the plain order, the
+mirror must equal the plain versions (``ops.corr_lookup_ref``,
+``corr_lookup_q_ref``, ``corr_lookup_packed_ref``, ``corr_lookup_packed_i8_ref``,
+``corr_lookup_folded_ref``) bit for bit.
 """
 
 import numpy as np
@@ -77,7 +81,7 @@ def stage_boxes(buf, ends, table, itemsize, coords, radius, scales=None, P=1):
 
     args: buf, the flat uint8 buffer; ends, per level the end of its
       allocation's aligned extent in buf (no load may pass it); table, per
-      level (base byte, h, w, rows, stride); coords (BP, 2) float32; scales
+      level (base byte, h, w, pixel, stride); coords (BP, 2) float32; scales
       (B, L) float32 for int8 taps, P pixels a pair.
     """
     side, pitch, loads = geometry(radius, itemsize)
@@ -87,14 +91,14 @@ def stage_boxes(buf, ends, table, itemsize, coords, radius, scales=None, P=1):
     boxes = np.full((BP, len(table), side, pitch), np.nan, np.float32)
     cols = np.arange(side)
     q = np.arange(words)
-    for l, (base, h, w, rows, stride) in enumerate(table):
+    for l, (base, h, w, pixel, stride) in enumerate(table):
         inv = np.float32(2.0 ** -l)
         ox = box_origin(np.floor(coords[:, 0] * inv + np.float32(-radius)), w, side)
         oy = box_origin(np.floor(coords[:, 1] * inv + np.float32(-radius)), h, side)
         lo, hi = np.maximum(0, -ox), np.minimum(side, w - ox)
         for by in range(side):
             gy = oy + by
-            start = base + ((bp * rows + gy) * stride + ox) * itemsize
+            start = base + (bp * pixel + gy * stride + ox) * itemsize
             sb = start & (CHUNK - 1)
             row_in = (gy >= 0) & (gy < h)
             # load_rows: load k holds bytes [8k, 8k + 8) of the row from start - sb
@@ -189,7 +193,7 @@ def dense_table(levels):
     for lvl in levels:
         raw = _bytes(lvl)
         _, _, h, w = lvl.shape
-        table.append((off, h, w, h, w))
+        table.append((off, h, w, h * w, w))
         ends.append(off + _aligned(raw.size, CHUNK))
         size = _aligned(raw.size)
         parts.append(np.concatenate([raw, np.full(size - raw.size, 0xAB, np.uint8)]))
@@ -199,16 +203,30 @@ def dense_table(levels):
 
 def packed_table(packed, dims):
     """The packed map as one buffer: level l at the map's base plus its column
-    offset, rows H0 and stride Wp for every level."""
+    offset, pixel stride H0*Wp and row stride Wp for every level."""
     raw = _bytes(packed)
     _, _, H0, Wp = packed.shape
     buf = np.concatenate([raw, np.full(_aligned(raw.size) - raw.size, 0xAB, np.uint8)])
     isz = packed.element_size()
     table, off = [], 0
     for h, w in dims:
-        table.append((off * isz, h, w, H0, Wp))
+        table.append((off * isz, h, w, H0 * Wp, Wp))
         off += w
     return buf, [_aligned(raw.size, CHUNK)] * len(dims), table
+
+
+def folded_table(levels, dims):
+    """Folded (B, P, rows, 128) levels, each at a 256-byte aligned base as
+    dense_table places them: pixel stride rows*128, row stride w."""
+    parts, ends, table, off = [], [], [], 0
+    for lvl, (h, w) in zip(levels, dims):
+        raw = _bytes(lvl)
+        table.append((off, h, w, lvl.shape[2] * 128, w))
+        ends.append(off + _aligned(raw.size, CHUNK))
+        size = _aligned(raw.size)
+        parts.append(np.concatenate([raw, np.full(size - raw.size, 0xAB, np.uint8)]))
+        off += size
+    return np.concatenate(parts), ends, table
 
 
 def _coords(rng, B, P, dims, radius):
@@ -311,8 +329,74 @@ def test_gather_mirror_finds_a_neighbouring_level():
     coords = np.stack([np.full(P, 19.5, np.float32), np.linspace(0, 11, P, dtype=np.float32)], -1)
     buf, ends, table = packed_table(packed, pdims)
     honest = sample_boxes(stage_boxes(buf, ends, table, 4, coords, 4), coords, 4)
-    widened = [(base, h, Wp - base // 4, rows, Wp) for base, h, w, rows, Wp in table]
+    widened = [(base, h, Wp - base // 4, pixel, Wp) for base, h, w, pixel, Wp in table]
     leaky = sample_boxes(stage_boxes(buf, ends, widened, 4, coords, 4), coords, 4)
     want = ops.corr_lookup_packed_ref(packed, pdims, torch.from_numpy(coords)[None], 4)
     _same_bits(torch.from_numpy(honest)[None], want)
+    assert float(np.abs(leaky[:, :81] - honest[:, :81]).max()) > 100.0
+
+
+# folded pyramids (#4): the 512x512 slice's levels (64x64 in 32 rows of 128
+# values, 32x32 in 8, 16x16 in 2, 8x8 one zero-padded row) and pyramids whose
+# level 0 fits one row, with small levels whose w does not divide 128
+FOLDED = {
+    "slice 64x64": [(64, 64), (32, 32), (16, 16), (8, 8)],
+    "8x12": [(8, 12), (4, 6), (2, 3), (1, 1)],
+    "11x11": [(11, 11), (5, 5), (2, 2), (1, 1)],
+}
+
+
+def _random_folded_levels(rng, form, B, P, dims, pad=1e3):
+    """Random folded (B, P, rows, 128) levels, rows*128 = h*w or one row for
+    fewer than 128 values; the padding lanes past h*w hold ``pad``."""
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[form]
+    levels = []
+    for h, w in dims:
+        rows = max(h * w, 128) // 128
+        v = rng.standard_normal((B, P, rows * 128)).astype(np.float32)
+        v[..., h * w:] = pad
+        levels.append(torch.from_numpy(v.reshape(B, P, rows, 128)).to(dt))
+    return levels
+
+
+@pytest.mark.parametrize("shape", sorted(FOLDED))
+@pytest.mark.parametrize("radius", [1, 2, 3, 4])
+@pytest.mark.parametrize("form", ["float32", "bfloat16"])
+def test_gather_mirror_matches_folded_plain(form, radius, shape):
+    """The mirrored gather on the folded level table (#4: pixel stride
+    rows*128, row stride w) equals corr_lookup_folded_ref bit for bit; the
+    small levels' padding lanes hold 1e3 and change nothing."""
+    rng = np.random.default_rng(40 + radius)
+    dims = FOLDED[shape]
+    B, P = 2, 12 if dims[0] == (64, 64) else 40
+    levels = _random_folded_levels(rng, form, B, P, dims)
+    coords = _coords(rng, B, P, dims, radius)
+    tc = torch.from_numpy(coords.reshape(B, P, 2))
+    want = ops.corr_lookup_folded_ref(levels, dims, tc, radius)
+    buf, ends, table = folded_table(levels, dims)
+    boxes = stage_boxes(buf, ends, table, ITEMSIZE[form], coords, radius)
+    _same_bits(_as_output(sample_boxes(boxes, coords, radius), want.dtype, want.shape), want)
+
+
+@pytest.mark.parametrize("shape", ["8x12", "11x11"])
+def test_gather_mirror_never_reads_folded_padding(shape):
+    """Level 0 of one row holds h*w < 128 values and 1e3 in its padding
+    lanes: the mirror with the folded table equals the plain version at the
+    bottom left corner, while a table that extends the map by the rows the
+    128 lanes would begin samples the padding (a change over 100; the
+    windows' columns stay within the row's 128 lanes)."""
+    rng = np.random.default_rng(7)
+    dims = FOLDED[shape]
+    B, P = 1, 64
+    levels = _random_folded_levels(rng, "float32", B, P, dims)
+    h0, w0 = dims[0]
+    coords = np.stack([rng.uniform(0, 0.5, P), rng.uniform(h0 - 1.5, h0 - 0.5, P)],
+                      -1).astype(np.float32)
+    buf, ends, table = folded_table(levels, dims)
+    honest = sample_boxes(stage_boxes(buf, ends, table, 4, coords, 4), coords, 4)
+    want = ops.corr_lookup_folded_ref(levels, dims, torch.from_numpy(coords)[None], 4)
+    _same_bits(torch.from_numpy(honest)[None], want)
+    base, h, w, pixel, stride = table[0]
+    widened = [(base, -(-128 // w), w, pixel, stride)] + table[1:]
+    leaky = sample_boxes(stage_boxes(buf, ends, widened, 4, coords, 4), coords, 4)
     assert float(np.abs(leaky[:, :81] - honest[:, :81]).max()) > 100.0

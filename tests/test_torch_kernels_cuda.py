@@ -153,6 +153,96 @@ def test_chain_select_kernel_matches_plain(np_rng, cuda):
         torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-6)
 
 
+def _chain_maps(np_rng, dev, N, H, W):
+    """Candidate maps: per candidate a constant shift (n + 1)*(2, 1) px plus
+    U(-0.5, 0.5) on most pixels, U(-12, 12) on a fifth (windows past every
+    edge); candidates 0 and 1 identical (exact ties) where N > 1; the
+    invalid ones every third from 2."""
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    def flow():
+        shift = (np.arange(N)[:, None, None, None] + 1) * np.array([2.0, 1.0])
+        local = shift + np_rng.uniform(-0.5, 0.5, (N, H, W, 2))
+        wild = np_rng.uniform(-12, 12, (N, H, W, 2))
+        return np.where(np_rng.random((N, H, W, 1)) < 0.2, wild, local)
+
+    maps = [t(flow()), t(np_rng.uniform(0, 0.03, (N, H, W))),
+            t(np_rng.uniform(0.1, 2.0, (N, H, W))), t(flow()),
+            t(np_rng.uniform(0, 0.03, (N, H, W))), t(np_rng.uniform(0.1, 2.0, (N, H, W)))]
+    if N > 1:
+        for m in maps:
+            m[1] = m[0]
+    valid = torch.tensor([n < 2 or n % 3 != 2 for n in range(N)], device=dev)
+    return (*maps, valid)
+
+
+def _assert_same_values(got, want):
+    """Identical NaN positions, bit-identical values elsewhere."""
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        keep = ~torch.isnan(w)
+        assert torch.equal(g[keep].view(torch.int32), w[keep].view(torch.int32))
+
+
+@pytest.mark.parametrize("shape", [(40, 48), (37, 53)])
+@pytest.mark.parametrize("N", list(range(1, 10)) + [17])
+def test_chain_select_kernel_bits(np_rng, cuda, N, shape):
+    """K3 bit for bit against chain_select_ref for every compiled candidate
+    count (1..8) and the generic loop (9, 17), on whole and ragged 32 x 8
+    tiles, with exact ties and invalid candidates."""
+    maps = _chain_maps(np_rng, cuda, N, *shape)
+    ops.reset_launch_counts()
+    got = ops.chain_select(*maps, 0.02)
+    assert ops.launch_counts()["chain_select"] == 1
+    _assert_same_values(got, ops.chain_select_ref(*maps, 0.02))
+
+
+@pytest.mark.parametrize("N", [1, 8])
+def test_chain_select_kernel_all_invalid(np_rng, cuda, N):
+    """Every candidate invalid: candidate 0 wins everywhere, as argmax."""
+    maps = list(_chain_maps(np_rng, cuda, N, 37, 53))
+    maps[-1] = torch.zeros(N, dtype=torch.bool, device=cuda)
+    _assert_same_values(ops.chain_select(*maps, 0.02), ops.chain_select_ref(*maps, 0.02))
+
+
+@pytest.mark.parametrize("N", [2, 7, 9])
+def test_chain_select_kernel_invalid_first_wins(np_rng, cuda, N):
+    """Candidate 0 invalid and every valid candidate occluded: all scores
+    are -inf, so candidate 0 wins everywhere, as argmax, and the outputs
+    are chained from an invalid candidate's maps."""
+    maps = list(_chain_maps(np_rng, cuda, N, 37, 53))
+    maps[1][1:] = 0.5
+    maps[-1][0] = False
+    want = ops.chain_select_ref(*maps, 0.02)
+    assert bool((want[1] != 1.0).any())   # some endpoints inside: occlusions read
+    _assert_same_values(ops.chain_select(*maps, 0.02), want)
+
+
+@pytest.mark.parametrize("planted", ["locc", "lsig", "rocc", "rsig"])
+def test_chain_select_kernel_nan(np_rng, cuda, planted):
+    """NaN in one candidate map: the kernel selects and chains as argmax
+    and torch.maximum do (the first NaN score wins, a NaN occlusion
+    propagates), so its NaN positions and values equal the plain version's."""
+    maps = list(_chain_maps(np_rng, cuda, 7, 40, 48))
+    m = maps[{"locc": 1, "lsig": 2, "rocc": 4, "rsig": 5}[planted]]
+    m[torch.from_numpy(np_rng.random(tuple(m.shape)) < 0.1).to(cuda)] = float("nan")
+    want = ops.chain_select_ref(*maps, 0.02)
+    assert any(bool(torch.isnan(w).any()) for w in want)
+    _assert_same_values(ops.chain_select(*maps, 0.02), want)
+
+
+def test_chain_select_kernel_refuses_misaligned_flows(np_rng, cuda):
+    """The kernel reads each (x, y) flow pair as one 8-byte word: a flow map
+    that starts 4 bytes into an allocation raises."""
+    maps = list(_chain_maps(np_rng, cuda, 2, 8, 8))
+    shifted = torch.empty(maps[0].numel() + 1, device=cuda)[1:].view(maps[0].shape)
+    shifted.copy_(maps[0])
+    maps[0] = shifted
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        ops.chain_select(*maps, 0.02)
+
+
 def test_mft_main_path_launches_each_kernel(cuda):
     """A small MFT run on the card goes through the three kernels: per frame
     (iters - 1) fused lookups, one plain lookup, one chain + select."""
@@ -403,10 +493,14 @@ def test_lane_major_kernel_matches_plain(np_rng, cuda, dtype, radius, shape):
     _assert_same_bits(got, ops.corr_lookup_t_ref(levels, coords, radius))
 
 
-@pytest.mark.parametrize("method", ["int8", "packed", "packed_i8", "pallas_t"])
+@pytest.mark.parametrize("method", ["int8", "packed", "packed_i8", "pallas_t", "fold"])
 def test_gather_volume_kernels_refuse_radius_5(np_rng, cuda, method):
-    """K6-K9 are compiled for radius 1..4: radius 5 raises on the card."""
-    stored, coords = _stored_volume(np_rng, method, "bfloat16", cuda, "local")
+    """K6-K9 and #4 are compiled for radius 1..4: radius 5 raises on the card."""
+    if method == "fold":
+        f1, f2, coords = _folded_inputs(np_rng, "bfloat16", cuda, "local")
+        stored = ("fold", *tcorr.build_corr_pyramid_folded(f1, f2, 4))
+    else:
+        stored, coords = _stored_volume(np_rng, method, "bfloat16", cuda, "local")
     with pytest.raises(ValueError, match="radius"):
         tcorr.corr_lookup(stored, coords, 5)
 
@@ -535,6 +629,28 @@ def test_folded_lookup_kernel_matches_plain(np_rng, cuda, dtype, kind):
         lvl.reshape(*lvl.shape[:2], -1)[..., h * w:] = 1e3
     torch.testing.assert_close(ops.corr_lookup_folded(levels, dims, coords, 4), want,
                                **EXACT)
+
+
+@pytest.mark.parametrize("dims", [(16, 32), (8, 8), (8, 12), (11, 11)])
+@pytest.mark.parametrize("kind", ["wild", "local"])
+@pytest.mark.parametrize("radius", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_folded_lookup_kernel_bits(np_rng, cuda, dtype, radius, kind, dims):
+    """#4 on the gather bit for bit against corr_lookup_folded_ref: 16x32
+    (level 0 in 4 rows of 128 values), 8x8 (every level one zero-padded
+    row) and 8x12, 11x11 (one-row levels whose w does not divide 128); the
+    padding lanes filled with 1e3 change nothing."""
+    f1, f2, coords = _folded_inputs(np_rng, dtype, cuda, kind, H8=dims[0], W8=dims[1])
+    levels, ldims = tcorr.build_corr_pyramid_folded(f1, f2, 4, plain=True)
+    ops.reset_launch_counts()
+    got = ops.corr_lookup_folded(levels, ldims, coords, radius)
+    assert ops.launch_counts()["corr_lookup_folded"] == 1
+    want = ops.corr_lookup_folded_ref(levels, ldims, coords, radius)
+    assert got.shape == (3, dims[0] * dims[1], 4 * (2 * radius + 1) ** 2)
+    _assert_same_bits(got, want)
+    for lvl, (h, w) in zip(levels, ldims):
+        lvl.reshape(*lvl.shape[:2], -1)[..., h * w:] = 1e3
+    _assert_same_bits(ops.corr_lookup_folded(levels, ldims, coords, radius), want)
 
 
 @pytest.mark.parametrize("dims", [(16, 32), (13, 21)])
@@ -739,6 +855,50 @@ def test_gather_bits_unchanged_after_packed(np_rng, cuda):
     packed_i8, _ = tcorr.pack_corr_pyramid(lv)
     _assert_same_bits(ops.corr_lookup_packed(packed, pdims, coords, 4), want[0])
     _assert_same_bits(ops.corr_lookup_packed_i8(packed_i8, scales, pdims, coords, 4), want[1])
+    after = [call() for call in calls]
+    for b, a, w in zip(before, after, want):
+        _assert_same_bits(b, w)
+        _assert_same_bits(a, w)
+
+
+def test_gather_bits_unchanged_after_folded(np_rng, cuda):
+    """K2, #9 and K1 (bf16, on the tensor cores) on dense levels, K6 on int8
+    levels and K7, K8 on them packed give the plain versions' bits before
+    and after #4 launches on the same values folded (one shared gather, one
+    level table with the pixel strides #4 added). K1 reads one sample per
+    output channel (weights +-1 on the diagonal, no bias), so its sums are
+    exact."""
+    dims = [(8, 12), (4, 6), (2, 3), (1, 1)]
+    B, P = 3, 29
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    pyr = [t(np_rng.standard_normal((B, P, h, w))).to(torch.bfloat16) for h, w in dims]
+    lv, scales = _int8_levels(np_rng, B, P, dims, cuda)
+    packed, pdims = tcorr.pack_corr_pyramid(pyr)
+    packed_i8, _ = tcorr.pack_corr_pyramid(lv)
+    coords = t(_gather_coords(np_rng, B, P, dims, 4))
+    wc = torch.zeros((324, 256), device=cuda)
+    f = torch.arange(256, device=cuda)
+    wc[f, f] = torch.where(f % 2 == 0, 1.0, -1.0)
+    bias = torch.zeros(256, device=cuda)
+    calls = (lambda: ops.corr_lookup(pyr, coords, 4),
+             lambda: ops.corr_lookup_mixed([], (), pyr, coords, 4),
+             lambda: ops.corr_lookup_q(lv, scales, coords, 4),
+             lambda: ops.corr_lookup_packed(packed, pdims, coords, 4),
+             lambda: ops.corr_lookup_packed_i8(packed_i8, scales, pdims, coords, 4),
+             lambda: ops.corr_lookup_fused(pyr, coords, wc, bias, 4))
+    want = (ops.corr_lookup_ref(pyr, coords, 4),
+            ops.corr_lookup_mixed_ref([], (), pyr, coords, 4),
+            ops.corr_lookup_q_ref(lv, scales, coords, 4),
+            ops.corr_lookup_packed_ref(packed, pdims, coords, 4),
+            ops.corr_lookup_packed_i8_ref(packed_i8, scales, pdims, coords, 4),
+            ops.corr_lookup_fused_ref(pyr, coords, wc, bias, 4))
+    before = [call() for call in calls]
+    folded = []
+    for lvl, (h, w) in zip(pyr, dims):
+        row = torch.zeros((B, P, 128), dtype=lvl.dtype, device=cuda)
+        row[..., :h * w] = lvl.reshape(B, P, h * w)
+        folded.append(row.view(B, P, 1, 128))
+    _assert_same_bits(ops.corr_lookup_folded(folded, dims, coords, 4), want[0])
     after = [call() for call in calls]
     for b, a, w in zip(before, after, want):
         _assert_same_bits(b, w)

@@ -32,7 +32,14 @@ for the groups ``--only`` names (default: all three):
   (K8) on the int8 quantization of a bfloat16 pyramid,
   ``mft_corr_lookup_packed`` (K7), ``mft_corr_lookup_t`` (K9) and
   ``mft_corr_lookup_folded`` (#4) in float32 and bfloat16; all must give
-  identical bits ('volume');
+  identical bits ('volume'; #4 runs the staged gather since it left
+  ``corr_volume.cu``);
+- at the 512x512 slice's shapes of chip_smoke.py's phase 3 (7 candidates,
+  512x512), calls chain + select ``mft_chain_select`` (K3) of both libraries
+  on the uniform, the local, the steady and the NaN maps (``chain_select_inputs``,
+  ``chain_select_nan_inputs``) and counts, for each checkout, the outputs
+  that differ from the plain version's (NaN positions and bits); this
+  checkout must have none ('chain_select');
 - times each by CUDA graph replay, in the order other, this, this, other,
   and prints both checkouts' times and their ratio.
 
@@ -40,6 +47,7 @@ Imports nothing of JAX. Usage (on the card):
 
     python3 tools/torch_lookup_ab.py --other PATH_TO_OTHER_CHECKOUT
         [--only dense] [--only warp] [--only window] [--only volume]
+        [--only chain_select]
 """
 
 import argparse
@@ -51,7 +59,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 
 
-GROUPS = ("dense", "warp", "window", "volume")
+GROUPS = ("dense", "warp", "window", "volume", "chain_select")
 
 
 def load_build(root: str, name: str):
@@ -134,6 +142,48 @@ def compare_volume(torch, dev, libs, side_by_side, identical) -> bool:
                 del outs
         del pyr, stores
         torch.cuda.empty_cache()
+    return ok
+
+
+def compare_chain_select(torch, dev, libs, side_by_side) -> bool:
+    """The 'chain_select' group: K3 of both checkouts on the same candidate
+    maps, each against the plain version. returns: False if this checkout's
+    outputs differ from the plain version's."""
+    from chip_smoke import chain_select_inputs, chain_select_nan_inputs, differing
+    from mft_tpu_torch import ops
+    ok = True
+    for kind in ("uniform", "local", "steady", "nan"):
+        maps = (chain_select_nan_inputs(torch, dev) if kind == "nan"
+                else chain_select_inputs(torch, dev, kind=kind))
+        want = ops.chain_select_ref(*maps)
+        valid = maps[6].to(torch.uint8)
+        N, H, W = maps[1].shape
+        HW = H * W
+
+        def views(buf, H=H, W=W, HW=HW):   # one buffer: flow (H, W, 2), occlusion, sigma
+            return (buf[:2 * HW].view(H, W, 2), buf[2 * HW:3 * HW].view(H, W),
+                    buf[3 * HW:].view(H, W))
+
+        def call(label, buf, maps=maps, valid=valid, N=N, H=H, W=W):
+            flow, occ, sig = views(buf)
+            err = libs[label].mft_chain_select(
+                flow.data_ptr(), occ.data_ptr(), sig.data_ptr(),
+                *(m.data_ptr() for m in maps[:6]), valid.data_ptr(), 0.02, N, H, W,
+                torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"{label} mft_chain_select: cudaError {err}")
+
+        def against_plain(a, b, want=want):
+            count = lambda buf: sum(differing(torch, g, w)
+                                    for g, w in zip(views(buf), want))
+            n_other, n_this = count(a), count(b)
+            return n_this == 0, (f"outputs differing from the plain version's: other "
+                                 f"{n_other}, this {n_this} of {4 * HW}")
+
+        outs = {k: torch.empty(4 * HW, device=dev) for k in ("other", "this")}
+        ok &= side_by_side(f"mft_chain_select {kind} (7 candidates, {H}x{W})", call, outs,
+                           against_plain)
+        del maps, want, outs
     return ok
 
 
@@ -321,6 +371,8 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
     if "volume" in groups:
         failed |= not compare_volume(torch, dev, libs, side_by_side, identical)
+    if "chain_select" in groups:
+        failed |= not compare_chain_select(torch, dev, libs, side_by_side)
     print("ok" if not failed else "FAILED: outputs differ between the checkouts")
     return 1 if failed else 0
 

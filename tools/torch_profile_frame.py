@@ -34,19 +34,21 @@ GROUPS = (  # first match wins
     # corr_lookup.cu: bf16 on the tensor cores (_tc), f32 on the CUDA cores
     ("corr_lookup_fused", re.compile(r"lookup_conv(_tc)?_kernel")),
     # corr_gather.cu: corr_lookup_q and corr_lookup_packed_i8 (int8 taps),
-    # then corr_lookup, corr_lookup_mixed and corr_lookup_packed
+    # then corr_lookup, corr_lookup_mixed, corr_lookup_packed and
+    # corr_lookup_folded
     ("corr_lookup_q, corr_lookup_packed_i8",
      re.compile(r"corr_gather_kernel(<\d+, signed char|ILi\dEa)")),
-    ("corr_lookup, corr_lookup_mixed, corr_lookup_packed", re.compile(r"corr_gather_kernel")),
+    ("corr_lookup, corr_lookup_mixed, corr_lookup_packed, corr_lookup_folded",
+     re.compile(r"corr_gather_kernel")),
     ("chain_select", re.compile(r"chain_select_kernel")),
     # corr_alt.cu: bf16 'alt' and 'win' both run window_tc_kernel (tensor
     # cores); f32 'alt' alt_kernel, f32 'win' win_kernel
     ("corr_lookup_alt/win (bf16)", re.compile(r"window_tc_kernel")),
     ("corr_lookup_alt", re.compile(r"alt_kernel")),
     ("corr_lookup_win", re.compile(r"win_kernel")),
-    # corr_volume.cu: corr_lookup_folded (pixel-major), _t
-    # (lane_group_kernel); lane_major_kernel and the pixel-major packed and
-    # int8 lookups in checkouts before the staged ones, for profiling those
+    # corr_volume.cu: corr_lookup_t (lane_group_kernel); lane_major_kernel
+    # and pixel_major_kernel (the folded, packed and int8 lookups before they
+    # moved onto the gather) in older checkouts, for profiling those
     ("volume-form lookup",
      re.compile(r"pixel_major_kernel|lane_group_kernel|lane_major_kernel")),
     # product.cu (float32) and product_tc.cu (bfloat16, tensor cores)
