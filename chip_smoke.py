@@ -83,11 +83,28 @@ non-zero and prints no result line):
    device memory ('int8' must peak lower), K6, K2 and K1 against their plain
    versions on sampled pixels at that size (K2 bit for bit, K1 within the
    bound); then phase 11's chain_select_pallas on the 'auto' tracker's next
-   7 candidates.
+   7 candidates;
+12. the tracker configurations on the committed weights
+   (``weights/raftou_synth.msgpack``): ``synth_config()``, ``fast_config()``
+   and ``warm_config()``, 10 tracked frames each: launches per frame (K1
+   11, K2 1, K3 1 for synth; K1 6, K2 6, K3 1 for the fast and warm
+   schedules), outputs, a frame against the plain versions (the main
+   path's gate), the flow's error to the clip's true shift (not gated);
+   for fast, each lookup on the volume sliced to each active prefix of
+   the schedule against its plain version (K2 bit for bit, K1 within the
+   bound); the fast schedule on 'mixed', 'packed' and 'packed_i8' (3
+   frames each, #9, K7, K8 on the sliced volumes, bit for bit); 3 frames
+   of the warm config's unfused timer step (``timers_enabled``) against
+   the fused step's frames (the main path's gate), the phases' ms
+   printed; not gated, on the committed weights: one frame of 'alt',
+   'win', 'int8', 'fold' and conv 'pallas' against the volume path,
+   chain_select_pallas against K3, and the share of K1's outputs in its
+   repair's window (also on the main path's random weights).
 
 Every bf16 launch of K1, #5, #13, K4 and K5 on the main path, conv_backend
-'pallas', 'alt' and 'win' at 512x512 and 2160x3840 and 'auto' at 1080x1920
-must go through the tensor-core entry points.
+'pallas', 'alt' and 'win' at 512x512 and 2160x3840, 'auto' at 1080x1920
+and the configurations of phase 12 must go through the tensor-core entry
+points.
 
 Where one PyTorch call computes a kernel's function, its time is taken beside
 the kernel's as a yardstick (``library_ms``; the port never calls it):
@@ -1707,6 +1724,255 @@ def run_hd(torch, ops, dev, card, H=1080, W=1920):
     return warp_launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 12: the tracker configurations of configs/ on the committed weights
+# --------------------------------------------------------------------------- #
+CONFIG_FRAMES = 10   # tracked frames of each configuration
+SLICED_FRAMES = 3    # tracked frames of the fast schedule on each sliced volume form
+TIMER_FRAMES = 3     # tracked frames of the unfused timer step
+# K1 and K2 launches per tracked frame: JAX's _flow_scheduled fuses the lookup
+# on every iteration after which no pair ends (fast (12, 12, 10, 8, 6, 5, 4)
+# and warm (12, 10, 8, 6, 5, 5, 4), sorted, end pairs after iterations 4, 5,
+# 6, 8, 10 and 12; tests/test_torch_schedule.py counts JAX's loop)
+CONFIG_LAUNCHES = {"synth": dict(corr_lookup_fused=11, corr_lookup=1),
+                   "fast": dict(corr_lookup_fused=6, corr_lookup=6),
+                   "warm": dict(corr_lookup_fused=6, corr_lookup=6)}
+SLICED_METHODS = ("mixed", "packed", "packed_i8")
+TRAINED_GAP_PATHS = ("alt", "win", "int8", "fold", "conv pallas")
+K1_WINDOW = 2.0 ** -20   # corr_lookup.cu kWindow, over ||a_p|| max_f ||w_f||
+
+
+def trained_config(name, method=None):
+    """``<name>_config()`` of ``mft_tpu_torch.config`` on the committed
+    weights (``synth_flow_config()``), with corr_method ``method``, or
+    conv_backend 'pallas' for 'conv pallas'."""
+    from mft_tpu_torch import config
+    cfg = getattr(config, f"{name}_config")()
+    cfg.flow_config = config.synth_flow_config()
+    if method == "conv pallas":
+        cfg.flow_config.raft_params["conv_backend"] = "pallas"
+    elif method is not None:
+        cfg.flow_config.raft_params["corr_method"] = method
+    return cfg
+
+
+def true_flow_error(torch, result, k):
+    """Median and mean end-point error of frame k's flow against the clip's
+    true shift (-k * SHIFT), over the pixels whose source stays in the frame."""
+    dx, dy = SHIFT
+    inside = result.flow[k * dy:, k * dx:]
+    want = torch.tensor([-k * dx, -k * dy], dtype=torch.float32, device=inside.device)
+    epe = (inside - want).norm(dim=-1)
+    return float(epe.median()), float(epe.mean())
+
+
+def run_config(torch, ops, dev, card, name, frames, n, method=None):
+    """``n`` tracked frames of ``trained_config(name, method)``: launches per
+    frame, tensor-core launches, outputs, frame times. returns: (tracker,
+    results, median ms, launch counts)."""
+    from mft_tpu_torch.tracker import MFT
+    label = name if method is None else f"{name} {method}"
+    t0 = time.perf_counter()
+    tracker = MFT(trained_config(name, method), device=dev)
+    log(f"{label}: schedule {tracker.iters_schedule}, warm start {tracker._warm_start()}, "
+        f"weights {os.path.relpath(tracker.C.flow_config.model, HERE)}, set-up "
+        f"{time.perf_counter() - t0:.2f} s")
+    ops.reset_launch_counts()
+    results, frame_ms = track_frames(torch, tracker, frames[:n + 1])
+    counts = ops.launch_counts()
+    per_frame = (CONFIG_LAUNCHES[name] if method is None
+                 else {KERNEL_OF[method]: max(tracker.iters_schedule)})
+    want = expected_counts(ops, **{k: n * v for k, v in per_frame.items()}, chain_select=n)
+    log(f"{label}: launches over {n} tracked frames: {counts}")
+    check(counts == want, f"{label}: launch counts {counts} != {want} ({per_frame} and 1 "
+                          f"chain + select per tracked frame)")
+    check_tensor_cores(ops, label)
+    H, W = frames[0].shape[:2]
+    check_results(torch, results, H, W, label)
+    median_epe, mean_epe = true_flow_error(torch, results[-1], n)
+    log(f"{label} frame {n} (trained weights, not gated): flow end-point error to the true "
+        f"shift median {median_epe:.4f} px, mean {mean_epe:.4f} px; mean occlusion "
+        f"{float(results[-1].occlusion.mean()):.4f}, mean sigma "
+        f"{float(results[-1].sigma.mean()):.4f}")
+    median = median_after_warmup(frame_ms) if n > WARMUP else float("nan")
+    log(f"{label} frame ms: {', '.join(f'{m:.2f}' for m in frame_ms)}; median after "
+        f"{WARMUP} warm-up frames {median:.3f} ms [{card}]")
+    return tracker, results, median, counts
+
+
+def next_frame_volume(torch, tracker, img):
+    """The stored volume of the tracker's next frame ``img``, its pairs sorted
+    by the tracker's schedule (if any), and each pair's coords after its
+    iterations of the forward, changing no state. returns: (volume, coords
+    (B, P, 2), the schedule's active-prefix sizes, descending)."""
+    t = tracker.current_frame_i + tracker.time_direction
+    slots, _, _ = tracker._step_indices(tracker._candidates(t), t)
+    sched = tracker.iters_schedule or (tracker.flower.iters,) * len(tracker.deltas)
+    order = sorted(range(len(sched)), key=lambda b: -sched[b])
+    idx = slots[torch.tensor(order, device=slots.device)]
+    f_new, _ = tracker.flower.padded_encode(tracker._to_device(img)[None])
+    fmap1 = tracker.mem_fmap.index_select(0, idx)
+    fmap2 = f_new.expand(len(order), *f_new.shape[1:])
+    model = tracker.flower.model
+    with torch.no_grad():
+        out = model.flow_from_features(fmap1, fmap2, tracker.mem_cnet.index_select(0, idx),
+                                       tuple(sched[b] for b in order))
+        volume = model.stored_volume(fmap1, fmap2)
+    Bn, H8, W8, _ = out["coords"].shape
+    ys, xs = torch.meshgrid(torch.arange(H8, device=f_new.device, dtype=torch.float32),
+                            torch.arange(W8, device=f_new.device, dtype=torch.float32),
+                            indexing="ij")
+    coords = (torch.stack([xs, ys], -1) + out["coords"]).reshape(Bn, H8 * W8, 2).contiguous()
+    prefixes = sorted({sum(s > k for s in sched) for k in range(max(sched))}, reverse=True)
+    return volume, coords, prefixes
+
+
+def check_sliced_lookups(torch, ops, tracker, img, label):
+    """The lookups of a scheduled frame on its volume sliced to each active
+    prefix (``raft.slice_pyramid``) against their plain versions, at the
+    coords the pairs reach: K2, #9 bit for bit (EXACT_TOL), K7, K8 to
+    VOLUME_TOL, K1 (bf16, tensor cores) within ops.product_error_bound;
+    outputs differing from plain counted."""
+    from mft_tpu_torch.models.raft import corr as tcorr
+    from mft_tpu_torch.models.raft.raft import slice_pyramid
+    volume, coords, prefixes = next_frame_volume(torch, tracker, img)
+    convc1 = tracker.flower.model.update_block.encoder.convc1
+    wc, bias = convc1.weight.reshape(convc1.out_channels, -1).t(), convc1.bias
+    tag = volume[0] if isinstance(volume, tuple) else "volume"
+    tol = EXACT_TOL if tag in ("volume", "mixed") else VOLUME_TOL
+    for m in prefixes:
+        sliced, c = slice_pyramid(volume, m), coords[:m]
+        ops.reset_launch_counts()
+        got = tcorr.corr_lookup(sliced, c, RADIUS)
+        n = ops.launch_counts()
+        want = tcorr.corr_lookup(sliced, c, RADIUS, plain=True)
+        ok = sum(n.values()) == 1 and got.shape == want.shape and within(got, want, *tol)
+        log(f"check {label} lookup on the volume sliced to {m} pairs ({tag}): max_abs_err "
+            f"{max_err(got, want):.3e}, {differing(torch, got, want)} of {got.numel()} outputs "
+            f"differ from plain (tolerance atol {tol[0]} + rtol {tol[1]}) "
+            f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"{label}: the lookup on {m} pairs disagrees with its plain version")
+        if tag == "volume":
+            got = tcorr.corr_lookup_fused_conv(sliced, c, convc1.weight, bias, RADIUS)
+            want = tcorr.corr_lookup_fused_conv(sliced, c, convc1.weight, bias, RADIUS,
+                                                plain=True)
+            if m == prefixes[0]:
+                whole = got, want
+            mag = ops.corr_lookup_fused_magnitude(sliced, c, wc, RADIUS)
+            # not gated: the same pairs' rows of the whole batch's outputs,
+            # kernel against kernel and plain against plain (cuBLAS may sum
+            # the plain product in another order at another M)
+            bound_check(torch, ops, f"{label} fused lookup on {m} pairs (tensor cores, "
+                                    f"{differing(torch, got, want)} of {got.numel()} outputs "
+                                    f"differ from plain; against the {prefixes[0]}-pair "
+                                    f"call's rows: kernel {differing(torch, got, whole[0][:m])}, "
+                                    f"plain {differing(torch, want, whole[1][:m])})",
+                        got, want, mag, wc.shape[0])
+
+
+def k1_window_share(torch, ops, tracker, img, label):
+    """K1's rounding repair on the tracker's next frame (not gated): the share
+    of outputs whose plain f32 sum v = samples . w + b lies within the
+    repair's window of a bf16 rounding boundary (relu(v - e) and relu(v + e)
+    round apart, e = 2^-20 ||a_p|| max_f ||w_f||, corr_lookup.cu's test
+    applied to the plain sums), at the pairs' coords after their
+    iterations; and K1's outputs differing from the plain version there."""
+    pyr, coords, _ = next_frame_volume(torch, tracker, img)
+    convc1 = tracker.flower.model.update_block.encoder.convc1
+    w = convc1.weight.reshape(convc1.out_channels, -1)
+    samples = ops.corr_lookup_ref(pyr, coords, RADIUS)
+    v = torch.matmul(samples.float(), w.float().t()) + convc1.bias.float()
+    e = (K1_WINDOW * w.float().norm(dim=1).max()
+         * samples.float().norm(dim=-1, keepdim=True).to(torch.bfloat16).float())
+    near = torch.relu(v - e).to(torch.bfloat16) != torch.relu(v + e).to(torch.bfloat16)
+    got = ops.corr_lookup_fused(pyr, coords, w.t(), convc1.bias, RADIUS)
+    want = ops.corr_lookup_fused_ref(pyr, coords, w.t(), convc1.bias, RADIUS)
+    log(f"K1 repair window, {label} (not gated): {int(near.sum())} of {near.numel()} outputs "
+        f"({float(near.float().mean()):.4%}) within 2^-20 ||a|| max||w|| of a bf16 rounding "
+        f"boundary on the plain sums; K1 outputs differing from plain "
+        f"{differing(torch, got, want)}; max |samples| {float(samples.abs().max()):.3f}, "
+        f"mean ||a_p|| {float(samples.float().norm(dim=-1).mean()):.3f}")
+
+
+def trained_gaps(torch, ops, dev, card, tracker, frames, nxt):
+    """Not gated, on the committed weights: one frame of each path of
+    TRAINED_GAP_PATHS against the volume path (``tracker``) from the same
+    state; chain_select_pallas against K3 on the next frame's candidates;
+    K1's repair window."""
+    from mft_tpu_torch.tracker import MFT
+    snap = snapshot(tracker)
+    base = tracker.track(nxt).result
+    restore(tracker, snap)
+    torch.cuda.synchronize()
+    for method in TRAINED_GAP_PATHS:
+        other = MFT(trained_config("synth", method), device=dev)
+        other.init(frames[0])
+        restore(other, snap)
+        g = gap_stats(other.track(nxt).result, base)
+        log(f"trained weights: {method} vs volume path, one frame (not gated): {gap_text(g)}")
+        del other
+    chain_select_pallas_on(torch, ops, card, tracker, nxt, "512x512 on the committed weights")
+    k1_window_share(torch, ops, tracker, nxt, "committed weights")
+
+
+def run_timer_step(torch, ops, dev, card, frames, fused_results):
+    """TIMER_FRAMES frames of warm_config() with ``timers_enabled`` (the
+    unfused step) against the fused warm tracker's results of the same
+    frames, under the main path's absolute gate; the phases' ms printed."""
+    from mft_tpu_torch.tracker import MFT
+    cfg = trained_config("warm")
+    cfg.timers_enabled = True
+    tracker = MFT(cfg, device=dev)
+    ops.reset_launch_counts()
+    tracker.init(frames[0])
+    for k, img in enumerate(frames[1:TIMER_FRAMES + 1]):
+        meta = tracker.track(img)
+        g = gap_stats(meta.result, fused_results[k])
+        ok = g["far"] <= 0.01 and g["median"] <= 0.05 and g["occ"] <= 0.01 and g["sig"] <= 0.01
+        log(f"check warm timer step frame {k + 1} vs the fused step: {gap_text(g)} (tolerance: "
+            f"share > 0.5 px <= 1%, median <= 0.05 px, occlusion/sigma shares <= 1%) "
+            f"{'ok' if ok else 'FAIL'}; phases "
+            f"{', '.join(f'{n} {ms:.3f} ms' for n, ms in meta.phase_ms.items())} [{card}]")
+        check(ok, f"the timer step's frame {k + 1} disagrees with the fused step's")
+    counts = ops.launch_counts()
+    per = CONFIG_LAUNCHES["warm"]
+    want = expected_counts(ops, **{k: TIMER_FRAMES * v for k, v in per.items()},
+                           chain_select=TIMER_FRAMES)
+    check(counts == want, f"warm timer step: launch counts {counts} != {want}")
+    check_results(torch, [meta.result], *frames[0].shape[:2], "warm timer step")
+
+
+def run_configs(torch, ops, dev, card):
+    """Phase 12: synth_config(), fast_config() and warm_config() on the
+    committed weights, the fast schedule on the sliced volume forms, the
+    timer step, and the trained-weights measurements."""
+    frames = synthetic_clip(CONFIG_FRAMES + 1)
+    nxt = frames[CONFIG_FRAMES + 1]
+    medians = {}
+    for name in CONFIG_LAUNCHES:
+        tracker, results, medians[name], _ = run_config(torch, ops, dev, card, name, frames,
+                                                         CONFIG_FRAMES)
+        check_kernels_vs_plain(torch, tracker, nxt, f"{name} (committed weights)")
+        if name == "synth":
+            trained_gaps(torch, ops, dev, card, tracker, frames, nxt)
+        if name == "fast":
+            check_sliced_lookups(torch, ops, tracker, nxt, "fast")
+        if name == "warm":
+            run_timer_step(torch, ops, dev, card, frames, results)
+        del tracker, results
+    log(f"configurations, frame ms medians after {WARMUP} warm-up frames: "
+        f"{', '.join(f'{k} {v:.3f}' for k, v in medians.items())} [{card}]")
+    for method in SLICED_METHODS:
+        tracker, _, _, _ = run_config(torch, ops, dev, card, "fast", frames, SLICED_FRAMES,
+                                      method)
+        check_sliced_lookups(torch, ops, tracker, frames[SLICED_FRAMES + 1], f"fast {method}")
+        check_kernels_vs_plain(torch, tracker, frames[SLICED_FRAMES + 1],
+                               f"fast {method} (committed weights)")
+        del tracker
+    torch.cuda.empty_cache()
+    return medians
+
+
 def main() -> int:
     # a hang exits non-zero with a traceback instead of running out the clock
     faulthandler.dump_traceback_later(900, exit=True)
@@ -1796,9 +2062,13 @@ def run() -> int:
             for kname, n in path_per_frame(method, 12).items():
                 if kname not in ("corr_lookup_fused", "corr_lookup"):
                     counts[kname] = c[kname]
+        log(f"phase 10 seconds {time.perf_counter() - t:.2f}")
+        t = time.perf_counter()
+        k1_window_share(torch, ops, volume_tracker, nxt, "main path, random weights")
         del volume_tracker
         torch.cuda.empty_cache()
-        log(f"phase 10 seconds {time.perf_counter() - t:.2f}")
+        run_configs(torch, ops, dev, card)
+        log(f"phase 12 seconds {time.perf_counter() - t:.2f}")
         t = time.perf_counter()
         run_uhd(torch, ops, dev, card)
         log(f"phase 7 seconds {time.perf_counter() - t:.2f}")

@@ -8,8 +8,19 @@ A copy of ``mft_tpu/config.py`` (the port imports nothing of ``mft_tpu``):
   loaded by path via importlib;
 - ``merge`` overlays another config.
 
-``default_config()`` builds, without reading any file, the configuration of
-``configs/MFT_cfg.py`` + ``configs/flow/raftou_default.py`` for the port.
+The tracker configurations of ``configs/`` are rebuilt here without reading
+any file (those files import the JAX package), field for field:
+
+- ``default_config()``: ``configs/MFT_cfg.py`` + ``configs/flow/raftou_default.py``;
+- ``synth_config()``: ``configs/MFT_synth_cfg.py``, whose flow config
+  ``synth_flow_config()`` (``configs/flow/raftou_synth.py``) loads the
+  committed weights ``weights/raftou_synth.msgpack``;
+- ``fast_config()``: ``configs/MFT_fast_cfg.py``, a per-delta iteration
+  schedule;
+- ``warm_config()``: ``configs/MFT_warm_cfg.py``, that schedule with the
+  template pair warm-started from the previous frame;
+- ``demo_cpu_config()``: ``configs/MFT_demo_cpu_cfg.py``, 4 deltas and 4
+  iterations in float32.
 """
 
 import importlib.util
@@ -19,6 +30,9 @@ from pathlib import Path
 import numpy as np
 
 logger = logging.getLogger(__name__)
+
+# the weights committed beside the package (configs/flow/raftou_synth.py)
+SYNTH_WEIGHTS = Path(__file__).resolve().parents[1] / "weights" / "raftou_synth.msgpack"
 
 
 class Config:
@@ -89,7 +103,20 @@ def default_flow_config():
     conf.model = "checkpoints/raftou_kubric.pt"
     conf.init_seed = 0
     conf.flow_iters = 12
+    conf.flow_cache_dir = Path("flow_cache/raftou_default/")
+    conf.flow_cache_ext = ".flowouX16.pkl"
     conf.name = "raftou_default"
+    return conf
+
+
+def synth_flow_config():
+    """RAFT-OU flow config of ``configs/flow/raftou_synth.py``: the default
+    architecture with the committed weights (found relative to the package,
+    not the working directory)."""
+    conf = default_flow_config()
+    conf.model = str(SYNTH_WEIGHTS)
+    conf.flow_cache_dir = Path("flow_cache/raftou_synth/")
+    conf.name = "raftou_synth"
     return conf
 
 
@@ -103,4 +130,56 @@ def default_config():
     conf.deltas = [np.inf, 1, 2, 4, 8, 16, 32]
     conf.occlusion_threshold = 0.02
     conf.name = "MFT_cfg"
+    return conf
+
+
+def synth_config():
+    """MFT tracker config of ``configs/MFT_synth_cfg.py``: the default
+    tracker on the committed weights."""
+    conf = default_config()
+    conf.flow_config = synth_flow_config()
+    conf.name = "MFT_synth_cfg"
+    return conf
+
+
+def fast_config():
+    """MFT tracker config of ``configs/MFT_fast_cfg.py``: the default
+    tracker with a per-delta iteration schedule (57 pair-iterations a frame
+    instead of 84)."""
+    conf = default_config()
+    conf.flow_iters_schedule = {np.inf: 12, 1: 4, 2: 5, 4: 6, 8: 8, 16: 10, 32: 12}
+    conf.name = "MFT_fast_cfg"
+    return conf
+
+
+def warm_config():
+    """MFT tracker config of ``configs/MFT_warm_cfg.py``: the fast schedule
+    with 5 iterations for the template pair, which starts from the previous
+    frame's selected flow (``warm_start_inf``)."""
+    conf = default_config()
+    conf.flow_iters_schedule = {np.inf: 5, 1: 4, 2: 5, 4: 6, 8: 8, 16: 10, 32: 12}
+    conf.warm_start_inf = True
+    conf.name = "MFT_warm_cfg"
+    return conf
+
+
+def demo_cpu_config():
+    """MFT tracker config of ``configs/MFT_demo_cpu_cfg.py``: deltas
+    {inf, 1, 2, 4}, 4 iterations, float32, random weights."""
+    from mft_tpu_torch.models.raft import RAFTFlow
+    from mft_tpu_torch.tracker import MFT
+    flow = Config()
+    flow.of_class = RAFTFlow
+    flow.raft_params = {"occlusion_module": "separate_with_uncertainty",
+                        "small": False, "compute_dtype": "float32"}
+    flow.model = None
+    flow.init_seed = 0
+    flow.flow_iters = 4
+    flow.name = "raftou_demo_cpu"
+    conf = Config()
+    conf.tracker_class = MFT
+    conf.flow_config = flow
+    conf.deltas = [np.inf, 1, 2, 4]
+    conf.occlusion_threshold = 0.02
+    conf.name = "MFT_demo_cpu_cfg"
     return conf

@@ -161,15 +161,20 @@ class BasicUpdateBlock(nn.Module):
                 *(getattr(gru, f"conv{gate}{s}") for s in "12" for gate in "zrq"),
                 head.conv1, head.conv2]
 
-    def forward(self, net, inp, corr, flow, need_mask: bool = True, plain: bool = False):
+    def forward(self, net, inp, corr, flow, need_mask: bool = True, plain: bool = False,
+                mask_rows=None):
+        """One iteration; ``mask_rows`` (start, stop) runs the mask head on
+        those batch rows only (the pairs that end at this iteration of a
+        per-pair schedule), as JAX's ``mask_rows``."""
         backend = self.conv_backend
         motion_features = self.encoder(flow, corr, backend, plain)
         net = self.gru(net, torch.cat([inp, motion_features], dim=1), backend, plain)
         delta_flow = self.flow_head(net, backend, plain)
         up_mask = None
         if need_mask:
+            src = net if mask_rows is None else net[mask_rows[0]:mask_rows[1]]
             # scaled 0.25 to balance gradients (reference update.py:237)
-            up_mask = 0.25 * self.mask_conv2(torch.relu(self.mask_conv1(net)))
+            up_mask = 0.25 * self.mask_conv2(torch.relu(self.mask_conv1(src)))
         return net, up_mask, delta_flow, motion_features
 
 

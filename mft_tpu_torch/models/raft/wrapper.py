@@ -5,12 +5,14 @@ a multiple of 8 (replicate padding, reference InputPadder), runs RAFT and
 turns the raw head outputs into occlusion = softmax(logits)[..., 1] and
 sigma = sqrt(exp(log-variance)).
 
-Weights: ``config.model`` naming an existing ``.pt``/``.pth`` file holding
-this port's state dict is loaded; otherwise the weights are random, made
-from ``config.init_seed`` (default 0) with a ``torch.Generator`` in the
-JAX package's init distributions (lecun-normal convs, zero biases, identity
-batch norm). JAX weights come across through
-:func:`mft_tpu_torch.models.raft.convert.params_from_flax` and
+Weights: ``config.model`` naming an existing file is loaded by its suffix
+(:func:`load_weights`): a flax ``.msgpack``/``.bin`` variables file, as
+the JAX package writes them (``weights/raftou_synth.msgpack``), or a
+``.pt``/``.pth`` state dict of this port. A missing file means random
+weights, made from ``config.init_seed`` (default 0) with a
+``torch.Generator`` in the JAX package's init distributions (lecun-normal
+convs, zero biases, identity batch norm). JAX weights in memory come across
+through :func:`mft_tpu_torch.models.raft.convert.params_from_flax` and
 :meth:`RAFTFlow.load_state_dict`.
 """
 
@@ -25,6 +27,8 @@ from torch import nn
 
 from mft_tpu_torch.config import cfg_value
 from mft_tpu_torch.core.device import resolve_device
+from mft_tpu_torch.models.raft.convert import params_from_flax
+from mft_tpu_torch.models.raft.flax_msgpack import read_variables
 from mft_tpu_torch.models.raft.raft import RAFT, RAFTParams
 from mft_tpu_torch.models.raft.upsample import downsample_flow8
 
@@ -105,6 +109,21 @@ def random_init(model: nn.Module, seed: int = 0):
     return model
 
 
+def load_weights(path: Path) -> dict:
+    """The float32 state dict of an existing weights file, by its suffix:
+    ``.msgpack``/``.bin`` a flax variables file (read by
+    :mod:`flax_msgpack`, converted by :func:`convert.params_from_flax`, as
+    JAX's ``load_variables`` reads it), ``.pt``/``.pth`` this port's state
+    dict. A file that does not decode raises; it never falls back to random
+    weights."""
+    if path.suffix in (".msgpack", ".bin"):
+        logger.info("loading flax weights %s", path)
+        return params_from_flax(read_variables(path))
+    if path.suffix in (".pt", ".pth"):
+        return torch.load(path, map_location="cpu", weights_only=True)
+    raise ValueError(f"unknown checkpoint format: {path}")
+
+
 class RAFTFlow:
     """Flow/occlusion/sigma estimator (reference RAFTWrapper role)."""
 
@@ -118,12 +137,7 @@ class RAFTFlow:
         model = RAFT(self.cfg)
         path = Path(config.model) if config.model else None
         if path is not None and path.exists():
-            if path.suffix not in (".pt", ".pth"):
-                raise ValueError(f"{path}: only a .pt/.pth state dict of this "
-                                 "port loads; convert flax weights with "
-                                 "convert.params_from_flax")
-            model.load_state_dict(torch.load(path, map_location="cpu",
-                                             weights_only=True))
+            model.load_state_dict(load_weights(path))
         else:
             logger.warning("checkpoint %s not found - using random init", path)
             random_init(model, cfg_value(config.init_seed, 0))
@@ -152,22 +166,33 @@ class RAFTFlow:
             return self.model.encode(x, with_context=with_context)
 
     def features_forward(self, fmap1, fmap2, cnet1, H: int, W: int,
-                         init_flow=None):
+                         init_flow=None, iters_schedule=None, init_slot=None):
         """Flow, occlusion and sigma from encoder features of (H, W) images.
 
         args: features from :meth:`padded_encode`; init_flow optional
-          (B, H, W, 2) full-resolution initial flow.
+          full-resolution initial flow: (B, H, W, 2) for the whole batch, or,
+          with ``init_slot``, one (H, W, 2) map for pair ``init_slot`` alone
+          (padded and downsampled once; the other pairs start from zero, as
+          JAX's ``features_forward(init_slot=)``); iters_schedule optional
+          iterations per pair (``RAFT._flow_scheduled``) in place of
+          ``flow_iters``.
         returns: flow (B, H, W, 2), occlusion (B, H, W), sigma (B, H, W),
           float32, unpadded.
         """
         (pt, pb), (pl, pr) = pad_to_8(H, W)
         flow_init = None
         if init_flow is not None:
-            fi = init_flow.to(self.device).float().permute(0, 3, 1, 2)
+            fi = init_flow.to(self.device).float()
+            fi = (fi[None] if init_slot is not None else fi).permute(0, 3, 1, 2)
             fi = F.pad(fi, (pl, pr, pt, pb), mode="replicate")
             flow_init = downsample_flow8(fi.permute(0, 2, 3, 1))
+            if init_slot is not None:
+                one = flow_init
+                flow_init = one.new_zeros((fmap1.shape[0], *one.shape[1:]))
+                flow_init[init_slot] = one[0]
+        iters = self.iters if iters_schedule is None else tuple(int(i) for i in iters_schedule)
         with torch.no_grad():
-            out = self.model.flow_from_features(fmap1, fmap2, cnet1, self.iters,
+            out = self.model.flow_from_features(fmap1, fmap2, cnet1, iters,
                                                 flow_init, plain=self.plain_ops)
         Hp, Wp = H + pt + pb, W + pl + pr
         unpad = lambda x: x[:, pt:Hp - pb, pl:Wp - pr]
@@ -176,14 +201,15 @@ class RAFTFlow:
         sigma = unpad(torch.sqrt(torch.exp(out["uncertainty"][..., 0]))).contiguous()
         return flow, occl, sigma
 
-    def forward_batch(self, images1, images2, init_flow=None):
-        """Batched flow: (N, H, W, 3) RGB float [0, 255] -> (flow, occl, sigma)."""
-        N, H, W, _ = images1.shape
-        fmaps, _ = self.padded_encode(torch.cat([images1, images2]),
-                                      with_context=False)
-        _, cnet1 = self.padded_encode(images1)
-        return self.features_forward(fmaps[:N], fmaps[N:], cnet1, H, W,
-                                     init_flow)
+    def forward_batch(self, images1, images2, init_flow=None, iters_schedule=None):
+        """Batched flow: (N, H, W, 3) RGB [0, 255] -> (flow, occl, sigma);
+        init_flow optional (N, H, W, 2), iters_schedule optional iterations
+        per pair."""
+        H, W = images1.shape[1:3]
+        fmap1, cnet1 = self.padded_encode(images1)
+        fmap2, _ = self.padded_encode(images2, with_context=False)
+        return self.features_forward(fmap1, fmap2, cnet1, H, W, init_flow,
+                                     iters_schedule=iters_schedule)
 
     def compute_flow(self, src_img, dst_img, mode="flow", init_flow=None,
                      numpy_out=False):

@@ -21,7 +21,7 @@ from mft_tpu.ops.alt_corr_pallas import (build_feature_pyramid as jax_feature_py
                                          corr_lookup_win)
 from mft_tpu_torch import ops
 from mft_tpu_torch.models.raft.corr import build_feature_pyramid
-from mft_tpu_torch.models.raft.raft import (CORR_METHODS, UNPORTED_CORR_METHODS,
+from mft_tpu_torch.models.raft.raft import (AUTO_ALIASES, CORR_METHODS,
                                             VOLUME_METHODS, RAFT, RAFTParams)
 from mft_tpu_torch.models.raft.wrapper import SAME_CONV_BACKENDS, raft_params_from_config
 
@@ -180,24 +180,24 @@ OTHER_JAX_METHODS = ("fold", "gather", "int8", "mixed", "mxu", "packed", "packed
 
 @pytest.mark.parametrize("method", OTHER_JAX_METHODS)
 def test_unported_corr_method_raises(method):
-    """Every JAX corr_method the port lacks raises and names its ROADMAP
-    item; none falls back to the volume path. The volume methods ported
-    since are read as they are and run: one iteration on 8x8 features gives
-    finite flow."""
-    assert set(OTHER_JAX_METHODS) == set(UNPORTED_CORR_METHODS) | set(VOLUME_METHODS)
-    if method in VOLUME_METHODS:
-        params = raft_params_from_config({"corr_method": method})
-        assert params.corr_method == method
-        assert method not in UNPORTED_CORR_METHODS
-        f = torch.randn((1, 256, 8, 8), generator=torch.Generator().manual_seed(0))
+    """Every JAX corr_method is ported now, none raises: the volume methods
+    and the aliases of 'auto' ('mxu', 'gather', 'pallas', the same function;
+    their JAX parity is in test_torch_schedule.py) are read as they are and
+    run: one iteration on 8x8 features gives finite flow, an alias the
+    'auto' path's flow."""
+    assert set(OTHER_JAX_METHODS) == set(AUTO_ALIASES) | set(VOLUME_METHODS)
+    params = raft_params_from_config({"corr_method": method})
+    assert params.corr_method == method
+    f = torch.randn((1, 256, 8, 8), generator=torch.Generator().manual_seed(0))
+    model = RAFT(params)
+    with torch.no_grad():
+        out = model.flow_from_features(f, f.flip(-1), f, iters=1)
+    assert out["flow"].shape == (1, 64, 64, 2) and bool(out["flow"].isfinite().all())
+    if method in AUTO_ALIASES:
+        model.cfg = RAFTParams()
         with torch.no_grad():
-            out = RAFT(params).flow_from_features(f, f.flip(-1), f, iters=1)
-        assert out["flow"].shape == (1, 64, 64, 2) and bool(out["flow"].isfinite().all())
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        raft_params_from_config({"corr_method": method})
-    with pytest.raises(NotImplementedError, match=method):
-        RAFTParams(corr_method=method)
+            want = model.flow_from_features(f, f.flip(-1), f, iters=1)
+        assert torch.equal(out["flow"], want["flow"])
 
 
 def test_ported_corr_methods_are_read():

@@ -55,7 +55,8 @@ def test_port_modules_list_is_complete():
                  "mft_tpu_torch.tracker.mft", "mft_tpu_torch.ops.warp",
                  "mft_tpu_torch.core.flowou", "mft_tpu_torch.tracker.select",
                  "mft_tpu_torch.tracker.point_tracking", "mft_tpu_torch.tracker.fused",
-                 "mft_tpu_torch.models.raft.wrapper", "mft_tpu_torch.config"):
+                 "mft_tpu_torch.models.raft.wrapper", "mft_tpu_torch.config",
+                 "mft_tpu_torch.models.raft.flax_msgpack", "mft_tpu_torch.utils.timing"):
         assert want in mods
 
 

@@ -1163,3 +1163,100 @@ def test_slice_path_launches_the_warp(cuda):
     b = chain_select_pallas(left, right, valid, plain=True)
     for name in ("flow", "occlusion", "sigma"):
         torch.testing.assert_close(getattr(a, name), getattr(b, name), **EXACT)
+
+
+# --------------------------------------------------------------------------- #
+# the stored volumes sliced to a batch prefix (per-pair iteration schedules)
+# --------------------------------------------------------------------------- #
+SLICED_FORMS = ("volume", "fused", "mixed", "packed", "packed_i8")
+
+
+def _sliced_volume(np_rng, form, m, dev, B=7, H8=8, W8=32, C=64):
+    """A bf16 volume of 7 pairs of random features (an 8x32 map: 'mixed'
+    folds level 0, 4 rows per 128 values; packed widths 32+16+8+4) in the
+    form the model stores for ``form``, sliced to its first ``m`` pairs as
+    ``raft.slice_pyramid`` slices it, and (m, P, 2) coords."""
+    from mft_tpu_torch.models.raft.raft import slice_pyramid
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    f1 = t(np_rng.standard_normal((B, C, H8, W8))).to(torch.bfloat16)
+    f2 = t(np_rng.standard_normal((B, C, H8, W8))).to(torch.bfloat16)
+    if form == "mixed":
+        stored = tcorr.build_corr_pyramid_mixed(f1, f2)
+        assert len(stored[1]) == 1
+    else:
+        stored = tcorr.build_corr_pyramid(f1, f2)
+        if form in ("packed", "packed_i8"):
+            pack = tcorr.pack_corr_pyramid if form == "packed" else tcorr.pack_corr_pyramid_i8
+            stored = (form, *pack(stored))
+    coords = _gather_coords(np_rng, m, H8 * W8, _pyramid_dims(H8, W8), 4)
+    return slice_pyramid(stored, m), torch.from_numpy(coords).to(dev)
+
+
+@pytest.mark.parametrize("m", [1, 3, 6])
+@pytest.mark.parametrize("form", SLICED_FORMS)
+def test_sliced_volume_lookups_match_plain(np_rng, cuda, form, m):
+    """K2, #9, K7 and K8 bit for bit, K1 (bf16, tensor cores) within the
+    bound, on volumes of 7 pairs sliced to m = 1, 3 and 6 (B taken from the
+    coords and the sliced levels, the scales of 'packed_i8' sliced with
+    them); one launch each."""
+    stored, coords = _sliced_volume(np_rng, form, m, cuda)
+    if form == "fused":
+        wc = torch.from_numpy(np_rng.standard_normal((256, 324)).astype(np.float32) * 0.05)
+        bias = torch.from_numpy(np_rng.standard_normal(256).astype(np.float32) * 0.1)
+        _check_fused(stored, coords, wc.to(cuda).t(), bias.to(cuda), 4, "bfloat16")
+        return
+    name = {"volume": "corr_lookup", "mixed": "corr_lookup_mixed",
+            "packed": "corr_lookup_packed", "packed_i8": "corr_lookup_packed_i8"}[form]
+    ops.reset_launch_counts()
+    got = tcorr.corr_lookup(stored, coords, 4)
+    assert ops.launch_counts()[name] == 1
+    want = tcorr.corr_lookup(stored, coords, 4, plain=True)
+    assert got.shape == (m, 256, 324)
+    _assert_same_bits(got, want)
+
+
+def test_raftflow_loads_msgpack_on_the_card(cuda, tmp_path):
+    """synth_flow_config() loads the committed weights on the card: the same
+    float32 state as on the CPU (bf16 convs, float32 norms and routed
+    biases), a finite flow of one pair; a truncated copy raises."""
+    from mft_tpu_torch.config import synth_flow_config
+    from mft_tpu_torch.models.raft import RAFTFlow
+    conf = synth_flow_config()
+    flower = RAFTFlow(conf, device=cuda)
+    ref = RAFTFlow(conf, device="cpu")
+    for k, v in ref.model.state_dict().items():
+        assert torch.equal(flower.model.state_dict()[k].cpu(), v), k
+    rng = np.random.default_rng(0)
+    tex = (rng.random((72, 72, 3)) * 255).astype(np.uint8)
+    flow, extra = flower.compute_flow(tex[:64, :64], tex[2:66, 3:67])
+    assert flow.device.type == "cuda" and bool(torch.isfinite(flow).all())
+    bad = tmp_path / "w.msgpack"
+    bad.write_bytes(open(conf.model, "rb").read()[:-100])
+    conf.model = str(bad)
+    with pytest.raises(ValueError, match="truncated"):
+        RAFTFlow(conf, device=cuda)
+
+
+def test_mft_scheduled_path_launches_each_kernel(cuda):
+    """A scheduled warm MFT run on the card: the schedule {inf: 4, 1: 1, 2: 4,
+    4: 4} sorts to (4, 4, 4, 1), pairs end after iterations 1 and 4, so per
+    frame 2 fused lookups (iterations 2, 3), 2 plain ones, 1 chain + select;
+    the timer step runs the same kernels."""
+    cfg = default_config()
+    cfg.deltas = [np.inf, 1, 2, 4]
+    cfg.flow_iters_schedule = {np.inf: 4, 1: 1, 2: 4, 4: 4}
+    cfg.warm_start_inf = True
+    rng = np.random.default_rng(0)
+    tex = (rng.random((80, 80, 3)) * 255).astype(np.uint8)
+    for timers in (False, True):
+        cfg.timers_enabled = timers
+        tracker = MFT(cfg, device=cuda)
+        ops.reset_launch_counts()
+        tracker.init(tex[:64, :64])
+        for k in range(1, 4):
+            meta = tracker.track(np.ascontiguousarray(tex[k:k + 64, 2 * k:2 * k + 64]))
+            assert bool(torch.isfinite(meta.result.flow).all())
+        want = {k: 0 for k in ops.launch_counts()}
+        want.update(corr_lookup_fused=6, corr_lookup=6, chain_select=3)
+        assert ops.launch_counts() == want
+        assert timers == hasattr(meta, "phase_ms")

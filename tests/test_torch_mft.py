@@ -142,20 +142,27 @@ def test_new_path_frame_matches_jax(option):
 
 
 @pytest.mark.parametrize("key,value,error", [
-    ("warm_start_inf", True, NotImplementedError),
-    ("flow_iters_schedule", {np.inf: 5, 1: 4}, NotImplementedError),
     ("cache_delta_infinity", True, NotImplementedError),
-    ("timers_enabled", True, NotImplementedError),
     ("warm_start_inf+cache_delta_infinity", True, ValueError),
+    ("warm_start_inf", True, None),
 ])
 def test_unported_tracker_options_raise(key, value, error):
     """A tracker option the port lacks raises and names its ROADMAP item
     instead of tracking the default frame; warm_start_inf with
     cache_delta_infinity is refused with the JAX tracker's ValueError, before
-    any model is built. Unset or False, each is accepted."""
+    any model is built. Unset or False, each is accepted. warm_start_inf
+    without an infinite delta is a no-op, as in JAX (``_warm_start``)."""
     conf = _config(Config, RAFTFlow)
     for k in key.split("+"):
         setattr(conf, k, value)
+    if error is None:
+        jconf = _config(JaxConfig, JaxRAFTFlow)
+        jconf.warm_start_inf = True
+        for c in (conf, jconf):
+            c.deltas = [1, 2]
+            c.flow_config.of_class = lambda config, **kw: None   # no model needed
+        assert not MFT(conf, device="cpu")._warm_start() and not JaxMFT(jconf)._warm_start()
+        return
     match = "cannot be combined" if error is ValueError else UNPORTED_OPTIONS[key]
     with pytest.raises(error, match=match.split(" (")[0]):
         MFT(conf, device="cpu")

@@ -3,8 +3,10 @@
 
 Drives ``MFT(default_config())`` of ``mft_tpu_torch`` on one NVIDIA card at
 512x512 (random weights from seed 0, the synthetic clip of chip_smoke.py),
-or with another ``--corr-method``, ``--conv-backend`` and frame ``--size``,
-warms up, then traces
+or another tracker ``--config`` of ``mft_tpu_torch.config`` (``synth``,
+``fast``, ``warm``; with ``--weights synth`` any of them on the committed
+weights), with another ``--corr-method``, ``--conv-backend`` and frame
+``--size``, warms up, then traces
 ``--frames`` frames with ``torch.profiler`` and prints:
 
 - wall ms per frame (host clock, synchronised) and device-busy ms per frame
@@ -16,6 +18,7 @@ warms up, then traces
 Imports nothing of JAX. Usage (on the card):
 
     python3 tools/torch_profile_frame.py [--frames 3] [--out frame_profile.txt]
+        [--config default|synth|fast|warm] [--weights config|synth]
         [--corr-method auto|alt|win|int8|packed|packed_i8|pallas_t|fold|mixed]
         [--conv-backend auto|pallas] [--size 2160 3840]
 """
@@ -78,6 +81,12 @@ def main(argv=None) -> int:
                         choices=("auto", "alt", "win", "int8", "packed", "packed_i8",
                                  "pallas_t", "fold", "mixed"))
     parser.add_argument("--conv-backend", default="auto", choices=("auto", "pallas"))
+    parser.add_argument("--config", default="default",
+                        choices=("default", "synth", "fast", "warm"),
+                        help="the tracker config: mft_tpu_torch.config.<name>_config()")
+    parser.add_argument("--weights", default="config", choices=("config", "synth"),
+                        help="synth: the committed weights (synth_flow_config()) whatever "
+                             "the config")
     parser.add_argument("--size", type=int, nargs=2, default=(512, 512),
                         metavar=("H", "W"))
     args = parser.parse_args(argv)
@@ -90,7 +99,7 @@ def main(argv=None) -> int:
         print("needs an NVIDIA card", file=sys.stderr)
         return 2
     from chip_smoke import synthetic_clip
-    from mft_tpu_torch.config import default_config
+    from mft_tpu_torch import config
     from mft_tpu_torch.tracker import MFT
 
     card = subprocess.run(
@@ -99,7 +108,9 @@ def main(argv=None) -> int:
     n = args.warmup + args.frames
     H, W = args.size
     frames = synthetic_clip(n, H=H, W=W)
-    cfg = default_config()
+    cfg = getattr(config, f"{args.config}_config")()
+    if args.weights == "synth":
+        cfg.flow_config = config.synth_flow_config()
     cfg.flow_config.raft_params["corr_method"] = args.corr_method
     cfg.flow_config.raft_params["conv_backend"] = args.conv_backend
     tracker = MFT(cfg, device="cuda")
@@ -128,9 +139,12 @@ def main(argv=None) -> int:
         return 1
     print(f"card: {card}")
     print(f"frames traced: {args.frames} after {args.warmup} warm-up, {H}x{W}, "
+          f"config {args.config}, weights {cfg.flow_config.model} "
+          f"({'loaded' if os.path.exists(str(cfg.flow_config.model)) else 'random'}), "
           f"corr_method {args.corr_method}, conv_backend {args.conv_backend}, "
-          f"{len(tracker.deltas)} deltas, "
-          f"{tracker.flower.iters} iterations, {tracker.flower.dtype}")
+          f"{len(tracker.deltas)} deltas, {tracker.flower.iters} iterations, "
+          f"schedule {tracker.iters_schedule}, warm start {tracker._warm_start()}, "
+          f"{tracker.flower.dtype}")
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     print(f"wall ms per frame (profiler on): {wall_ms:.3f}")
     print(f"device-busy ms per frame: {busy:.3f} (idle share {1 - busy / wall_ms:.1%})")
