@@ -99,7 +99,27 @@ non-zero and prints no result line):
    printed; not gated, on the committed weights: one frame of 'alt',
    'win', 'int8', 'fold' and conv 'pallas' against the volume path,
    chain_select_pallas against K3, and the share of K1's outputs in its
-   repair's window (also on the main path's random weights).
+   repair's window (also on the main path's random weights); K1 on the
+   volume sliced to each prefix must give 0 outputs unlike its plain
+   version, whose product sums in the repair's fixed order;
+13. the TAP-Vid runner: ``mft_tpu_torch.eval.runner.run`` on a synthetic
+   DAVIS-form pickle (2 sequences of 24 frames of 256x256 texture moving
+   1 px right and down a frame, 256 query points in view throughout) with
+   ``synth`` and its ``cache_delta_infinity`` twin, mode 'both', scaling
+   256x256_512x512, then ``evaluate`` and ``report``: every prediction
+   file, <delta_avg >= 0.9 (AJ and OA printed), the FlowCache's hits and
+   misses per pass and the launches (K1 11 and K2 1 a frame through RAFT,
+   K3 1 a frame, the warp 1 a conversion) as an independent model of the
+   cache policy predicts, every strided forward pass hitting every valid
+   finite pair, every cache write a CUDA tensor in the device tier; on
+   one sequence, track_chunk against per-frame track (bit for bit), the
+   plain versions' pass (the main path's frame gate, query tracks within
+   0.5 px for >= 99%), a cold, an injected (batch 1), a
+   cache_delta_infinity and a RAFT-free pass (K1 0, K2 0, K3 1 a frame;
+   bit for bit with the pass whose entries it reads), injected frames
+   against the full batch's (the frame gate) and a .flowouX16.pkl disk
+   round trip within the quantisation step; frames/s by pass kind, peak
+   device memory and the device tier's bytes printed.
 
 Every bf16 launch of K1, #5, #13, K4 and K5 on the main path, conv_backend
 'pallas', 'alt' and 'win' at 512x512 and 2160x3840, 'auto' at 1080x1920
@@ -1055,14 +1075,14 @@ def check_warp_kernel(torch, ops, dev, card):
 # --------------------------------------------------------------------------- #
 # phases 4-5: the main path
 # --------------------------------------------------------------------------- #
-def synthetic_clip(n_frames, H=512, W=512, seed=0):
-    """uint8 BGR frames of one multi-scale random texture, shifted by SHIFT
-    px per frame (true flow from frame 0 to frame k: -k*SHIFT)."""
+def synthetic_clip(n_frames, H=512, W=512, seed=0, shift=SHIFT):
+    """uint8 BGR frames of one multi-scale random texture, shifted by
+    ``shift`` px per frame (true flow from frame 0 to frame k: -k*shift)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     rng = np.random.default_rng(seed)
-    dx, dy = SHIFT
+    dx, dy = shift
     th, tw = H + dy * n_frames + 8, W + dx * n_frames + 8
     tex = np.zeros((th, tw, 3), np.float32)
     for cell, amp in ((64, 0.5), (16, 0.3), (4, 0.2)):
@@ -1831,8 +1851,9 @@ def check_sliced_lookups(torch, ops, tracker, img, label):
     """The lookups of a scheduled frame on its volume sliced to each active
     prefix (``raft.slice_pyramid``) against their plain versions, at the
     coords the pairs reach: K2, #9 bit for bit (EXACT_TOL), K7, K8 to
-    VOLUME_TOL, K1 (bf16, tensor cores) within ops.product_error_bound;
-    outputs differing from plain counted."""
+    VOLUME_TOL, K1 (bf16, tensor cores) within ops.product_error_bound and
+    with 0 outputs unlike plain (its plain version sums in the repair's
+    order); outputs differing from plain counted."""
     from mft_tpu_torch.models.raft import corr as tcorr
     from mft_tpu_torch.models.raft.raft import slice_pyramid
     volume, coords, prefixes = next_frame_volume(torch, tracker, img)
@@ -1859,15 +1880,20 @@ def check_sliced_lookups(torch, ops, tracker, img, label):
             if m == prefixes[0]:
                 whole = got, want
             mag = ops.corr_lookup_fused_magnitude(sliced, c, wc, RADIUS)
-            # not gated: the same pairs' rows of the whole batch's outputs,
-            # kernel against kernel and plain against plain (cuBLAS may sum
-            # the plain product in another order at another M)
+            # the plain product sums in K1's repair order at every row count
+            # (C5): 0 outputs differ, and each side's rows equal the
+            # whole batch's
+            n_diff = differing(torch, got, want)
+            kernel_rows = differing(torch, got, whole[0][:m])
+            plain_rows = differing(torch, want, whole[1][:m])
             bound_check(torch, ops, f"{label} fused lookup on {m} pairs (tensor cores, "
-                                    f"{differing(torch, got, want)} of {got.numel()} outputs "
-                                    f"differ from plain; against the {prefixes[0]}-pair "
-                                    f"call's rows: kernel {differing(torch, got, whole[0][:m])}, "
-                                    f"plain {differing(torch, want, whole[1][:m])})",
+                                    f"{n_diff} of {got.numel()} outputs differ from plain; "
+                                    f"against the {prefixes[0]}-pair call's rows: kernel "
+                                    f"{kernel_rows}, plain {plain_rows})",
                         got, want, mag, wc.shape[0])
+            check(n_diff == 0 and kernel_rows == 0 and plain_rows == 0,
+                  f"{label}: K1 on {m} pairs: {n_diff} outputs differ from plain, rows "
+                  f"unlike the whole batch's: kernel {kernel_rows}, plain {plain_rows}")
 
 
 def k1_window_share(torch, ops, tracker, img, label):
@@ -1973,6 +1999,362 @@ def run_configs(torch, ops, dev, card):
     return medians
 
 
+# --------------------------------------------------------------------------- #
+# phase 13: the TAP-Vid runner on the card
+# --------------------------------------------------------------------------- #
+TAPVID_SEQS = 2                       # sequences of the synthetic pickle
+TAPVID_T = 24                         # frames a sequence
+TAPVID_SIZE = 256                     # the pickle's frames, square
+TAPVID_GRID = 16                      # 16 x 16 = 256 query points
+TAPVID_SCALING = "256x256_512x512"    # tracked at 512x512, scored at 256x256
+STRIDE = 5                            # the protocol's strided query frames
+CHUNK = 8                             # runner.track_sequence's track_chunk size
+CDI_NAME = "MFT_synth_cdi"
+CDI_CONFIG = f"""from mft_tpu_torch.config import synth_config
+
+
+def get_config():
+    conf = synth_config()
+    conf.cache_delta_infinity = True
+    conf.name = "{CDI_NAME}"
+    return conf
+"""
+DATASET_CONFIG = """from mft_tpu_torch.config import Config
+
+
+def get_config():
+    conf = Config()
+    conf.pickles = [{pickle!r}]
+    conf.scaling = "{scaling}"
+    conf.name = "tapvid_synthetic"
+    return conf
+"""
+
+
+def tapvid_pickle(path):
+    """A DAVIS-form pickle of TAPVID_SEQS sequences: TAPVID_T square RGB
+    frames of TAPVID_SIZE px, a random texture (seed: the sequence's index)
+    moving 1 px right and 1 px down a frame, and TAPVID_GRID^2 query points
+    on a grid of whole pixels that stays in view, visible in every frame,
+    their truth exact."""
+    import pickle
+    import numpy as np
+    step = (TAPVID_SIZE - 32 - TAPVID_T) // (TAPVID_GRID - 1)
+    grid = 16.0 + step * np.arange(TAPVID_GRID)
+    xy = np.stack(np.meshgrid(grid, grid, indexing="xy"), -1).reshape(-1, 1, 2)
+    points = (xy + np.arange(TAPVID_T).reshape(1, -1, 1)) / TAPVID_SIZE
+    data = {}
+    for s in range(TAPVID_SEQS):
+        clip = synthetic_clip(TAPVID_T - 1, TAPVID_SIZE, TAPVID_SIZE, seed=s,
+                              shift=(1, 1))[::-1]
+        data[f"synth{s}"] = {"video": np.stack([f[..., ::-1] for f in clip]),
+                             "points": points,
+                             "occluded": np.zeros(points.shape[:2], bool)}
+    with open(path, "wb") as f:
+        pickle.dump(data, f)
+
+
+def expected_runner_passes(deltas, cdi_flags):
+    """An independent model of the runner's cache policy over the synthetic
+    pickle's protocol ('first' from frame 0; 'strided' from every STRIDE-th
+    frame, forward and backward; the configs in turn, one cache a
+    sequence): per pass in the runner's order its reads' hits and misses
+    and, a frame, the pairs that run through RAFT (the whole batch, the
+    misses of an all-finite-hit frame, 0 for a RAFT-free frame)."""
+    finite = sorted(int(d) for d in deltas if math.isfinite(d))
+    N = len(deltas)
+    keys, passes = set(), []
+
+    def candidates(t, start, td, cdi):
+        """(key, valid, cacheable, finite) a pair; invalid pairs are never read."""
+        out = [((start, t), True, cdi, False)]
+        for d in finite:
+            li = t - d * td
+            valid = (li - start) * td >= 0
+            out.append(((li, t), valid, valid, True))
+        return out
+
+    for mode in ("first", "strided"):
+        for cdi in cdi_flags:
+            starts = [0] if mode == "first" else list(range(0, TAPVID_T, STRIDE))
+            for start in starts:
+                for td in ((1,) if mode == "first" else (1, -1)):
+                    frames = (list(range(start + 1, TAPVID_T)) if td > 0
+                              else list(range(start - 1, -1, -1)))
+                    hits = misses = 0
+                    batches = []
+                    for c0 in range(0, len(frames), CHUNK):
+                        chunk = [candidates(t, start, td, cdi) for t in frames[c0:c0 + CHUNK]]
+                        if not any(v and ca and k in keys for fc in chunk for k, v, ca, _ in fc):
+                            for fc in chunk:     # cold chunk: no reads, every row written
+                                batches.append(N)
+                                keys |= {k for k, v, ca, _ in fc if v and ca}
+                            continue
+                        for fc in chunk:         # frame by frame, reads first
+                            hit = [v and ca and k in keys for k, v, ca, _ in fc]
+                            hits += sum(hit)
+                            misses += sum(v and ca for _, v, ca, _ in fc) - sum(hit)
+                            if not all(h for h, (_, v, _, f) in zip(hit, fc) if v and f):
+                                batches.append(N)
+                                keys |= {k for (k, v, ca, _), h in zip(fc, hit)
+                                         if v and ca and not h}
+                            else:
+                                comp = [(k, ca) for (k, v, ca, _), h in zip(fc, hit)
+                                        if v and not h]
+                                batches.append(len(comp))
+                                keys |= {k for k, ca in comp if ca}
+                    passes.append(dict(mode=mode, cdi=cdi, start_frame=start,
+                                       direction="forward" if td > 0 else "backward",
+                                       hits=hits, misses=misses, batches=batches))
+    return passes
+
+
+def pass_kind(batches, N):
+    if not batches:
+        return "empty"
+    kinds = {"cold full-batch" if b == N else "warm injected" if b else "RAFT-free"
+             for b in batches}
+    return kinds.pop() if len(kinds) == 1 else "mixed"
+
+
+def tapvid_tracker_checks(torch, ops, dev, card, video, queries, tmp):
+    """The runner's tracker path on one sequence ('first' from frame 0):
+    track_chunk against per-frame track on a fresh tracker (bit for bit);
+    the plain versions' pass against the kernels' (the main path's frame
+    gate, query tracks); one FlowCache over a cold, an injected, a
+    cache_delta_infinity and a RAFT-free pass (launches, RAFT batches,
+    frames against the cold pass's, frames/s); a disk round trip of one
+    entry. returns: {pass kind: frames/s}."""
+    import numpy as np
+    from mft_tpu_torch.config import synth_config
+    from mft_tpu_torch.eval.runner import track_sequence
+    from mft_tpu_torch.io import FlowCache
+    from mft_tpu_torch.tracker import MFT
+    from mft_tpu_torch.tracker.point_tracking import convert_to_point_tracking_batch
+    T = len(video)
+    same = lambda x, y: all(torch.equal(getattr(x, f), getattr(y, f))
+                            for f in ("flow", "occlusion", "sigma"))
+
+    chunked = MFT(synth_config(), device=dev)
+    metas = track_sequence(chunked, video, 0)
+    by_chunk = [metas[k].result for k in range(1, T)]
+    del chunked, metas
+    tracker = MFT(synth_config(), device=dev)
+    tracker.init(video[0])
+    per_frame = [tracker.track(img).result for img in video[1:]]
+    unlike = [k + 1 for k, (x, y) in enumerate(zip(by_chunk, per_frame)) if not same(x, y)]
+    log(f"check track_chunk (chunks of {CHUNK}) vs per-frame track on a fresh tracker, "
+        f"{T - 1} frames at {video.shape[2]}x{video.shape[1]}: frames unlike {unlike} "
+        f"{'ok' if not unlike else 'FAIL'}")
+    check(not unlike, f"track_chunk differs from per-frame track at frames {unlike}")
+    del by_chunk
+
+    tracker.plain_ops = True
+    tracker.init(video[0])
+    plain = [tracker.track(img).result for img in video[1:]]
+    tracker.plain_ops = False
+    worst = max((gap_stats(p, k) for p, k in zip(plain, per_frame)),
+                key=lambda g: (g["far"], g["median"]))
+    ok = (worst["far"] <= 0.01 and worst["median"] <= 0.05 and worst["occ"] <= 0.01
+          and worst["sig"] <= 0.01)
+    tracks = [convert_to_point_tracking_batch(r, queries)[0] for r in (per_frame, plain)]
+    dist = np.linalg.norm(tracks[0] - tracks[1], axis=-1)
+    near = float((dist <= 0.5).mean())
+    log(f"check plain_ops pass vs the kernels' pass, {T - 1} frames: worst frame "
+        f"{gap_text(worst)}; query tracks ({queries.shape[0]} points x {T - 1} frames) "
+        f"within 0.5 px {near:.4%}, max {dist.max():.3e} px (tolerance: the main path's "
+        f"frame gate on every frame, >= 99% of tracks within 0.5 px) "
+        f"{'ok' if ok and near >= 0.99 else 'FAIL'}")
+    check(ok and near >= 0.99, "the plain versions' TAP-Vid pass disagrees with the kernels'")
+    del plain
+
+    cache = FlowCache(None)
+    batches, forward = [], tracker.flower.features_forward
+
+    def counting(fmap1, *args, **kw):
+        batches.append(fmap1.shape[0])
+        return forward(fmap1, *args, **kw)
+
+    tracker.flower.features_forward = counting
+    n = T - 1
+    raft_free_t = {d for d in (1, 2, 4, 8, 16, 32) if d < T}   # inf (0, t) = delta t's pair
+    plan = (("cold full-batch", False, [7] * n, n),
+            ("warm injected", False, [1] * n, n),
+            ("cache_delta_infinity, first", True, [1] * (n - len(raft_free_t)),
+             n - len(raft_free_t)),
+            ("RAFT-free", True, [], 0))
+    results, fps = {}, {}
+    for name, cdi, want_batches, raft_frames in plan:
+        tracker.C.cache_delta_infinity = cdi
+        batches.clear()
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metas = track_sequence(tracker, video, 0, "forward", cache)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        results[name] = [metas[k].result for k in range(1, T)]
+        want = expected_counts(ops, corr_lookup_fused=11 * raft_frames,
+                               corr_lookup=raft_frames, chain_select=n)
+        log(f"{name} pass: {n} frames in {sec:.3f} s ({n / sec:.2f} frames/s) [{card}]; "
+            f"RAFT batches {batches}; launches {counts}; cache hits {cache.hits}, misses "
+            f"{cache.misses}, {len(cache.device_cache)} device-tier entries")
+        check(batches == want_batches and counts == want,
+              f"{name} pass: batches {batches} != {want_batches} or launches {counts} != {want}")
+        fps[name] = n / sec
+    del tracker.flower.features_forward
+    tracker.C.cache_delta_infinity = False
+    gate_gaps = [gap_stats(x, y) for x, y in zip(results["warm injected"],
+                                                 results["cold full-batch"])]
+    worst = max(gate_gaps, key=lambda g: (g["far"], g["median"]))
+    ok = (worst["far"] <= 0.01 and worst["median"] <= 0.05 and worst["occ"] <= 0.01
+          and worst["sig"] <= 0.01)
+    log(f"check injected frames (the template pair alone through RAFT) vs the same frames "
+        f"in the full batch: worst {gap_text(worst)} (tolerance: the main path's frame gate) "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok, "injected frames disagree with the full batch's")
+    free_same = all(same(x, y) for x, y in zip(results["RAFT-free"],
+                                               results["cache_delta_infinity, first"]))
+    g = max((gap_stats(x, y) for x, y in zip(results["RAFT-free"], results["cold full-batch"])),
+            key=lambda g: (g["far"], g["median"]))
+    log(f"check RAFT-free pass vs the cache_delta_infinity pass that filled its cache: "
+        f"{'bit for bit ok' if free_same else 'FAIL'}; vs the cold pass (not gated): {gap_text(g)}")
+    check(free_same, "the RAFT-free pass differs from the pass whose cache entries it read")
+    on_card = (not cache.ram_cache and all(x.device.type == dev.type
+                                           for v in cache.device_cache.values() for x in v))
+    log(f"check cache tiers: {len(cache.device_cache)} device-tier entries, "
+        f"{cache.device_bytes / 1e6:.1f} MB, all CUDA tensors, none in RAM "
+        f"{'ok' if on_card else 'FAIL'}")
+    check(on_card, "a cache write on the card left the device tier")
+
+    key = min(cache.device_cache)
+    fields = cache.device_cache[key]
+    disk = FlowCache(tmp / "disk_cache", max_ram_mb=0, max_device_mb=0)
+    disk.write(*key, *fields)
+    back = disk.read(*key)
+    files = sorted(p.name for p in (tmp / "disk_cache").iterdir())
+    chans = [(fields[0][..., 0], back[0][..., 0]), (fields[0][..., 1], back[0][..., 1]),
+             (fields[1], back[1]), (fields[2], back[2])]
+    errs = [(float((torch.from_numpy(b).to(x.device) - x).abs().max()),
+             float(x.max() - x.min()) / 65535) for x, b in chans]
+    ok = files == [f"{key[0]}--{key[1]}.flowouX16.pkl"] and all(e <= q for e, q in errs)
+    log(f"check .flowouX16.pkl disk round trip of cache entry {key}: {files}; max |error| / "
+        f"quantisation step per channel (flow x, flow y, occlusion, sigma) "
+        f"{', '.join(f'{e:.3e} / {q:.3e}' for e, q in errs)} {'ok' if ok else 'FAIL'}")
+    check(ok, "the disk round trip of a cache entry exceeds the codec's quantisation step")
+    return fps
+
+
+def run_tapvid(torch, ops, dev, card):
+    """Phase 13: mft_tpu_torch.eval.runner.run on a synthetic DAVIS-form
+    pickle with synth (committed weights) and its cache_delta_infinity twin,
+    mode 'both', scaling 256x256_512x512; then evaluate and report. Gates:
+    every prediction file, <delta_avg >= 0.9, the cache's hits and misses
+    per pass and the launches as the policy's model predicts, every cache
+    write a CUDA tensor in the device tier; and the tracker checks above.
+    returns: the run's launch counts."""
+    import tempfile
+    from pathlib import Path
+    import numpy as np
+    from mft_tpu_torch.config import synth_config
+    from mft_tpu_torch.eval import evaluate, report, runner
+    from mft_tpu_torch.eval.tapvid import create_tapvid_dataset
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        t0 = time.perf_counter()
+        tapvid_pickle(tmp / "synthetic.pkl")
+        (tmp / "cdi.py").write_text(CDI_CONFIG)
+        (tmp / "dataset.py").write_text(DATASET_CONFIG.format(
+            pickle=str(tmp / "synthetic.pkl"), scaling=TAPVID_SCALING))
+        log(f"phase 13: synthetic DAVIS-form pickle, {TAPVID_SEQS} sequences x {TAPVID_T} "
+            f"frames {TAPVID_SIZE}x{TAPVID_SIZE}, {TAPVID_GRID ** 2} query points, in "
+            f"{time.perf_counter() - t0:.2f} s")
+        common = ["--dataset", str(tmp / "dataset.py"), "--export", str(tmp / "export")]
+        names = [synth_config().name, CDI_NAME]
+        args = runner.get_parser().parse_args(
+            ["--trackers", "synth", str(tmp / "cdi.py"), "--cache", str(tmp / "cache"),
+             "--mode", "both", *common])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = runner.run(args)
+        run_sec = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        files = sorted(p.name for name in names
+                       for p in (tmp / "export" / name / "results").glob("*.pklz"))
+        want_files = sorted(f"synth{s}-{m}.pklz" for _ in names for s in range(TAPVID_SEQS)
+                            for m in ("first", "strided"))
+        check(files == want_files, f"prediction files {files} != {want_files}")
+
+        deltas = synth_config().deltas
+        model = expected_runner_passes(deltas, (False, True))
+        got = [(p["mode"], p["config"] == CDI_NAME, p["start_frame"], p["direction"],
+                p["hits"], p["misses"]) for p in out["passes"]]
+        want = [(m["mode"], m["cdi"], m["start_frame"], m["direction"], m["hits"],
+                 m["misses"]) for m in model] * TAPVID_SEQS
+        check(got == want, f"cache hits/misses per pass {got} != the policy's {want}")
+        strided_fwd = [m for m in model if m["mode"] == "strided" and m["direction"] == "forward"
+                       and not m["cdi"]]
+        finite_valid = sum(sum(1 for d in deltas if math.isfinite(d)
+                               and t - int(d) >= m["start_frame"])
+                           for m in strided_fwd for t in range(m["start_frame"] + 1, TAPVID_T))
+        log(f"strided forward passes of synth: {sum(m['hits'] for m in strided_fwd)} hits "
+            f"(the protocol's valid finite pairs: {finite_valid}), "
+            f"{sum(m['misses'] for m in strided_fwd)} misses")
+        check(sum(m["hits"] for m in strided_fwd) == finite_valid
+              and not any(m["misses"] for m in strided_fwd),
+              "a strided forward pass missed a valid finite pair")
+        raft = sum(b > 0 for m in model for b in m["batches"]) * TAPVID_SEQS
+        frames = sum(len(m["batches"]) for m in model) * TAPVID_SEQS
+        want_counts = expected_counts(ops, corr_lookup_fused=11 * raft, corr_lookup=raft,
+                                      chain_select=frames, bilinear_warp=len(out["passes"]))
+        log(f"runner launches over {frames} frames ({raft} through RAFT) and "
+            f"{len(out['passes'])} conversions: {counts}")
+        check(counts == want_counts, f"runner launches {counts} != {want_counts}")
+        for name, state in out["caches"].items():
+            ok = (state["devices"] == [str(torch.empty(0, device=dev).device)]
+                  and state["ram_entries"] == 0 and state["disk_entries"] == 0)
+            log(f"cache of {name}: {state} {'ok' if ok else 'FAIL'}")
+            check(ok, f"{name}: cache writes left the device tier: {state}")
+        kinds = {}
+        for p, m in zip(out["passes"], model * TAPVID_SEQS):
+            k = kinds.setdefault(pass_kind(m["batches"], len(deltas)), [0, 0.0])
+            k[0] += p["frames"]
+            k[1] += p["seconds"]
+        log(f"runner: {len(out['passes'])} passes, {frames} frames in {run_sec:.2f} s; by pass "
+            f"kind (frames, s, frames/s): "
+            + "; ".join(f"{k} {n}, {sec:.3f}, {n / sec if sec else float('nan'):.2f}"
+                        for k, (n, sec) in kinds.items())
+            + f"; peak device memory {peak / 1e9:.3f} GB, device tier at its largest "
+            f"{max(s['device_bytes'] for s in out['caches'].values()) / 1e9:.3f} GB [{card}]")
+
+        eargs = evaluate.get_parser().parse_args(["--trackers", "synth", str(tmp / "cdi.py"),
+                                                  "--mode", "both", *common])
+        means = evaluate.run(eargs)
+        for (name, mode), m in sorted(means.items()):
+            ok = m["average_pts_within_thresh"] >= 0.9
+            log(f"TAP-Vid {name} {mode} (synthetic clip, x100): AJ "
+                f"{100 * m['average_jaccard']:.2f}, <delta_avg "
+                f"{100 * m['average_pts_within_thresh']:.2f}, OA "
+                f"{100 * m['occlusion_accuracy']:.2f} (gate: <delta_avg >= 90) "
+                f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"{name} {mode}: <delta_avg {m['average_pts_within_thresh']:.4f} < 0.9")
+        report.report(names, tmp / "export")
+
+        seq = next(create_tapvid_dataset(tmp / "synthetic.pkl", ["first"], TAPVID_SCALING))
+        video = np.ascontiguousarray(seq["data"]["first"]["video"][0][..., ::-1])
+        queries = seq["data"]["first"]["query_points"][0][:, 1:][:, ::-1].astype(np.int64)
+        fps = tapvid_tracker_checks(torch, ops, dev, card, video,
+                                    queries.astype(np.float32), tmp)
+        log(f"phase 13 frames/s by pass kind (one sequence, {TAPVID_T - 1} frames each): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in fps.items()) + f" [{card}]")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     # a hang exits non-zero with a traceback instead of running out the clock
     faulthandler.dump_traceback_later(900, exit=True)
@@ -2075,6 +2457,9 @@ def run() -> int:
         t = time.perf_counter()
         counts["bilinear_warp"] += run_hd(torch, ops, dev, card)
         log(f"phase 9 (and 11 at 1080x1920) seconds {time.perf_counter() - t:.2f}")
+        t = time.perf_counter()
+        tapvid_counts = run_tapvid(torch, ops, dev, card)
+        log(f"phase 13 seconds {time.perf_counter() - t:.2f}")
         for stats in (*lk.values(), cs, *fk.values(), *vk.values(), *fo.values(), cv,
                       *wk.values()):
             check(all(math.isfinite(stats[k]) for k in
@@ -2135,6 +2520,9 @@ def run() -> int:
     kernels.append(dict(name="bilinear_warp", route="cuda", source=src + "warp.cu",
                         replaces="mft_tpu/ops/warp_pallas.py:113",
                         launches=counts["bilinear_warp"], **wk["pallas 7x1080x1920x6"]))
+    for k in kernels:   # the runner's path (phase 13), its counts reset before it
+        if k["name"] in ("corr_lookup_fused", "corr_lookup", "chain_select", "bilinear_warp"):
+            k["launches_tapvid"] = tapvid_counts[k["name"]]
     log(f"total seconds {time.perf_counter() - t_all:.2f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -21,6 +21,14 @@ any file (those files import the JAX package), field for field:
   template pair warm-started from the previous frame;
 - ``demo_cpu_config()``: ``configs/MFT_demo_cpu_cfg.py``, 4 deltas and 4
   iterations in float32.
+
+Each carries its ``configs/`` file's stem as ``name`` (export directories
+are named as the JAX package's) and the port's ``MFT`` as ``tracker_class``.
+``tapvid_davis_config()`` rebuilds the dataset config
+``dataset_configs/tapvid_davis_256x256_512x512.py``. :func:`tracker_config`
+and :func:`dataset_config` take one of those names or the path of a ``.py``
+file whose ``get_config()`` builds a port config (the runner's
+``--trackers`` / ``--dataset``).
 """
 
 import importlib.util
@@ -183,3 +191,42 @@ def demo_cpu_config():
     conf.occlusion_threshold = 0.02
     conf.name = "MFT_demo_cpu_cfg"
     return conf
+
+
+def tapvid_davis_config():
+    """Dataset config of ``dataset_configs/tapvid_davis_256x256_512x512.py``:
+    the TAP-Vid-DAVIS pickle from the machine's ``env_settings()``, resized
+    to 256x256, then tracked at 512x512 (the reference's headline
+    protocol)."""
+    from mft_tpu_torch.environment import env_settings
+    conf = Config()
+    conf.pickles = [env_settings().tapvid_davis_dir]
+    conf.scaling = "256x256_512x512"
+    conf.name = "tapvid_davis_256x256_512x512"
+    return conf
+
+
+TRACKER_CONFIGS = {"default": default_config, "synth": synth_config, "fast": fast_config,
+                   "warm": warm_config, "demo_cpu": demo_cpu_config}
+DATASET_CONFIGS = {"tapvid_davis": tapvid_davis_config}
+
+
+def _named_or_file(spec, table):
+    if str(spec) in table:
+        return table[str(spec)]()
+    if str(spec).endswith(".py"):
+        return load_config(spec)
+    raise ValueError(f"unknown config {spec!r}: give one of {sorted(table)} or the "
+                     f"path of a .py file with get_config()")
+
+
+def tracker_config(spec):
+    """The tracker config named ``spec`` (a key of :data:`TRACKER_CONFIGS`)
+    or built by the ``.py`` file at ``spec``."""
+    return _named_or_file(spec, TRACKER_CONFIGS)
+
+
+def dataset_config(spec):
+    """The dataset config named ``spec`` (``'tapvid_davis'``) or built by
+    the ``.py`` file at ``spec``."""
+    return _named_or_file(spec, DATASET_CONFIGS)

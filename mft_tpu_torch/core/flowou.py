@@ -8,7 +8,8 @@ backward warp, point warp, sampling, chaining two results, forward-backward
 error. Every sample is one launch of ``ops.bilinear_warp`` in its 'exact'
 mode (float32 taps, zeros outside the image); ``plain=True`` runs its plain
 version on any device. ``ops`` is imported inside the functions, because it
-imports this module's neighbours.
+imports this module's neighbours. ``FlowOU.write`` / ``FlowOU.read`` go
+through the flowou codecs (``mft_tpu_torch.io.flowou_codecs``).
 """
 
 import dataclasses
@@ -16,6 +17,7 @@ import dataclasses
 import torch
 
 from mft_tpu_torch.core.coords import grid_coords
+from mft_tpu_torch.io import flowou_codecs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +50,16 @@ class FlowOU:
 
     def invalid_mask(self):
         return invalid_mask(self.flow)
+
+    def write(self, path):
+        """Write the result to a flowou file (the suffix picks the format)."""
+        flowou_codecs.write_flowou(path, self.flow, self.occlusion, self.sigma)
+
+    @classmethod
+    def read(cls, path, device=None) -> "FlowOU":
+        """A flowou file as float32 tensors on ``device`` (the CPU if None)."""
+        flow, occl, sigma = flowou_codecs.read_flowou(path)
+        return cls(*(torch.from_numpy(x).to(device) for x in (flow, occl, sigma)))
 
 
 def identity_flowou(shape, device=None, dtype=torch.float32) -> FlowOU:

@@ -1,0 +1,14 @@
+"""TAP-Vid evaluation: dataset reading, metrics, the benchmark runner,
+the evaluator and the report (port of ``mft_tpu/eval``; reference
+MFT/evaluation/, MFT/runners/ and run_eval_report.py).
+
+Not ported (ROADMAP A12): ``submissions.py``, the Kinetics, RGB-Stacking
+and JHMDB readers.
+"""
+
+from mft_tpu_torch.eval.metrics import compute_tapvid_metrics
+from mft_tpu_torch.eval.tapvid import (create_tapvid_dataset, resize_video,
+                                       sample_queries_first, sample_queries_strided)
+
+__all__ = ["compute_tapvid_metrics", "sample_queries_first", "sample_queries_strided",
+           "resize_video", "create_tapvid_dataset"]

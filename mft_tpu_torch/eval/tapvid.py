@@ -1,0 +1,265 @@
+"""TAP-Vid dataset reading and query sampling.
+
+A copy of ``mft_tpu/eval/tapvid.py`` (reference
+MFT/evaluation/tapvid_eval_stuff.py, DeepMind's Apache-2.0 protocol code)
+without OpenCV: pickle readers for DAVIS-form dicts, the multi-stage
+scaling strings ('256x256_512x512'), first/strided query sampling, and the
+fake/lazy video modes of metric-only runs. The protocol's conventions are
+kept: points in the pickles are [x, y] scaled to 0..1; query points are
+[t, y, x] in FINAL-resolution raster coordinates; strided queries every 5
+frames at visible positions.
+
+:func:`resize_video` reproduces ``cv2.resize`` on uint8 frames bit for bit,
+as the JAX package calls it: ``INTER_AREA`` when neither side grows (the
+integer-factor block average, 2 x 2 rounding half up, or the general area
+weights summed in float32 in OpenCV's order), ``INTER_LINEAR`` otherwise
+(11-bit fixed-point weights, the vertical pass in OpenCV's vector form
+((b0 * (S0 >> 4) >> 16) + (b1 * (S1 >> 4) >> 16) + 2) >> 2), a copy when the
+size is unchanged.
+
+Not ported (ROADMAP A12): Kinetics shards (JPEG frames: the card's machine
+has no JPEG decoder), the RGB-Stacking and the JHMDB readers; each raises
+``NotImplementedError``.
+"""
+
+import math
+import pickle
+
+import numpy as np
+
+from mft_tpu_torch.utils.misc import parse_scale_WH
+
+COEF_BITS = 11                      # cv2's INTER_RESIZE_COEF_BITS
+COEF_SCALE = 1 << COEF_BITS
+
+
+def _linear_tab(ssize: int, dsize: int, clamp: bool):
+    """cv2's INTER_LINEAR source index and fixed-point weights (a0, a1) per
+    destination index; ``clamp`` as on the horizontal axis (the vertical one
+    clips its rows instead)."""
+    scale = 1.0 / (dsize / ssize)
+    d = np.arange(dsize, dtype=np.float64)
+    f = ((d + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = f - s.astype(np.float32)
+    if clamp:
+        lo, hi = s < 0, s >= ssize - 1
+        f[lo | hi] = 0
+        s[lo] = 0
+        s[hi] = ssize - 1
+    a0 = np.rint((np.float32(1) - f) * np.float32(COEF_SCALE)).astype(np.int64)
+    a1 = np.rint(f * np.float32(COEF_SCALE)).astype(np.int64)
+    return s, a0, a1
+
+
+def _resize_linear(frame, Ho, Wo):
+    H, W, C = frame.shape
+    sx, a0, a1 = _linear_tab(W, Wo, clamp=True)
+    src = frame.astype(np.int64)
+    rows = (src[:, sx] * a0[None, :, None]
+            + src[:, np.minimum(sx + 1, W - 1)] * a1[None, :, None])   # (H, Wo, C)
+    sy, b0, b1 = _linear_tab(H, Ho, clamp=False)
+    s0 = rows[np.clip(sy, 0, H - 1)] >> 4
+    s1 = rows[np.clip(sy + 1, 0, H - 1)] >> 4
+    b0, b1 = b0[:, None, None], b1[:, None, None]
+    out = (((s0 * b0) >> 16) + ((s1 * b1) >> 16) + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def _area_tab(ssize: int, dsize: int):
+    """cv2's computeResizeAreaTab: (destination, source, float32 weight)
+    entries in OpenCV's order."""
+    scale = 1.0 / (dsize / ssize)
+    tab = []
+    for dx in range(dsize):
+        fsx1 = dx * scale
+        fsx2 = fsx1 + scale
+        cell = min(scale, ssize - fsx1)
+        sx1, sx2 = math.ceil(fsx1), math.floor(fsx2)
+        sx2 = min(sx2, ssize - 1)
+        sx1 = min(sx1, sx2)
+        if sx1 - fsx1 > 1e-3:
+            tab.append((dx, sx1 - 1, np.float32((sx1 - fsx1) / cell)))
+        for sx in range(sx1, sx2):
+            tab.append((dx, sx, np.float32(1.0 / cell)))
+        if fsx2 - sx2 > 1e-3:
+            tab.append((dx, sx2, np.float32(min(min(fsx2 - sx2, 1.0), cell) / cell)))
+    return tab
+
+
+def _resize_area(frame, Ho, Wo):
+    H, W, C = frame.shape
+    scale_x, scale_y = 1.0 / (Wo / W), 1.0 / (Ho / H)
+    ix, iy = int(round(scale_x)), int(round(scale_y))
+    eps = np.finfo(np.float64).eps
+    if abs(scale_x - ix) < eps and abs(scale_y - iy) < eps:
+        # integer factors: block sums (cv2's resizeAreaFast)
+        sums = (frame[:Ho * iy, :Wo * ix].astype(np.int64)
+                .reshape(Ho, iy, Wo, ix, C).sum(axis=(1, 3)))
+        if ix == 2 and iy == 2 and C in (1, 3, 4):
+            return ((sums + 2) >> 2).astype(np.uint8)
+        mean = sums.astype(np.float32) * np.float32(1.0 / (ix * iy))
+        return np.clip(np.rint(mean), 0, 255).astype(np.uint8)
+    src = frame.astype(np.float32)
+    rows = np.zeros((H, Wo, C), np.float32)
+    for dx, sx, alpha in _area_tab(W, Wo):
+        rows[:, dx] = rows[:, dx] + src[:, sx] * alpha
+    out = np.zeros((Ho, Wo, C), np.float32)
+    prev = None
+    for dy, sy, beta in _area_tab(H, Ho):
+        if dy != prev:
+            out[dy] = beta * rows[sy]
+            prev = dy
+        else:
+            out[dy] = out[dy] + beta * rows[sy]
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+def _resize_frame(frame, output_size):
+    """One (H, W, C) uint8 frame resized to output_size = (H', W') as
+    ``cv2.resize`` does in the JAX package's ``resize_video``."""
+    H, W = frame.shape[:2]
+    Ho, Wo = output_size
+    if (Ho, Wo) == (H, W):
+        return frame.copy()
+    if Ho <= H and Wo <= W:
+        return _resize_area(frame, Ho, Wo)
+    return _resize_linear(frame, Ho, Wo)
+
+
+def resize_video(video, output_size, fake_video=False, lazy_video=False):
+    """Resize an (N, H, W, 3) uint8 video to output_size = (H', W').
+
+    ``fake_video`` returns zeros (metric-only runs never look at pixels,
+    reference tapvid_eval_stuff.py:70-75); ``lazy_video`` returns per-frame
+    thunks.
+    """
+    N, H, W, C = video.shape
+    Ho, Wo = output_size
+    if fake_video:
+        return np.zeros((N, Ho, Wo, C), dtype=video.dtype)
+    if lazy_video:
+        return [(lambda f=video[i]: _resize_frame(f, (Ho, Wo))) for i in range(N)]
+    return np.stack([_resize_frame(video[i], (Ho, Wo)) for i in range(N)])
+
+
+def sample_queries_first(target_occluded, target_points, frames):
+    """One query per track at its first visible frame.
+
+    args: target_occluded (N, T) bool; target_points (N, T, 2) [x, y] in
+    raster coords; frames (T, H, W, 3).
+    returns dict with video (1, T, H, W, 3), query_points (1, N, 3) [t, y, x],
+    target_points (1, N, T, 2), occluded (1, N, T), trackgroup (1, N).
+    Reference parity: tapvid_eval_stuff.py:339-386.
+    """
+    valid = np.sum(~target_occluded, axis=1) > 0
+    target_points = target_points[valid]
+    target_occluded = target_occluded[valid]
+    trackgroup = np.arange(target_occluded.shape[0])
+
+    first_visible = np.argmax(~target_occluded, axis=1)  # (N,)
+    q = np.stack([
+        first_visible.astype(np.float64),
+        target_points[np.arange(len(first_visible)), first_visible, 1],
+        target_points[np.arange(len(first_visible)), first_visible, 0],
+    ], axis=-1)
+    return {
+        "video": frames[None],
+        "query_points": q[None],
+        "target_points": target_points[None],
+        "occluded": target_occluded[None],
+        "trackgroup": trackgroup[None],
+    }
+
+
+def sample_queries_strided(target_occluded, target_points, frames,
+                           query_stride=5):
+    """Queries at every ``query_stride``-th frame where the track is visible;
+    a track appears once per such frame (trackgroup records the source
+    track). Reference parity: tapvid_eval_stuff.py:275-336."""
+    queries, tracks, occs, groups = [], [], [], []
+    trackgroup = np.arange(target_occluded.shape[0])
+    for i in range(0, target_occluded.shape[1], query_stride):
+        mask = ~target_occluded[:, i]
+        q = np.stack([
+            np.full(target_occluded.shape[0], i, np.float64),
+            target_points[:, i, 1],
+            target_points[:, i, 0],
+        ], axis=-1)
+        queries.append(q[mask])
+        tracks.append(target_points[mask])
+        occs.append(target_occluded[mask])
+        groups.append(trackgroup[mask])
+    return {
+        "video": frames[None],
+        "query_points": np.concatenate(queries)[None],
+        "target_points": np.concatenate(tracks)[None],
+        "occluded": np.concatenate(occs)[None],
+        "trackgroup": np.concatenate(groups)[None],
+    }
+
+
+def load_pickle_sequences(pickle_path):
+    """A DAVIS-form TAP-Vid pickle as its ordered {name: record} dict
+    (reference tapvid_eval_stuff.py:552-579). A Kinetics shard (a list of
+    records with JPEG frames) raises ``NotImplementedError``."""
+    with open(pickle_path, "rb") as f:
+        data = pickle.load(f)
+    if isinstance(data, list):
+        raise NotImplementedError("TAP-Vid-Kinetics shards (JPEG frames) are not "
+                                  "ported yet (ROADMAP A12)")
+    return data
+
+
+def create_tapvid_dataset(pickle_path, query_modes, scaling=None,
+                          fake_video=False, lazy_video=False):
+    """Yield per-sequence evaluation records.
+
+    args:
+      pickle_path: DAVIS-form TAP-Vid pickle.
+      query_modes: iterable of 'first' / 'strided'.
+      scaling: resolution string ('256x256', '256x256_512x512', 'fullres',
+        ...): the video passes through ALL stages in order; query and target
+        points are scaled to the FINAL stage's resolution.
+      fake_video / lazy_video: skip or defer the pixels (metric-only runs).
+
+    yields: {'video_name': str, 'data': {mode: sampled record}}.
+    Reference parity: tapvid_eval_stuff.py:552-672.
+    """
+    if isinstance(query_modes, str):
+        query_modes = [query_modes]
+    sequences = load_pickle_sequences(pickle_path)
+    for name, record in sequences.items():
+        frames = record["video"]
+        N, H, W, C = frames.shape
+        stages = parse_scale_WH(scaling or "fullres", {"W": W, "H": H})
+        for stage in stages:
+            frames = resize_video(frames, (stage["H"], stage["W"]),
+                                  fake_video=fake_video, lazy_video=lazy_video)
+            if lazy_video and not isinstance(frames, np.ndarray):
+                break  # lazy mode: single stage only
+        final = stages[-1]
+
+        points = record["points"] * np.array([final["W"], final["H"]])
+        occluded = record["occluded"]
+
+        data = {}
+        for mode in query_modes:
+            if mode == "first":
+                data[mode] = sample_queries_first(occluded, points, frames)
+            elif mode == "strided":
+                data[mode] = sample_queries_strided(occluded, points, frames)
+            else:
+                raise ValueError(f"unknown query mode {mode}")
+        yield {"video_name": name, "data": data}
+
+
+def create_rgb_stacking_dataset(pickle_path, query_mode="strided", train_size=(256, 256)):
+    """TAP-Vid RGB-Stacking: not ported yet (ROADMAP A12)."""
+    raise NotImplementedError("the TAP-Vid RGB-Stacking reader is not ported yet "
+                              "(ROADMAP A12)")
+
+
+def create_jhmdb_dataset(jhmdb_path, train_size=(256, 256)):
+    """JHMDB pose tracking: not ported yet (ROADMAP A12)."""
+    raise NotImplementedError("the JHMDB reader is not ported yet (ROADMAP A12)")

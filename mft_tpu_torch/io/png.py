@@ -1,0 +1,171 @@
+"""PNG encode/decode in numpy, ``zlib`` and ``struct``: the part of
+``cv2.imencode``/``cv2.imdecode`` that the flowou codecs use, for a machine
+without OpenCV.
+
+Arrays follow OpenCV's convention, so a file written here decodes through
+cv2 to the same array and the reverse:
+
+- (H, W) or (H, W, 1) is grey, (H, W, 3) BGR and (H, W, 4) BGRA: the file
+  stores the samples as RGB(A), channels 2, 1, 0 (, 3) of the array;
+- uint8 gives 8-bit samples, uint16 16-bit ones (big-endian in the file).
+
+:func:`encode_png` writes one IDAT chunk, every row with the Up filter,
+and optional ``tEXt`` chunks after IHDR. :func:`decode_png` reads any
+non-interlaced 8- or 16-bit grey, RGB or RGBA PNG: all five row filters
+(None, Sub, Up, Average, Paeth; rows with Average or Paeth are undone along
+anti-diagonals, whose pixels do not depend on each other), any number of
+IDAT chunks; it checks every chunk's CRC and raises ``ValueError`` for a
+file it cannot decode. :func:`read_text` returns the ``tEXt`` chunks.
+"""
+
+import struct
+import zlib
+
+import numpy as np
+
+SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_COLOR_TYPES = {1: 0, 3: 2, 4: 6}          # channels -> PNG colour type
+_CHANNELS = {v: k for k, v in _COLOR_TYPES.items()}
+_BGR = {1: [0], 3: [2, 1, 0], 4: [2, 1, 0, 3]}   # array <-> file channel order
+
+
+def _chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def encode_png(img: np.ndarray, texts: dict = None, level: int = 1) -> bytes:
+    """PNG bytes of a uint8/uint16 (H, W), (H, W, 1), (H, W, 3) BGR or
+    (H, W, 4) BGRA array; ``texts`` {keyword: value} become ``tEXt`` chunks
+    (latin-1); ``level`` is zlib's (1, OpenCV's default: the fastest)."""
+    img = np.asarray(img)
+    if img.dtype not in (np.uint8, np.uint16):
+        raise TypeError(f"PNG samples must be uint8 or uint16, got {img.dtype}")
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.ndim != 3 or img.shape[2] not in _COLOR_TYPES or 0 in img.shape[:2]:
+        raise ValueError(f"cannot write a {img.shape} array as PNG")
+    H, W, C = img.shape
+    samples = img[..., _BGR[C]]
+    if img.dtype == np.uint16:
+        samples = samples.astype(">u2")
+    rows = np.ascontiguousarray(samples).view(np.uint8).reshape(H, -1)
+    up = rows.copy()
+    up[1:] -= rows[:-1]                    # the Up filter, modulo 256
+    raw = np.concatenate([np.full((H, 1), 2, np.uint8), up], axis=1)
+    depth = 16 if img.dtype == np.uint16 else 8
+    out = [SIGNATURE,
+           _chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth, _COLOR_TYPES[C], 0, 0, 0))]
+    for key, value in (texts or {}).items():
+        out.append(_chunk(b"tEXt", key.encode("latin-1") + b"\x00"
+                          + str(value).encode("latin-1")))
+    out.append(_chunk(b"IDAT", zlib.compress(raw.tobytes(), level)))
+    out.append(_chunk(b"IEND", b""))
+    return b"".join(out)
+
+
+def _chunks(buf: bytes):
+    """(kind, data) of every chunk up to IEND, CRCs checked."""
+    buf = bytes(buf)
+    if buf[:8] != SIGNATURE:
+        raise ValueError("not a PNG file (bad signature)")
+    pos = 8
+    while True:
+        if pos + 12 > len(buf):
+            raise ValueError("truncated PNG file")
+        (length,) = struct.unpack(">I", buf[pos:pos + 4])
+        kind = buf[pos + 4:pos + 8]
+        data = buf[pos + 8:pos + 8 + length]
+        if len(data) != length or pos + 12 + length > len(buf):
+            raise ValueError("truncated PNG file")
+        (crc,) = struct.unpack(">I", buf[pos + 8 + length:pos + 12 + length])
+        if zlib.crc32(kind + data) & 0xFFFFFFFF != crc:
+            raise ValueError(f"bad CRC in PNG chunk {kind!r}")
+        yield kind, data
+        if kind == b"IEND":
+            return
+        pos += 12 + length
+
+
+def read_text(buf: bytes) -> dict:
+    """{keyword: text} of the file's ``tEXt`` chunks (latin-1)."""
+    texts = {}
+    for kind, data in _chunks(buf):
+        if kind == b"tEXt":
+            key, _, value = data.partition(b"\x00")
+            texts[key.decode("latin-1")] = value.decode("latin-1")
+    return texts
+
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _unfilter(filt, raw, H, W, bpp):
+    """(H, W*bpp) uint8 reconstructed bytes from filtered rows ``raw``
+    (H, W*bpp) with filter types ``filt`` (H,)."""
+    if np.any(filt > 4):
+        raise ValueError(f"unknown PNG row filter {int(filt.max())}")
+    raw = raw.reshape(H, W, bpp)
+    if not np.any(filt >= 3):
+        # None, Sub and Up only: a row at a time, each vectorised
+        out = np.zeros((H, W, bpp), np.uint8)
+        prev = np.zeros((W, bpp), np.uint8)
+        for y in range(H):
+            row = raw[y]
+            if filt[y] == 1:
+                row = np.cumsum(row, axis=0, dtype=np.uint8)
+            elif filt[y] == 2:
+                row = row + prev
+            out[y] = prev = row
+        return out.reshape(H, W * bpp)
+    # Average or Paeth rows: byte (y, x) depends on (y, x-1), (y-1, x) and
+    # (y-1, x-1), so each anti-diagonal y + x = d is one vectorised step
+    out = np.zeros((H + 1, W + 1, bpp), np.int32)   # a zero row and column before
+    raw = raw.astype(np.int32)
+    filt = filt.astype(np.int32)
+    for d in range(H + W - 1):
+        y = np.arange(max(0, d - W + 1), min(H, d + 1))
+        x = d - y
+        a, b, c = out[y + 1, x], out[y, x + 1], out[y, x]
+        f = filt[y][:, None]
+        pred = np.select([f == 1, f == 2, f == 3, f == 4],
+                         [a, b, (a + b) >> 1, _paeth(a, b, c)], 0)
+        out[y + 1, x + 1] = (raw[y, x] + pred) & 0xFF
+    return out[1:, 1:].astype(np.uint8).reshape(H, W * bpp)
+
+
+def decode_png(buf) -> np.ndarray:
+    """The array of PNG bytes ``buf``, as ``cv2.imdecode(buf,
+    IMREAD_UNCHANGED)`` gives it: (H, W) grey, (H, W, 3) BGR or (H, W, 4)
+    BGRA, uint8 or uint16."""
+    header, idat = None, []
+    for kind, data in _chunks(np.asarray(buf, np.uint8).tobytes()
+                              if isinstance(buf, np.ndarray) else buf):
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", data)
+        elif kind == b"IDAT":
+            idat.append(data)
+    if header is None or not idat:
+        raise ValueError("PNG file without IHDR or IDAT")
+    W, H, depth, ctype, comp, filt_method, interlace = header
+    if ctype not in _CHANNELS or depth not in (8, 16) or comp or filt_method or interlace:
+        raise ValueError(f"unsupported PNG: colour type {ctype}, depth {depth}, "
+                         f"interlace {interlace}")
+    C = _CHANNELS[ctype]
+    bpp = C * depth // 8
+    try:
+        data = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    except zlib.error as e:
+        raise ValueError(f"corrupt PNG image data: {e}") from None
+    if data.size != H * (1 + W * bpp):
+        raise ValueError(f"PNG image data holds {data.size} bytes, expected "
+                         f"{H * (1 + W * bpp)}")
+    rows = data.reshape(H, 1 + W * bpp)
+    out = _unfilter(rows[:, 0], rows[:, 1:], H, W, bpp)
+    if depth == 16:
+        out = out.view(">u2").astype(np.uint16)
+    img = out.reshape(H, W, C)[..., _BGR[C]]
+    return np.ascontiguousarray(img[..., 0] if C == 1 else img)

@@ -149,12 +149,39 @@ def corr_lookup_mixed_ref(folded, fdims, padded, coords, radius: int = 4) -> tor
     return corr_lookup_ref(unfold_levels(folded, fdims) + list(padded), coords, radius)
 
 
+def fused_product_ref(samples: torch.Tensor, wc: torch.Tensor) -> torch.Tensor:
+    """(M, F) float32 sums samples (M, C) @ wc (C, F) in one fixed order:
+    sequential float32 ``acc + a*b`` over k = 0..C-1, so an output's bits
+    depend on its row alone, never on the row count (a library matmul picks
+    its order by shape). A product of two bfloat16 values is exact in
+    float32, so in bfloat16 each step is the FMA of K1's rounding repair
+    (``csrc/corr_lookup.cu plain_sum``) and the sums are its sums; float32
+    products round once before the add (K1's float32 kernel fuses them, and
+    is held to a tolerance)."""
+    st = samples.float().t().contiguous()     # (C, M): one row a step
+    w = wc.float()
+    C, M = st.shape
+    acc = st.new_zeros((M, w.shape[1]))
+    # on the CPU in blocks of rows small enough for one thread: a step over
+    # all M rows would fork and join the thread pool C times a call, which
+    # costs seconds when other processes share the cores
+    rows = max(1, 16384 // w.shape[1]) if acc.device.type == "cpu" else M
+    for r in range(0, M, rows):
+        a, sr = acc[r:r + rows], st[:, r:r + rows]
+        for k in range(C):
+            a.addcmul_(sr[k, :, None], w[k])
+    return acc
+
+
 def corr_lookup_fused_ref(pyramid, coords, wc, bias, radius: int = 4):
-    """Plain version of :func:`corr_lookup_fused`."""
+    """Plain version of :func:`corr_lookup_fused`: the samples rounded through
+    the volume dtype, :func:`fused_product_ref`, the float32 bias, relu, one
+    rounding."""
     dt = pyramid[0].dtype
-    samples = _samples_ref(pyramid, coords, radius).to(dt).float()
-    acc = torch.matmul(samples, wc.to(dt).float()) + bias.float()
-    return torch.relu(acc).to(dt)
+    samples = _samples_ref(pyramid, coords, radius).to(dt)
+    B, P, C = samples.shape
+    acc = fused_product_ref(samples.reshape(B * P, C), wc.to(dt)) + bias.float()
+    return torch.relu(acc).to(dt).reshape(B, P, -1)
 
 
 # --------------------------------------------------------------------------- #

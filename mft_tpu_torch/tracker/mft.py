@@ -18,14 +18,23 @@ Port of ``mft_tpu/tracker/mft.py`` (reference MFT/MFT.py:13-185):
   from the previous frame's selected flow;
 - ``timers_enabled``: the unfused step of JAX's ``track`` (no feature ring:
   both images of every pair encoded by ``forward_batch``), its two phases
-  timed with device synchronisation; ``meta.phase_ms`` holds their ms.
-
-Not ported: FlowCache reads/writes and injected pairs
-(``cache_delta_infinity``) and ``track_chunk``. A config that sets
-``cache_delta_infinity`` raises (:data:`UNPORTED_OPTIONS`) instead of being
-tracked as the default frame.
+  timed with device synchronisation; ``meta.phase_ms`` holds their ms;
+- ``init(img, flow_cache=FlowCache)`` (:meth:`MFT._track_fused_cached`,
+  JAX ``_track_fused_cached``): pairwise flows are read from and written to
+  a :class:`mft_tpu_torch.io.FlowCache`, keyed (left frame, right frame),
+  so that passes over one clip from other start frames reuse them. A frame
+  with any valid finite pair missing runs the whole batch and writes every
+  cacheable miss back (on the card as device rows); a frame whose valid
+  finite pairs all hit runs RAFT on the pairs that missed alone (the
+  template pair, unless ``cache_delta_infinity`` makes it cacheable too),
+  the hits injected; with none left it runs no RAFT at all, only the encode,
+  chain + select and the ring writes;
+- ``track_chunk(imgs)``: K frames, the same results as K calls of
+  :meth:`MFT.track`, bit for bit (JAX's one-dispatch chunk; the port runs
+  the K frame steps in turn).
 """
 
+import dataclasses
 from types import SimpleNamespace
 
 import numpy as np
@@ -38,11 +47,15 @@ from mft_tpu_torch.tracker.fused import chain_select, chain_select_ref
 from mft_tpu_torch.utils.timing import general_time_measurer
 
 
-# tracker options of the JAX package that change the frame step, with the
-# item of ROADMAP.md that ports them; a config that sets one raises
-UNPORTED_OPTIONS = {
-    "cache_delta_infinity": "A6 (FlowCache and injected pairs)",
-}
+@dataclasses.dataclass
+class _Candidate:
+    """One delta pair of a frame: its left frame's id and ring slot, whether
+    it is valid (its left frame exists) and whether its flow may be cached."""
+    delta: float
+    left_id: int
+    slot: int
+    valid: bool
+    cacheable: bool
 
 
 class MFT:
@@ -51,7 +64,7 @@ class MFT:
     ``config.exact_chain`` is accepted with either value: the port's chain +
     select (kernel and plain version) always computes the exact
     ``chain_select_ref`` math, which is what the option asks of the JAX
-    tracker. The options of :data:`UNPORTED_OPTIONS` raise when set.
+    tracker.
     """
 
     def __init__(self, config, device="cuda"):
@@ -63,19 +76,25 @@ class MFT:
                 "warm_start_inf and cache_delta_infinity cannot be combined: "
                 "warm-started template flows depend on the tracking history "
                 "that produced them, so they are not reusable cache entries")
-        for key, item in UNPORTED_OPTIONS.items():
-            if bool(getattr(config, key)):
-                raise NotImplementedError(f"{key} is not ported yet (ROADMAP {item})")
         self.iters_schedule = self._iters_schedule()
-        self.timers_enabled = bool(config.timers_enabled)
         self.device = resolve_device(device)
         finite = [int(d) for d in self.deltas if np.isfinite(d)]
         self.ring = max(finite) if finite else 1
         self.template_slot = self.ring
-        self.occlusion_threshold = float(cfg_value(config.occlusion_threshold, 0.02))
         self.flower = config.flow_config.of_class(config.flow_config,
                                                   device=self.device)
+        self.flow_cache = None
         self._idx_cache = {}
+
+    # read from self.C on every use: a runner may swap configs that share
+    # the flow setup (deltas, schedule, warm start) on one tracker
+    @property
+    def occlusion_threshold(self) -> float:
+        return float(cfg_value(self.C.occlusion_threshold, 0.02))
+
+    @property
+    def timers_enabled(self) -> bool:
+        return bool(self.C.timers_enabled)
 
     def _warm_start(self) -> bool:
         """``warm_start_inf``: the template (delta=inf) pair's iterations start
@@ -117,22 +136,26 @@ class MFT:
                 f"flow_iters_schedule len {len(out)} != {len(self.deltas)} deltas")
         return out
 
-    def _flow_kwargs(self, t, batch):
-        """The keywords of the flower's forward for frame ``t``: the schedule
-        and, in warm-start mode, the previous frame's flow for the template
-        pair (its index ``init_slot`` when ``batch`` is False, else as a
-        full-batch init). Unset options are not passed."""
+    def _flow_kwargs(self, t, idx=None, batch=False):
+        """The keywords of the flower's forward for frame ``t`` over the pairs
+        ``idx`` (all of them if None, JAX ``_features_fwd(compute_idx)``):
+        the schedule's entries for those pairs and, in warm-start mode when
+        the template pair is among them, the previous frame's flow for it
+        (with its position in the sub-batch as ``init_slot`` when ``batch``
+        is False, else as a sub-batch init). Unset options are not passed."""
+        idx = list(range(len(self.deltas))) if idx is None else list(idx)
         kw = {}
         if self.iters_schedule is not None:
-            kw["iters_schedule"] = self.iters_schedule
-        if self._warm_start():
+            kw["iters_schedule"] = tuple(self.iters_schedule[i] for i in idx)
+        if self._warm_start() and self._inf_idx in idx:
             prev = self.mem_flow[self._prev_slot(t)]
+            pos = idx.index(self._inf_idx)
             if batch:
-                init = prev.new_zeros((len(self.deltas), *prev.shape))
-                init[self._inf_idx] = prev
+                init = prev.new_zeros((len(idx), *prev.shape))
+                init[pos] = prev
                 kw["init_flow"] = init
             else:
-                kw["init_flow"], kw["init_slot"] = prev, self._inf_idx
+                kw["init_flow"], kw["init_slot"] = prev, pos
         return kw
 
     @property
@@ -154,15 +177,25 @@ class MFT:
             img = np.ascontiguousarray(img[:, :, ::-1])
         return torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
 
+    def _row_to_device(self, x) -> torch.Tensor:
+        """A cache entry's array on the device as float32 (a device-tier
+        tensor passes through with no copy)."""
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device, torch.float32)
+        return torch.from_numpy(np.asarray(x, np.float32)).to(self.device)
+
     # ------------------------------------------------------------------ #
-    def init(self, img, start_frame_i=0, time_direction=1):
-        """Initialize tracking on the template frame (reference MFT.py:22-53)."""
+    def init(self, img, start_frame_i=0, time_direction=1, flow_cache=None):
+        """Initialize tracking on the template frame (reference MFT.py:22-53);
+        ``flow_cache`` an optional :class:`mft_tpu_torch.io.FlowCache` the
+        frames read pairwise flows from and write them to."""
         if time_direction not in (+1, -1):
             raise ValueError(f"time_direction must be +1 or -1, got {time_direction}")
         self.img_H, self.img_W = img.shape[:2]
         self.start_frame_i = int(start_frame_i)
         self.current_frame_i = self.start_frame_i
         self.time_direction = int(time_direction)
+        self.flow_cache = flow_cache
 
         H, W, S, dev = self.img_H, self.img_W, self.ring + 1, self.device
         img_d = self._to_device(img)
@@ -189,33 +222,38 @@ class MFT:
                 or (self.time_direction < 0 and frame_i > self.start_frame_i))
 
     def _candidates(self, t):
-        """(ring slot, valid) of each delta's left frame at frame ``t``
-        (reference MFT.py:74-102): the template for delta=inf, for the start
-        frame and (invalid) for frames before the start."""
+        """The delta pairs of frame ``t`` (reference MFT.py:74-102, JAX
+        ``_candidates``): the template for delta=inf (cacheable only with
+        ``cache_delta_infinity``), for the start frame and (invalid) for
+        frames before the start."""
         out = []
+        cache_inf = bool(self.C.cache_delta_infinity)
         for delta in self.deltas:
             if np.isinf(delta):
-                out.append((self.template_slot, True))
+                out.append(_Candidate(delta, self.start_frame_i, self.template_slot,
+                                      True, cache_inf))
                 continue
             li = t - int(delta) * self.time_direction
             if self.is_before_start(li):
-                out.append((self.template_slot, False))
+                out.append(_Candidate(delta, li, self.template_slot, False, False))
             elif li == self.start_frame_i:
-                out.append((self.template_slot, True))
+                out.append(_Candidate(delta, li, self.template_slot, True, True))
             else:
-                out.append((li % self.ring, True))
+                out.append(_Candidate(delta, li, li % self.ring, True, True))
         return out
 
-    def _step_indices(self, cands, t):
-        """Device (slots, valid) and the host write slot, cached: the pattern
-        is periodic in t, so after one ring cycle nothing is uploaded."""
-        key = tuple(zip(*cands))
+    def _index(self, values, dtype=torch.long) -> torch.Tensor:
+        """A device tensor of ``values``, cached: the patterns are periodic in
+        the frame index, so after one ring cycle nothing is uploaded."""
+        key = (tuple(values), dtype)
         if key not in self._idx_cache:
-            self._idx_cache[key] = (
-                torch.tensor(key[0], dtype=torch.long, device=self.device),
-                torch.tensor(key[1], dtype=torch.bool, device=self.device))
-        slots, valid = self._idx_cache[key]
-        return slots, valid, t % self.ring
+            self._idx_cache[key] = torch.tensor(key[0], dtype=dtype, device=self.device)
+        return self._idx_cache[key]
+
+    def _step_indices(self, cands, t):
+        """Device (slots, valid) of the candidates and the host write slot."""
+        return (self._index([c.slot for c in cands]),
+                self._index([c.valid for c in cands], torch.bool), t % self.ring)
 
     def pairs(self, img, t):
         """The fused frame step up to chain + select, for device image
@@ -234,7 +272,7 @@ class MFT:
         cnet1 = self.mem_cnet.index_select(0, slots)
         fmap2 = f_new.expand(N, *f_new.shape[1:])
         flows, occls, sigmas = self.flower.features_forward(
-            fmap1, fmap2, cnet1, self.img_H, self.img_W, **self._flow_kwargs(t, False))
+            fmap1, fmap2, cnet1, self.img_H, self.img_W, **self._flow_kwargs(t))
         right = FlowOU(flow=flows, occlusion=occls, sigma=sigmas)
         return self._left(slots), right, valid, (f_new, c_new)
 
@@ -243,17 +281,6 @@ class MFT:
         return FlowOU(flow=self.mem_flow.index_select(0, slots),
                       occlusion=self.mem_occl.index_select(0, slots),
                       sigma=self.mem_sigma.index_select(0, slots))
-
-    def _acquire_flows(self, img, slots, t) -> FlowOU:
-        """The unfused step's pairwise flows (JAX ``_acquire_flows`` without
-        a FlowCache): every candidate, invalid ones included (they read the
-        template slot and are masked in selection), through
-        ``forward_batch`` on the ring's images and ``img``."""
-        left = self.mem_imgs.index_select(0, slots)
-        right = img.expand(len(self.deltas), *img.shape)
-        flows, occls, sigmas = self.flower.forward_batch(left, right,
-                                                         **self._flow_kwargs(t, True))
-        return FlowOU(flow=flows, occlusion=occls, sigma=sigmas)
 
     def _select_and_write(self, img, left, right, valid, wslot):
         """Chain + select (K3, or its plain version with ``plain_ops``) and
@@ -265,6 +292,118 @@ class MFT:
         self.mem_occl[wslot] = result.occlusion
         self.mem_sigma[wslot] = result.sigma
         return result
+
+    def _write_features(self, wslot, f_new, c_new):
+        self.mem_fmap[wslot] = f_new[0]
+        self.mem_cnet[wslot] = c_new[0]
+
+    # ------------------------------------------------------------------ #
+    # FlowCache
+    def _read_cache_hits(self, cands, t):
+        """One cache policy for both frame steps (JAX ``_read_cache_hits``):
+        read every valid cacheable candidate. returns: ({candidate index:
+        cached (flow, occl, sigma)}, whether ALL valid finite pairs hit, the
+        condition for skipping the full batch)."""
+        cache = self.flow_cache
+        cached = {}
+        if cache is not None:
+            for i, c in enumerate(cands):
+                if c.valid and c.cacheable:
+                    hit = cache.read(c.left_id, t)
+                    if hit is not None:
+                        cached[i] = hit
+        finite_valid = [i for i, c in enumerate(cands) if c.valid and np.isfinite(c.delta)]
+        all_finite_hit = cache is not None and all(i in cached for i in finite_valid)
+        return cached, all_finite_hit
+
+    def _write_rows(self, cands, t, idx, right: FlowOU):
+        """Write the rows ``idx`` of the batch ``right`` to the cache under
+        their candidates' keys: one gather a field into tensors that hold
+        those rows alone, so that the device tier's bytes are what it keeps
+        alive."""
+        if not idx:
+            return
+        rows = self._index([k for k, _ in idx])
+        fl, oc, si = (x.index_select(0, rows) for x in (right.flow, right.occlusion,
+                                                       right.sigma))
+        for p, (_, i) in enumerate(idx):
+            self.flow_cache.write(cands[i].left_id, t, fl[p], oc[p], si[p])
+
+    def _stack_rows(self, rows, N):
+        """(N, ...) flows, occlusions and sigmas from {candidate index: row
+        triple}; the candidates without a row (invalid ones) get zeros."""
+        if len(rows) < N:
+            H, W = self.img_H, self.img_W
+            zero = (torch.zeros((H, W, 2), device=self.device),
+                    torch.zeros((H, W), device=self.device),
+                    torch.zeros((H, W), device=self.device))
+        per = [rows[i] if i in rows else zero for i in range(N)]
+        return FlowOU(*(torch.stack([self._row_to_device(p[f]) for p in per])
+                        for f in range(3)))
+
+    def _track_fused_cached(self, img, cands, t):
+        """The fused frame step under a FlowCache (JAX ``_track_fused_cached``,
+        reference MFT.py:189-230). Any valid finite pair missing: the whole
+        batch, every cacheable miss written back (computed values win over
+        stale hits). All of them hit: the injected variant (JAX
+        ``_get_fused_frame_inject``): only the valid pairs that missed run
+        through RAFT, with their schedule entries and, in warm-start mode,
+        the template pair's init at its place in the sub-batch; the hits go
+        in as they are (device-tier rows with no copy); with no pair to
+        compute the frame runs no RAFT at all."""
+        cached, all_finite_hit = self._read_cache_hits(cands, t)
+        if not all_finite_hit:
+            return self._fused_step(img, t, cands, cached)
+        slots, valid, wslot = self._step_indices(cands, t)
+        compute_idx = [i for i, c in enumerate(cands) if c.valid and i not in cached]
+        f_new, c_new = self.flower.padded_encode(img[None])
+        rows = dict(cached)
+        if compute_idx:
+            sub = slots.index_select(0, self._index(compute_idx))
+            K = len(compute_idx)
+            comp = self.flower.features_forward(
+                self.mem_fmap.index_select(0, sub), f_new.expand(K, *f_new.shape[1:]),
+                self.mem_cnet.index_select(0, sub), self.img_H, self.img_W,
+                **self._flow_kwargs(t, compute_idx))
+            comp = FlowOU(*comp)
+            for p, i in enumerate(compute_idx):
+                rows[i] = (comp.flow[p], comp.occlusion[p], comp.sigma[p])
+            self._write_rows(cands, t, [(p, i) for p, i in enumerate(compute_idx)
+                                        if cands[i].cacheable], comp)
+        right = self._stack_rows(rows, len(cands))
+        result = self._select_and_write(img, self._left(slots), right, valid, wslot)
+        self._write_features(wslot, f_new, c_new)
+        return result
+
+    def _acquire_flows(self, img, cands, t) -> FlowOU:
+        """The unfused step's pairwise flows (JAX ``_acquire_flows``): cache
+        reads, then one ``forward_batch`` on the ring's images and ``img``
+        over every candidate, invalid ones included (they read the template
+        slot and are masked in selection), or, when every valid finite pair
+        hit, over the valid misses alone; computed cacheable misses are
+        written back."""
+        N = len(cands)
+        cached, all_finite_hit = self._read_cache_hits(cands, t)
+        if all_finite_hit:
+            compute_idx = [i for i, c in enumerate(cands) if c.valid and i not in cached]
+        else:
+            compute_idx = list(range(N))
+        rows = dict(cached)
+        if compute_idx:
+            sub = self._index([cands[i].slot for i in compute_idx])
+            left = self.mem_imgs.index_select(0, sub)
+            right = img.expand(len(compute_idx), *img.shape)
+            comp = FlowOU(*self.flower.forward_batch(
+                left, right, **self._flow_kwargs(t, compute_idx, batch=True)))
+            for p, i in enumerate(compute_idx):
+                rows[i] = (comp.flow[p], comp.occlusion[p], comp.sigma[p])
+            if self.flow_cache is not None:
+                self._write_rows(cands, t, [(p, i) for p, i in enumerate(compute_idx)
+                                            if cands[i].valid and cands[i].cacheable
+                                            and i not in cached], comp)
+            if len(compute_idx) == N:
+                return comp
+        return self._stack_rows(rows, N)
 
     # ------------------------------------------------------------------ #
     def track(self, input_img):
@@ -278,24 +417,74 @@ class MFT:
         meta = SimpleNamespace()
         if self.timers_enabled:
             meta.result, meta.phase_ms = self._track_timed(img, t)
-            return meta
+        elif self.flow_cache is not None:
+            meta.result = self._track_fused_cached(img, self._candidates(t), t)
+        else:
+            meta.result = self._fused_step(img, t)
+        return meta
+
+    def _fused_step(self, img, t, cands=None, cached=()):
+        """The fused frame step over the whole batch; with ``cands``, its
+        valid cacheable pairs but those in ``cached`` are written to the
+        cache. returns: the frame's result."""
         left, right, valid, (f_new, c_new) = self.pairs(img, t)
         wslot = t % self.ring
-        meta.result = self._select_and_write(img, left, right, valid, wslot)
-        self.mem_fmap[wslot] = f_new[0]
-        self.mem_cnet[wslot] = c_new[0]
-        return meta
+        result = self._select_and_write(img, left, right, valid, wslot)
+        self._write_features(wslot, f_new, c_new)
+        if cands is not None:
+            self._write_rows(cands, t, [(i, i) for i, c in enumerate(cands)
+                                        if c.valid and c.cacheable and i not in cached],
+                             right)
+        return result
+
+    def track_chunk(self, imgs):
+        """Track ``len(imgs)`` frames (JAX ``track_chunk``): a list of host
+        images or a stacked (K, H, W, 3) RGB device tensor. The same results
+        as one :meth:`track` call a frame, bit for bit; one meta a frame.
+
+        With a FlowCache attached, the chunk probes the cache
+        (``contains``, no reads): if it holds any valid cacheable pair of
+        the chunk's frames, every frame goes through :meth:`track` (hits and
+        injection need the per-frame reads); else every frame runs the full
+        batch with no reads and writes its valid cacheable pairs back, as
+        JAX's chunk on a cold cache does. The timer step always goes frame
+        by frame.
+        """
+        if isinstance(imgs, torch.Tensor) and imgs.dim() == 4:
+            imgs = list(imgs.unbind(0))
+        else:
+            imgs = list(imgs)
+        if self.timers_enabled or not imgs:
+            return [self.track(im) for im in imgs]
+        td = self.time_direction
+        ts = [self.current_frame_i + (k + 1) * td for k in range(len(imgs))]
+        cands_k = [self._candidates(t) for t in ts]
+        cache = self.flow_cache
+        if cache is not None and any(cache.contains(c.left_id, t)
+                                     for ck, t in zip(cands_k, ts)
+                                     for c in ck if c.valid and c.cacheable):
+            return [self.track(im) for im in imgs]
+        metas = []
+        for im, t, ck in zip(imgs, ts, cands_k):
+            self.current_frame_i = t
+            meta = SimpleNamespace()
+            meta.result = self._fused_step(self._to_device(im), t,
+                                           ck if cache is not None else None)
+            metas.append(meta)
+        return metas
 
     def _track_timed(self, img, t):
         """The unfused frame step of ``timers_enabled`` (JAX ``track``'s
-        unfused branch): the pairwise flows, then chain + select and the
-        ring writes, each phase timed to its device completion.
+        unfused branch): the pairwise flows (cache reads and writes
+        included), then chain + select and the ring writes, each phase timed
+        to its device completion.
         returns: (result, {'flow+chain': ms, 'selection': ms})."""
         sync = torch.cuda.synchronize if self.device.type == "cuda" else None
-        slots, valid, wslot = self._step_indices(self._candidates(t), t)
+        cands = self._candidates(t)
+        slots, valid, wslot = self._step_indices(cands, t)
         flow_timer = general_time_measurer("flow+chain", device_sync_fn=sync,
                                            start_now=True)
-        right = self._acquire_flows(img, slots, t)
+        right = self._acquire_flows(img, cands, t)
         flow_timer.stop()
         sel_timer = general_time_measurer("selection", device_sync_fn=sync,
                                           start_now=True)

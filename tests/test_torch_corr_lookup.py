@@ -161,6 +161,32 @@ def test_fused_plain_matches_pallas_fused(rng, dtype):
                                atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_plain_order_is_fixed(rng, dtype):
+    """K1's plain version sums in one fixed order, sequential FMAs over k
+    (the order of K1's repair): every pair's rows have the same bits whether
+    the call holds 1, 2 or all B pairs, and in bf16 the sums equal numpy's
+    sequential float32 ``acc + a*b`` (each bf16 product exact)."""
+    pyr, coords, wc, bias = _inputs(rng, jnp.float32)
+    tp, tc = _torch_pyr(pyr, dtype), torch.from_numpy(coords)
+    tw, tb = torch.from_numpy(wc).to(TORCH_DT[dtype]), torch.from_numpy(bias)
+    whole = ops.corr_lookup_fused_ref(tp, tc, tw, tb, R)
+    for m in (1, B - 1):
+        part = ops.corr_lookup_fused_ref([l[:m] for l in tp], tc[:m], tw, tb, R)
+        assert torch.equal(part, whole[:m])
+        rest = ops.corr_lookup_fused_ref([l[m:] for l in tp], tc[m:], tw, tb, R)
+        assert torch.equal(rest, whole[m:])
+    if dtype == "bfloat16":
+        from mft_tpu_torch.ops.corr_lookup import fused_product_ref
+        s = ops.corr_lookup_ref(tp, tc, R).reshape(B * P, -1)
+        got = fused_product_ref(s, tw).numpy()
+        a, w = s.float().numpy(), tw.float().numpy()
+        want = np.zeros((B * P, w.shape[1]), np.float32)
+        for k in range(a.shape[1]):
+            want = want + a[:, k:k + 1] * w[k]
+        np.testing.assert_array_equal(got, want)
+
+
 def test_wrappers_use_plain_version_on_cpu(rng):
     pyr, coords, wc, bias = _inputs(rng, jnp.float32)
     tp, tc = _torch_pyr(pyr, "float32"), torch.from_numpy(coords)

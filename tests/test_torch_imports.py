@@ -1,9 +1,11 @@
 """The port stands alone: no module of mft_tpu_torch, and not chip_smoke.py,
-imports JAX or the JAX package, and chip_smoke.py refuses to run without a
+imports JAX or the JAX package, nor OpenCV, pandas, tabulate or PIL (the
+card's machine has none of them), and chip_smoke.py refuses to run without a
 card or without the package beside it.
 
 Each check runs in a fresh interpreter whose import system refuses ``jax``,
-``flax``, ``msgpack`` and ``mft_tpu`` (and their submodules).
+``flax``, ``msgpack``, ``mft_tpu``, ``cv2``, ``pandas``, ``tabulate`` and
+``PIL`` (and their submodules).
 """
 
 import os
@@ -18,7 +20,8 @@ import pytest
 import mft_tpu_torch
 
 REPO = Path(__file__).resolve().parents[1]
-BLOCKED = ("jax", "jaxlib", "flax", "msgpack", "mft_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "msgpack", "mft_tpu", "cv2", "pandas",
+           "tabulate", "PIL")
 
 _BLOCKER = f"""
 import importlib.abc, sys
@@ -56,7 +59,13 @@ def test_port_modules_list_is_complete():
                  "mft_tpu_torch.core.flowou", "mft_tpu_torch.tracker.select",
                  "mft_tpu_torch.tracker.point_tracking", "mft_tpu_torch.tracker.fused",
                  "mft_tpu_torch.models.raft.wrapper", "mft_tpu_torch.config",
-                 "mft_tpu_torch.models.raft.flax_msgpack", "mft_tpu_torch.utils.timing"):
+                 "mft_tpu_torch.models.raft.flax_msgpack", "mft_tpu_torch.utils.timing",
+                 "mft_tpu_torch.utils.misc", "mft_tpu_torch.utils.repro",
+                 "mft_tpu_torch.environment", "mft_tpu_torch.io.png",
+                 "mft_tpu_torch.io.flowou_codecs", "mft_tpu_torch.io.cache",
+                 "mft_tpu_torch.eval.tapvid", "mft_tpu_torch.eval.metrics",
+                 "mft_tpu_torch.eval.runner", "mft_tpu_torch.eval.evaluate",
+                 "mft_tpu_torch.eval.report"):
         assert want in mods
 
 
@@ -107,8 +116,8 @@ def test_chip_smoke_alone_fails(tmp_path):
                                   "tools/torch_window_probe.py",
                                   "tools/torch_lookup_probe.py"])
 def test_no_jax_import_statements(path):
-    """Also by text: no import line names jax, flax or mft_tpu (the port's
-    own package name aside)."""
+    """Also by text: no import line names jax, flax, mft_tpu, cv2, pandas,
+    tabulate or PIL (the port's own package name aside)."""
     root = REPO / path
     files = [root] if root.is_file() else sorted(root.rglob("*.py"))
     for f in files:

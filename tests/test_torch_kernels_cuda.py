@@ -1260,3 +1260,84 @@ def test_mft_scheduled_path_launches_each_kernel(cuda):
         want.update(corr_lookup_fused=6, corr_lookup=6, chain_select=3)
         assert ops.launch_counts() == want
         assert timers == hasattr(meta, "phase_ms")
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 7])
+def test_fused_kernel_plain_order_at_every_row_count(np_rng, cuda, m):
+    """K1 (bf16, tensor cores) against its plain version on a volume of 7
+    pairs sliced to its first m: 0 outputs differ (the plain product sums in
+    the order of K1's repair at every row count), and each side's rows equal
+    the whole 7-pair call's."""
+    stored, coords = _sliced_volume(np_rng, "volume", 7, cuda)
+    wc = torch.from_numpy(np_rng.standard_normal((256, 324)).astype(np.float32) * 0.05)
+    wc, bias = wc.to(cuda).t(), torch.from_numpy(
+        np_rng.standard_normal(256).astype(np.float32) * 0.1).to(cuda)
+    whole = (ops.corr_lookup_fused(stored, coords, wc, bias, 4),
+             ops.corr_lookup_fused_ref(stored, coords, wc, bias, 4))
+    sliced = [lvl[:m] for lvl in stored]
+    got = ops.corr_lookup_fused(sliced, coords[:m].contiguous(), wc, bias, 4)
+    want = ops.corr_lookup_fused_ref(sliced, coords[:m].contiguous(), wc, bias, 4)
+    _assert_same_bits(got, want)
+    _assert_same_bits(got, whole[0][:m])
+    _assert_same_bits(want, whole[1][:m])
+
+
+def test_flow_cache_round_trip_of_cuda_tensors(cuda, tmp_path):
+    """CUDA tensors fill the device tier and read back as the same tensors;
+    backup_to_disk writes them as .flowouX16.pkl files, which reload within
+    the codec's quantisation step; FlowOU.write takes CUDA tensors too."""
+    from mft_tpu_torch.core.flowou import FlowOU
+    from mft_tpu_torch.io import FlowCache
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    flow = torch.randn((40, 56, 2), device=cuda, generator=gen) * 8
+    occl = torch.rand((40, 56), device=cuda, generator=gen)
+    sigma = torch.rand((40, 56), device=cuda, generator=gen) * 20
+    cache = FlowCache(tmp_path / "c")
+    cache.write(3, 4, flow, occl, sigma)
+    assert cache.read(3, 4) is cache.device_cache[(3, 4)] and not cache.ram_cache
+    cache.backup_to_disk()
+    reloaded = FlowCache(tmp_path / "c")
+    reloaded.load_from_disk()
+    FlowOU(flow, occl, sigma).write(tmp_path / "r.flowouX16.pkl")
+    back = FlowOU.read(tmp_path / "r.flowouX16.pkl", device=cuda)
+    for x, y, z in zip((flow, occl, sigma), reloaded.read(3, 4),
+                       (back.flow, back.occlusion, back.sigma)):
+        step = float(x.max() - x.min()) / 65535
+        assert float((torch.from_numpy(y).to(cuda) - x).abs().max()) <= step
+        assert z.is_cuda and torch.equal(z.cpu(), torch.from_numpy(y))
+
+
+def test_mft_cache_paths_launch_their_kernels(cuda):
+    """The tracker under a FlowCache on the card: a cold pass (the whole
+    batch, K1 11 / K2 1 / K3 1 a frame, cache rows written as CUDA
+    tensors), an injected pass (the template pair alone: the same counts),
+    a cache_delta_infinity pass twice (the second RAFT-free: K3 only);
+    track_chunk equal to per-frame track bit for bit."""
+    from mft_tpu_torch.io import FlowCache
+    cfg = default_config()
+    cfg.deltas = [np.inf, 1, 2]
+    rng = np.random.default_rng(0)
+    tex = (rng.random((80, 80, 3)) * 255).astype(np.uint8)
+    frames = [np.ascontiguousarray(tex[k:k + 64, 2 * k:2 * k + 64]) for k in range(5)]
+    tracker = MFT(cfg, device=cuda)
+    cache = FlowCache(None)
+    per_frame = {}
+    for name, cdi, raft in (("cold", False, 4), ("warm", False, 4), ("cdi", True, 2),
+                            ("free", True, 0)):
+        cfg.cache_delta_infinity = cdi
+        ops.reset_launch_counts()
+        tracker.init(frames[0], flow_cache=cache)
+        per_frame[name] = [tracker.track(f).result for f in frames[1:]]
+        want = {k: 0 for k in ops.launch_counts()}
+        want.update(corr_lookup_fused=11 * raft, corr_lookup=raft, chain_select=4)
+        assert ops.launch_counts() == want, name
+    assert all(x.is_cuda for v in cache.device_cache.values() for x in v)
+    for a, b in zip(per_frame["free"], per_frame["cdi"]):
+        assert torch.equal(a.flow, b.flow) and torch.equal(a.sigma, b.sigma)
+    cfg.cache_delta_infinity = False
+    tracker.init(frames[0])
+    chunked = tracker.track_chunk(frames[1:4]) + tracker.track_chunk(frames[4:])
+    tracker.init(frames[0])
+    for a, img in zip(chunked, frames[1:]):
+        b = tracker.track(img).result
+        assert torch.equal(a.result.flow, b.flow) and torch.equal(a.result.occlusion, b.occlusion)

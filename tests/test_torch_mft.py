@@ -7,6 +7,8 @@ RAFT-OU weights (the JAX random init, carried over by ``params_from_flax``),
 step with ``chain_select_ref`` on the CPU; the port its plain versions.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import jax
@@ -19,7 +21,6 @@ from mft_tpu_torch.config import Config, default_config
 from mft_tpu_torch.models.raft import RAFTFlow
 from mft_tpu_torch.models.raft.convert import params_from_flax
 from mft_tpu_torch.tracker import MFT
-from mft_tpu_torch.tracker.mft import UNPORTED_OPTIONS
 
 H = W = 64
 FRAMES = 5
@@ -142,19 +143,44 @@ def test_new_path_frame_matches_jax(option):
 
 
 @pytest.mark.parametrize("key,value,error", [
-    ("cache_delta_infinity", True, NotImplementedError),
+    ("cache_delta_infinity", True, None),
     ("warm_start_inf+cache_delta_infinity", True, ValueError),
     ("warm_start_inf", True, None),
 ])
 def test_unported_tracker_options_raise(key, value, error):
-    """A tracker option the port lacks raises and names its ROADMAP item
-    instead of tracking the default frame; warm_start_inf with
+    """Every tracker option of the JAX package is ported: cache_delta_infinity
+    builds and tracks as JAX's tracker does (the same candidates, the template
+    pair cacheable, so a second pass over a frame runs no RAFT and gives the
+    same result; tests/test_torch_mft_cache.py holds its frames against
+    JAX's); warm_start_inf with
     cache_delta_infinity is refused with the JAX tracker's ValueError, before
-    any model is built. Unset or False, each is accepted. warm_start_inf
-    without an infinite delta is a no-op, as in JAX (``_warm_start``)."""
+    any model is built. warm_start_inf without an infinite delta is a no-op,
+    as in JAX (``_warm_start``)."""
     conf = _config(Config, RAFTFlow)
     for k in key.split("+"):
         setattr(conf, k, value)
+    if key == "cache_delta_infinity":
+        from mft_tpu_torch.io import FlowCache
+        jconf = _config(JaxConfig, JaxRAFTFlow)
+        jconf.cache_delta_infinity = True
+        jconf.flow_config.of_class = lambda config, **kw: None   # no model needed
+        jt = JaxMFT(jconf)
+        tt = MFT(conf, device="cpu")
+        for start, td in ((0, 1), (9, 1), (9, -1)):
+            for m in (jt, tt):
+                m.start_frame_i, m.time_direction = start, td
+            for t in range(start, start + 40 * td, td):
+                assert ([dataclasses.astuple(c) for c in tt._candidates(t)]
+                        == [dataclasses.astuple(c) for c in jt._candidates(t)])
+        frames, cache = _clip(1), FlowCache(None)
+        results = []
+        for _ in range(2):   # the second pass hits the template pair too: no RAFT
+            tt.init(frames[0], flow_cache=cache)
+            results.append(tt.track(frames[1]).result)
+        assert (cache.hits, cache.misses, sorted(cache.device_cache)) == (2, 2, [(0, 1)])
+        assert all(torch.equal(getattr(results[0], f), getattr(results[1], f))
+                   for f in ("flow", "occlusion", "sigma"))
+        return
     if error is None:
         jconf = _config(JaxConfig, JaxRAFTFlow)
         jconf.warm_start_inf = True
@@ -163,15 +189,13 @@ def test_unported_tracker_options_raise(key, value, error):
             c.flow_config.of_class = lambda config, **kw: None   # no model needed
         assert not MFT(conf, device="cpu")._warm_start() and not JaxMFT(jconf)._warm_start()
         return
-    match = "cannot be combined" if error is ValueError else UNPORTED_OPTIONS[key]
-    with pytest.raises(error, match=match.split(" (")[0]):
+    with pytest.raises(error, match="cannot be combined"):
         MFT(conf, device="cpu")
-    if error is ValueError:
-        jconf = _config(JaxConfig, JaxRAFTFlow)
-        for k in key.split("+"):
-            setattr(jconf, k, value)
-        with pytest.raises(ValueError, match="cannot be combined"):
-            JaxMFT(jconf)
+    jconf = _config(JaxConfig, JaxRAFTFlow)
+    for k in key.split("+"):
+        setattr(jconf, k, value)
+    with pytest.raises(ValueError, match="cannot be combined"):
+        JaxMFT(jconf)
     for k in key.split("+"):
         setattr(conf, k, False)
     assert MFT(conf, device="cpu").deltas == DELTAS
@@ -201,8 +225,10 @@ def test_ring_slots_follow_the_frame_index():
     tt = MFT(_config(Config, RAFTFlow), device="cpu")
     tt.start_frame_i, tt.time_direction = 0, 1
     cands = tt._candidates(3)
-    assert [slot for slot, _ in cands] == [32, 2, 1, 32, 32, 32, 32]
-    assert [ok for _, ok in cands] == [True, True, True, False, False, False, False]
+    assert [c.slot for c in cands] == [32, 2, 1, 32, 32, 32, 32]
+    assert [c.valid for c in cands] == [True, True, True, False, False, False, False]
+    assert [c.left_id for c in cands] == [0, 2, 1, -1, -5, -13, -29]
+    assert [c.cacheable for c in cands] == [False, True, True, False, False, False, False]
     slots, valid, wslot = tt._step_indices(cands, 3)
     assert slots.tolist() == [32, 2, 1, 32, 32, 32, 32] and wslot == 3
     assert tt._step_indices(cands, 3)[0] is slots      # cached upload

@@ -7,7 +7,10 @@ or another tracker ``--config`` of ``mft_tpu_torch.config`` (``synth``,
 ``fast``, ``warm``; with ``--weights synth`` any of them on the committed
 weights), with another ``--corr-method``, ``--conv-backend`` and frame
 ``--size``, warms up, then traces
-``--frames`` frames with ``torch.profiler`` and prints:
+``--frames`` frames with ``torch.profiler`` and prints (with ``--cache-pass``
+the traced frames are served by a FlowCache that a first pass over the same
+frames filled: 'injected', every finite pair a hit and the template pair
+alone through RAFT; 'raft-free', ``cache_delta_infinity`` and no RAFT):
 
 - wall ms per frame (host clock, synchronised) and device-busy ms per frame
   (the sum of kernel times; one stream), hence the device's idle share;
@@ -21,6 +24,7 @@ Imports nothing of JAX. Usage (on the card):
         [--config default|synth|fast|warm] [--weights config|synth]
         [--corr-method auto|alt|win|int8|packed|packed_i8|pallas_t|fold|mixed]
         [--conv-backend auto|pallas] [--size 2160 3840]
+        [--cache-pass none|injected|raft-free]
 """
 
 import argparse
@@ -89,6 +93,10 @@ def main(argv=None) -> int:
                              "the config")
     parser.add_argument("--size", type=int, nargs=2, default=(512, 512),
                         metavar=("H", "W"))
+    parser.add_argument("--cache-pass", default="none",
+                        choices=("none", "injected", "raft-free"),
+                        help="trace frames a filled FlowCache serves (the runner's "
+                             "strided passes)")
     args = parser.parse_args(argv)
 
     sys.path.insert(0, REPO)
@@ -114,7 +122,15 @@ def main(argv=None) -> int:
     cfg.flow_config.raft_params["corr_method"] = args.corr_method
     cfg.flow_config.raft_params["conv_backend"] = args.conv_backend
     tracker = MFT(cfg, device="cuda")
-    tracker.init(frames[0])
+    cache = None
+    if args.cache_pass != "none":
+        from mft_tpu_torch.io import FlowCache
+        cache = FlowCache(None)
+        cfg.cache_delta_infinity = args.cache_pass == "raft-free"
+        tracker.init(frames[0], flow_cache=cache)   # the cold pass writes every pair
+        for k in range(1, n + 1):
+            tracker.track(frames[k])
+    tracker.init(frames[0], flow_cache=cache)
     for k in range(1, args.warmup + 1):
         tracker.track(frames[k])
     torch.cuda.synchronize()
@@ -144,7 +160,7 @@ def main(argv=None) -> int:
           f"corr_method {args.corr_method}, conv_backend {args.conv_backend}, "
           f"{len(tracker.deltas)} deltas, {tracker.flower.iters} iterations, "
           f"schedule {tracker.iters_schedule}, warm start {tracker._warm_start()}, "
-          f"{tracker.flower.dtype}")
+          f"{tracker.flower.dtype}, cache pass {args.cache_pass}")
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     print(f"wall ms per frame (profiler on): {wall_ms:.3f}")
     print(f"device-busy ms per frame: {busy:.3f} (idle share {1 - busy / wall_ms:.1%})")
