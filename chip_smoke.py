@@ -119,7 +119,29 @@ non-zero and prints no result line):
    bit for bit with the pass whose entries it reads), injected frames
    against the full batch's (the frame gate) and a .flowouX16.pkl disk
    round trip within the quantisation step; frames/s by pass kind, peak
-   device memory and the device tier's bytes printed.
+   device memory and the device tier's bytes printed;
+14. training: (a) the lookup's backward kernel ``mft_corr_lookup_bwd``
+   against its plain version at the training shape (6 x 46x96, 4 levels,
+   r 4) and the 512x512 slice's, uniform and local coordinates, f32 and
+   bf16 bit for bit (bf16 also the f32 result rounded once), timed by graph
+   replay beside the plain version, the library's backward
+   (``grid_sampler_2d_backward`` per level) and its bound; (b) a
+   Sintel-form tree (2 scenes x 5 frames of 436x1024, ``train/synth.py``)
+   and both recipes through the entry point's parser and ``train`` on the
+   committed weights: official (only ``occlusion_block`` trains, running
+   statistics) and full (every parameter, batch statistics, gradients
+   through the backward kernel), 5 steps each of batch 6 at 368x768, 12
+   iterations, bf16 compute over f32 parameters; finite losses, frozen
+   parameters bit-identical, trainable ones and (full only) the batch
+   statistics moved, 12 K2 and 12 (full) or 0 (official) backward launches
+   a step and nothing else, the checkpoint and its msgpack export, which
+   the tracker loads and tracks 2 frames with; ms a step (median after one
+   warm-up) and peak memory; (c) one f32 full-recipe step through the
+   kernels and through the plain versions from the same state and batch,
+   deterministic cuDNN, loss and gradients within ``TRAIN_PLAIN_TOL``;
+   (d) resume: 2 steps, a checkpoint, a 3rd step, against a state restored
+   from the checkpoint taking the same 3rd step, bit for bit; these steps,
+   timed, give a full step's ms with no batch loader beside it.
 
 Every bf16 launch of K1, #5, #13, K4 and K5 on the main path, conv_backend
 'pallas', 'alt' and 'win' at 512x512 and 2160x3840, 'auto' at 1080x1920
@@ -128,9 +150,10 @@ points.
 
 Where one PyTorch call computes a kernel's function, its time is taken beside
 the kernel's as a yardstick (``library_ms``; the port never calls it):
-``F.grid_sample`` per level for the volume lookups, ``torch.baddbmm`` for the
-folded build, ``F.conv2d`` for the convolution, ``F.grid_sample`` for the
-warp.
+``F.grid_sample`` per level for the volume lookups, its backward
+``grid_sampler_2d_backward`` per level for the lookup's backward,
+``torch.baddbmm`` for the folded build, ``F.conv2d`` for the convolution,
+``F.grid_sample`` for the warp.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Needs no network and imports nothing
@@ -2355,6 +2378,391 @@ def run_tapvid(torch, ops, dev, card):
     return counts
 
 
+# --------------------------------------------------------------------------- #
+# phase 14: training
+# --------------------------------------------------------------------------- #
+TRAIN_B, TRAIN_H, TRAIN_W, TRAIN_ITERS = 6, 368, 768, 12   # the recipe's batch and crop
+TRAIN_STEPS = 5          # steps of each recipe through the entry point
+SINTEL_FRAMES, SINTEL_H, SINTEL_W = 5, 436, 1024          # MPI-Sintel's frame size
+EXPORT_SIZE = 256        # frames the tracker on the exported weights tracks
+# the backward's shapes: the training batch (46x96 at level 0) and the slice's
+BWD_SHAPES = {"train": (TRAIN_B, TRAIN_H // 8, TRAIN_W // 8), "slice": (B, 64, 64)}
+# phase 14c's stated tolerance, kernels against plain versions on one f32
+# full-recipe step with deterministic cuDNN: the same operations in the same
+# order (K2 and the backward bit for bit with their plain versions), so 0 is
+# expected; the bound admits last-bit differences of a library call whose
+# algorithm choice could differ between two calls
+TRAIN_PLAIN_TOL = dict(loss=1e-6, grad=1e-5)
+
+
+def bwd_coords(torch, dev, kind, gen, Bn, H8, W8):
+    """(Bn, H8*W8, 2) coords, as phase 3 draws them: 'uniform' over the map
+    and 10 px beyond it, 'local' the pixel grid + U(-2, 2)."""
+    u = torch.empty((Bn, H8 * W8, 2), device=dev).uniform_(0.0, 1.0, generator=gen)
+    if kind == "uniform":
+        return (-10.0 + u * torch.tensor([W8 + 20.0, H8 + 20.0], device=dev)).contiguous()
+    ys, xs = torch.meshgrid(torch.arange(H8, device=dev), torch.arange(W8, device=dev),
+                            indexing="ij")
+    grid = torch.stack([xs, ys], -1).reshape(1, H8 * W8, 2).float()
+    return (grid + 4.0 * u - 2.0).contiguous()
+
+
+def library_lookup_bwd(torch, g, coords, dims):
+    """The library's yardstick for the backward: ``grid_sampler_2d_backward``
+    (what autograd runs behind an ``F.grid_sample`` lookup, bilinear, zeros,
+    align_corners=True), one call per level on the (B*P, 1, h_l, w_l) view,
+    the level gradient only. returns (device ms by graph replay, the level
+    gradients) or (None, None) where the library refuses the dtype."""
+    n = 2 * RADIUS + 1
+    Bn, Pn = coords.shape[:2]
+    off = torch.arange(n, dtype=torch.float32, device=coords.device) - RADIUS
+    calls = []
+    for lvl, (h, w) in enumerate(dims):
+        c = coords / 2.0 ** lvl
+        x = (c[..., 0, None, None] + off[:, None]).expand(Bn, Pn, n, n)   # i offsets x
+        y = (c[..., 1, None, None] + off[None, :]).expand(Bn, Pn, n, n)
+        grid = torch.stack([2.0 * x / max(w - 1, 1) - 1.0, 2.0 * y / max(h - 1, 1) - 1.0], -1)
+        grid = grid.reshape(Bn * Pn, n, n, 2).to(g.dtype)
+        go = g[..., lvl * n * n:(lvl + 1) * n * n].reshape(Bn * Pn, 1, n, n).contiguous()
+        inp = torch.zeros((Bn * Pn, 1, h, w), dtype=g.dtype, device=g.device)
+        calls.append((go, inp, grid))
+
+    def run():
+        return [torch.ops.aten.grid_sampler_2d_backward(go, inp, grid, 0, 0, True,
+                                                        [True, False])[0]
+                for go, inp, grid in calls]
+    try:
+        out = [o.reshape(Bn, Pn, *o.shape[2:]) for o in run()]
+    except RuntimeError as e:
+        log(f"library lookup backward {g.dtype}: refused ({str(e).splitlines()[0]})")
+        return None, None
+    return graph_ms(run, reps=10), out
+
+
+def check_lookup_bwd(torch, ops, dev, card):
+    """14a: the backward kernel against its plain version at the training
+    shape and the slice's, uniform and local coordinates: f32 bit for bit,
+    bf16 bit for bit and equal to the f32 result of the same inputs rounded
+    once; timed by graph replay beside the plain version, the library's
+    backward and the bound. returns {(shape, dtype, kind): stats}."""
+    stats = {}
+    gen = torch.Generator(device=dev).manual_seed(21)
+    n = 2 * RADIUS + 1
+    for label, (Bn, H8, W8) in BWD_SHAPES.items():
+        dims = [(H8 >> lvl, W8 >> lvl) for lvl in range(len(LEVELS))]
+        for kind in ("uniform", "local"):
+            coords = bwd_coords(torch, dev, kind, gen, Bn, H8, W8)
+            for dtype in (torch.float32, torch.bfloat16):
+                name = str(dtype).split(".")[1]
+                g = torch.randn((Bn, H8 * W8, len(dims) * n * n), device=dev,
+                                generator=gen).to(dtype)
+                kernel = lambda: ops.corr_lookup_bwd(g, coords, dims, RADIUS)
+                plain = lambda: ops.corr_lookup_bwd_ref(g, coords, dims, RADIUS)
+                got = kernel()
+                torch.cuda.synchronize()
+                want = plain()
+                same = sum(int((a != b).sum()) for a, b in zip(got, want))
+                err = max(max_err(a, b) for a, b in zip(got, want))
+                tag = f"lookup backward {name} {label} {kind}"
+                log(f"check {tag}: {same} of {sum(a.numel() for a in got)} values differ "
+                    f"from the plain version (max_abs_err {err:.3e}; tolerance: bit for bit)")
+                check(same == 0, f"{tag} differs from its plain version")
+                if dtype == torch.bfloat16:
+                    want32 = ops.corr_lookup_bwd_ref(g.float(), coords, dims, RADIUS)
+                    check(all(torch.equal(a, b.to(dtype)) for a, b in zip(got, want32)),
+                          f"{tag}: not the f32 result rounded once")
+                    del want32
+                del got, want
+                ms = graph_ms(kernel, reps=10)
+                plain_ms = cuda_ms(plain, reps=3, warmup=1)
+                lib_ms, lib = library_lookup_bwd(torch, g, coords, dims)
+                lib_note = "refused"
+                if lib is not None:
+                    ref = ops.corr_lookup_bwd_ref(g, coords, dims, RADIUS)
+                    lib_note = (f"{lib_ms:.4f} ms, max_abs_err to the plain version "
+                                f"{max(max_err(a, b) for a, b in zip(lib, ref)):.3e}")
+                    del lib, ref
+                values = sum(Bn * H8 * W8 * h * w for h, w in dims)
+                nbytes = (values + g.numel()) * g.element_size() + coords.numel() * 4
+                ops_n = 8 * Bn * H8 * W8 * len(dims) * (n + 1) ** 2   # 4 products + 4 sums
+                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                ops_ms = ops_n / PEAK_OPS_PER_S["float32"] * 1e3
+                bound = max(bytes_ms, ops_ms)
+                log(f"time {tag}: kernel {ms:.4f} ms (graph replay), plain {plain_ms:.3f} ms, "
+                    f"library (grid_sampler_2d_backward per level) {lib_note}, bound "
+                    f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB written and read, every map "
+                    f"value written) [{card}]")
+                stats[(label, name, kind)] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                    library_ms=lib_ms)
+                del g
+    return stats
+
+
+def train_args(tmp, recipe):
+    """The recipe's CLI arguments, as an @file the parser reads."""
+    from mft_tpu_torch.config import SYNTH_WEIGHTS
+    lines = ["--name", recipe, "--stage", "sintel", "--restore_ckpt", str(SYNTH_WEIGHTS),
+             "--num_steps", str(TRAIN_STEPS), "--batch_size", str(TRAIN_B),
+             "--image_size", str(TRAIN_H), str(TRAIN_W), "--iters", str(TRAIN_ITERS),
+             "--mixed_precision", "--num_workers", "6", "--lr", "0.000125",
+             "--wdecay", "0.00001", "--gamma=0.85", "--uncertainty_loss",
+             "huber_non_occluded", "--checkpoint_dir", str(tmp / "checkpoints")]
+    if recipe == "official":
+        lines += ["--freeze_optical_flow_training", "--freeze_features_training"]
+    path = tmp / f"{recipe}.txt"
+    path.write_text("\n".join(lines) + "\n")
+    return f"@{path}"
+
+
+def run_recipe(torch, ops, dev, card, tmp, recipe):
+    """14b: one recipe through the entry point's parser and ``train``.
+    Gates: finite losses and metrics; frozen parameters bit-identical and
+    trainable ones moved; batch statistics unchanged (official) or moved
+    (full); per step 12 K2 launches and 12 (full) or 0 (official) backward
+    launches and nothing else; the checkpoint and its msgpack export, which
+    RAFTFlow loads and tracks 2 frames with. returns stats."""
+    from pathlib import Path
+    from mft_tpu_torch.config import SYNTH_WEIGHTS, synth_config
+    from mft_tpu_torch.models.raft.wrapper import load_weights
+    from mft_tpu_torch.tracker import MFT
+    from mft_tpu_torch.train import loop
+    official = recipe == "official"
+    before = load_weights(Path(SYNTH_WEIGHTS))
+    per_step, step_ms, losses = [], [], []
+
+    def on_step(state, metrics, seconds):
+        per_step.append(ops.launch_counts())
+        ops.reset_launch_counts()
+        step_ms.append(1e3 * seconds)
+        vals = {k: float(v) for k, v in metrics.items()}
+        check(all(math.isfinite(v) for v in vals.values()),
+              f"{recipe} step {state['step']}: non-finite metrics {vals}")
+        losses.append(vals["train/loss"])
+
+    args = loop.get_parser().parse_args([train_args(tmp, recipe)])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = loop.train(args, on_step=on_step)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(state["step"] == TRAIN_STEPS and len(per_step) == TRAIN_STEPS,
+          f"{recipe}: {state['step']} steps, {len(per_step)} reported")
+    bwd = 0 if official else TRAIN_ITERS
+    want = expected_counts(ops, corr_lookup=TRAIN_ITERS, corr_lookup_bwd=bwd)
+    for k, counts in enumerate(per_step, start=1):
+        check(counts == want, f"{recipe} step {k}: launches {counts} != {want}")
+    after = {k: v.detach().cpu() for k, v in state["model"].state_dict().items()}
+    stats_keys = [k for k in after if k.endswith(("running_mean", "running_var"))]
+    params = [k for k in after if k not in stats_keys]
+    trainable = [k for k in params if not official or k.startswith("occlusion_block")]
+    frozen_same = all(torch.equal(after[k], before[k]) for k in params if k not in trainable)
+    moved = sum(not torch.equal(after[k], before[k]) for k in trainable)
+    stats_moved = sum(not torch.equal(after[k], before[k]) for k in stats_keys)
+    log(f"{recipe}: {len(params) - len(trainable)} frozen tensors bit-identical: "
+        f"{frozen_same}; {moved} of {len(trainable)} trainable tensors moved; "
+        f"{stats_moved} of {len(stats_keys)} batch statistics moved")
+    check(frozen_same, f"{recipe}: a frozen parameter changed")
+    check(moved == len(trainable), f"{recipe}: a trainable parameter did not move")
+    check(stats_moved == (0 if official else len(stats_keys)),
+          f"{recipe}: batch statistics {'moved' if official else 'did not all move'}")
+    run = Path(args.checkpoint_dir) / args.name
+    ckpts = sorted(p.name for p in run.glob("step_*"))
+    export = run / f"{args.name}_step{TRAIN_STEPS}.msgpack"
+    check(ckpts == [f"step_{TRAIN_STEPS:08d}"] and (run / ckpts[0] / "state.pt").is_file()
+          and export.is_file(), f"{recipe}: checkpoints {ckpts}, export {export.is_file()}")
+    conf = synth_config()
+    conf.flow_config.model = str(export)
+    tracker = MFT(conf, device=dev)
+    check(all(torch.equal(tracker.flower.model.state_dict()[k].float().cpu(), after[k])
+              for k in stats_keys), f"{recipe}: the export's statistics differ")
+    frames = synthetic_clip(2, H=EXPORT_SIZE, W=EXPORT_SIZE)
+    results, _ = track_frames(torch, tracker, frames)
+    check_results(torch, results, EXPORT_SIZE, EXPORT_SIZE, f"{recipe} export")
+    del tracker
+    steady = sorted(step_ms[1:])
+    median = steady[len(steady) // 2] if len(steady) % 2 else 0.5 * (
+        steady[len(steady) // 2 - 1] + steady[len(steady) // 2])
+    log(f"{recipe} recipe ({TRAIN_B}x{TRAIN_H}x{TRAIN_W}, {TRAIN_ITERS} iterations, bf16 "
+        f"compute over f32 parameters): losses {', '.join(f'{v:.4f}' for v in losses)}; "
+        f"step ms {', '.join(f'{m:.1f}' for m in step_ms)}; median after 1 warm-up step "
+        f"{median:.1f} ms; peak device memory {peak / 2**30:.2f} GiB; launches a step "
+        f"K2 {TRAIN_ITERS}, backward {bwd}; {seconds:.1f} s with data, checkpoint and "
+        f"export; the export tracks 2 frames [{card}]")
+    return dict(median_ms=median, step_ms=step_ms, peak_gib=peak / 2**30,
+                launches={k: sum(c[k] for c in per_step) for k in per_step[0]})
+
+
+def train_batch(torch, dev, tmp, n=TRAIN_B, seed=0):
+    """n samples of the tree's 'sintel' stage (augmented, seeded) on the card."""
+    import numpy as np
+    from mft_tpu_torch.train.datasets import fetch_dataset
+    from types import SimpleNamespace
+    ds = fetch_dataset("sintel", (TRAIN_H, TRAIN_W),
+                       env=SimpleNamespace(sintel_dir=str(tmp / "sintel")))
+    for k, part in enumerate(ds.parts):
+        part.augmentor.rng = np.random.default_rng(seed + k)
+    samples = [ds[i] for i in range(n)]
+    return tuple(torch.from_numpy(np.stack(col)).to(dev) for col in zip(*samples))
+
+
+def full_state(torch, dev, mixed, lr=1.25e-4):
+    """A full-recipe train state on the committed weights."""
+    from pathlib import Path
+    from mft_tpu_torch.config import SYNTH_WEIGHTS
+    from mft_tpu_torch.models.raft import RAFT
+    from mft_tpu_torch.models.raft.raft import RAFTParams
+    from mft_tpu_torch.models.raft.wrapper import load_weights
+    from mft_tpu_torch.train.optim import make_optimizer
+    model = RAFT(RAFTParams(), train_mode=True)
+    model.load_state_dict(load_weights(Path(SYNTH_WEIGHTS)))
+    model.to(dev)
+    if mixed:
+        model.cast_per_call(torch.bfloat16)
+    tx, _ = make_optimizer(lr=lr, num_steps=TRAIN_STEPS)
+    return {"model": model, "opt_state": tx.init(dict(model.named_parameters())),
+            "step": 0}, tx
+
+
+LOSS_KW = dict(gamma=0.85, freeze_optical_flow=False,
+               occlusion_module="separate_with_uncertainty",
+               uncertainty_loss_type="huber_non_occluded", optical_flow_loss_type="L1",
+               weighting_unc_loss=False)
+
+
+def check_train_plain(torch, ops, dev, card, batch):
+    """14c: one f32 full-recipe step through the kernels and through the
+    plain versions, from the same state and batch, deterministic cuDNN:
+    the loss, every gradient and every updated parameter against
+    TRAIN_PLAIN_TOL."""
+    from mft_tpu_torch.train.loop import make_train_step
+    out = {}
+    for plain in (False, True):
+        state, tx = full_state(torch, dev, mixed=False)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = make_train_step(state["model"], tx, LOSS_KW, iters=TRAIN_ITERS,
+                                         plain=plain)(state, batch)
+        loss = float(metrics["train/loss"])
+        sec = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        want = (expected_counts(ops) if plain else
+                expected_counts(ops, corr_lookup=TRAIN_ITERS, corr_lookup_bwd=TRAIN_ITERS))
+        check(counts == want, f"f32 step plain={plain}: launches {counts} != {want}")
+        model = state["model"]
+        out[plain] = (loss, {n: p.grad.detach().clone() for n, p in model.named_parameters()},
+                      {k: v.detach().clone() for k, v in model.state_dict().items()}, sec)
+        del state, model
+        torch.cuda.empty_cache()
+    (lk, gk, pk, sk), (lp, gp, pp, sp) = out[False], out[True]
+    loss_gap = abs(lk - lp) / max(abs(lp), 1e-30)
+    grad_gap = max(float((gk[n] - gp[n]).abs().max()) / max(float(gp[n].abs().max()), 1e-30)
+                   for n in gp)
+    grads_equal = sum(torch.equal(gk[n], gp[n]) for n in gp)
+    state_equal = sum(torch.equal(pk[k], pp[k]) for k in pp)
+    log(f"f32 full-recipe step, kernels against plain versions (deterministic cuDNN): loss "
+        f"{lk:.6f} vs {lp:.6f} (relative gap {loss_gap:.3e}, tolerance "
+        f"{TRAIN_PLAIN_TOL['loss']}); gradients: largest gap {grad_gap:.3e} of the tensor's "
+        f"largest |gradient| (tolerance {TRAIN_PLAIN_TOL['grad']}), {grads_equal} of "
+        f"{len(gp)} tensors bit-identical; after the update {state_equal} of {len(pp)} "
+        f"tensors bit-identical; step {1e3 * sk:.0f} ms with kernels, {1e3 * sp:.0f} ms plain "
+        f"(first calls, not steady) [{card}]")
+    check(loss_gap <= TRAIN_PLAIN_TOL["loss"], "f32 step: loss gap beyond the tolerance")
+    check(grad_gap <= TRAIN_PLAIN_TOL["grad"], "f32 step: gradient gap beyond the tolerance")
+    return dict(loss_gap=loss_gap, grad_gap=grad_gap)
+
+
+def check_resume(torch, ops, dev, card, tmp, batch):
+    """14d: the full recipe (bf16 compute) 2 steps, a checkpoint, a 3rd step;
+    a fresh state restored from the checkpoint takes the same 3rd step:
+    weights, statistics and optimizer state equal bit for bit
+    (deterministic cuDNN). returns the median ms of the steps after the
+    first, each synchronised: a full step with no batch loader beside it."""
+    from mft_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+    from mft_tpu_torch.train.loop import make_train_step
+    step_ms = []
+
+    def timed(step_fn, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        return state
+
+    state, tx = full_state(torch, dev, mixed=True)
+    step = make_train_step(state["model"], tx, LOSS_KW, iters=TRAIN_ITERS)
+    for _ in range(2):
+        state = timed(step, state)
+    path = save_checkpoint(tmp / "resume", state["step"], state)
+    state = timed(step, state)
+    fresh, tx2 = full_state(torch, dev, mixed=True)
+    fresh = restore_checkpoint(path, fresh)
+    fresh = timed(make_train_step(fresh["model"], tx2, LOSS_KW, iters=TRAIN_ITERS), fresh)
+    a, b = state["model"].state_dict(), fresh["model"].state_dict()
+    same = sum(torch.equal(a[k], b[k]) for k in a)
+    opt_same = all(torch.equal(state["opt_state"][m][n], fresh["opt_state"][m][n])
+                   for m in ("mu", "nu") for n in state["opt_state"][m])
+    log(f"resume: after step 3, {same} of {len(a)} model tensors and the optimizer state "
+        f"({opt_same}) equal to the uninterrupted run's (step {fresh['step']})")
+    check(same == len(a) and opt_same and fresh["step"] == state["step"] == 3,
+          "resume differs from the uninterrupted run")
+    steady = sorted(step_ms[1:])
+    log(f"full recipe without a batch loader (deterministic cuDNN): step ms "
+        f"{', '.join(f'{m:.1f}' for m in step_ms)}; median after the first "
+        f"{steady[1]:.1f} ms [{card}]")
+    return steady[1]
+
+
+def run_training(torch, ops, dev, card):
+    """Phase 14: the backward kernel (a), the two recipes through the entry
+    point on a Sintel-form tree (b), kernels against plain versions on an f32
+    step (c), resume (d). returns (backward stats, full recipe's launches)."""
+    import tempfile
+    from pathlib import Path
+    from types import SimpleNamespace
+    from mft_tpu_torch import environment
+    from mft_tpu_torch.train import synth
+    t0 = time.perf_counter()
+    bwd = check_lookup_bwd(torch, ops, dev, card)
+    log(f"phase 14a seconds {time.perf_counter() - t0:.2f}")
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        t0 = time.perf_counter()
+        synth.write_sintel_tree(tmp / "sintel", frames=SINTEL_FRAMES, H=SINTEL_H, W=SINTEL_W)
+        log(f"phase 14: a Sintel-form tree of 2 scenes x {SINTEL_FRAMES} frames "
+            f"{SINTEL_H}x{SINTEL_W} (train/synth.py) in {time.perf_counter() - t0:.2f} s")
+        settings = environment.env_settings
+        environment.env_settings = lambda: SimpleNamespace(sintel_dir=str(tmp / "sintel"))
+        try:
+            t0 = time.perf_counter()
+            recipes = {r: run_recipe(torch, ops, dev, card, tmp, r) for r in ("official", "full")}
+            log(f"phase 14b seconds {time.perf_counter() - t0:.2f}")
+        finally:
+            environment.env_settings = settings
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        try:
+            t0 = time.perf_counter()
+            batch = train_batch(torch, dev, tmp)
+            check_train_plain(torch, ops, dev, card, batch)
+            log(f"phase 14c seconds {time.perf_counter() - t0:.2f}")
+            t0 = time.perf_counter()
+            bare_ms = check_resume(torch, ops, dev, card, tmp, batch)
+            log(f"phase 14d seconds {time.perf_counter() - t0:.2f}")
+        finally:
+            torch.backends.cudnn.deterministic = False
+    log(f"training: ms per step (median after 1 warm-up, batch loader running) official "
+        f"{recipes['official']['median_ms']:.1f}, full {recipes['full']['median_ms']:.1f}; "
+        f"full without a loader {bare_ms:.1f}; peak device memory official "
+        f"{recipes['official']['peak_gib']:.2f} GiB, full {recipes['full']['peak_gib']:.2f} GiB "
+        f"[{card}]")
+    return bwd, recipes
+
+
 def main() -> int:
     # a hang exits non-zero with a traceback instead of running out the clock
     faulthandler.dump_traceback_later(900, exit=True)
@@ -2460,8 +2868,11 @@ def run() -> int:
         t = time.perf_counter()
         tapvid_counts = run_tapvid(torch, ops, dev, card)
         log(f"phase 13 seconds {time.perf_counter() - t:.2f}")
+        t = time.perf_counter()
+        bw, recipes = run_training(torch, ops, dev, card)
+        log(f"phase 14 seconds {time.perf_counter() - t:.2f}")
         for stats in (*lk.values(), cs, *fk.values(), *vk.values(), *fo.values(), cv,
-                      *wk.values()):
+                      *wk.values(), *bw.values()):
             check(all(math.isfinite(stats[k]) for k in
                       ("max_abs_err", "ms", "plain_ms", "bound_ms")),
                   f"non-finite measurement {stats}")
@@ -2523,6 +2934,16 @@ def run() -> int:
     for k in kernels:   # the runner's path (phase 13), its counts reset before it
         if k["name"] in ("corr_lookup_fused", "corr_lookup", "chain_select", "bilinear_warp"):
             k["launches_tapvid"] = tapvid_counts[k["name"]]
+    # the training path (phase 14b, the full recipe's steps): K2 and its
+    # backward; the backward timed at the training shape in bf16
+    train = recipes["full"]["launches"]
+    kernels[1]["launches_train"] = train["corr_lookup"]
+    local = bw[("train", "bfloat16", "local")]
+    kernels.append(dict(name="corr_lookup_bwd", route="cuda", source=src + "corr_lookup_bwd.cu",
+                        replaces="mft_tpu/models/raft/corr.py:236",
+                        launches=train["corr_lookup_bwd"], **bw[("train", "bfloat16", "uniform")],
+                        ms_local=local["ms"], bound_ms_local=local["bound_ms"],
+                        library_ms_local=local["library_ms"]))
     log(f"total seconds {time.perf_counter() - t_all:.2f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -38,6 +38,7 @@ The lookup itself runs on the kernels of ``mft_tpu_torch.ops``;
 explicit (for comparing the two on the card).
 """
 
+import functools
 import math
 
 import torch
@@ -296,7 +297,8 @@ def corr_lookup_features(method: str, f1, f2_pyramid, coords, radius: int = 4,
 
 # tag of a stored volume -> (kernel wrapper, plain version)
 _LOOKUPS = {
-    "volume": (ops.corr_lookup, ops.corr_lookup_ref),
+    # plain: the plain forward, and the plain backward where a level needs one
+    "volume": (ops.corr_lookup, functools.partial(ops.corr_lookup, plain=True)),
     "i8": (ops.corr_lookup_q, ops.corr_lookup_q_ref),
     "packed": (ops.corr_lookup_packed, ops.corr_lookup_packed_ref),
     "packed_i8": (ops.corr_lookup_packed_i8, ops.corr_lookup_packed_i8_ref),

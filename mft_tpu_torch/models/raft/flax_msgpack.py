@@ -15,6 +15,10 @@ over 2**30 bytes, which no RAFT weight reaches).
 
 ``read_variables(path)`` returns the tree as nested dicts of numpy arrays,
 the input of :func:`mft_tpu_torch.models.raft.convert.params_from_flax`.
+``dumps`` and ``write_variables`` write that subset: maps with str keys,
+str, int, float, bool, None, bytes, lists and ndarrays as ext type 1, as
+``flax.serialization.to_bytes`` does, so that flax's ``msgpack_restore`` and
+the reader here read them.
 """
 
 import struct
@@ -145,3 +149,80 @@ def read_variables(path) -> dict:
     if not isinstance(tree, dict):
         raise ValueError(f"{path}: the top-level msgpack object is not a map")
     return tree
+
+
+def _pack_len(out: bytearray, n: int, fix: int, fixmax: int, codes):
+    """A length header: the fix form up to ``fixmax``, else 8/16/32-bit."""
+    if fix is not None and n <= fixmax:
+        out.append(fix | n)
+    elif codes[0] is not None and n < 1 << 8:
+        out += bytes([codes[0]]) + struct.pack(">B", n)
+    elif n < 1 << 16:
+        out += bytes([codes[1]]) + struct.pack(">H", n)
+    elif n < 1 << 32:
+        out += bytes([codes[2]]) + struct.pack(">I", n)
+    else:
+        raise ValueError(f"msgpack object of {n} entries is too large")
+
+
+def _pack(out: bytearray, v):
+    if v is None:
+        out.append(0xC0)
+    elif isinstance(v, bool):
+        out.append(0xC3 if v else 0xC2)
+    elif isinstance(v, (int, np.integer)):
+        v = int(v)
+        if 0 <= v <= 0x7F or -32 <= v < 0:
+            out += struct.pack(">b" if v < 0 else ">B", v)
+        elif -(1 << 63) <= v < 1 << 64:
+            out += b"\xd3" + struct.pack(">q", v) if v < 0 else b"\xcf" + struct.pack(">Q", v)
+        else:
+            raise ValueError(f"integer {v} does not fit msgpack")
+    elif isinstance(v, (float, np.floating)):
+        out += b"\xcb" + struct.pack(">d", float(v))
+    elif isinstance(v, str):
+        b = v.encode("utf-8")
+        _pack_len(out, len(b), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+        out += b
+    elif isinstance(v, (bytes, bytearray, memoryview)):
+        b = bytes(v)
+        _pack_len(out, len(b), None, -1, (0xC4, 0xC5, 0xC6))
+        out += b
+    elif isinstance(v, (list, tuple)):
+        _pack_len(out, len(v), 0x90, 15, (None, 0xDC, 0xDD))
+        for x in v:
+            _pack(out, x)
+    elif isinstance(v, dict):
+        _pack_len(out, len(v), 0x80, 15, (None, 0xDE, 0xDF))
+        for k, x in v.items():
+            if not isinstance(k, str):
+                raise ValueError(f"msgpack map key {k!r} is not a str")
+            _pack(out, k)
+            _pack(out, x)
+    elif isinstance(v, np.ndarray):
+        if v.dtype.hasobject or v.nbytes >= 1 << 30:
+            raise ValueError(f"ndarray of dtype {v.dtype} and {v.nbytes} bytes is not written")
+        payload = dumps([list(v.shape), v.dtype.name, np.ascontiguousarray(v).tobytes()])
+        n = len(payload)
+        if n in (1, 2, 4, 8, 16):
+            out += bytes([0xD4 + n.bit_length() - 1, EXT_NDARRAY])
+        else:
+            _pack_len(out, n, None, -1, (0xC7, 0xC8, 0xC9))
+            out.append(EXT_NDARRAY)
+        out += payload
+    else:
+        raise ValueError(f"{type(v).__name__} is not written as msgpack")
+
+
+def dumps(obj) -> bytes:
+    """msgpack bytes of ``obj`` (the subset of the module docstring)."""
+    out = bytearray()
+    _pack(out, obj)
+    return bytes(out)
+
+
+def write_variables(path, tree):
+    """Write a variables tree (nested dicts of numpy arrays) as flax's
+    ``to_bytes`` does."""
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_bytes(dumps(tree))

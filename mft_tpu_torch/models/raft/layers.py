@@ -2,12 +2,19 @@
 
 Port of ``mft_tpu/models/raft/layers.py`` (reference extractor.py):
 - fnet uses instance norm (affine-free, eps 1e-5, biased variance over H, W),
-  cnet uses batch norm with running statistics (inference only);
+  cnet uses batch norm: running statistics at inference, and in train mode
+  flax's ``nn.BatchNorm(use_running_average=False, momentum=0.9)``: the
+  batch's mean and biased variance over (N, H, W), the variance as
+  E[x^2] - E[x]^2 clipped at 0 (flax's fast variance), and the running
+  statistics updated to 0.9 * running + 0.1 * batch;
 - both norms compute in float32 and return the input dtype, so under a bf16
   compute dtype the convolutions run in bf16 and the statistics in f32, as
   the JAX package does;
 - convs use torch's symmetric ``k // 2`` padding, which is what the JAX
-  package passes explicitly to flax.
+  package passes explicitly to flax; a conv's ``compute_dtype``, when set,
+  casts its input, weight and bias at every call (bf16 compute over float32
+  master weights, as flax's ``nn.Conv(dtype=)`` under mixed precision);
+- the encoder's dropout (``dropout`` > 0 in train mode) follows its last conv.
 
 Module names follow the flax tree (``layer2_0.downsample_conv``); flax's
 ``BatchNorm_0/1/2`` are ``norm1/2/3`` here (see convert.py).
@@ -32,19 +39,34 @@ class InstanceNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Batch norm at inference: running statistics, float32 parameters."""
+    """Batch norm with float32 parameters and statistics: the running
+    statistics unless ``use_batch_stats``, else the batch's, which also
+    update the running ones (flax ``nn.BatchNorm`` with momentum 0.9)."""
+
+    MOMENTUM = 0.9
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.use_batch_stats = False
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x):
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean[:, None, None]) * mul[:, None, None]
+        x32 = x.float()
+        if self.use_batch_stats:
+            mean = x32.mean(dim=(0, 2, 3))
+            var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x32 - mean[:, None, None]) * mul[:, None, None]
         return (y + self.bias[:, None, None]).to(x.dtype)
 
 
@@ -58,10 +80,28 @@ def make_norm(norm_fn: str, features: int) -> nn.Module:
     raise ValueError(f"unsupported norm_fn {norm_fn!r}")
 
 
-def conv(cin: int, cout: int, k, stride: int = 1) -> nn.Conv2d:
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that, with ``compute_dtype`` set, casts its input,
+    weight and bias to that dtype at every call."""
+
+    compute_dtype = None
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+def compute_dtype(m: nn.Conv2d) -> torch.dtype:
+    """The dtype a conv computes in: its ``compute_dtype``, else its weight's."""
+    return m.compute_dtype or m.weight.dtype
+
+
+def conv(cin: int, cout: int, k, stride: int = 1) -> Conv2d:
     """Conv2d with torch-style symmetric padding k // 2."""
     kh, kw = (k, k) if isinstance(k, int) else k
-    return nn.Conv2d(cin, cout, (kh, kw), stride=stride, padding=(kh // 2, kw // 2))
+    return Conv2d(cin, cout, (kh, kw), stride=stride, padding=(kh // 2, kw // 2))
 
 
 class ResidualBlock(nn.Module):
@@ -89,8 +129,9 @@ class ResidualBlock(nn.Module):
 class BasicEncoder(nn.Module):
     """Stride-8 residual encoder: 7x7/2 stem, stages (64, 96, 128), 1x1 head."""
 
-    def __init__(self, output_dim: int = 128, norm_fn: str = "batch"):
+    def __init__(self, output_dim: int = 128, norm_fn: str = "batch", dropout: float = 0.0):
         super().__init__()
+        self.dropout = nn.Dropout(dropout) if dropout > 0 else None
         self.conv1 = conv(3, 64, 7, 2)
         self.norm1 = make_norm(norm_fn, 64)
         cin = 64
@@ -105,4 +146,7 @@ class BasicEncoder(nn.Module):
         for i in range(1, 4):
             x = getattr(self, f"layer{i}_0")(x)
             x = getattr(self, f"layer{i}_1")(x)
-        return self.conv2(x)
+        x = self.conv2(x)
+        if self.dropout is not None:
+            x = self.dropout(x)
+        return x

@@ -1,7 +1,10 @@
 """RAFT-OU flow network: encoders -> correlation pyramid -> GRU loop -> OU heads.
 
-Port of ``mft_tpu/models/raft/raft.py`` in test mode, big model only:
+Port of ``mft_tpu/models/raft/raft.py``, big model only, in test mode and in
+train mode:
 - inputs are (B, 3, H, W) float images in [0, 255], H and W divisible by 8;
+- ``forward(image1, image2, iters, flow_init, test_mode)`` runs fnet on both
+  frames in one batch and cnet on the first, then :meth:`flow_from_features`;
 - ``encode`` runs fnet (and cnet) of one frame, so the tracker can keep
   features in a ring and encode each frame once;
 - ``flow_from_features`` builds the pyramid, runs ``iters`` refinement
@@ -32,7 +35,22 @@ Port of ``mft_tpu/models/raft/raft.py`` in test mode, big model only:
   path (K1 + K2).
 - ``iters`` given per pair (a tuple) runs :meth:`RAFT._flow_scheduled`:
   each pair its own number of iterations, the active pairs a batch prefix.
-Training mode is not ported.
+
+``test_mode=False`` runs :meth:`RAFT._flow_sequence` (JAX ``flow_from_features``
+with ``test_mode=False``): lists, one entry per iteration, of the upsampled
+flow, occlusion logits and uncertainty, the OU heads on every iteration
+unless ``ou_last_iter_only``; the gradient stops at ``coords1`` before every
+iteration's lookup and at the OU block's inputs ``net``, ``corr``, the flow
+and ``delta_flow`` (not ``inp`` nor the motion features), as JAX's
+``stop_gradient``s; the lookup is never fused with convc1 there.
+``RAFT(cfg, train_mode=True)`` (JAX ``train_mode``) normalises cnet with the
+batch's statistics and updates the running ones, applies the encoders'
+dropout, builds the update block with ``conv_backend`` 'auto' (the product
+kernel has no backward) and looks up every ``corr_method`` on the 'auto'
+volume, whose lookup has a backward (``ops.corr_lookup_bwd``); the other
+methods' kernels have none, as in JAX. :meth:`RAFT.cast_per_call` runs the
+convs in bf16 over float32 master weights (``--mixed_precision``); the norms
+and the coordinate arithmetic stay float32.
 """
 
 import dataclasses
@@ -46,7 +64,7 @@ from mft_tpu_torch.models.raft.corr import (build_corr_pyramid, build_corr_pyram
                                             corr_lookup, corr_lookup_features,
                                             corr_lookup_fused_conv, pack_corr_pyramid,
                                             pack_corr_pyramid_i8)
-from mft_tpu_torch.models.raft.layers import BasicEncoder
+from mft_tpu_torch.models.raft.layers import BasicEncoder, BatchNorm, Conv2d
 from mft_tpu_torch.models.raft.update import (BasicUpdateBlock,
                                               OcclusionAndUncertaintyBlock)
 from mft_tpu_torch.models.raft.upsample import convex_upsample_multi
@@ -75,6 +93,8 @@ class RAFTParams:
     compute_dtype: str = "float32"  # 'bfloat16' | 'float32' | 'auto' (bf16 on CUDA)
     corr_method: str = "auto"       # one of CORR_METHODS
     conv_backend: str = "auto"      # 'pallas': update-block convs on the product kernel
+    ou_last_iter_only: bool = False  # test_mode=False: OU heads on the last iteration only
+    dropout: float = 0.0            # the encoders' dropout in train mode
 
     def __post_init__(self):
         if self.corr_method not in CORR_METHODS:
@@ -89,24 +109,41 @@ class RAFTParams:
 
 
 class RAFT(nn.Module):
-    """RAFT with separate occlusion + uncertainty heads (inference)."""
+    """RAFT with separate occlusion + uncertainty heads."""
 
-    def __init__(self, cfg: RAFTParams = RAFTParams()):
+    def __init__(self, cfg: RAFTParams = RAFTParams(), train_mode: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.fnet = BasicEncoder(output_dim=256, norm_fn="instance")
+        self.train_mode = train_mode
+        self._compute_dtype = None
+        dropout = cfg.dropout if train_mode else 0.0
+        self.fnet = BasicEncoder(output_dim=256, norm_fn="instance", dropout=dropout)
         self.cnet = BasicEncoder(output_dim=HIDDEN_DIM + CONTEXT_DIM,
-                                 norm_fn="batch")
+                                 norm_fn="batch", dropout=dropout)
+        for m in self.cnet.modules():
+            if isinstance(m, BatchNorm):
+                m.use_batch_stats = train_mode
         corr_channels = cfg.corr_levels * (2 * cfg.corr_radius + 1) ** 2
-        self.update_block = BasicUpdateBlock(HIDDEN_DIM, corr_channels,
-                                             cfg.conv_backend)
+        # the product kernel has no backward: train on cuDNN, as JAX swaps
+        # conv_pallas for its differentiable lowering in train mode
+        backend = "auto" if train_mode else cfg.conv_backend
+        self.update_block = BasicUpdateBlock(HIDDEN_DIM, corr_channels, backend)
         # [net, inp, corr, flow, delta_flow, motion features] = 712 channels
         self.occlusion_block = OcclusionAndUncertaintyBlock(
             HIDDEN_DIM + CONTEXT_DIM + corr_channels + 2 + 2 + 128)
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.fnet.conv1.weight.dtype
+        return self._compute_dtype or self.fnet.conv1.weight.dtype
+
+    def cast_per_call(self, dtype: torch.dtype):
+        """Convs compute in ``dtype`` over the weights as they are (float32
+        master weights under mixed precision), casting at every call."""
+        self._compute_dtype = dtype
+        for m in self.modules():
+            if isinstance(m, Conv2d):
+                m.compute_dtype = dtype
+        return self
 
     def set_compute_dtype(self, dtype: torch.dtype):
         """Convs compute in ``dtype``; norm parameters and the biases of the
@@ -126,8 +163,19 @@ class RAFT(nn.Module):
         cnet = self.cnet(image) if with_context else None
         return fmap, cnet
 
+    def forward(self, image1, image2, iters=12, flow_init=None, test_mode: bool = True,
+                plain: bool = False):
+        """(B, 3, H, W) images in [0, 255] -> :meth:`flow_from_features`'s
+        outputs. fnet runs on both frames as one batch, cnet on the first."""
+        B = image1.shape[0]
+        norm = lambda im: (2.0 * (im.float() / 255.0) - 1.0).to(self.dtype)
+        fmaps = self.fnet(torch.cat([norm(image1), norm(image2)], dim=0))
+        cnet = self.cnet(norm(image1))
+        return self.flow_from_features(fmaps[:B], fmaps[B:], cnet, iters, flow_init,
+                                       plain, test_mode)
+
     def flow_from_features(self, fmap1, fmap2, cnet, iters=12,
-                           flow_init=None, plain: bool = False):
+                           flow_init=None, plain: bool = False, test_mode: bool = True):
         """Everything after the encoders.
 
         args: fmap1/fmap2 (B, 256, H8, W8) fnet features, cnet
@@ -136,8 +184,14 @@ class RAFT(nn.Module):
           (B, H8, W8, 2) low-resolution initial flow; ``plain`` runs the
           kernels' plain PyTorch versions instead of the kernels.
         returns: {'flow': (B, H, W, 2), 'occlusion': (B, H, W, 2) logits,
-          'uncertainty': (B, H, W, 1) log-variance, 'coords': (B, H8, W8, 2)}.
+          'uncertainty': (B, H, W, 1) log-variance, 'coords': (B, H8, W8, 2)};
+          with ``test_mode`` False (:meth:`_flow_sequence`) the first three
+          are lists, one entry per iteration.
         """
+        if not test_mode:
+            if isinstance(iters, (tuple, list)):
+                raise ValueError("iteration schedules are an inference-only mode")
+            return self._flow_sequence(fmap1, fmap2, cnet, iters, flow_init, plain)
         if isinstance(iters, (tuple, list)):
             return self._flow_scheduled(fmap1, fmap2, cnet, tuple(iters), flow_init, plain)
         cfg = self.cfg
@@ -175,11 +229,58 @@ class RAFT(nn.Module):
         return {"flow": flow_up, "occlusion": occl_up, "uncertainty": unc_up,
                 "coords": low}
 
-    def stored_volume(self, fmap1, fmap2, plain: bool = False):
-        """The stored volume of the configured volume method: the list of
-        :func:`build_corr_pyramid` for 'auto' and its aliases, else a tagged
-        tuple."""
-        method, levels = self.cfg.corr_method, self.cfg.corr_levels
+    def _flow_sequence(self, fmap1, fmap2, cnet, iters: int, flow_init=None,
+                       plain: bool = False):
+        """Train-mode forward (JAX ``flow_from_features(test_mode=False)``):
+        every iteration's upsampled flow and, unless ``ou_last_iter_only``,
+        its OU heads' outputs, with JAX's gradient stops."""
+        cfg = self.cfg
+        B, _, H8, W8 = fmap1.shape
+        radius = cfg.corr_radius
+        # the methods whose lookups have no backward train on the 'auto' volume
+        method = "auto" if self.train_mode else cfg.corr_method
+        if method in FEATURE_METHODS:
+            f1 = fmap1.permute(0, 2, 3, 1).contiguous()
+            f2_pyramid = build_feature_pyramid(fmap2, cfg.corr_levels)
+            lookup = lambda c: corr_lookup_features(method, f1, f2_pyramid, c, radius, plain)
+        else:
+            pyramid = self.stored_volume(fmap1, fmap2, plain, method)
+            lookup = lambda c: corr_lookup(pyramid, c, radius, plain)
+        net = torch.tanh(cnet[:, :HIDDEN_DIM])
+        inp = torch.relu(cnet[:, HIDDEN_DIM:])
+        coords0, coords1 = _initial_coords(fmap1, flow_init)
+        to_nchw = lambda t: _to_nchw(t, H8, W8)
+        flows, occls, uncs = [], [], []
+        for itr in range(iters):
+            coords1 = coords1.detach()
+            heads = not cfg.ou_last_iter_only or itr == iters - 1
+            corr = to_nchw(lookup(coords1))
+            net, up_mask, delta_flow, motion = self.update_block(
+                net, inp, corr, to_nchw(coords1 - coords0), need_mask=True, plain=plain)
+            delta_flow = delta_flow.float()
+            coords1 = coords1 + delta_flow.permute(0, 2, 3, 1).reshape(coords1.shape)
+            flow_nchw = to_nchw(coords1 - coords0)
+            fields, coefs = [flow_nchw], [8.0]
+            if heads:
+                occlusion, uncertainty = self.occlusion_block(
+                    net.detach(), inp, corr.detach(), flow_nchw.detach(),
+                    delta_flow.detach(), motion)
+                fields += [occlusion.float(), uncertainty.float()]
+                coefs += [1.0, 1.0]
+            ups = convex_upsample_multi(fields, up_mask.float(), coefs)
+            flows.append(ups[0])
+            if heads:
+                occls.append(ups[1])
+                uncs.append(ups[2])
+        return {"flow": flows, "occlusion": occls, "uncertainty": uncs,
+                "coords": (coords1 - coords0).reshape(B, H8, W8, 2)}
+
+    def stored_volume(self, fmap1, fmap2, plain: bool = False, method=None):
+        """The stored volume of a volume method (the configured one by
+        default): the list of :func:`build_corr_pyramid` for 'auto' and its
+        aliases, else a tagged tuple."""
+        method = method or self.cfg.corr_method
+        levels = self.cfg.corr_levels
         if method == "int8":
             return ("i8", *build_corr_pyramid_i8(fmap1, fmap2, levels))
         if method == "pallas_t":

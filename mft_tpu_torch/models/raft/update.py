@@ -16,7 +16,10 @@ when unfused, convc2, convf2, conv, the GRU's zr pair and q in both passes,
 the flow head's two convs) run through :func:`conv_apply` here: with
 ``conv_backend='pallas'`` on the product kernel (``ops.conv_pallas``, one
 fixed summation order), else ``F.conv2d``. convf1, the mask head and the OU
-block stay ``nn.Conv2d``, as they stay ``nn.Conv`` in JAX.
+block stay ``nn.Conv2d``, as they stay ``nn.Conv`` in JAX. The product
+kernel has no backward: a model in train mode builds its update block with
+``conv_backend`` 'auto' (cuDNN), as JAX trains with its differentiable
+lowering in place of ``conv_pallas``.
 """
 
 import torch
@@ -24,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mft_tpu_torch import ops
-from mft_tpu_torch.models.raft.layers import conv
+from mft_tpu_torch.models.raft.layers import compute_dtype, conv
 
 _ACT = {None: lambda v: v, "relu": torch.relu}
 
@@ -51,8 +54,9 @@ def conv_apply(x, weight, bias, padding, backend: str = "auto", plain: bool = Fa
     (pt, pb), (pl, pr) = padding
     if pt != pb or pl != pr:
         x, pt, pl = F.pad(x, (pl, pr, pt, pb)), 0, 0
-    # the float32 bias in x's dtype, as JAX's lax-conv branch adds it
-    return _ACT[act](F.conv2d(x, weight, bias.to(x.dtype), padding=(pt, pl)))
+    # weight and the float32 bias in x's dtype, as JAX's lax-conv branch
+    # casts them
+    return _ACT[act](F.conv2d(x, weight.to(x.dtype), bias.to(x.dtype), padding=(pt, pl)))
 
 
 def _same(m: nn.Conv2d):
@@ -99,7 +103,7 @@ class BasicMotionEncoder(nn.Module):
         self.conv = conv(256, 126, 3)
 
     def forward(self, flow, corr, backend="auto", plain=False):
-        dt = self.conv.weight.dtype
+        dt = compute_dtype(self.conv)
         flow = flow.to(dt)
         if callable(corr):
             cor = corr(self.convc1.weight, self.convc1.bias).to(dt)
@@ -194,7 +198,7 @@ class OcclusionAndUncertaintyBlock(nn.Module):
         self.uncertainty_head = SimpleHead(cin, hidden_dim, 1)
 
     def forward(self, net, inp, corr, flow, delta_flow, motion_features):
-        dt = self.occl_head.conv1.weight.dtype
+        dt = compute_dtype(self.occl_head.conv1)
         x = torch.cat([t.to(dt) for t in (net, inp, corr, flow, delta_flow,
                                            motion_features)], dim=1)
         h = torch.relu(_fused_pair(self.occl_head.conv1,

@@ -78,8 +78,6 @@ def raft_params_from_config(raft_kwargs) -> RAFTParams:
     unported = {
         "normalized_features": "ROADMAP A3 (normalized features)",
         "relu_uncertainty": "ROADMAP A3 (relu on the upsampled uncertainty)",
-        "OU_last_iter_only": "ROADMAP A14 (training mode; the port runs the "
-                             "heads on the last iteration only)",
     }
     for key, item in unported.items():
         if get(key, False):
@@ -90,7 +88,8 @@ def raft_params_from_config(raft_kwargs) -> RAFTParams:
     check_corr_tile(get("corr_tile", 0))
     return RAFTParams(compute_dtype=str(get("compute_dtype", "auto")),
                       corr_method=str(get("corr_method", "auto")),
-                      conv_backend="pallas" if backend == "pallas" else "auto")
+                      conv_backend="pallas" if backend == "pallas" else "auto",
+                      ou_last_iter_only=bool(get("OU_last_iter_only", False)))
 
 
 def random_init(model: nn.Module, seed: int = 0):

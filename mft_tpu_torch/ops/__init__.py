@@ -4,6 +4,7 @@
 |-------------------------------------------|-----------------------------------------------------|
 | corr_lookup_fused (mft_corr_lookup_conv_tc; f32: mft_corr_lookup_conv) | corr_lookup_pallas.py corr_lookup_pallas_fused |
 | corr_lookup (mft_corr_lookup)             | corr_lookup_pallas.py corr_lookup_pallas             |
+| corr_lookup_bwd (mft_corr_lookup_bwd)     | the VJP of models/raft/corr.py _corr_lookup_pallas_ad (XLA) |
 | chain_select (mft_chain_select)           | warp_pallas.py bilinear_warp_blocked (+ chain/select) |
 | corr_lookup_alt (mft_corr_alt; bf16: window_tc_kernel) | alt_corr_pallas.py corr_lookup_alt      |
 | corr_lookup_win (mft_corr_win; bf16: window_tc_kernel) | alt_corr_pallas.py corr_lookup_win      |
@@ -31,7 +32,7 @@ from mft_tpu_torch.ops.chain_select import chain_select, chain_select_ref
 from mft_tpu_torch.ops.corr_alt import (corr_lookup_alt, corr_lookup_alt_ref,
                                         corr_lookup_win)
 from mft_tpu_torch.ops.corr_lookup import (
-    corr_lookup, corr_lookup_folded, corr_lookup_folded_ref, corr_lookup_fused,
+    corr_lookup, corr_lookup_bwd, corr_lookup_bwd_ref, corr_lookup_folded, corr_lookup_folded_ref, corr_lookup_fused,
     corr_lookup_fused_ref, corr_lookup_mixed, corr_lookup_mixed_ref, corr_lookup_packed,
     corr_lookup_packed_i8, corr_lookup_packed_i8_ref, corr_lookup_packed_ref,
     corr_lookup_q, corr_lookup_q_ref, corr_lookup_ref, corr_lookup_t,
@@ -45,7 +46,7 @@ from mft_tpu_torch.ops.warp import (bilinear_warp, bilinear_warp_banded, bilinea
                                     bilinear_warp_pallas, bilinear_warp_ref,
                                     bilinear_warp_tiled, snap256, split_hi_lo)
 
-KERNELS = (corr_lookup_fused, corr_lookup, chain_select, corr_lookup_alt,
+KERNELS = (corr_lookup_fused, corr_lookup, corr_lookup_bwd, chain_select, corr_lookup_alt,
            corr_lookup_win, corr_lookup_q, corr_lookup_packed, corr_lookup_packed_i8,
            corr_lookup_t, corr_lookup_folded, corr_build_folded, corr_lookup_mixed,
            conv_pallas, bilinear_warp)
@@ -71,6 +72,7 @@ def reset_launch_counts():
 
 
 __all__ = ["chain_select", "chain_select_ref", "corr_lookup", "corr_lookup_ref",
+           "corr_lookup_bwd", "corr_lookup_bwd_ref",
            "corr_lookup_fused", "corr_lookup_fused_ref", "corr_lookup_alt",
            "corr_lookup_alt_ref", "corr_lookup_win", "corr_lookup_q",
            "corr_lookup_q_ref", "corr_lookup_packed", "corr_lookup_packed_ref",

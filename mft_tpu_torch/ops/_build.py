@@ -38,6 +38,7 @@ _F = ctypes.c_float
 # argtypes of every extern "C" entry point; all return a cudaError_t as int
 SIGNATURES = {
     "mft_corr_lookup": [_P, _P, _P, _P, _P, _P] + [_I] * 9 + [_L, _I, _I, _P],
+    "mft_corr_lookup_bwd": [_P] * 6 + [_I] * 9 + [_L, _I, _I, _P],
     "mft_corr_lookup_conv": [_P] * 8 + [_I] * 9 + [_L, _I, _I, _P],
     "mft_corr_lookup_conv_tc": [_P] * 8 + [_I] * 9 + [_L, _I, _I, _P],
     "mft_chain_select": [_P] * 10 + [_F, _I, _I, _I, _P],

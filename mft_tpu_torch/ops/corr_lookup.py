@@ -6,7 +6,13 @@ uses its plain PyTorch version on a CPU tensor:
 - :func:`corr_lookup` (kernel ``mft_corr_lookup``, replacing
   ``mft_tpu/ops/corr_lookup_pallas.py corr_lookup_pallas``) returns the
   (B, P, L*(2r+1)^2) bilinear window samples in the volume dtype, through
-  the staged per-pixel gather of ``csrc/corr_gather.cu``;
+  the staged per-pixel gather of ``csrc/corr_gather.cu``; where a level
+  requires a gradient it runs as an autograd function whose backward is
+  :func:`corr_lookup_bwd` (kernel ``mft_corr_lookup_bwd`` in
+  ``csrc/corr_lookup_bwd.cu``, replacing the VJP of
+  ``mft_tpu/models/raft/corr.py _corr_lookup_pallas_ad``): the gradient of
+  every level and none of the coordinates, whose gradient the model stops
+  before every lookup;
 - :func:`corr_lookup_fused` (kernels ``mft_corr_lookup_conv_tc`` for
   bfloat16 and ``mft_corr_lookup_conv`` for float32, ``csrc/corr_lookup.cu``,
   replacing ``corr_lookup_pallas_fused``) returns relu(samples @ wc + bias),
@@ -114,6 +120,44 @@ def _samples_ref(pyramid, coords, radius):
 def corr_lookup_ref(pyramid, coords, radius: int = 4) -> torch.Tensor:
     """Plain version of :func:`corr_lookup`."""
     return _samples_ref(pyramid, coords, radius).to(pyramid[0].dtype)
+
+
+def corr_lookup_bwd_ref(grad, coords, dims, radius: int = 4) -> list:
+    """Plain version of :func:`corr_lookup_bwd`, in the kernel's operations
+    and order: per level the box of (2r+2)^2 map positions around
+    floor(coords / 2^l) - r, each the float32 sum ((((0 + t0) + t1) + t2) + t3)
+    of its four window terms (``csrc/corr_lookup_bwd.cu``), rounded once to
+    ``grad``'s dtype and put at its place in a zero map; box positions off
+    the map are left out."""
+    B, P, _ = grad.shape
+    n = 2 * radius + 1
+    # the window g[i, j] (i offsets x) with a zero border: gp[i+1, j+1]
+    gp = torch.nn.functional.pad(grad.float().reshape(B, P, len(dims), n, n),
+                                 (1, 1, 1, 1))
+    steps = torch.arange(n + 1, device=grad.device)
+    pixel = torch.arange(B * P, device=grad.device).view(B, P, 1, 1)
+    out = []
+    for lvl, (h, w) in enumerate(dims):
+        c = coords.float() / (2.0 ** lvl)
+        f = torch.floor(c)
+        wgt = c - f
+        wx, wy = wgt[..., 0, None, None], wgt[..., 1, None, None]
+        ux, uy = 1.0 - wx, 1.0 - wy
+        g = gp[:, :, lvl]
+        acc = torch.zeros((B, P, n + 1, n + 1), device=grad.device)
+        acc = acc + g[..., 1:, 1:] * (ux * uy)        # g[a, b]
+        acc = acc + g[..., :-1, 1:] * (wx * uy)       # g[a-1, b]
+        acc = acc + g[..., 1:, :-1] * (ux * wy)       # g[a, b-1]
+        acc = acc + g[..., :-1, :-1] * (wx * wy)      # g[a-1, b-1]
+        xs = (f[..., 0].long() - radius)[..., None] + steps     # (B, P, n+1): a
+        ys = (f[..., 1].long() - radius)[..., None] + steps     # b
+        keep = (((xs >= 0) & (xs < w))[..., :, None]
+                & ((ys >= 0) & (ys < h))[..., None, :])
+        flat = (pixel * (h * w) + ys[..., None, :] * w + xs[..., :, None])[keep]
+        level = torch.zeros(B * P * h * w, dtype=grad.dtype, device=grad.device)
+        level[flat] = acc[keep].to(grad.dtype)
+        out.append(level.view(B, P, h, w))
+    return out
 
 
 def corr_lookup_q_ref(levels, scales, coords, radius: int = 4) -> torch.Tensor:
@@ -304,8 +348,48 @@ def _check_fused_width(F: int):
                          f"{FUSED_TC_MAX_F}, got {F}")
 
 
-def corr_lookup(pyramid, coords, radius: int = 4) -> torch.Tensor:
-    """Window lookup: (B, P, L*(2r+1)^2) samples in the volume dtype."""
+class _CorrLookup(torch.autograd.Function):
+    """The lookup with the gradient of every level: forward K2 and backward
+    :func:`corr_lookup_bwd`, or with ``plain`` both plain versions."""
+
+    @staticmethod
+    def forward(ctx, coords, radius, plain, *pyramid):
+        ctx.save_for_backward(coords)
+        ctx.radius, ctx.plain = radius, plain
+        ctx.dims = [tuple(lvl.shape[2:]) for lvl in pyramid]
+        if plain:
+            return corr_lookup_ref(list(pyramid), coords, radius)
+        return _corr_lookup_kernel(list(pyramid), coords, radius)
+
+    @staticmethod
+    def backward(ctx, grad):
+        coords, = ctx.saved_tensors
+        bwd = corr_lookup_bwd_ref if ctx.plain else corr_lookup_bwd
+        grads = bwd(grad.contiguous(), coords, ctx.dims, ctx.radius)
+        return (None, None, None, *(gr if need else None
+                                    for gr, need in zip(grads, ctx.needs_input_grad[3:])))
+
+
+def corr_lookup(pyramid, coords, radius: int = 4, plain: bool = False) -> torch.Tensor:
+    """Window lookup: (B, P, L*(2r+1)^2) samples in the volume dtype.
+
+    Where autograd records and a level requires a gradient, the samples
+    carry the levels' gradient (:func:`corr_lookup_bwd` in the backward);
+    coords must not require one (ValueError). ``plain`` runs the plain
+    versions of the forward and the backward, also on the card.
+    """
+    if torch.is_grad_enabled() and coords.requires_grad:
+        raise ValueError("corr_lookup has no coordinate gradient: detach coords "
+                         "(the model stops the gradient before every lookup)")
+    if torch.is_grad_enabled() and any(lvl.requires_grad for lvl in pyramid):
+        return _CorrLookup.apply(coords, radius, plain or coords.device.type == "cpu",
+                                 *pyramid)
+    if plain:
+        return corr_lookup_ref(pyramid, coords, radius)
+    return _corr_lookup_kernel(pyramid, coords, radius)
+
+
+def _corr_lookup_kernel(pyramid, coords, radius: int) -> torch.Tensor:
     if coords.device.type == "cpu":
         return corr_lookup_ref(pyramid, coords, radius)
     _require_cuda(coords, "corr_lookup")
@@ -322,6 +406,45 @@ def corr_lookup(pyramid, coords, radius: int = 4) -> torch.Tensor:
 
 
 corr_lookup.launches = 0
+
+
+def corr_lookup_bwd(grad, coords, dims, radius: int = 4) -> list:
+    """Gradient of :func:`corr_lookup`'s samples into each level.
+
+    args: grad (B, P, L*(2r+1)^2) float32 or bfloat16, the samples' gradient;
+      coords (B, P, 2) float32 as the forward took them; dims the levels'
+      (h_l, w_l).
+    returns: the L (B, P, h_l, w_l) level gradients in grad's dtype, every
+      value written (zeros outside each window's box).
+    """
+    if coords.device.type == "cpu":
+        return corr_lookup_bwd_ref(grad, coords, dims, radius)
+    _require_cuda(coords, "corr_lookup_bwd")
+    _check_gather_radius(radius)
+    if not 1 <= len(dims) <= 4:
+        raise ValueError(f"1..4 pyramid levels supported, got {len(dims)}")
+    if grad.dtype not in _DTYPE_CODE:
+        raise TypeError(f"grad dtype must be one of {tuple(_DTYPE_CODE)}, got {grad.dtype}")
+    B, P = coords.shape[:2]
+    C = _channels(len(dims), radius)
+    if (grad.shape != (B, P, C) or not grad.is_contiguous()
+            or grad.device != coords.device):
+        raise ValueError(f"grad must be a contiguous ({B}, {P}, {C}) tensor on the "
+                         f"coords' device, got {tuple(grad.shape)}")
+    _check_coords(coords, B, P)
+    outs = [torch.empty((B, P, h, w), dtype=grad.dtype, device=coords.device)
+            for h, w in dims]
+    ptrs = [o.data_ptr() for o in outs] + [None] * (4 - len(dims))
+    hw = [int(v) for h_w in dims for v in h_w] + [0, 0] * (4 - len(dims))
+    err = _build.library().mft_corr_lookup_bwd(
+        *ptrs, grad.data_ptr(), coords.data_ptr(), *hw, len(dims), B * P, radius,
+        _DTYPE_CODE[grad.dtype], _stream(coords))
+    _build.check(err, "mft_corr_lookup_bwd")
+    corr_lookup_bwd.launches += 1
+    return outs
+
+
+corr_lookup_bwd.launches = 0
 
 
 def corr_lookup_fused(pyramid, coords, wc, bias, radius: int = 4) -> torch.Tensor:

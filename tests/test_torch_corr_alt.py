@@ -217,7 +217,24 @@ def test_unported_raft_options_raise(key, value):
     """Options the port does not implement raise instead of being ignored.
     conv_backend 'pallas', ported since, is read and runs: the model's
     update block takes it, and one step of it computes the 'auto' block's
-    result (f32, 1e-4; the product kernel's plain version on the CPU)."""
+    result (f32, 1e-4; the product kernel's plain version on the CPU).
+    OU_last_iter_only, ported since, is read; in test mode the heads run on
+    the last iteration either way, so the flow is the default model's, bit
+    for bit (its train-mode effect is held against JAX in
+    tests/test_torch_train_model.py)."""
+    if (key, value) == ("OU_last_iter_only", True):
+        params = raft_params_from_config({key: value})
+        assert params.ou_last_iter_only
+        default = RAFT(raft_params_from_config({}))
+        model = RAFT(params)
+        model.load_state_dict(default.state_dict())
+        f = torch.randn((1, 256, 8, 8), generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            got = model.flow_from_features(f, f.flip(-1), f, iters=2)
+            want = default.flow_from_features(f, f.flip(-1), f, iters=2)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+        return
     if (key, value) == ("conv_backend", "pallas"):
         params = raft_params_from_config({key: value})
         assert params.conv_backend == "pallas"

@@ -195,8 +195,12 @@ def test_wrappers_use_plain_version_on_cpu(rng):
     tw, tb = torch.from_numpy(wc), torch.from_numpy(bias)
     assert torch.equal(ops.corr_lookup_fused(tp, tc, tw, tb, R),
                        ops.corr_lookup_fused_ref(tp, tc, tw, tb, R))
+    g = torch.ones((*tc.shape[:2], len(tp) * (2 * R + 1) ** 2))
+    dims = [tuple(lvl.shape[2:]) for lvl in tp]
+    assert all(torch.equal(a, b) for a, b in zip(ops.corr_lookup_bwd(g, tc, dims, R),
+                                                   ops.corr_lookup_bwd_ref(g, tc, dims, R)))
     assert ops.launch_counts() == {k.__name__: 0 for k in ops.KERNELS}
-    assert len(ops.KERNELS) == 14
+    assert len(ops.KERNELS) == 15   # the 14 kernels of the Pallas sites' paths + the backward
 
 
 @pytest.mark.parametrize("radius", [0, 1, 4, 5])

@@ -1,11 +1,11 @@
 """The port stands alone: no module of mft_tpu_torch, and not chip_smoke.py,
-imports JAX or the JAX package, nor OpenCV, pandas, tabulate or PIL (the
-card's machine has none of them), and chip_smoke.py refuses to run without a
-card or without the package beside it.
+imports JAX or the JAX package, nor optax, orbax, OpenCV, pandas, tabulate
+or PIL (the card's machine has none of them), and chip_smoke.py refuses to
+run without a card or without the package beside it.
 
 Each check runs in a fresh interpreter whose import system refuses ``jax``,
-``flax``, ``msgpack``, ``mft_tpu``, ``cv2``, ``pandas``, ``tabulate`` and
-``PIL`` (and their submodules).
+``flax``, ``optax``, ``orbax``, ``msgpack``, ``mft_tpu``, ``cv2``,
+``pandas``, ``tabulate`` and ``PIL`` (and their submodules).
 """
 
 import os
@@ -20,8 +20,8 @@ import pytest
 import mft_tpu_torch
 
 REPO = Path(__file__).resolve().parents[1]
-BLOCKED = ("jax", "jaxlib", "flax", "msgpack", "mft_tpu", "cv2", "pandas",
-           "tabulate", "PIL")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "mft_tpu", "cv2",
+           "pandas", "tabulate", "PIL")
 
 _BLOCKER = f"""
 import importlib.abc, sys
@@ -65,7 +65,12 @@ def test_port_modules_list_is_complete():
                  "mft_tpu_torch.io.flowou_codecs", "mft_tpu_torch.io.cache",
                  "mft_tpu_torch.eval.tapvid", "mft_tpu_torch.eval.metrics",
                  "mft_tpu_torch.eval.runner", "mft_tpu_torch.eval.evaluate",
-                 "mft_tpu_torch.eval.report"):
+                 "mft_tpu_torch.eval.report", "mft_tpu_torch.utils.vis",
+                 "mft_tpu_torch.train.losses", "mft_tpu_torch.train.optim",
+                 "mft_tpu_torch.train.checkpoint", "mft_tpu_torch.train.loop",
+                 "mft_tpu_torch.train.synth", "mft_tpu_torch.train.flow_readers",
+                 "mft_tpu_torch.train.augment", "mft_tpu_torch.train.datasets",
+                 "mft_tpu_torch.train.validate", "mft_tpu_torch.train.logger"):
         assert want in mods
 
 
@@ -116,8 +121,8 @@ def test_chip_smoke_alone_fails(tmp_path):
                                   "tools/torch_window_probe.py",
                                   "tools/torch_lookup_probe.py"])
 def test_no_jax_import_statements(path):
-    """Also by text: no import line names jax, flax, mft_tpu, cv2, pandas,
-    tabulate or PIL (the port's own package name aside)."""
+    """Also by text: no import line names jax, flax, optax, orbax, mft_tpu,
+    cv2, pandas, tabulate or PIL (the port's own package name aside)."""
     root = REPO / path
     files = [root] if root.is_file() else sorted(root.rglob("*.py"))
     for f in files:

@@ -1341,3 +1341,91 @@ def test_mft_cache_paths_launch_their_kernels(cuda):
     for a, img in zip(chunked, frames[1:]):
         b = tracker.track(img).result
         assert torch.equal(a.result.flow, b.flow) and torch.equal(a.result.occlusion, b.occlusion)
+
+
+@pytest.mark.parametrize("radius", [4, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lookup_backward_kernel_matches_plain(np_rng, cuda, dtype, radius):
+    """The backward kernel against its plain version: the same four products
+    per map position summed in the same order, rounded once: bit for bit in
+    both dtypes; every value of every map written; one launch; odd widths
+    (the scalar stores) and even ones (bf16 pairs) both."""
+    for H8, W8 in ((6, 10), (5, 7)):
+        pyr, coords, _, _ = _lookup_inputs(np_rng, dtype, cuda, H8=H8, W8=W8, radius=radius)
+        coords[0, :8] = torch.round(coords[0, :8])
+        dims = [tuple(lvl.shape[2:]) for lvl in pyr]
+        C = len(dims) * (2 * radius + 1) ** 2
+        g = torch.from_numpy(np_rng.standard_normal((*coords.shape[:2], C)).astype(np.float32))
+        g = g.to(cuda).to(DT[dtype])
+        ops.reset_launch_counts()
+        got = ops.corr_lookup_bwd(g, coords, dims, radius)
+        assert ops.launch_counts()["corr_lookup_bwd"] == 1
+        want = ops.corr_lookup_bwd_ref(g, coords, dims, radius)
+        for a, b in zip(got, want):
+            assert a.dtype == DT[dtype] and a.shape == b.shape
+            assert torch.equal(a, b)
+        if dtype == "bfloat16":   # within one bf16 rounding of the f32 result
+            want32 = ops.corr_lookup_bwd_ref(g.float(), coords, dims, radius)
+            for a, b in zip(got, want32):
+                assert torch.equal(a, b.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lookup_function_gradients_on_the_card(np_rng, cuda, dtype):
+    """The autograd function on the card: forward K2 and backward
+    mft_corr_lookup_bwd (one launch each), its level gradients equal to the
+    plain route's autograd (plain forward and backward) and, in f32, to
+    autograd through the plain gather within 1e-6 (another summation order);
+    coordinates that require a gradient raise."""
+    pyr, coords, _, _ = _lookup_inputs(np_rng, dtype, cuda)
+    levels = [lvl.clone().requires_grad_() for lvl in pyr]
+    g = torch.from_numpy(np_rng.standard_normal((*coords.shape[:2], 324)).astype(np.float32))
+    g = g.to(cuda).to(DT[dtype])
+    ops.reset_launch_counts()
+    out = ops.corr_lookup(levels, coords, 4)
+    grads = torch.autograd.grad(out, levels, g)
+    assert ops.launch_counts()["corr_lookup"] == 1
+    assert ops.launch_counts()["corr_lookup_bwd"] == 1
+    plain = torch.autograd.grad(ops.corr_lookup(levels, coords, 4, plain=True), levels, g)
+    assert ops.launch_counts()["corr_lookup_bwd"] == 1
+    assert all(torch.equal(a, b) for a, b in zip(grads, plain))
+    if dtype == "float32":
+        gather = torch.autograd.grad(ops.corr_lookup_ref(levels, coords, 4), levels, g)
+        for a, b in zip(grads, gather):
+            torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+    with pytest.raises(ValueError, match="coordinate gradient"):
+        ops.corr_lookup(levels, coords.clone().requires_grad_(), 4)
+
+
+def test_train_step_on_the_card(cuda):
+    """Two full-recipe steps at 128x128 (batch 2, 3 iterations, bf16 compute
+    over f32 parameters): finite losses, 3 K2 and 3 backward launches a
+    step, every weight and batch statistic moved, and the plain route
+    launching none."""
+    from mft_tpu_torch.models.raft import RAFT
+    from mft_tpu_torch.models.raft.raft import RAFTParams
+    from mft_tpu_torch.models.raft.wrapper import random_init
+    from mft_tpu_torch.train import synth
+    from mft_tpu_torch.train.loop import make_train_step
+    from mft_tpu_torch.train.optim import make_optimizer
+    model = random_init(RAFT(RAFTParams(), train_mode=True), 0).to(cuda)
+    model.cast_per_call(torch.bfloat16)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    tx, _ = make_optimizer(lr=1e-3, num_steps=10)
+    state = {"model": model, "opt_state": tx.init(dict(model.named_parameters())), "step": 0}
+    lk = dict(gamma=0.85, freeze_optical_flow=False)
+    step = make_train_step(model, tx, lk, iters=3)
+    batch = tuple(torch.from_numpy(b).to(cuda) for b in
+                  synth.make_batch(np.random.default_rng(0), 2, 128, 128, T=3))
+    for _ in range(2):
+        ops.reset_launch_counts()
+        state, metrics = step(state, batch)
+        assert all(bool(torch.isfinite(v)) for v in metrics.values())
+        counts = ops.launch_counts()
+        assert counts["corr_lookup"] == 3 and counts["corr_lookup_bwd"] == 3
+    after = model.state_dict()
+    moved = [k for k in after if k.endswith(("weight", "running_mean", "running_var"))]
+    assert all(not torch.equal(after[k], before[k]) for k in moved), "a tensor did not move"
+    ops.reset_launch_counts()
+    make_train_step(model, tx, lk, iters=3, plain=True)(state, batch)
+    assert all(n == 0 for n in ops.launch_counts().values())
