@@ -141,7 +141,29 @@ non-zero and prints no result line):
    deterministic cuDNN, loss and gradients within ``TRAIN_PLAIN_TOL``;
    (d) resume: 2 steps, a checkpoint, a 3rd step, against a state restored
    from the checkpoint taking the same 3rd step, bit for bit; these steps,
-   timed, give a full step's ms with no batch loader beside it.
+   timed, give a full step's ms with no batch loader beside it;
+15. multi-clip streaming (``mft_tpu_torch.parallel``): (a) chain + select K3
+   with its clip axis, 4 clips x 7 candidates at 512x512 in one launch, on
+   uniform, local, steady and NaN maps, bit for bit with its plain version
+   and with 4 single-clip launches, timed beside them and its bound; (b)
+   ``StreamingTracker`` on ``default_config()`` over C = 1, 2, 4, 8, 16
+   clips (the synthetic clip, texture seed c for clip c), 10 timesteps
+   each: launches K1 11, K2 1, K3 1 a timestep at every C, outputs, ms a
+   timestep, clip-frames/s, peak memory and, from a profiler pass of 2 more
+   timesteps, the device's idle share; clip 0 and clip C - 1 (every clip at
+   C = 4) each timestep against a single-clip MFT from the same state,
+   printed (random bf16 weights amplify the rounding of cuDNN's
+   batch-dependent algorithms), then gated by the frame gate in float32 (3
+   iterations, 4 timesteps) at C = 16, clips 0 and 15; (c) fast and warm on the
+   committed weights at C = 4 (launches K1 6, K2 6, K3 1; every clip gated
+   from the same state; the drift from trackers that track each clip alone
+   printed, not gated); (d) injection at C = 4 on the committed weights:
+   rows of four FlowCaches' device tiers for every valid finite pair, the
+   template pair alone through RAFT (K1 11, K2 1, K3 1), every clip gated
+   against the single tracker's injected frame; (e) an NCCL
+   process group of world size 1 and its mesh: a ``make_train_step(mesh=)``
+   step (full recipe, batch 2 at 368x768) and a ``StreamingTracker(mesh=)``
+   timestep bit for bit with no mesh (more than one card: not run).
 
 Every bf16 launch of K1, #5, #13, K4 and K5 on the main path, conv_backend
 'pallas', 'alt' and 'win' at 512x512 and 2160x3840, 'auto' at 1080x1920
@@ -409,14 +431,14 @@ def check_lookups(torch, ops, dev, card):
     return stats
 
 
-def chain_select_inputs(torch, dev, N=7, H=512, W=512, kind="uniform"):
+def chain_select_inputs(torch, dev, N=7, H=512, W=512, kind="uniform", seed=2):
     """K3's candidate maps: 'uniform' draws every flow in +-20 px per pixel
     (every warp's taps scattered), 'local' gives candidate n the shift
     (n + 1)*(2, 1) px plus U(-0.5, 0.5), as tracking does; occlusions in
     [0, 0.03), sigmas in [0.1, 2); candidates 5 and 6 invalid (MFT's deltas
     16 and 32, as in frames 8-15 after the start), except in 'steady', the
     local maps with every candidate valid (frame 32 after the start on)."""
-    gen = torch.Generator(device=dev).manual_seed(2)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     u = lambda *s, lo=0.0, hi=1.0: torch.empty(s, device=dev).uniform_(lo, hi, generator=gen)
     if kind == "uniform":
         lflow = u(N, H, W, 2, lo=-20.0, hi=20.0)
@@ -431,12 +453,12 @@ def chain_select_inputs(torch, dev, N=7, H=512, W=512, kind="uniform"):
             rflow, u(N, H, W, hi=0.03), u(N, H, W, lo=0.1, hi=2.0), valid)
 
 
-def chain_select_nan_inputs(torch, dev, N=7, H=512, W=512):
+def chain_select_nan_inputs(torch, dev, N=7, H=512, W=512, seed=2):
     """The uniform maps with NaN in 1% of the values of each candidate
     occlusion and sigma map (left and right): NaN scores, which argmax takes
     as the maximum, and NaN occlusions, which torch.maximum propagates."""
-    maps = list(chain_select_inputs(torch, dev, N, H, W))
-    gen = torch.Generator(device=dev).manual_seed(3)
+    maps = list(chain_select_inputs(torch, dev, N, H, W, seed=seed))
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
     for k in (1, 2, 4, 5):
         hit = torch.rand(maps[k].shape, device=dev, generator=gen) < 0.01
         maps[k] = maps[k].masked_fill(hit, float("nan"))
@@ -671,11 +693,11 @@ VOLUME_KERNEL_OF = {"int8": "corr_lookup_q", "packed": "corr_lookup_packed",
 VOLUME_TOL = (1e-6, 1e-6)
 
 
-def lookup_coords(torch, dev, kind, gen, H8=64, W8=64):
-    """(B, H8*W8, 2) coords: 'uniform' over the map and 10 px beyond it
+def lookup_coords(torch, dev, kind, gen, H8=64, W8=64, pairs=B):
+    """(pairs, H8*W8, 2) coords: 'uniform' over the map and 10 px beyond it
     ([-10, 74] at 64x64, as phase 3 draws them), 'local' the pixel grid +
     U(-2, 2)."""
-    u = torch.empty((B, H8 * W8, 2), device=dev).uniform_(0.0, 1.0, generator=gen)
+    u = torch.empty((pairs, H8 * W8, 2), device=dev).uniform_(0.0, 1.0, generator=gen)
     if kind == "uniform":
         span = torch.tensor([W8 + 20.0, H8 + 20.0], device=dev)
         return (-10.0 + u * span).contiguous()
@@ -1266,7 +1288,7 @@ def check_sass(_build, path):
 # cores, bf16), the warp (f32, bf16 maps x 4 modes x C of 1, 2, 4, 6 and any
 # other), the bf16 window correlations K4/K5 (one instance for both entry
 # points), the lane-major lookup K9 (radius 1..4 x f32, bf16) and chain +
-# select K3 (1..8 candidates and any other count)
+# select K3 (1..8 candidates and any other count, x one clip or a clip axis)
 FRAME_CHECKED = {"corr_gather_kernel": 12, "lookup_conv_kernel": 4,
                  "lookup_conv_tc_kernel": 4, "warp_kernel": 40, "window_tc_kernel": 1,
                  "lane_group_kernel": 8, "chain_select_kernel": 9}
@@ -1669,16 +1691,16 @@ def check_q_kernel_hd(torch, ops, dev, card, H8, W8, n_sample=4096):
     torch.cuda.empty_cache()
 
 
-def check_lookup_hd(torch, ops, dev, card, H8, W8, n_sample=4096):
-    """K2 (the staged gather) on a whole (7, H8*W8) call of the bf16 volume of
-    random features, whose levels' rows (w = 240, 120, 60, 30) are no
-    multiple of 16 bytes, held bit for bit against its plain version on
-    ``n_sample`` sampled pixels of each pair; K1 on the same calls, on the
-    tensor cores, held to ops.product_error_bound there."""
+def check_lookup_hd(torch, ops, dev, card, H8, W8, n_sample=4096, pairs=B):
+    """K2 (the staged gather) on a whole (pairs, H8*W8) call of the bf16
+    volume of random features (at 1080x1920 its levels' rows, w = 240, 120,
+    60, 30, are no multiple of 16 bytes), held bit for bit against its plain
+    version on ``n_sample`` sampled pixels of each pair; K1 on the same
+    calls, on the tensor cores, held to ops.product_error_bound there."""
     from mft_tpu_torch.models.raft import corr as tcorr
     gen = torch.Generator(device=dev).manual_seed(13)
-    f1 = torch.randn((B, FEAT_C, H8, W8), device=dev, generator=gen).to(torch.bfloat16)
-    f2 = torch.randn((B, FEAT_C, H8, W8), device=dev, generator=gen).to(torch.bfloat16)
+    f1 = torch.randn((pairs, FEAT_C, H8, W8), device=dev, generator=gen).to(torch.bfloat16)
+    f2 = torch.randn((pairs, FEAT_C, H8, W8), device=dev, generator=gen).to(torch.bfloat16)
     pyr = tcorr.build_corr_pyramid(f1, f2, len(LEVELS))
     del f1, f2
     # convc1's (F, C) weight as the model passes it, and its bias
@@ -1686,18 +1708,18 @@ def check_lookup_hd(torch, ops, dev, card, H8, W8, n_sample=4096):
           / 18.0).to(torch.bfloat16).t()
     bias = 0.1 * torch.randn((F,), device=dev, generator=gen)
     for kind in ("local", "uniform"):
-        coords = lookup_coords(torch, dev, kind, gen, H8, W8)
+        coords = lookup_coords(torch, dev, kind, gen, H8, W8, pairs)
         idx = torch.randperm(H8 * W8, device=dev, generator=gen)[:n_sample]
         kernel = lambda: ops.corr_lookup(pyr, coords, RADIUS)
         got = kernel()[:, idx]
         torch.cuda.synchronize()
         want = ops.corr_lookup_ref([lvl[:, idx].contiguous() for lvl in pyr],
                                    coords[:, idx].contiguous(), RADIUS)
-        err = exact_check(torch, f"corr_lookup bfloat16 {kind} at {H8}x{W8} (7 pairs, levels "
+        err = exact_check(torch, f"corr_lookup bfloat16 {kind} at {H8}x{W8} ({pairs} pairs, levels "
                                  f"{[tuple(lvl.shape[2:]) for lvl in pyr]}), {n_sample} sampled "
                                  f"pixels per pair", got, want)
         ms = graph_ms(kernel, reps=5)
-        log(f"time corr_lookup bfloat16 {kind} at {H8}x{W8}: kernel {ms:.4f} ms (graph replay), "
+        log(f"time corr_lookup bfloat16 {kind} at {H8}x{W8} ({pairs} pairs): kernel {ms:.4f} ms (graph replay), "
             f"max_abs_err {err:.3e} [{card}]")
         sub = [lvl[:, idx].contiguous() for lvl in pyr]
         fused = lambda: ops.corr_lookup_fused(pyr, coords, wc, bias, RADIUS)
@@ -1705,13 +1727,13 @@ def check_lookup_hd(torch, ops, dev, card, H8, W8, n_sample=4096):
         torch.cuda.synchronize()
         want = ops.corr_lookup_fused_ref(sub, coords[:, idx].contiguous(), wc, bias, RADIUS)
         mag = ops.corr_lookup_fused_magnitude(sub, coords[:, idx].contiguous(), wc, RADIUS)
-        bound_check(torch, ops, f"fused bfloat16 {kind} at {H8}x{W8} (tensor cores), "
+        bound_check(torch, ops, f"fused bfloat16 {kind} at {H8}x{W8} ({pairs} pairs, tensor cores), "
                                 f"{n_sample} sampled pixels per pair", got, want, mag,
                     wc.shape[0])
         log(f"fused bfloat16 {kind} at {H8}x{W8}: {int((got != want).sum())} of {got.numel()} "
             f"sampled outputs differ from the plain version's (not gated)")
         ms = graph_ms(fused, reps=5)
-        log(f"time fused bfloat16 {kind} at {H8}x{W8}: kernel {ms:.4f} ms (graph replay) "
+        log(f"time fused bfloat16 {kind} at {H8}x{W8} ({pairs} pairs): kernel {ms:.4f} ms (graph replay) "
             f"[{card}]")
         del got, want, sub, mag
     del pyr
@@ -2763,6 +2785,472 @@ def run_training(torch, ops, dev, card):
     return bwd, recipes
 
 
+# --------------------------------------------------------------------------- #
+# phase 15: multi-clip streaming and the data-parallel mesh
+# --------------------------------------------------------------------------- #
+STREAM_CLIPS = (1, 2, 4, 8, 16)   # clips tracked in lockstep
+STREAM_STEPS = 10                  # timesteps of each C
+STREAM_GATED = 4                   # the C at which every clip is held to its single tracker
+CLIP_AXIS_C = 4                    # K3's clip-axis check and time
+STREAM_SAMPLE = 1024               # pixels a pair of the K1/K2 check at the largest C
+F32_ITERS, F32_STEPS = 3, 4        # the float32 gate's iterations and timesteps
+MESH_B, MESH_H, MESH_W = 2, 368, 768   # the data-parallel step's batch and crop
+
+
+def check_chain_select_clips(torch, ops, dev, card, C=CLIP_AXIS_C, timed=True):
+    """15a: K3 over (C, 7, 512, 512) in one launch, candidate maps of their
+    own seed a clip, on uniform, local and steady (every candidate valid)
+    maps and NaN maps: bit for bit (NaN positions equal) with its plain
+    version and with C single-clip launches; ``timed``: timed (graph replay)
+    beside the C single-clip launches and its bound, the sum of the clips'
+    compulsory bytes as ``chain_select_bytes`` counts them."""
+    stats = {}
+    for kind in ("uniform", "local", "steady", "nan"):
+        per = [chain_select_nan_inputs(torch, dev, seed=2 + 10 * c) if kind == "nan"
+               else chain_select_inputs(torch, dev, kind=kind, seed=2 + 10 * c)
+               for c in range(C)]
+        valid = per[0][6]
+        maps = [torch.stack([p[k] for p in per]) for k in range(6)]
+        got = ops.chain_select(*maps, valid)
+        singles = [ops.chain_select(*(m[c] for m in maps), valid) for c in range(C)]
+        torch.cuda.synchronize()
+        want = ops.chain_select_ref(*maps, valid)
+        n_plain = sum(differing(torch, g, w) for g, w in zip(got, want))
+        n_single = sum(differing(torch, g, torch.stack([one[f] for one in singles]))
+                       for f, g in enumerate(got))
+        n_nan = sum(int(torch.isnan(w).sum()) for w in want)
+        log(f"check chain_select clip axis {kind} (C {C}, 7 candidates, 512x512, one "
+            f"launch): {n_plain} of {sum(w.numel() for w in want)} outputs differ from the "
+            f"plain version's, {n_single} from {C} single-clip launches' ({n_nan} NaN "
+            f"outputs; tolerance 0) {'ok' if n_plain == n_single == 0 else 'FAIL'}")
+        check(n_plain == 0 and n_single == 0,
+              f"chain_select with a clip axis disagrees on the {kind} maps")
+        if timed and kind != "nan":
+            ms = graph_ms(lambda: ops.chain_select(*maps, valid))
+            singles_ms = graph_ms(lambda: [ops.chain_select(*(m[c] for m in maps), valid)
+                                           for c in range(C)])
+            plain_ms = cuda_ms(lambda: ops.chain_select_ref(*maps, valid), reps=3, warmup=1)
+            nbytes = sum(chain_select_bytes(torch, p) for p in per)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            log(f"time chain_select clip axis {kind}: one launch {ms:.4f} ms, {C} single-clip "
+                f"launches {singles_ms:.4f} ms ({ms / singles_ms:.3f}x; graph replay), plain "
+                f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB), "
+                f"{ms / bound:.2f}x the bound [{card}]")
+            stats.update({f"ms_clips{C}_{kind}": ms, f"singles_ms_clips{C}_{kind}": singles_ms,
+                          f"bound_ms_clips{C}_{kind}": bound})
+        del per, maps, got, singles, want
+    return stats
+
+
+def stream_frames(clips, C, n):
+    """(C, H, W, 3) frames of timesteps 0..n: clip c the synthetic clip of
+    texture seed c."""
+    import numpy as np
+    return [np.ascontiguousarray(np.stack([clips[c][k] for c in range(C)]))
+            for k in range(n + 1)]
+
+
+RING = ("mem_imgs", "mem_flow", "mem_occl", "mem_sigma", "mem_fmap", "mem_cnet")
+
+
+def same_state_frame(single, st, c, img, cache=None):
+    """Clip ``c``'s next frame through the single-clip tracker ``single``
+    from the streaming tracker's state: the clip's ring copied into the
+    tracker's, its frame index set; ``cache`` its FlowCache."""
+    for name in RING:
+        getattr(single, name).copy_(getattr(st, name)[c])
+    single.current_frame_i = st.current_frame_i
+    single.flow_cache = cache
+    return single.track(img).result
+
+
+def frame_gate(g) -> bool:
+    """The main path's frame gate: <= 1% of pixels over 0.5 px, median <=
+    0.05 px, occlusion and sigma shares <= 1%."""
+    return g["far"] <= 0.01 and g["median"] <= 0.05 and g["occ"] <= 0.01 and g["sig"] <= 0.01
+
+
+def worse(a, b):
+    """The larger of two gap stats, by share over 0.5 px, median, max."""
+    if a is None:
+        return b
+    key = lambda g: (g["far"], g["median"], g["max"])
+    return b if key(b) > key(a) else a
+
+
+def device_busy_ms(prof) -> float:
+    """The device time of the kernels a profiler recorded (one stream)."""
+    from torch.autograd import DeviceType
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0) / 1e3
+
+
+def run_stream(torch, ops, dev, cfg, frames, label, per_step, gated=(), gate=True,
+               caches=None, injected=None):
+    """``StreamingTracker`` over ``frames``: init, then a timestep a frame,
+    each timed on the host (synchronised), the launch counts set to 0 just
+    before each timestep and read just after. Before each timestep every
+    clip of ``gated`` takes the same frame on one single-clip MFT from the
+    streaming tracker's state (``same_state_frame``; ``caches`` the clips'
+    FlowCaches), and the two results are held by the frame gate (``gate``
+    False: the largest gap printed, not gated).
+    ``per_step``: the launches of each kernel a timestep; ``injected(st,
+    t)``: the timestep's injected rows. returns (host ms a timestep,
+    launches, the largest gap, tracker)."""
+    from mft_tpu_torch.parallel import StreamingTracker
+    from mft_tpu_torch.tracker import MFT
+    C = frames[0].shape[0]
+    H, W = frames[0].shape[1:3]
+    st = StreamingTracker(cfg, n_clips=C, device=dev)
+    st.init(frames[0])
+    single = None
+    if gated:
+        single = MFT(cfg, device=dev)
+        single.flower = st.flower   # the same weights, one copy
+        single.init(frames[0][0])
+    counts = {k: 0 for k in ops.launch_counts()}
+    step_ms, worst, where = [], None, None
+    for k, f in enumerate(frames[1:], start=1):
+        ones = {c: same_state_frame(single, st, c, f[c], caches and caches[c]) for c in gated}
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        inj = injected(st, k) if injected is not None else None
+        res = st.track(f, injected=inj)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        for name, n in ops.launch_counts().items():
+            counts[name] += n
+        check(tuple(res.flow.shape) == (C, H, W, 2), f"{label} timestep {k}: shape")
+        per_clip = [type(res)(res.flow[c], res.occlusion[c], res.sigma[c]) for c in range(C)]
+        check_results(torch, per_clip, H, W, f"{label} timestep {k}")
+        for c, one in ones.items():
+            g = gap_stats(per_clip[c], one)
+            if worse(worst, g) is g:
+                worst, where = g, (c, k)
+    n = len(frames) - 1
+    want = expected_counts(ops, **{k: n * v for k, v in per_step.items()}, chain_select=n)
+    log(f"{label}: launches over {n} timesteps: {counts}")
+    check(counts == want, f"{label}: launch counts {counts} != {want} ({per_step} and one "
+                          f"chain + select a timestep)")
+    if st.flower.dtype == torch.bfloat16:
+        check_tensor_cores(ops, label)
+    if gated:
+        ok = frame_gate(worst)
+        verdict = ("(tolerance: share > 0.5 px <= 1%, median <= 0.05 px, occlusion/sigma "
+                   f"shares <= 1%) {'ok' if ok else 'FAIL'}" if gate else "(not gated)")
+        log(f"{'check ' if gate else ''}{label}: clips {list(gated)}, each timestep against "
+            f"one single-clip MFT from the same state; the largest gap (clip {where[0]}, "
+            f"timestep {where[1]}): {gap_text(worst)} {verdict}")
+        check(ok or not gate, f"{label}: a clip disagrees with its single-clip tracker")
+    return step_ms, counts, worst, st
+
+
+def free_running_gap(torch, cfg, dev, clips, C, st_results, label):
+    """Not gated: each clip's results after every timestep against a
+    single-clip MFT that tracked the clip on its own (no shared state), the
+    largest gap printed: how far the two drift apart over the timesteps."""
+    from mft_tpu_torch.tracker import MFT
+    single = MFT(cfg, device=dev)
+    worst, where = None, None
+    for c in range(C):
+        single.init(clips[c][0])
+        for k, res in enumerate(st_results, start=1):
+            one = single.track(clips[c][k]).result
+            g = gap_stats(type(one)(res.flow[c], res.occlusion[c], res.sigma[c]), one)
+            if worse(worst, g) is g:
+                worst, where = g, (c, k)
+    log(f"{label}, free-running (not gated): each clip against a single-clip MFT tracking "
+        f"it alone, {len(st_results)} timesteps; the largest gap (clip {where[0]}, timestep "
+        f"{where[1]}): {gap_text(worst)}")
+
+
+def check_stream_plain(torch, st, frame, label):
+    """The tracker's next timestep ``frame`` twice from the same state:
+    through the kernels and through their plain versions (the flower's
+    ``plain_ops``), one batch of the same shapes, so cuDNN runs the same
+    algorithms in both. Every clip is held to the main path's frame gate
+    (phase 5's ``check_kernels_vs_plain`` over a clip axis); the state is
+    restored after. returns: the largest gap."""
+    snap = snapshot(st)
+    a = st.track(frame)
+    restore(st, snap)
+    st.flower.plain_ops = True
+    try:
+        b = st.track(frame)
+    finally:
+        st.flower.plain_ops = False
+        restore(st, snap)
+    torch.cuda.synchronize()
+    worst, where = None, None
+    for c in range(a.flow.shape[0]):
+        g = gap_stats(type(a)(a.flow[c], a.occlusion[c], a.sigma[c]),
+                      type(b)(b.flow[c], b.occlusion[c], b.sigma[c]))
+        if worse(worst, g) is g:
+            worst, where = g, c
+    ok = frame_gate(worst)
+    log(f"check {label} kernels vs plain, one timestep from the same state, every clip; the "
+        f"largest gap (clip {where}): {gap_text(worst)} (tolerance: share > 0.5 px <= 1%, "
+        f"median <= 0.05 px, occlusion/sigma shares <= 1%) {'ok' if ok else 'FAIL'}")
+    check(ok, f"{label}: the timestep with kernels disagrees with the plain versions")
+    return worst
+
+
+def run_stream_sweep(torch, ops, dev, card, clips):
+    """15b: ``default_config()`` (random weights, seed 0) over C clips in
+    lockstep, C in STREAM_CLIPS, STREAM_STEPS timesteps each: launches K1
+    11, K2 1, K3 1 a timestep, outputs; ms a timestep (median after
+    WARMUP), clip-frames/s, peak memory, and a profiler pass of 2 more
+    timesteps for the device's busy ms and idle share. At every C one
+    timestep through the kernels against one through their plain versions
+    from the same state, every clip held to the frame gate
+    (``check_stream_plain``). Clip 0 and clip C - 1 (every clip at C =
+    STREAM_GATED) against single-clip trackers from the same state, printed
+    and not gated: cuDNN picks other algorithms for a batch of 7·C pairs
+    than for one of 7, and with random weights in bf16 the network
+    amplifies their rounding past the frame gate in one step;
+    ``run_stream_f32`` and the committed weights' configs (15c, 15d) hold
+    the clips to it. returns ({C: stats}, launches summed over the
+    sweep)."""
+    from torch.profiler import ProfilerActivity, profile
+    from mft_tpu_torch.config import default_config
+    cfg = default_config()
+    per_step = dict(corr_lookup_fused=11, corr_lookup=1)
+    sweep, launches = {}, {}
+    for C in STREAM_CLIPS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        frames = stream_frames(clips, C, STREAM_STEPS + 2)
+        label = f"streaming C={C}"
+        gated = range(C) if C == STREAM_GATED else sorted({0, C - 1})
+        step_ms, counts, worst, st = run_stream(torch, ops, dev, cfg, frames[:STREAM_STEPS + 1],
+                                                label, per_step, gated=gated, gate=False)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        plain = check_stream_plain(torch, st, frames[STREAM_STEPS + 1], label)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for f in frames[STREAM_STEPS + 1:]:
+                st.track(f)
+            torch.cuda.synchronize()
+            prof_ms = 1e3 * (time.perf_counter() - t1) / 2
+        busy = device_busy_ms(prof) / 2
+        median = median_after_warmup(step_ms)
+        sweep[C] = dict(ms=median, clip_fps=C * 1e3 / median, peak_gb=peak, busy_ms=busy,
+                        idle=1 - busy / prof_ms, gap_median=worst["median"],
+                        plain_median=plain["median"])
+        log(f"{label}: ms a timestep {', '.join(f'{m:.2f}' for m in step_ms)}; median after "
+            f"{WARMUP} warm-ups {median:.3f} ms, {C * 1e3 / median:.2f} clip-frames/s; peak "
+            f"device memory {peak:.2f} GB; profiled timesteps: wall {prof_ms:.3f} ms, device "
+            f"busy {busy:.3f} ms, idle share {1 - busy / prof_ms:.1%} [{card}]")
+        del st, prof
+    return sweep, launches
+
+
+def run_stream_f32(torch, ops, dev, card, clips):
+    """15b, gated: ``default_config()`` (random weights) with float32 compute
+    and F32_ITERS iterations at the largest C, clips 0 and C - 1 (the largest
+    offsets into the batch's volume and maps), F32_STEPS timesteps: launches,
+    and each gated clip every timestep against a single-clip MFT from the
+    same state (the frame gate): float32 rounds too little for cuDNN's
+    batch-dependent algorithms to move the random network past it. Fewer
+    iterations and timesteps than (b): a float32 frame (no TF32) takes
+    seconds at these batch sizes."""
+    from mft_tpu_torch.config import default_config
+    cfg = default_config()
+    cfg.flow_config.raft_params["compute_dtype"] = "float32"
+    cfg.flow_config.flow_iters = F32_ITERS
+    C = max(STREAM_CLIPS)
+    torch.cuda.empty_cache()
+    frames = stream_frames(clips, C, F32_STEPS)
+    step_ms, _, _, st = run_stream(torch, ops, dev, cfg, frames, f"streaming f32 C={C}",
+                                   dict(corr_lookup_fused=F32_ITERS - 1, corr_lookup=1),
+                                   gated=sorted({0, C - 1}))
+    log(f"streaming f32 C={C}, {F32_ITERS} iterations: ms a timestep "
+        f"{', '.join(f'{m:.1f}' for m in step_ms)} [{card}]")
+    del st
+
+
+def run_stream_trained(torch, ops, dev, card, clips, C=STREAM_GATED):
+    """15c: ``fast_config()`` and ``warm_config()`` on the committed weights
+    over C clips: launches K1 6, K2 6, K3 1 a timestep; every clip against
+    a single-clip tracker from the same state (the frame gate), and, not
+    gated, against one tracking the clip alone."""
+    from mft_tpu_torch.parallel import StreamingTracker
+    out = {}
+    for name in ("fast", "warm"):
+        cfg = trained_config(name)
+        frames = stream_frames(clips, C, STREAM_STEPS)
+        label = f"streaming {name} C={C}"
+        step_ms, _, _, st = run_stream(torch, ops, dev, cfg, frames, label,
+                                       CONFIG_LAUNCHES[name], gated=range(C))
+        check(st.iters_schedule is not None and st._warm == (name == "warm"),
+              f"{label}: schedule {st.iters_schedule}, warm start {st._warm}")
+        median = median_after_warmup(step_ms)
+        log(f"{label}: median ms a timestep after {WARMUP} warm-ups {median:.3f} "
+            f"({C * 1e3 / median:.2f} clip-frames/s) [{card}]")
+        out[name] = median
+        free = StreamingTracker(cfg, n_clips=C, device=dev)
+        free.flower = st.flower
+        free.init(frames[0])
+        results = [free.track(f) for f in frames[1:]]
+        free_running_gap(torch, cfg, dev, clips, C, results, label)
+        del results, st, free
+    return out
+
+
+def run_stream_injected(torch, ops, dev, card, clips, C=STREAM_GATED):
+    """15d: one single-clip tracker a clip fills a FlowCache (device tier)
+    in a cold pass; the streaming tracker injects every valid finite pair
+    from those caches (device rows stacked over the clips): only the
+    template pair runs, a batch of C pairs, K1 11, K2 1, K3 1 a timestep;
+    every clip against the single-clip tracker's injected frame from the
+    same state (the frame gate). ``synth_config()``: the committed weights,
+    the runner's tracker."""
+    import numpy as np
+    from mft_tpu_torch.config import synth_config
+    from mft_tpu_torch.io import FlowCache
+    from mft_tpu_torch.tracker import MFT
+    cfg = synth_config()
+    caches = {c: FlowCache(None) for c in range(C)}
+    cold = MFT(cfg, device=dev)
+    for c in range(C):
+        cold.init(clips[c][0], flow_cache=caches[c])
+        for img in clips[c][1:STREAM_STEPS + 1]:
+            cold.track(img)
+    check(all(isinstance(v[0], torch.Tensor) and v[0].is_cuda
+              for cache in caches.values() for v in cache.device_cache.values()),
+          "the caches' entries are not device tensors")
+    batches = []
+
+    def injected(st, t):
+        rows = {}
+        cands = st._single._candidates(t)
+        for i, cand in enumerate(cands):
+            if cand.valid and np.isfinite(cand.delta):
+                hits = [caches[c].read(cand.left_id, t) for c in range(C)]
+                check(all(h is not None for h in hits), f"a cache misses pair {i} of frame {t}")
+                rows[i] = tuple(torch.stack([h[f] for h in hits]) for f in range(3))
+        batches.append(sum(1 for i, cand in enumerate(cands) if cand.valid and i not in rows))
+        return rows
+
+    frames = stream_frames(clips, C, STREAM_STEPS)
+    label = f"streaming injected C={C}"
+    step_ms, _, _, _ = run_stream(torch, ops, dev, cfg, frames, label,
+                                  dict(corr_lookup_fused=11, corr_lookup=1), gated=range(C),
+                                  caches=caches, injected=injected)
+    check(batches == [1] * STREAM_STEPS, f"{label}: pairs through RAFT a clip {batches}")
+    median = median_after_warmup(step_ms)
+    log(f"{label}: the template pair alone through RAFT ({C} pairs a timestep); median ms "
+        f"a timestep after {WARMUP} warm-ups {median:.3f} ({C * 1e3 / median:.2f} "
+        f"clip-frames/s) [{card}]")
+    return median
+
+
+def run_mesh(torch, ops, dev, card, clips):
+    """15e: an NCCL process group of world size 1 and its ``make_mesh()``:
+    one ``make_train_step(mesh=)`` step (the full recipe on the committed
+    weights, bf16 compute, batch MESH_B at MESH_HxMESH_W, TRAIN_ITERS
+    iterations) against the same step with no mesh from the same state, and
+    one ``StreamingTracker(mesh=)`` timestep of 2 clips against mesh=None,
+    bit for bit (deterministic cuDNN). More than one card is not run here."""
+    import socket
+    import numpy as np
+    import torch.distributed as dist
+    from mft_tpu_torch.config import default_config
+    from mft_tpu_torch.parallel import StreamingTracker, make_mesh
+    from mft_tpu_torch.train import synth
+    from mft_tpu_torch.train.loop import make_train_step
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        mesh = make_mesh()
+        batch = tuple(torch.from_numpy(b).to(dev) for b in
+                      synth.make_batch(np.random.default_rng(0), MESH_B, MESH_H, MESH_W))
+        out = {}
+        for use_mesh in (False, True):
+            state, tx = full_state(torch, dev, mixed=True)
+            model = state["model"]
+            step = make_train_step(model, tx, LOSS_KW, iters=TRAIN_ITERS,
+                                   mesh=mesh if use_mesh else None)
+            state, metrics = step(state, batch)
+            out[use_mesh] = (metrics["train/loss"].clone(),
+                             {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                              if p.grad is not None},
+                             {k: v.detach().clone() for k, v in model.state_dict().items()})
+            del state, model, step
+            torch.cuda.empty_cache()
+        (la, ga, pa), (lb, gb, pb) = out[False], out[True]
+        same_g = sum(torch.equal(ga[n], gb[n]) for n in ga) if ga.keys() == gb.keys() else -1
+        same_p = sum(torch.equal(pa[k], pb[k]) for k in pa)
+        ok = torch.equal(la, lb) and same_g == len(ga) and same_p == len(pa)
+        log(f"check mesh (NCCL, world size 1) train step, full recipe, batch {MESH_B} at "
+            f"{MESH_H}x{MESH_W}, {TRAIN_ITERS} iterations, bf16: loss {float(lb):.6f} vs "
+            f"{float(la):.6f} with no mesh; {same_g} of {len(ga)} gradients and {same_p} of "
+            f"{len(pa)} tensors after the update bit-identical {'ok' if ok else 'FAIL'}")
+        check(ok, "the world-size-1 mesh step differs from the step with no mesh")
+        frames = stream_frames(clips, 2, 1)
+        res = {}
+        for use_mesh in (False, True):
+            st = StreamingTracker(default_config(), n_clips=2, mesh=mesh if use_mesh else None,
+                                  device=dev)
+            st.init(frames[0])
+            res[use_mesh] = st.track(frames[1])
+            del st
+        ok = all(torch.equal(getattr(res[True], f), getattr(res[False], f))
+                 for f in ("flow", "occlusion", "sigma"))
+        log(f"check mesh (NCCL, world size 1) streaming timestep, 2 clips at 512x512: bit for "
+            f"bit with mesh=None {'ok' if ok else 'FAIL'} (more than one card: not run) "
+            f"[{card}]")
+        check(ok, "the world-size-1 mesh streaming timestep differs from mesh=None")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        dist.destroy_process_group()
+
+
+def run_streaming(torch, ops, dev, card):
+    """Phase 15: K3's clip axis (a), the streaming sweep (b), the committed
+    weights' fast and warm configs (c), injection (d), the mesh (e).
+    returns (clip-axis stats, the sweep's launches)."""
+    t0 = time.perf_counter()
+    cs = check_chain_select_clips(torch, ops, dev, card)
+    check_chain_select_clips(torch, ops, dev, card, C=max(STREAM_CLIPS), timed=False)
+    log(f"phase 15a seconds {time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    clips = [synthetic_clip(STREAM_STEPS + 2, seed=c) for c in range(max(STREAM_CLIPS))]
+    log(f"phase 15: {len(clips)} synthetic clips of {STREAM_STEPS + 3} frames in "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    sweep, launches = run_stream_sweep(torch, ops, dev, card, clips)
+    torch.cuda.empty_cache()
+    # K2 and K1 on the largest C's batch of 7·C pairs, sampled pixels
+    check_lookup_hd(torch, ops, dev, card, 64, 64, n_sample=STREAM_SAMPLE,
+                    pairs=B * max(STREAM_CLIPS))
+    run_stream_f32(torch, ops, dev, card, clips)
+    log(f"phase 15b seconds {time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    run_stream_trained(torch, ops, dev, card, clips)
+    log(f"phase 15c seconds {time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    run_stream_injected(torch, ops, dev, card, clips)
+    log(f"phase 15d seconds {time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    run_mesh(torch, ops, dev, card, clips)
+    log(f"phase 15e seconds {time.perf_counter() - t0:.2f}")
+    summary = "; ".join(f"C={C} {v['ms']:.2f} ms, {v['clip_fps']:.2f} clip-frames/s, idle "
+                        f"{v['idle']:.1%}, peak {v['peak_gb']:.2f} GB" for C, v in sweep.items())
+    log(f"streaming sweep: {summary} [{card}]")
+    return cs, launches
+
+
 def main() -> int:
     # a hang exits non-zero with a traceback instead of running out the clock
     faulthandler.dump_traceback_later(900, exit=True)
@@ -2871,6 +3359,9 @@ def run() -> int:
         t = time.perf_counter()
         bw, recipes = run_training(torch, ops, dev, card)
         log(f"phase 14 seconds {time.perf_counter() - t:.2f}")
+        t = time.perf_counter()
+        cs_clips, stream_counts = run_streaming(torch, ops, dev, card)
+        log(f"phase 15 seconds {time.perf_counter() - t:.2f}")
         for stats in (*lk.values(), cs, *fk.values(), *vk.values(), *fo.values(), cv,
                       *wk.values(), *bw.values()):
             check(all(math.isfinite(stats[k]) for k in
@@ -2891,7 +3382,7 @@ def run() -> int:
              launches=counts["corr_lookup"], **lk[("lookup", "bfloat16")]),
         dict(name="chain_select", route="cuda", source=src + "chain_select.cu",
              replaces="mft_tpu/ops/warp_pallas.py:432",
-             launches=counts["chain_select"], **cs, library_ms=None),
+             launches=counts["chain_select"], **cs, **cs_clips, library_ms=None),
         dict(name="corr_lookup_alt", route="cuda", source=src + "corr_alt.cu",
              replaces="mft_tpu/ops/alt_corr_pallas.py:118",
              launches=counts["corr_lookup_alt"],
@@ -2934,6 +3425,10 @@ def run() -> int:
     for k in kernels:   # the runner's path (phase 13), its counts reset before it
         if k["name"] in ("corr_lookup_fused", "corr_lookup", "chain_select", "bilinear_warp"):
             k["launches_tapvid"] = tapvid_counts[k["name"]]
+    # the streaming path (phase 15b, every C of the sweep, its counts reset
+    # before each C's timesteps): K1, K2 and K3 with its clip axis
+    for k in kernels[:3]:
+        k["launches_streaming"] = stream_counts[k["name"]]
     # the training path (phase 14b, the full recipe's steps): K2 and its
     # backward; the backward timed at the training shape in bf16
     train = recipes["full"]["launches"]

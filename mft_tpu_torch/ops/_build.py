@@ -41,7 +41,7 @@ SIGNATURES = {
     "mft_corr_lookup_bwd": [_P] * 6 + [_I] * 9 + [_L, _I, _I, _P],
     "mft_corr_lookup_conv": [_P] * 8 + [_I] * 9 + [_L, _I, _I, _P],
     "mft_corr_lookup_conv_tc": [_P] * 8 + [_I] * 9 + [_L, _I, _I, _P],
-    "mft_chain_select": [_P] * 10 + [_F, _I, _I, _I, _P],
+    "mft_chain_select": [_P] * 10 + [_F, _I, _I, _I, _I, _P],
     "mft_corr_alt": [_P] * 7 + [_I] * 14 + [_F, _I, _P],
     "mft_corr_win": [_P] * 7 + [_I] * 14 + [_F, _I, _P, _P],
     "mft_corr_lookup_q": [_P] * 7 + [_I] * 12 + [_P],

@@ -12,6 +12,9 @@ chained occlusion is NaN where either operand is, a NaN score counts as the
 maximum (the first NaN candidate wins, as ``argmax`` picks it). Inputs are
 the stacked candidate maps: left/right flow (N, H, W, 2), occlusion and sigma
 (N, H, W), valid (N,) bool. Outputs: flow (H, W, 2), occlusion and sigma (H, W).
+With a leading clip axis, maps (C, N, H, W[, 2]) and valid (N,) shared by the
+clips, the outputs are (C, H, W[, 2]): C single-clip selections, which the
+kernel makes in one launch.
 """
 
 import torch
@@ -55,7 +58,13 @@ def select_candidates(lflow, locc, lsig, rocc, rsig, valid,
 
 def chain_select_ref(lflow, locc, lsig, rflow, rocc, rsig, valid,
                      occlusion_threshold: float = 0.02):
-    """Plain version of :func:`chain_select`: returns (flow, occlusion, sigma)."""
+    """Plain version of :func:`chain_select`: returns (flow, occlusion, sigma);
+    with a clip axis, one single-clip call a clip, stacked."""
+    if locc.dim() == 4:
+        per_clip = [chain_select_ref(*(m[c] for m in (lflow, locc, lsig, rflow, rocc, rsig)),
+                                     valid, occlusion_threshold)
+                    for c in range(locc.shape[0])]
+        return tuple(torch.stack(out) for out in zip(*per_clip))
     H, W = locc.shape[1:]
     best, c_occ, c_sig = select_candidates(lflow, locc, lsig, rocc, rsig, valid,
                                            occlusion_threshold)
@@ -71,16 +80,22 @@ def chain_select_ref(lflow, locc, lsig, rflow, rocc, rsig, valid,
 def chain_select(lflow, locc, lsig, rflow, rocc, rsig, valid,
                  occlusion_threshold: float = 0.02):
     """Chain every candidate's occlusion and sigma, select per pixel, chain
-    the winner's flow. Returns (flow (H, W, 2), occlusion (H, W), sigma (H, W))."""
+    the winner's flow. Returns (flow (H, W, 2), occlusion (H, W), sigma (H, W)),
+    or with a leading clip axis (C, H, W, 2), (C, H, W), (C, H, W): one launch
+    for the C clips."""
     if lflow.device.type == "cpu":
         return chain_select_ref(lflow, locc, lsig, rflow, rocc, rsig, valid,
                                 occlusion_threshold)
     if lflow.device.type != "cuda":
         raise ValueError(f"chain_select: unsupported device {lflow.device}")
-    N, H, W = locc.shape
+    clips = locc.shape[:-3]   # () or (C,)
+    if len(clips) > 1:
+        raise ValueError(f"chain_select maps have at most one clip axis, got {tuple(locc.shape)}")
+    N, H, W = locc.shape[-3:]
+    C = clips[0] if clips else 1
     dev = lflow.device
     maps = [lflow, locc, lsig, rflow, rocc, rsig]
-    shapes = [(N, H, W, 2), (N, H, W), (N, H, W)] * 2
+    shapes = [(*clips, N, H, W, 2), (*clips, N, H, W), (*clips, N, H, W)] * 2
     for m, s in zip(maps, shapes):
         if (m.shape != s or m.dtype != torch.float32 or m.device != dev
                 or not m.is_contiguous()):
@@ -88,17 +103,19 @@ def chain_select(lflow, locc, lsig, rflow, rocc, rsig, valid,
                              f"on {dev}, got {tuple(m.shape)} {m.dtype} {m.device}")
     if valid.shape != (N,) or valid.device != dev:
         raise ValueError(f"valid must be ({N},) on {dev}")
+    if H * W > 2**31 - 1:
+        raise ValueError(f"chain_select takes maps of fewer than 2^31 pixels, got {H}x{W}")
     if lflow.data_ptr() % 8 or rflow.data_ptr() % 8:
         raise ValueError("chain_select reads the flows' (x, y) pairs as 8-byte words: "
                          "lflow and rflow must start 8-byte aligned")
     valid = valid.to(torch.uint8).contiguous()
-    oflow = torch.empty((H, W, 2), dtype=torch.float32, device=dev)
-    oocc = torch.empty((H, W), dtype=torch.float32, device=dev)
-    osig = torch.empty((H, W), dtype=torch.float32, device=dev)
+    oflow = torch.empty((*clips, H, W, 2), dtype=torch.float32, device=dev)
+    oocc = torch.empty((*clips, H, W), dtype=torch.float32, device=dev)
+    osig = torch.empty((*clips, H, W), dtype=torch.float32, device=dev)
     err = _build.library().mft_chain_select(
         oflow.data_ptr(), oocc.data_ptr(), osig.data_ptr(),
         *(m.data_ptr() for m in maps), valid.data_ptr(),
-        float(occlusion_threshold), N, H, W,
+        float(occlusion_threshold), C, N, H, W,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "mft_chain_select")
     chain_select.launches += 1

@@ -16,6 +16,14 @@
 //   flow (zeros outside that candidate's map), add, and mark endpoints
 //   outside the image as occluded.
 //
+// C clips in one launch: blockIdx.z is the clip, its maps the clip's (N, H, W[, 2])
+// slices of (C, N, H, W[, 2]) tensors, its outputs the clip's (H, W[, 2]) slices;
+// valid (N,) is shared by every clip (the streaming tracker's clips run in
+// lockstep); the single-clip tracker launches it with C = 1. The map index
+// clip * N + n and the map size H * W are 32-bit values, widened where they
+// form an offset: with 64-bit ones the 4- and 6-candidate instances spilled
+// 8 bytes under the 64-register cap.
+//
 // What bounds it on this card: bytes. Per pixel it needs the left flows,
 // occlusions and sigmas (16 B each) and the four-tap neighbourhoods of the
 // right occlusion and sigma maps of the valid candidates (an invalid one
@@ -78,7 +86,7 @@ struct Maps {
   const float* rsig;
   const uint8_t* valid;   // (N,)
   float thresh;
-  int N, H, W;
+  int C, N, H, W;
 };
 
 // floor, fraction and bilinear weights of a sample position, as
@@ -157,16 +165,17 @@ struct Sampled {
   bool valid;
 };
 
-__device__ __forceinline__ Sampled gather(const Maps& m, int n, long HW, long pix, float gx,
-                                          float gy) {
+// plane: the candidate's map index in the (C, N) stack, clip * N + n.
+__device__ __forceinline__ Sampled gather(const Maps& m, int n, int plane, int HW, long pix,
+                                          float gx, float gy) {
   Sampled c;
-  c.lf = __ldg(reinterpret_cast<const float2*>(m.lflow) + n * HW + pix);
-  c.l_occ = __ldg(m.locc + n * HW + pix);
-  c.l_sig = __ldg(m.lsig + n * HW + pix);
+  c.lf = __ldg(reinterpret_cast<const float2*>(m.lflow) + (long)plane * HW + pix);
+  c.l_occ = __ldg(m.locc + (long)plane * HW + pix);
+  c.l_sig = __ldg(m.lsig + (long)plane * HW + pix);
   c.valid = __ldg(m.valid + n) != 0;
   const Position s = position(gx + c.lf.x, gy + c.lf.y);
-  c.s_occ = sample1(m.rocc + n * HW, s, m.H, m.W);
-  c.s_sig = sample1(m.rsig + n * HW, s, m.H, m.W);
+  c.s_occ = sample1(m.rocc + (long)plane * HW, s, m.H, m.W);
+  c.s_sig = sample1(m.rsig + (long)plane * HW, s, m.H, m.W);
   return c;
 }
 
@@ -191,7 +200,8 @@ __device__ __forceinline__ bool beats(float score, float best) {
   return best == best && (score > best || score != score);
 }
 
-// NC: the candidate count, or 0 for a runtime m.N (loop not unrolled).
+// NC: the candidate count, or 0 for a runtime m.N (loop not unrolled);
+// blockIdx.z is the clip.
 template <int NC>
 __global__ void __launch_bounds__(kTileX * kTileY, 4)
 chain_select_kernel(Maps m, float* __restrict__ oflow, float* __restrict__ oocc,
@@ -199,8 +209,9 @@ chain_select_kernel(Maps m, float* __restrict__ oflow, float* __restrict__ oocc,
   const int px = blockIdx.x * kTileX + threadIdx.x;
   const int py = blockIdx.y * kTileY + threadIdx.y;
   if (px >= m.W || py >= m.H) return;
-  const long HW = (long)m.H * m.W;
+  const int HW = m.H * m.W;
   const long pix = (long)py * m.W + px;
+  const int clip = (int)blockIdx.z * m.N;   // the clip's first map
   const float gx = (float)px;
   const float gy = (float)py;
 
@@ -209,7 +220,7 @@ chain_select_kernel(Maps m, float* __restrict__ oflow, float* __restrict__ oocc,
   if constexpr (NC > 0) {
     Sampled c[NC];
 #pragma unroll
-    for (int n = 0; n < NC; ++n) c[n] = gather(m, n, HW, pix, gx, gy);
+    for (int n = 0; n < NC; ++n) c[n] = gather(m, n, clip + n, HW, pix, gx, gy);
 #pragma unroll
     for (int n = 0; n < NC; ++n) {
       const Chained d = chain(m, c[n]);
@@ -221,7 +232,7 @@ chain_select_kernel(Maps m, float* __restrict__ oflow, float* __restrict__ oocc,
   } else {
 #pragma unroll 1
     for (int n = 0; n < m.N; ++n) {
-      const Chained d = chain(m, gather(m, n, HW, pix, gx, gy));
+      const Chained d = chain(m, gather(m, n, clip + n, HW, pix, gx, gy));
       if (n == 0 || beats(d.score, win.score)) {
         best = n;
         win = d;
@@ -231,7 +242,7 @@ chain_select_kernel(Maps m, float* __restrict__ oflow, float* __restrict__ oocc,
 
   // the winner's right flow at grid + its left flow
   const Position s = position(gx + win.lfx, gy + win.lfy);
-  const float* fmap = m.rflow + 2 * (best * HW);
+  const float* fmap = m.rflow + 2 * ((long)(clip + best) * HW);
   const float* row0 = fmap + 2 * ((long)inside(s.y0, m.H) * m.W);
   const float* row1 = fmap + 2 * ((long)inside_next(s.y0, m.H) * m.W);
   const float4 t0 = flow_pair(row0, s.x0, m.W, (s.y0 >= 0) & (s.y0 < m.H));
@@ -249,38 +260,41 @@ chain_select_kernel(Maps m, float* __restrict__ oflow, float* __restrict__ oocc,
   const float ex = gx + fx;
   const float ey = gy + fy;
   const bool invalid = (ex < 0.0f) | (ey < 0.0f) | (ex >= (float)m.W) | (ey >= (float)m.H);
-  reinterpret_cast<float2*>(oflow)[pix] = make_float2(fx, fy);
-  oocc[pix] = invalid ? 1.0f : win.occ;
-  osig[pix] = win.sig;
+  const long out = (long)blockIdx.z * HW + pix;
+  reinterpret_cast<float2*>(oflow)[out] = make_float2(fx, fy);
+  oocc[out] = invalid ? 1.0f : win.occ;
+  osig[out] = win.sig;
 }
 
 template <int NC>
 cudaError_t launch(const Maps& m, float* oflow, float* oocc, float* osig,
                    cudaStream_t stream) {
   const dim3 grid((unsigned)((m.W + kTileX - 1) / kTileX),
-                  (unsigned)((m.H + kTileY - 1) / kTileY));
+                  (unsigned)((m.H + kTileY - 1) / kTileY), (unsigned)m.C);
   chain_select_kernel<NC><<<grid, dim3(kTileX, kTileY), 0, stream>>>(m, oflow, oocc, osig);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// All maps float32, contiguous: left/right flow (N, H, W, 2), occlusion and
-// sigma (N, H, W); valid (N,) uint8. Outputs flow (H, W, 2), occlusion and
-// sigma (H, W). The flows (lflow, rflow, oflow) must be 8-byte aligned.
+// All maps float32, contiguous: left/right flow (C, N, H, W, 2), occlusion and
+// sigma (C, N, H, W); valid (N,) uint8, shared by the C clips. Outputs flow
+// (C, H, W, 2), occlusion and sigma (C, H, W). The flows (lflow, rflow, oflow)
+// must be 8-byte aligned (then so is every clip's slice).
 extern "C" int mft_chain_select(void* oflow, void* oocc, void* osig, const void* lflow,
                                 const void* locc, const void* lsig, const void* rflow,
                                 const void* rocc, const void* rsig, const void* valid,
-                                float thresh, int N, int H, int W, void* stream) {
+                                float thresh, int C, int N, int H, int W, void* stream) {
   const uintptr_t flows = reinterpret_cast<uintptr_t>(oflow) |
                           reinterpret_cast<uintptr_t>(lflow) | reinterpret_cast<uintptr_t>(rflow);
-  if (N < 1 || H < 0 || W < 0 || (H + kTileY - 1) / kTileY > 65535 || (flows & 7) != 0)
+  if (C < 1 || C > 65535 || N < 1 || H < 0 || W < 0 || (H + kTileY - 1) / kTileY > 65535 ||
+      (long)H * W > INT32_MAX || (long)C * N > INT32_MAX || (flows & 7) != 0)
     return (int)cudaErrorInvalidValue;
   if ((long)H * W == 0) return (int)cudaSuccess;   // no pixels: nothing to write
   const Maps m{static_cast<const float*>(lflow), static_cast<const float*>(locc),
                static_cast<const float*>(lsig),  static_cast<const float*>(rflow),
                static_cast<const float*>(rocc),  static_cast<const float*>(rsig),
-               static_cast<const uint8_t*>(valid), thresh, N, H, W};
+               static_cast<const uint8_t*>(valid), thresh, C, N, H, W};
   float* f = static_cast<float*>(oflow);
   float* o = static_cast<float*>(oocc);
   float* g = static_cast<float*>(osig);

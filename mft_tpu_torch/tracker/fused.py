@@ -35,8 +35,10 @@ def _maps(left: FlowOU, right: FlowOU):
 
 def chain_select(left: FlowOU, right: FlowOU, valid,
                  occlusion_threshold: float = 0.02) -> FlowOU:
-    """args: left/right FlowOU with a stacked candidate axis (N, H, W, ...);
-    valid (N,) bool. returns the selected chained FlowOU (H, W, ...)."""
+    """args: left/right FlowOU with a stacked candidate axis (N, H, W, ...),
+    or a clip axis before it (C, N, H, W, ...); valid (N,) bool, shared by
+    the clips. returns the selected chained FlowOU (H, W, ...), or
+    (C, H, W, ...): one kernel launch for every C."""
     flow, occl, sigma = ops.chain_select(*_maps(left, right), valid,
                                          occlusion_threshold)
     return FlowOU(flow=flow, occlusion=occl, sigma=sigma)
@@ -44,7 +46,8 @@ def chain_select(left: FlowOU, right: FlowOU, valid,
 
 def chain_select_ref(left: FlowOU, right: FlowOU, valid,
                      occlusion_threshold: float = 0.02) -> FlowOU:
-    """Plain PyTorch version of :func:`chain_select`, on any device."""
+    """Plain PyTorch version of :func:`chain_select`, on any device; with a
+    clip axis, one single-clip selection a clip."""
     flow, occl, sigma = ops.chain_select_ref(*_maps(left, right), valid,
                                              occlusion_threshold)
     return FlowOU(flow=flow, occlusion=occl, sigma=sigma)

@@ -169,12 +169,13 @@ class MFT:
         self.flower.plain_ops = bool(value)
 
     def _to_device(self, img) -> torch.Tensor:
-        """(H, W, 3) uint8 BGR host image -> (H, W, 3) uint8 RGB on the device;
+        """(..., H, W, 3) uint8 BGR host images -> uint8 RGB on the device;
         a tensor passes through."""
         if isinstance(img, torch.Tensor):
             return img.to(self.device)
+        img = np.asarray(img)
         if img.dtype == np.uint8:
-            img = np.ascontiguousarray(img[:, :, ::-1])
+            img = img[..., ::-1]
         return torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
 
     def _row_to_device(self, x) -> torch.Tensor:

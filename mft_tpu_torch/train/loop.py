@@ -42,14 +42,33 @@ SUM_FREQ = 10
 VAL_FREQ = 5000
 
 
-def make_train_step(model, tx, loss_kwargs, iters=12, plain=False):
+def make_train_step(model, tx, loss_kwargs, iters=12, plain=False, mesh=None):
     """The train step: (state, batch) -> (state, metrics).
 
     batch = (img1, img2, flow, valid, occl): channel-last tensors on the
     model's device, images RGB in [0, 255]. The loss's gradient reaches the
     parameters that require one; ``tx`` updates its trainable ones in place.
     ``plain`` runs the kernels' plain versions (forward and backward).
+
+    ``mesh``: a ``DeviceMesh`` with a ``"data"`` axis
+    (:func:`mft_tpu_torch.parallel.make_mesh`), one process a rank. The step
+    then takes the global batch, hands each rank its slice
+    (:func:`mft_tpu_torch.parallel.shard_batch_fn`, which also broadcasts
+    the state from the first rank on the first call), and averages every
+    trainable gradient and the metrics over the axis between
+    ``loss.backward()`` and the update, where XLA inserts the same sums in
+    JAX. The losses are means over whole tensors, so the mean of the ranks'
+    equal slices' losses is the global batch's. A model that normalises
+    with batch statistics (``train_mode=True``) would take them over each
+    rank's slice, not over the global batch as JAX does: with more than
+    one rank it raises ``NotImplementedError``.
     """
+    if mesh is not None:
+        from mft_tpu_torch.parallel.mesh import all_reduce_mean, axis_size, shard_batch_fn
+        if getattr(model, "train_mode", False) and axis_size(mesh) > 1:
+            raise NotImplementedError(
+                "batch statistics over the global batch are not ported: with more than "
+                "one rank, train the frozen-BN model (train_mode=False)")
 
     def step(state, batch):
         m = state["model"]
@@ -63,12 +82,19 @@ def make_train_step(model, tx, loss_kwargs, iters=12, plain=False):
         loss.backward()
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items() if tx.trains(n) and p.requires_grad}
-        updates, opt_state = tx.update(grads, state["opt_state"], params)
-        apply_updates(params, updates)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["train/loss"] = loss.detach()
+        if mesh is not None:
+            all_reduce_mean(grads.values(), mesh)
+            stacked = torch.stack([v.float() for v in metrics.values()])
+            all_reduce_mean([stacked], mesh)
+            metrics = dict(zip(metrics, stacked.unbind()))
+        updates, opt_state = tx.update(grads, state["opt_state"], params)
+        apply_updates(params, updates)
         return {"model": m, "opt_state": opt_state, "step": state["step"] + 1}, metrics
 
+    if mesh is not None:
+        step = shard_batch_fn(step, mesh)
     return step
 
 

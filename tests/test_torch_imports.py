@@ -70,7 +70,9 @@ def test_port_modules_list_is_complete():
                  "mft_tpu_torch.train.checkpoint", "mft_tpu_torch.train.loop",
                  "mft_tpu_torch.train.synth", "mft_tpu_torch.train.flow_readers",
                  "mft_tpu_torch.train.augment", "mft_tpu_torch.train.datasets",
-                 "mft_tpu_torch.train.validate", "mft_tpu_torch.train.logger"):
+                 "mft_tpu_torch.train.validate", "mft_tpu_torch.train.logger",
+                 "mft_tpu_torch.parallel", "mft_tpu_torch.parallel.mesh",
+                 "mft_tpu_torch.parallel.streaming"):
         assert want in mods
 
 

@@ -232,6 +232,54 @@ def test_chain_select_kernel_nan(np_rng, cuda, planted):
     _assert_same_values(ops.chain_select(*maps, 0.02), want)
 
 
+@pytest.mark.parametrize("N", [1, 7, 9])
+def test_chain_select_kernel_clip_axis(np_rng, cuda, N):
+    """K3 over a clip axis (the streaming tracker's): one launch for 3 clips
+    of (N, 37, 53) maps, NaN planted in one clip's occlusions and sigmas,
+    bit for bit with its plain version and with 3 single-clip launches."""
+    clips = [_chain_maps(np_rng, cuda, N, 37, 53) for _ in range(3)]
+    maps = [torch.stack([c[k] for c in clips]) for k in range(6)]
+    valid = clips[0][6]
+    for k in (1, 5):
+        hit = torch.from_numpy(np_rng.random(tuple(maps[k][1].shape)) < 0.1).to(cuda)
+        maps[k][1][hit] = float("nan")
+    ops.reset_launch_counts()
+    got = ops.chain_select(*maps, valid, 0.02)
+    assert ops.launch_counts()["chain_select"] == 1
+    assert got[0].shape == (3, 37, 53, 2) and got[1].shape == (3, 37, 53)
+    _assert_same_values(got, ops.chain_select_ref(*maps, valid, 0.02))
+    singles = [ops.chain_select(*(m[c] for m in maps), valid, 0.02) for c in range(3)]
+    _assert_same_values(got, tuple(torch.stack([one[f] for one in singles]) for f in range(3)))
+
+
+def test_streaming_launches_and_matches_single(cuda):
+    """StreamingTracker on the card, 2 clips of 64x64, 3 iterations: per
+    timestep (iters - 1) fused lookups, one plain lookup and one chain +
+    select for both clips; each clip against a single-clip MFT with the main
+    path's frame gate (median <= 0.05 px, <= 1% of pixels over 0.5 px): the
+    batches differ in size, so cuDNN may sum the bf16 convs in another order."""
+    from mft_tpu_torch.parallel import StreamingTracker
+    cfg = default_config()
+    cfg.flow_config.flow_iters = 3
+    rng = np.random.default_rng(0)
+    tex = (rng.random((2, 80, 80, 3)) * 255).astype(np.uint8)
+    frames = [np.ascontiguousarray(tex[:, k:k + 64, 2 * k:2 * k + 64]) for k in range(4)]
+    st = StreamingTracker(cfg, n_clips=2, device=cuda)
+    st.init(frames[0])
+    ops.reset_launch_counts()
+    results = [st.track(f) for f in frames[1:]]
+    want = {k: 0 for k in ops.launch_counts()}
+    want.update(corr_lookup_fused=6, corr_lookup=3, chain_select=3)
+    assert ops.launch_counts() == want
+    for c in range(2):
+        single = MFT(cfg, device=cuda)
+        single.init(frames[0][c])
+        for k in range(1, 4):
+            one = single.track(frames[k][c]).result
+            gap = (results[k - 1].flow[c] - one.flow).norm(dim=-1)
+            assert float(gap.median()) <= 0.05 and float((gap > 0.5).float().mean()) <= 0.01
+
+
 def test_chain_select_kernel_refuses_misaligned_flows(np_rng, cuda):
     """The kernel reads each (x, y) flow pair as one 8-byte word: a flow map
     that starts 4 bytes into an allocation raises."""

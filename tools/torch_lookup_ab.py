@@ -166,10 +166,12 @@ def compare_chain_select(torch, dev, libs, side_by_side) -> bool:
 
         def call(label, buf, maps=maps, valid=valid, N=N, H=H, W=W):
             flow, occ, sig = views(buf)
-            err = libs[label].mft_chain_select(
-                flow.data_ptr(), occ.data_ptr(), sig.data_ptr(),
-                *(m.data_ptr() for m in maps[:6]), valid.data_ptr(), 0.02, N, H, W,
-                torch.cuda.current_stream().cuda_stream)
+            entry = libs[label].mft_chain_select
+            # the entry point with a clip count takes one argument more
+            clips = (1,) if len(entry.argtypes) == 16 else ()
+            err = entry(flow.data_ptr(), occ.data_ptr(), sig.data_ptr(),
+                        *(m.data_ptr() for m in maps[:6]), valid.data_ptr(), 0.02, *clips,
+                        N, H, W, torch.cuda.current_stream().cuda_stream)
             if err != 0:
                 raise RuntimeError(f"{label} mft_chain_select: cudaError {err}")
 

@@ -10,7 +10,10 @@ weights), with another ``--corr-method``, ``--conv-backend`` and frame
 ``--frames`` frames with ``torch.profiler`` and prints (with ``--cache-pass``
 the traced frames are served by a FlowCache that a first pass over the same
 frames filled: 'injected', every finite pair a hit and the template pair
-alone through RAFT; 'raft-free', ``cache_delta_infinity`` and no RAFT):
+alone through RAFT; 'raft-free', ``cache_delta_infinity`` and no RAFT;
+with ``--clips C`` the traced unit is a timestep of
+``mft_tpu_torch.parallel.StreamingTracker`` over C clips in lockstep, clip c
+the synthetic clip of texture seed c):
 
 - wall ms per frame (host clock, synchronised) and device-busy ms per frame
   (the sum of kernel times; one stream), hence the device's idle share;
@@ -33,6 +36,7 @@ Imports nothing of JAX. Usage (on the card):
         [--corr-method auto|alt|win|int8|packed|packed_i8|pallas_t|fold|mixed]
         [--conv-backend auto|pallas] [--size 2160 3840]
         [--cache-pass none|injected|raft-free] [--train none|official|full]
+        [--clips C]
 """
 
 import argparse
@@ -108,7 +112,12 @@ def main(argv=None) -> int:
                              "strided passes)")
     parser.add_argument("--train", default="none", choices=("none", "official", "full"),
                         help="trace training steps of this recipe instead of frames")
+    parser.add_argument("--clips", type=int, default=0,
+                        help="trace timesteps of the streaming tracker over this many clips "
+                             "(0: the single-clip tracker)")
     args = parser.parse_args(argv)
+    if args.clips and args.cache_pass != "none":
+        parser.error("--clips traces the streaming tracker, which has no FlowCache pass")
 
     sys.path.insert(0, REPO)
     import torch
@@ -128,12 +137,14 @@ def main(argv=None) -> int:
         return profile_train(args, card)
     n = args.warmup + args.frames
     H, W = args.size
-    frames = synthetic_clip(n, H=H, W=W)
     cfg = getattr(config, f"{args.config}_config")()
     if args.weights == "synth":
         cfg.flow_config = config.synth_flow_config()
     cfg.flow_config.raft_params["corr_method"] = args.corr_method
     cfg.flow_config.raft_params["conv_backend"] = args.conv_backend
+    if args.clips:
+        return profile_streaming(args, card, cfg, n, H, W)
+    frames = synthetic_clip(n, H=H, W=W)
     tracker = MFT(cfg, device="cuda")
     cache = None
     if args.cache_pass != "none":
@@ -163,6 +174,39 @@ def main(argv=None) -> int:
           f"schedule {tracker.iters_schedule}, warm start {tracker._warm_start()}, "
           f"{tracker.flower.dtype}, cache pass {args.cache_pass}")
     return report(prof, args, card, wall_ms, "frame")
+
+
+def profile_streaming(args, card, cfg, n, H, W) -> int:
+    """Trace ``args.frames`` timesteps of the streaming tracker over
+    ``args.clips`` clips."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import synthetic_clip
+    from mft_tpu_torch.parallel import StreamingTracker
+    C = args.clips
+    clips = [synthetic_clip(n, H=H, W=W, seed=c) for c in range(C)]
+    frames = [np.ascontiguousarray(np.stack([clip[k] for clip in clips]))
+              for k in range(n + 1)]
+    tracker = StreamingTracker(cfg, n_clips=C, device="cuda")
+    tracker.init(frames[0])
+    for k in range(1, args.warmup + 1):
+        tracker.track(frames[k])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for k in range(args.warmup + 1, n + 1):
+            tracker.track(frames[k])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / args.frames
+    print(f"card: {card}")
+    print(f"timesteps traced: {args.frames} after {args.warmup} warm-up, {C} clips of "
+          f"{H}x{W}, config {args.config}, weights {cfg.flow_config.model}, corr_method "
+          f"{args.corr_method}, conv_backend {args.conv_backend}, {len(tracker.deltas)} "
+          f"deltas, {tracker.flower.iters} iterations, schedule {tracker.iters_schedule}, "
+          f"warm start {tracker._warm}, {tracker.flower.dtype}")
+    print(f"clip-frames/s (profiler on): {C * 1e3 / wall_ms:.2f}")
+    return report(prof, args, card, wall_ms, "timestep")
 
 
 def profile_train(args, card) -> int:
