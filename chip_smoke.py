@@ -16,8 +16,9 @@ non-zero and prints no result line):
    (``corr_gather.cu``: K2, the folded #4, #9, the int8 K6 and the packed K7,
    K8), of K1 (``corr_lookup.cu``), of the warp (``warp.cu``), of the bf16
    window correlations (``corr_alt.cu``), of the lane-major lookup K9
-   (``corr_volume.cu``) and of chain + select K3 (``chain_select.cu``) a
-   0-byte stack frame and no spills;
+   (``corr_volume.cu``), of chain + select K3 (``chain_select.cu``) and of
+   the lookup's backward (``corr_lookup_bwd.cu``) a 0-byte stack frame and
+   no spills;
 3. hold each kernel against its plain PyTorch version at the main path's
    shapes, in bf16 and f32, and time it (device time by CUDA graph replay,
    as every kernel and library call below; the plain versions eagerly); K1
@@ -1287,11 +1288,13 @@ def check_sass(_build, path):
 # K6 and K8 on int8), the fused lookup K1 (radius 1..4; f32 and, on the tensor
 # cores, bf16), the warp (f32, bf16 maps x 4 modes x C of 1, 2, 4, 6 and any
 # other), the bf16 window correlations K4/K5 (one instance for both entry
-# points), the lane-major lookup K9 (radius 1..4 x f32, bf16) and chain +
+# points), the lane-major lookup K9 (radius 1..4 x f32, bf16), chain +
 # select K3 (1..8 candidates and any other count, x one clip or a clip axis)
+# and the lookup's backward (radius 1..4 x f32, bf16)
 FRAME_CHECKED = {"corr_gather_kernel": 12, "lookup_conv_kernel": 4,
                  "lookup_conv_tc_kernel": 4, "warp_kernel": 40, "window_tc_kernel": 1,
-                 "lane_group_kernel": 8, "chain_select_kernel": 9}
+                 "lane_group_kernel": 8, "chain_select_kernel": 9,
+                 "corr_lookup_bwd_kernel": 8}
 
 
 def check_frames(_build, kernel, instances):

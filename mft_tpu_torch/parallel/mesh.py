@@ -96,10 +96,7 @@ def replicated(mesh: DeviceMesh, axis: str = "data"):
     return place
 
 
-def all_reduce_mean(tensors, mesh: DeviceMesh, axis: str = "data"):
-    """Each tensor replaced in place by its mean over ``axis``'s ranks: one
-    all-reduce of a flat buffer per dtype (NCCL's and gloo's SUM, then a
-    division by the axis's size; at size 1 the values are unchanged)."""
+def _all_reduce(tensors, mesh: DeviceMesh, axis: str, mean: bool):
     tensors = list(tensors)
     w = axis_size(mesh, axis)
     group = mesh.get_group(axis)
@@ -107,11 +104,24 @@ def all_reduce_mean(tensors, mesh: DeviceMesh, axis: str = "data"):
         same = [t for t in tensors if t.dtype == dtype]
         flat = torch.cat([t.reshape(-1) for t in same])
         dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-        if w > 1:
+        if mean and w > 1:
             flat /= w
         for t, part in zip(same, flat.split([t.numel() for t in same])):
             t.copy_(part.view_as(t))
     return tensors
+
+
+def all_reduce_mean(tensors, mesh: DeviceMesh, axis: str = "data"):
+    """Each tensor replaced in place by its mean over ``axis``'s ranks: one
+    all-reduce of a flat buffer per dtype (NCCL's and gloo's SUM, then a
+    division by the axis's size; at size 1 the values are unchanged)."""
+    return _all_reduce(tensors, mesh, axis, mean=True)
+
+
+def all_reduce_sum(tensors, mesh: DeviceMesh, axis: str = "data"):
+    """Each tensor replaced in place by its sum over ``axis``'s ranks: one
+    all-reduce of a flat buffer per dtype (integer counts stay exact)."""
+    return _all_reduce(tensors, mesh, axis, mean=False)
 
 
 def _state_tensors(tree):

@@ -90,10 +90,19 @@ class StreamingTracker:
 
     def _to_device(self, frames) -> torch.Tensor:
         """(C, H, W, 3) global frames -> the own clips' (c, H, W, 3) on the
-        device, as the single-clip tracker's ``_to_device``."""
+        device. uint8 frames are BGR and flipped to RGB, a tensor on its own
+        device before it moves (no round trip through the host), as JAX's
+        streaming tracker flips ``np.asarray`` of any frames; other dtypes
+        pass as they are. (The single-clip tracker, like JAX's, passes
+        tensors through.)"""
         if len(frames) != self.n_clips:
             raise ValueError(f"expected frames for {self.n_clips} clips, got {len(frames)}")
-        return self._single._to_device(self._own(frames))
+        frames = self._own(frames)
+        if isinstance(frames, torch.Tensor):
+            if frames.dtype == torch.uint8:
+                frames = frames.flip(-1)
+            return frames.to(self.device)
+        return self._single._to_device(frames)
 
     def _row_to_device(self, x) -> torch.Tensor:
         """An injected (C, ...) row, the own clips only, as the single-clip

@@ -33,7 +33,8 @@ import torch
 
 from mft_tpu_torch.core.device import resolve_device
 from mft_tpu_torch.models.raft.raft import RAFT, RAFTParams
-from mft_tpu_torch.train.losses import sequence_loss
+from mft_tpu_torch.train.losses import (FLOW_RATIOS, MAX_FLOW, flow_metric_sums,
+                                        sequence_loss)
 from mft_tpu_torch.train.optim import apply_updates, make_optimizer
 
 logger = logging.getLogger(__name__)
@@ -55,16 +56,20 @@ def make_train_step(model, tx, loss_kwargs, iters=12, plain=False, mesh=None):
     then takes the global batch, hands each rank its slice
     (:func:`mft_tpu_torch.parallel.shard_batch_fn`, which also broadcasts
     the state from the first rank on the first call), and averages every
-    trainable gradient and the metrics over the axis between
+    trainable gradient and the loss metrics over the axis between
     ``loss.backward()`` and the update, where XLA inserts the same sums in
     JAX. The losses are means over whole tensors, so the mean of the ranks'
-    equal slices' losses is the global batch's. A model that normalises
-    with batch statistics (``train_mode=True``) would take them over each
-    rank's slice, not over the global batch as JAX does: with more than
-    one rank it raises ``NotImplementedError``.
+    equal slices' losses is the global batch's. The flow metrics
+    (``losses.FLOW_RATIOS``) are ratios over the valid pixels, whose count
+    differs between slices: their sums and the count are summed over the
+    axis and divided once, JAX's ``vmean`` over the global batch. A model
+    that normalises with batch statistics (``train_mode=True``) would take
+    them over each rank's slice, not over the global batch as JAX does:
+    with more than one rank it raises ``NotImplementedError``.
     """
     if mesh is not None:
-        from mft_tpu_torch.parallel.mesh import all_reduce_mean, axis_size, shard_batch_fn
+        from mft_tpu_torch.parallel.mesh import (all_reduce_mean, all_reduce_sum, axis_size,
+                                                 shard_batch_fn)
         if getattr(model, "train_mode", False) and axis_size(mesh) > 1:
             raise NotImplementedError(
                 "batch statistics over the global batch are not ported: with more than "
@@ -86,9 +91,14 @@ def make_train_step(model, tx, loss_kwargs, iters=12, plain=False, mesh=None):
         metrics["train/loss"] = loss.detach()
         if mesh is not None:
             all_reduce_mean(grads.values(), mesh)
-            stacked = torch.stack([v.float() for v in metrics.values()])
+            means = [k for k in metrics if k not in FLOW_RATIOS]
+            stacked = torch.stack([metrics[k].float() for k in means])
+            sums, count = flow_metric_sums(preds["flow"][-1].detach(), flow_gt, valid,
+                                           loss_kwargs.get("max_flow", MAX_FLOW))
             all_reduce_mean([stacked], mesh)
-            metrics = dict(zip(metrics, stacked.unbind()))
+            all_reduce_sum([sums, count], mesh)
+            metrics.update(zip(means, stacked.unbind()))
+            metrics.update(zip(FLOW_RATIOS, (sums / count.clamp(min=1)).unbind()))
         updates, opt_state = tx.update(grads, state["opt_state"], params)
         apply_updates(params, updates)
         return {"model": m, "opt_state": opt_state, "step": state["step"] + 1}, metrics

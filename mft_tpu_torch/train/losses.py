@@ -38,6 +38,26 @@ def _epe(pred, flow_gt):
     return torch.sqrt((d * d).sum(dim=-1))
 
 
+FLOW_RATIOS = ("train/epe", "train/1px", "train/3px", "train/5px")
+
+
+def flow_metric_sums(flow_pred, flow_gt, valid, max_flow=MAX_FLOW):
+    """The sums behind the ratio metrics of :func:`sequence_flow_loss`:
+    ((4,) float32 sums over the valid pixels of the EPE and of the 1, 3 and
+    5 px indicators of ``flow_pred``, in ``FLOW_RATIOS``' order; the valid
+    pixel count, int64). Each metric is its sum over max(count, 1), JAX's
+    ``vmean``; a data-parallel step divides the sums all-reduced over its
+    ranks by the count all-reduced likewise, the global batch's figure."""
+    return _metric_sums(flow_pred, flow_gt, _base_valid(flow_gt, valid, max_flow))
+
+
+def _metric_sums(flow_pred, flow_gt, base_valid):
+    epe = _epe(flow_pred, flow_gt)
+    vsum = lambda x: torch.where(base_valid, x, 0.0).sum()
+    return (torch.stack([vsum(epe), vsum((epe < 1).float()), vsum((epe < 3).float()),
+                         vsum((epe < 5).float())]), base_valid.sum())
+
+
 def sequence_flow_loss(flow_preds, flow_gt, valid, occl_gt=None, gamma=0.8,
                        max_flow=MAX_FLOW, flow_loss_type="L1"):
     """Gamma-weighted L1 flow loss. returns (loss, metrics) with the EPE and
@@ -62,14 +82,8 @@ def sequence_flow_loss(flow_preds, flow_gt, valid, occl_gt=None, gamma=0.8,
         else:
             raise NotImplementedError(flow_loss_type)
         loss = loss + w * (m[..., None] * abs_err).mean()
-    epe = _epe(flow_preds[-1], flow_gt)
-    count = base_valid.sum().clamp(min=1)
-    vmean = lambda x: torch.where(base_valid, x, 0.0).sum() / count
-    metrics = {"train/epe": vmean(epe),
-               "train/1px": vmean((epe < 1).float()),
-               "train/3px": vmean((epe < 3).float()),
-               "train/5px": vmean((epe < 5).float())}
-    return loss, metrics
+    sums, count = _metric_sums(flow_preds[-1].detach(), flow_gt, base_valid)
+    return loss, dict(zip(FLOW_RATIOS, (sums / count.clamp(min=1)).unbind()))
 
 
 def sequence_occl_loss(occl_preds, occl_gt, flow_gt, valid, gamma=0.8, max_flow=MAX_FLOW):

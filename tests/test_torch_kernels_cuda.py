@@ -1396,10 +1396,13 @@ def test_mft_cache_paths_launch_their_kernels(cuda):
 def test_lookup_backward_kernel_matches_plain(np_rng, cuda, dtype, radius):
     """The backward kernel against its plain version: the same four products
     per map position summed in the same order, rounded once: bit for bit in
-    both dtypes; every value of every map written; one launch; odd widths
-    (the scalar stores) and even ones (bf16 pairs) both."""
-    for H8, W8 in ((6, 10), (5, 7)):
-        pyr, coords, _, _ = _lookup_inputs(np_rng, dtype, cuda, H8=H8, W8=W8, radius=radius)
+    both dtypes; every value of every map written; one launch; even widths,
+    odd ones (chunks across rows and pixels) and maps whose size a pixel is
+    no multiple of 16 bytes (5x12 in bf16: 120 bytes), pixel counts with and
+    without a partial group of 8 (120, 70, 180)."""
+    for B, H8, W8 in ((2, 6, 10), (2, 5, 7), (3, 5, 12)):
+        pyr, coords, _, _ = _lookup_inputs(np_rng, dtype, cuda, B=B, H8=H8, W8=W8,
+                                           radius=radius)
         coords[0, :8] = torch.round(coords[0, :8])
         dims = [tuple(lvl.shape[2:]) for lvl in pyr]
         C = len(dims) * (2 * radius + 1) ** 2

@@ -8,7 +8,9 @@ One gloo run of 2 processes (this file run as a script, one rank each,
   global batch of 4 at 64x96, 2 iterations, float32, in the frozen-BN recipe
   (``__graft_entry__.py dryrun_multichip``'s: batch norm on its running
   statistics, every parameter trained); rank 1 starts from other weights,
-  which the first call's broadcast must replace with rank 0's;
+  which the first call's broadcast must replace with rank 0's; the last
+  sample keeps a quarter of its valid pixels, so the ranks' valid counts
+  differ (the flow metrics are ratios over them);
 - tracks 2 clips of 64x64 for 2 timesteps with ``StreamingTracker(mesh=)``,
   one clip a rank.
 
@@ -52,23 +54,38 @@ def _state(seed):
     return build_state(model, tx, seed=seed), tx
 
 
+FLOW_RATIOS = ("train/epe", "train/1px", "train/3px", "train/5px")
+
+
 def _batch():
+    """The global batch; its last sample keeps a quarter of its valid
+    pixels (rank 1's half then counts fewer than rank 0's)."""
     from mft_tpu_torch.train import synth
+    rng = np.random.default_rng(0)
+    img1, img2, flow, valid, occl = synth.make_batch(rng, B, H, W)
+    valid[-1] *= rng.random((H, W)) < 0.25
     return tuple(torch.from_numpy(np.ascontiguousarray(b))
-                 for b in synth.make_batch(np.random.default_rng(0), B, H, W))
+                 for b in (img1, img2, flow, valid, occl))
 
 
 def _step(mesh, seed):
-    """One train step; returns (loss, {name: gradient}, {name: parameter})."""
+    """One train step; returns (loss, {name: gradient}, {name: parameter},
+    the flow metrics (4,), the forward's predictions {key: (ITERS, ...)})."""
     from mft_tpu_torch.train.loop import make_train_step
     state, tx = _state(seed)
     model = state["model"]
+    preds = {}
+    hook = model.register_forward_hook(lambda m, args, out: preds.update(
+        {k: np.stack([t.detach().numpy() for t in out[k]])
+         for k in ("flow", "occlusion", "uncertainty")}))
     step = make_train_step(model, tx, LOSS_KW, iters=ITERS, mesh=mesh)
     state, metrics = step(state, _batch())
+    hook.remove()
     grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).numpy().copy()
              for n, p in model.named_parameters()}
     params = {n: p.detach().numpy().copy() for n, p in model.named_parameters()}
-    return float(metrics["train/loss"]), grads, params
+    ratios = np.array([float(metrics[k]) for k in FLOW_RATIOS])
+    return float(metrics["train/loss"]), grads, params, ratios, preds
 
 
 def _stream_config():
@@ -116,8 +133,9 @@ def worker(rank: int, port: int, out: str):
     try:
         mesh = make_mesh()
         res = {}
-        loss, grads, params = _step(mesh, seed=1234 if rank == 0 else 99)
+        loss, grads, params, ratios, _ = _step(mesh, seed=1234 if rank == 0 else 99)
         res["dp_loss"] = np.float64(loss)
+        res["dp_ratios"] = ratios
         res.update({f"dp_grad/{n}": g for n, g in grads.items()})
         res.update({f"dp_param/{n}": p for n, p in params.items()})
         for k, x in enumerate(_stream(CLIPS, mesh=mesh)):
@@ -138,8 +156,10 @@ def worker(rank: int, port: int, out: str):
     finally:
         dist.destroy_process_group()
     if rank == 0:   # the references, in one process
-        loss, grads, params = _step(None, seed=1234)
+        loss, grads, params, ratios, preds = _step(None, seed=1234)
         res["one_loss"] = np.float64(loss)
+        res["one_ratios"] = ratios
+        res.update({f"one_pred/{k}": v for k, v in preds.items()})
         res.update({f"one_grad/{n}": g for n, g in grads.items()})
         res.update({f"one_param/{n}": p for n, p in params.items()})
         for k, x in enumerate(_stream(CLIPS)):
@@ -197,6 +217,36 @@ def test_dp_step_matches_one_process_step(ranks):
             assert float(np.abs(got - want).max()) <= 1e-5 * scale, n
         np.testing.assert_array_equal(r1[f"dp_grad/{n}"], got, err_msg=n)
         np.testing.assert_array_equal(r1[f"dp_param/{n}"], r0[f"dp_param/{n}"], err_msg=n)
+
+
+def test_dp_flow_metrics_are_global_batch_ratios(ranks):
+    """train/epe, 1px, 3px and 5px of the 2-rank step are the one-process
+    step's on the whole batch (within 1e-6 relative: the ranks' sums add in
+    another order), the same on both ranks, although the halves' valid
+    counts differ, so that the mean of the halves' ratios is off; the
+    one-process figures are JAX's ``sequence_loss`` metrics of the same
+    predictions."""
+    import jax.numpy as jnp
+    from mft_tpu.train.losses import sequence_loss as jax_sequence_loss
+    from mft_tpu_torch.train.losses import sequence_flow_loss
+    r0, r1 = ranks
+    one, dp = r0["one_ratios"], r0["dp_ratios"]
+    np.testing.assert_array_equal(r1["dp_ratios"], dp)
+    assert (np.abs(dp - one) <= 1e-6 * np.abs(one)).all(), (dp, one)
+    _, _, flow_gt, valid, occl = _batch()
+    assert valid[:B // 2].sum() > 1.5 * valid[B // 2:].sum()   # the halves differ
+    flow = torch.from_numpy(r0["one_pred/flow"][-1])
+    halves = [sequence_flow_loss([flow[s]], flow_gt[s], valid[s])[1]
+              for s in (slice(0, B // 2), slice(B // 2, B))]
+    rank_mean = np.array([(float(halves[0][k]) + float(halves[1][k])) / 2
+                          for k in FLOW_RATIOS])
+    assert np.abs(rank_mean - one).max() > 1e-3 * np.abs(one).max(), (rank_mean, one)
+    preds = {k: list(jnp.asarray(r0[f"one_pred/{k}"]))
+             for k in ("flow", "occlusion", "uncertainty")}
+    _, jm = jax_sequence_loss(preds, jnp.asarray(flow_gt.numpy()), jnp.asarray(valid.numpy()),
+                              occl_gt=jnp.asarray(occl.numpy()), **LOSS_KW)
+    want = np.array([float(jm[k]) for k in FLOW_RATIOS])
+    assert (np.abs(one - want) <= 1e-6 * np.abs(want)).all(), (one, want)
 
 
 def test_streaming_over_mesh_matches_one_process(ranks):

@@ -279,6 +279,29 @@ def test_clip_axis_plain_k3_equals_single_calls(rng, planted):
             _same_bits(got[f], torch.stack([w[f] for w in want]))
 
 
+def test_tensor_frames_are_bgr_as_numpy_ones():
+    """uint8 BGR frames given as a CPU tensor: the same RGB ring images and
+    the same results, bit for bit, as the same frames given as numpy
+    (``init`` and one ``track``); both equal JAX's streaming ``_to_device``
+    of the frames as a device array, which flips them. The single-clip
+    tracker passes a tensor through unflipped, as JAX's does."""
+    import jax.numpy as jnp
+    frames = _clips(C, 1)
+    st = StreamingTracker(_config(Config, RAFTFlow), n_clips=C, device="cpu")
+    runs = []
+    for to in (np.asarray, torch.from_numpy):
+        st.init(to(frames[0]))
+        imgs = st.mem_imgs[:, st.template_slot].clone()
+        runs.append((imgs, *_np(st.track(to(frames[1])))))
+    for got, want in zip(runs[1], runs[0]):
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    jax_rgb = np.asarray(JaxStreamingTracker._to_device(np.asarray(jnp.asarray(frames[0]))))
+    np.testing.assert_array_equal(runs[0][0].numpy(), jax_rgb)
+    np.testing.assert_array_equal(st._to_device(torch.from_numpy(frames[0])).numpy(), jax_rgb)
+    assert torch.equal(st._single._to_device(torch.from_numpy(frames[0, 0])),
+                       torch.from_numpy(frames[0, 0]))
+
+
 def test_errors():
     """init: H and W multiples of 8, C frames; track: C frames; injection
     needs the feature ring; the image step refuses a schedule and a warm

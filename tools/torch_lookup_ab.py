@@ -40,6 +40,11 @@ for the groups ``--only`` names (default: all three):
   ``chain_select_nan_inputs``) and counts, for each checkout, the outputs
   that differ from the plain version's (NaN positions and bits); this
   checkout must have none ('chain_select');
+- at chip_smoke.py's ``BWD_SHAPES`` (the training batch, 6 x 46x96 at
+  level 0, and the slice's, 7 x 64x64; 4 levels, radius 4), in float32 and
+  bfloat16, on uniform and local coordinates (``bwd_coords``), calls the
+  lookup's backward ``mft_corr_lookup_bwd`` of both libraries on the same
+  gradient and requires identical bits in every level map ('backward');
 - times each by CUDA graph replay, in the order other, this, this, other,
   and prints both checkouts' times and their ratio.
 
@@ -47,7 +52,7 @@ Imports nothing of JAX. Usage (on the card):
 
     python3 tools/torch_lookup_ab.py --other PATH_TO_OTHER_CHECKOUT
         [--only dense] [--only warp] [--only window] [--only volume]
-        [--only chain_select]
+        [--only chain_select] [--only backward]
 """
 
 import argparse
@@ -59,7 +64,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 
 
-GROUPS = ("dense", "warp", "window", "volume", "chain_select")
+GROUPS = ("dense", "warp", "window", "volume", "chain_select", "backward")
 
 
 def load_build(root: str, name: str):
@@ -186,6 +191,47 @@ def compare_chain_select(torch, dev, libs, side_by_side) -> bool:
         ok &= side_by_side(f"mft_chain_select {kind} (7 candidates, {H}x{W})", call, outs,
                            against_plain)
         del maps, want, outs
+    return ok
+
+
+def compare_backward(torch, dev, libs, side_by_side, identical) -> bool:
+    """The 'backward' group: ``mft_corr_lookup_bwd`` of both checkouts on the
+    same gradient and coordinates, the 4 level maps in one buffer (each
+    level at a 256-byte aligned offset, as the allocator places separate
+    tensors; the gaps zero in both). returns: False if any bits differ."""
+    from chip_smoke import BWD_SHAPES, LEVELS, RADIUS, bwd_coords
+    gen = torch.Generator(device=dev).manual_seed(21)
+    n = 2 * RADIUS + 1
+    ok = True
+    for label, (Bn, H8, W8) in BWD_SHAPES.items():
+        dims = [(H8 >> lvl, W8 >> lvl) for lvl in range(len(LEVELS))]
+        sizes = [Bn * H8 * W8 * h * w for h, w in dims]
+        for kind in ("uniform", "local"):
+            coords = bwd_coords(torch, dev, kind, gen, Bn, H8, W8)
+            for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+                g = torch.randn((Bn, H8 * W8, len(dims) * n * n), device=dev,
+                                generator=gen).to(dtype)
+                step = 256 // g.element_size()
+                offsets = [sum(-(-v // step) * step for v in sizes[:k])
+                           for k in range(len(sizes) + 1)]
+
+                def call(lib_label, buf, g=g, coords=coords, dims=dims, code=code,
+                         offsets=offsets):
+                    ptrs = [buf[o:].data_ptr() for o in offsets[:-1]]
+                    err = libs[lib_label].mft_corr_lookup_bwd(
+                        *ptrs, g.data_ptr(), coords.data_ptr(),
+                        *(v for d in dims for v in d), len(dims), Bn * H8 * W8, RADIUS,
+                        code, torch.cuda.current_stream().cuda_stream)
+                    if err != 0:
+                        raise RuntimeError(f"{lib_label} mft_corr_lookup_bwd: cudaError {err}")
+
+                outs = {k: torch.zeros(offsets[-1], dtype=dtype, device=dev)
+                        for k in ("other", "this")}
+                name = str(dtype).split(".")[1]
+                ok &= side_by_side(f"mft_corr_lookup_bwd {name} {label} {kind} "
+                                   f"({Bn} x {H8}x{W8})", call, outs, identical)
+                del g, outs
+            torch.cuda.empty_cache()
     return ok
 
 
@@ -375,6 +421,8 @@ def main(argv=None) -> int:
         failed |= not compare_volume(torch, dev, libs, side_by_side, identical)
     if "chain_select" in groups:
         failed |= not compare_chain_select(torch, dev, libs, side_by_side)
+    if "backward" in groups:
+        failed |= not compare_backward(torch, dev, libs, side_by_side, identical)
     print("ok" if not failed else "FAILED: outputs differ between the checkouts")
     return 1 if failed else 0
 
