@@ -164,7 +164,30 @@ non-zero and prints no result line):
    against the single tracker's injected frame; (e) an NCCL
    process group of world size 1 and its mesh: a ``make_train_step(mesh=)``
    step (full recipe, batch 2 at 368x768) and a ``StreamingTracker(mesh=)``
-   timestep bit for bit with no mesh (more than one card: not run).
+   timestep bit for bit with no mesh (more than one card: not run);
+16. the RAFT variants: (a) K2 and its backward at the small model's radius
+   3 (the backward at the training and slice shapes, as 14a) and K4/K5 at
+   C = 128, radius 3, against their plain versions as phases 3, 3b and 14a
+   hold them at radius 4 (K2 and the backward bit for bit, K4/K5 f32 to
+   ALT_TOL and bf16 within the bound), each timed beside its plain
+   version, its library call where there is one and its bound; (b) the
+   small RAFT (``default_config()``'s raft_params with ``small``; random
+   weights) tracking 10 frames at 512x512, 'auto' (launches a frame: K1 0,
+   K2 12, K3 1) and 'alt' (K4 12, K3 1), ms a frame, peak memory, busy ms
+   and idle share from a profiler pass of 2 frames, a frame against the
+   plain versions (the frame gate); (c) the big model's 'morelayers' heads
+   (random weights), 'upsample8' heads, ``relu_uncertainty`` and
+   ``normalized_features`` (the committed weights), 3 frames each, launches
+   K1 11, K2 1, K3 1 a frame, a frame against the plain versions; the
+   model without OU heads on a 7-pair batch: K1 on all 12 iterations, no
+   K2; (d) the small model's full recipe through the entry point
+   (``--small``, random weights, 5 steps of batch 6 at 368x768, bf16 over
+   f32): launches a step K2 12 and the backward 12 at radius 3, every conv
+   weight moved, the export tracked with; one f32 step through the kernels
+   against the plain versions within ``TRAIN_PLAIN_TOL``; (e) the fused
+   encoder (``fused_encoder``, one grouped-conv stack for fnet and cnet)
+   against the two encoders apart in f32 within ``FUSED_ENCODER_TOL``,
+   both timed.
 
 Every bf16 launch of K1, #5, #13, K4 and K5 on the main path, conv_backend
 'pallas', 'alt' and 'win' at 512x512 and 2160x3840, 'auto' at 1080x1920
@@ -263,17 +286,19 @@ def within(got, want, atol, rtol) -> bool:
     return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
 
 
-def grid_sample_lookup(torch, levels, coords):
+def grid_sample_lookup(torch, levels, coords, radius=None):
     """The library's yardstick for a volume lookup: ``F.grid_sample``
     (bilinear, zeros outside, align_corners=True), one call per level on the
     (B*P, 1, h_l, w_l) view of the stored level (a copy where the layout has
     no such view, as the lane-major one), sampling each pixel's (2r+1)^2
     window. The grids are made beforehand, in the levels' dtype as
     grid_sample needs. returns: (device ms of the calls by graph replay,
-    (B, P, L*(2r+1)^2) samples in the reference's channel order)."""
+    (B, P, L*(2r+1)^2) samples in the reference's channel order); radius
+    RADIUS unless given."""
     import torch.nn.functional as F
-    n = 2 * RADIUS + 1
-    off = torch.arange(n, dtype=torch.float32, device=coords.device) - RADIUS
+    radius = RADIUS if radius is None else radius
+    n = 2 * radius + 1
+    off = torch.arange(n, dtype=torch.float32, device=coords.device) - radius
     Bn, Pn = coords.shape[:2]
     grids = []
     for lvl, corr in enumerate(levels):
@@ -299,7 +324,7 @@ LEVELS = ((64, 64), (32, 32), (16, 16), (8, 8))   # 512x512 at stride 8
 B, P, RADIUS, F = 7, 64 * 64, 4, 256               # 7 delta pairs
 
 
-def window_tap_bytes(dims, coords, itemsize) -> int:
+def window_tap_bytes(dims, coords, itemsize, radius=RADIUS) -> int:
     """Bytes of a pyramid of levels ``dims`` = ((h_l, w_l), ...) with values of
     ``itemsize`` bytes that the windows of these coords touch (in-bounds taps
     of each pixel's (2r+2)^2 neighbourhood per level; each read once)."""
@@ -307,10 +332,10 @@ def window_tap_bytes(dims, coords, itemsize) -> int:
     n = 0
     for lvl, (h, w) in enumerate(dims):
         c = coords / 2.0 ** lvl
-        lo = torch.floor(c) - RADIUS
+        lo = torch.floor(c) - radius
         x_lo, y_lo = lo[..., 0].clamp(min=0), lo[..., 1].clamp(min=0)
-        x_hi = (lo[..., 0] + 2 * RADIUS + 1).clamp(max=w - 1)
-        y_hi = (lo[..., 1] + 2 * RADIUS + 1).clamp(max=h - 1)
+        x_hi = (lo[..., 0] + 2 * radius + 1).clamp(max=w - 1)
+        y_hi = (lo[..., 1] + 2 * radius + 1).clamp(max=h - 1)
         nx = (x_hi - x_lo + 1).clamp(min=0)
         ny = (y_hi - y_lo + 1).clamp(min=0)
         n += int((nx * ny).sum().item())
@@ -556,14 +581,14 @@ FEAT_C = 256                                       # fnet channels
 ALT_TOL = {"float32": (1e-6, 1e-6)}
 
 
-def feature_inputs(torch, dev, dtype, kind, H8, W8, seed):
+def feature_inputs(torch, dev, dtype, kind, H8, W8, seed, C=FEAT_C):
     """Random (B, H8, W8, C) source features, the pooled pyramid of random
     target features, and coords: 'wild' uniform over the map and 10 px beyond
     it, 'local' the pixel grid + U(-2, 2)."""
     from mft_tpu_torch.models.raft.corr import build_feature_pyramid
     gen = torch.Generator(device=dev).manual_seed(seed)
-    f1 = torch.randn((B, H8, W8, FEAT_C), device=dev, generator=gen).to(dtype)
-    f2 = torch.randn((B, FEAT_C, H8, W8), device=dev, generator=gen).to(dtype)
+    f1 = torch.randn((B, H8, W8, C), device=dev, generator=gen).to(dtype)
+    f2 = torch.randn((B, C, H8, W8), device=dev, generator=gen).to(dtype)
     u = torch.empty((B, H8 * W8, 2), device=dev).uniform_(0.0, 1.0, generator=gen)
     if kind == "wild":
         lo = torch.tensor([-10.0, -10.0], device=dev)
@@ -576,22 +601,22 @@ def feature_inputs(torch, dev, dtype, kind, H8, W8, seed):
     return f1, build_feature_pyramid(f2, len(LEVELS)), coords.contiguous()
 
 
-def feature_work(torch, f1, pyr, coords):
+def feature_work(torch, f1, pyr, coords, radius=RADIUS):
     """(compulsory bytes, operations) of one window-correlation call: f1,
     coords and the output once, plus each pyramid position some window's
     taps touch once; 2*C operations per in-map tap dot (the bilinear
     combination's 7 per sample, about 1%, not counted)."""
     Bn, H8, W8, C = f1.shape
     es = f1.element_size()
-    side = 2 * RADIUS + 2
+    side = 2 * radius + 2
     dev = f1.device
     nbytes = f1.numel() * es + coords.numel() * 4
-    nbytes += Bn * H8 * W8 * len(pyr) * (2 * RADIUS + 1) ** 2 * es
+    nbytes += Bn * H8 * W8 * len(pyr) * (2 * radius + 1) ** 2 * es
     ops_n = 0
     pair = torch.arange(Bn, device=dev)[:, None]
     for lvl, f2 in enumerate(pyr):
         h, w = f2.shape[1:3]
-        base = torch.floor(coords / 2.0 ** lvl).clamp(-1e6, 1e6).long() - RADIUS
+        base = torch.floor(coords / 2.0 ** lvl).clamp(-1e6, 1e6).long() - radius
         nx = (base[..., 0] + side).clamp(0, w) - base[..., 0].clamp(0, w)
         ny = (base[..., 1] + side).clamp(0, h) - base[..., 1].clamp(0, h)
         ops_n += 2 * C * int((nx * ny).sum().item())
@@ -606,40 +631,41 @@ def feature_work(torch, f1, pyr, coords):
     return nbytes, ops_n
 
 
-def check_feature_kernels(torch, ops, dev, card):
+def check_feature_kernels(torch, ops, dev, card, C=FEAT_C, radius=RADIUS):
     """K4 (corr_lookup_alt) and K5 (corr_lookup_win) against their plain
-    version at the 512x512 slice's shapes: B=7, 64x64, C=256, 4 levels, r=4;
-    float32 bit for bit, bfloat16 (one tile product on the tensor cores for
-    both) within the bound, its outputs differing from the plain version's
-    counted."""
+    version at the 512x512 slice's shapes: B=7, 64x64, C channels (the big
+    model's 256 by default), 4 levels, radius ``radius``; float32 bit for
+    bit, bfloat16 (one tile product on the tensor cores for both) within the
+    bound, its outputs differing from the plain version's counted."""
     H8, W8 = LEVELS[0]
     stats = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         for kind in ("wild", "local"):
-            f1, pyr, coords = feature_inputs(torch, dev, dtype, kind, H8, W8, seed=3)
-            plain = lambda: ops.corr_lookup_alt_ref(f1, pyr, coords, RADIUS)
+            f1, pyr, coords = feature_inputs(torch, dev, dtype, kind, H8, W8, seed=3, C=C)
+            plain = lambda: ops.corr_lookup_alt_ref(f1, pyr, coords, radius)
             want = plain()
             plain_ms = cuda_ms(plain, reps=2, warmup=1)
-            nbytes, ops_n = feature_work(torch, f1, pyr, coords)
+            nbytes, ops_n = feature_work(torch, f1, pyr, coords, radius)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = ops_n / PEAK_OPS_PER_S[name] * 1e3
-            mag = (ops.corr_window_magnitude(f1, pyr, coords, RADIUS) if name == "bfloat16"
+            mag = (ops.corr_window_magnitude(f1, pyr, coords, radius) if name == "bfloat16"
                    else None)
             for kname in ("corr_lookup_alt", "corr_lookup_win"):
-                kernel = lambda: getattr(ops, kname)(f1, pyr, coords, RADIUS)
+                kernel = lambda: getattr(ops, kname)(f1, pyr, coords, radius)
                 got = kernel()
                 torch.cuda.synchronize()
-                label = f"{kname} {name} {kind}"
+                label = f"{kname} {name} {kind}" + (f" C {C} r {radius}" if (C, radius) != (
+                    FEAT_C, RADIUS) else "")
                 staged = ""
                 if kname == "corr_lookup_win":
                     counters = torch.zeros(2, dtype=torch.int32, device=dev)
-                    ops.corr_lookup_win(f1, pyr, coords, RADIUS, stats=counters)
+                    ops.corr_lookup_win(f1, pyr, coords, radius, stats=counters)
                     n_st, n_un = counters.tolist()
                     staged = f"; staged (tile, level) boxes {n_st}/{n_st + n_un}"
                 ratio = differ = None
                 if mag is not None:
-                    err, ratio = window_check(torch, ops, label, got, want, mag)
+                    err, ratio = window_check(torch, ops, label, got, want, mag, C)
                     differ = differing(torch, got, want)
                     log(f"check {label}: {differ} of {got.numel()} outputs differ from the plain "
                         f"version's bits{staged}")
@@ -651,7 +677,7 @@ def check_feature_kernels(torch, ops, dev, card):
                         f"{rtol}) {'ok' if ok else 'FAIL'}{staged}")
                     check(ok, f"{label} disagrees with its plain version")
                 ms = graph_ms(kernel)
-                log(f"time {kname} {name} {kind}: kernel {ms:.4f} ms (graph replay), plain "
+                log(f"time {label}: kernel {ms:.4f} ms (graph replay), plain "
                     f"{plain_ms:.3f} ms, "
                     f"bound {max(bytes_ms, ops_ms):.4f} ms ({nbytes / 1e6:.1f} MB, "
                     f"{ops_n / 1e9:.2f} GFLOP) [{card}]")
@@ -673,12 +699,12 @@ def differing(torch, got, want) -> int:
     return int(((nan_g != nan_w) | bits).sum())
 
 
-def window_check(torch, ops, label, got, want, magnitude):
+def window_check(torch, ops, label, got, want, magnitude, C=FEAT_C):
     """The bf16 window correlations (tensor cores) within
     ops.product_error_bound of the plain version on every element: K = C,
     scale 1/sqrt(C), S from ops.corr_window_magnitude."""
     from mft_tpu_torch.ops.product import corr_scale
-    return bound_check(torch, ops, label, got, want, magnitude, FEAT_C, corr_scale(FEAT_C))
+    return bound_check(torch, ops, label, got, want, magnitude, C, corr_scale(C))
 
 
 # --------------------------------------------------------------------------- #
@@ -2432,15 +2458,15 @@ def bwd_coords(torch, dev, kind, gen, Bn, H8, W8):
     return (grid + 4.0 * u - 2.0).contiguous()
 
 
-def library_lookup_bwd(torch, g, coords, dims):
+def library_lookup_bwd(torch, g, coords, dims, radius=RADIUS):
     """The library's yardstick for the backward: ``grid_sampler_2d_backward``
     (what autograd runs behind an ``F.grid_sample`` lookup, bilinear, zeros,
     align_corners=True), one call per level on the (B*P, 1, h_l, w_l) view,
     the level gradient only. returns (device ms by graph replay, the level
     gradients) or (None, None) where the library refuses the dtype."""
-    n = 2 * RADIUS + 1
+    n = 2 * radius + 1
     Bn, Pn = coords.shape[:2]
-    off = torch.arange(n, dtype=torch.float32, device=coords.device) - RADIUS
+    off = torch.arange(n, dtype=torch.float32, device=coords.device) - radius
     calls = []
     for lvl, (h, w) in enumerate(dims):
         c = coords / 2.0 ** lvl
@@ -2464,15 +2490,15 @@ def library_lookup_bwd(torch, g, coords, dims):
     return graph_ms(run, reps=10), out
 
 
-def check_lookup_bwd(torch, ops, dev, card):
-    """14a: the backward kernel against its plain version at the training
-    shape and the slice's, uniform and local coordinates: f32 bit for bit,
-    bf16 bit for bit and equal to the f32 result of the same inputs rounded
-    once; timed by graph replay beside the plain version, the library's
-    backward and the bound. returns {(shape, dtype, kind): stats}."""
+def check_lookup_bwd(torch, ops, dev, card, radius=RADIUS):
+    """14a (16a at radius 3): the backward kernel against its plain version
+    at the training shape and the slice's, uniform and local coordinates:
+    f32 bit for bit, bf16 bit for bit and equal to the f32 result of the same
+    inputs rounded once; timed by graph replay beside the plain version, the
+    library's backward and the bound. returns {(shape, dtype, kind): stats}."""
     stats = {}
     gen = torch.Generator(device=dev).manual_seed(21)
-    n = 2 * RADIUS + 1
+    n = 2 * radius + 1
     for label, (Bn, H8, W8) in BWD_SHAPES.items():
         dims = [(H8 >> lvl, W8 >> lvl) for lvl in range(len(LEVELS))]
         for kind in ("uniform", "local"):
@@ -2481,29 +2507,29 @@ def check_lookup_bwd(torch, ops, dev, card):
                 name = str(dtype).split(".")[1]
                 g = torch.randn((Bn, H8 * W8, len(dims) * n * n), device=dev,
                                 generator=gen).to(dtype)
-                kernel = lambda: ops.corr_lookup_bwd(g, coords, dims, RADIUS)
-                plain = lambda: ops.corr_lookup_bwd_ref(g, coords, dims, RADIUS)
+                kernel = lambda: ops.corr_lookup_bwd(g, coords, dims, radius)
+                plain = lambda: ops.corr_lookup_bwd_ref(g, coords, dims, radius)
                 got = kernel()
                 torch.cuda.synchronize()
                 want = plain()
                 same = sum(int((a != b).sum()) for a, b in zip(got, want))
                 err = max(max_err(a, b) for a, b in zip(got, want))
-                tag = f"lookup backward {name} {label} {kind}"
+                tag = f"lookup backward {name} {label} {kind} r {radius}"
                 log(f"check {tag}: {same} of {sum(a.numel() for a in got)} values differ "
                     f"from the plain version (max_abs_err {err:.3e}; tolerance: bit for bit)")
                 check(same == 0, f"{tag} differs from its plain version")
                 if dtype == torch.bfloat16:
-                    want32 = ops.corr_lookup_bwd_ref(g.float(), coords, dims, RADIUS)
+                    want32 = ops.corr_lookup_bwd_ref(g.float(), coords, dims, radius)
                     check(all(torch.equal(a, b.to(dtype)) for a, b in zip(got, want32)),
                           f"{tag}: not the f32 result rounded once")
                     del want32
                 del got, want
                 ms = graph_ms(kernel, reps=10)
                 plain_ms = cuda_ms(plain, reps=3, warmup=1)
-                lib_ms, lib = library_lookup_bwd(torch, g, coords, dims)
+                lib_ms, lib = library_lookup_bwd(torch, g, coords, dims, radius)
                 lib_note = "refused"
                 if lib is not None:
-                    ref = ops.corr_lookup_bwd_ref(g, coords, dims, RADIUS)
+                    ref = ops.corr_lookup_bwd_ref(g, coords, dims, radius)
                     lib_note = (f"{lib_ms:.4f} ms, max_abs_err to the plain version "
                                 f"{max(max_err(a, b) for a, b in zip(lib, ref)):.3e}")
                     del lib, ref
@@ -2634,16 +2660,20 @@ def train_batch(torch, dev, tmp, n=TRAIN_B, seed=0):
     return tuple(torch.from_numpy(np.stack(col)).to(dev) for col in zip(*samples))
 
 
-def full_state(torch, dev, mixed, lr=1.25e-4):
-    """A full-recipe train state on the committed weights."""
+def full_state(torch, dev, mixed, lr=1.25e-4, small=False):
+    """A full-recipe train state on the committed weights (``small``: the
+    small model on random weights from seed 0)."""
     from pathlib import Path
     from mft_tpu_torch.config import SYNTH_WEIGHTS
     from mft_tpu_torch.models.raft import RAFT
     from mft_tpu_torch.models.raft.raft import RAFTParams
-    from mft_tpu_torch.models.raft.wrapper import load_weights
+    from mft_tpu_torch.models.raft.wrapper import load_weights, random_init
     from mft_tpu_torch.train.optim import make_optimizer
-    model = RAFT(RAFTParams(), train_mode=True)
-    model.load_state_dict(load_weights(Path(SYNTH_WEIGHTS)))
+    model = RAFT(RAFTParams(small=small), train_mode=True)
+    if small:
+        random_init(model, 0)
+    else:
+        model.load_state_dict(load_weights(Path(SYNTH_WEIGHTS)))
     model.to(dev)
     if mixed:
         model.cast_per_call(torch.bfloat16)
@@ -2658,15 +2688,15 @@ LOSS_KW = dict(gamma=0.85, freeze_optical_flow=False,
                weighting_unc_loss=False)
 
 
-def check_train_plain(torch, ops, dev, card, batch):
-    """14c: one f32 full-recipe step through the kernels and through the
-    plain versions, from the same state and batch, deterministic cuDNN:
-    the loss, every gradient and every updated parameter against
-    TRAIN_PLAIN_TOL."""
+def check_train_plain(torch, ops, dev, card, batch, small=False):
+    """14c (16d for the ``small`` model): one f32 full-recipe step through
+    the kernels and through the plain versions, from the same state and
+    batch, deterministic cuDNN: the loss, every gradient and every updated
+    parameter against TRAIN_PLAIN_TOL."""
     from mft_tpu_torch.train.loop import make_train_step
     out = {}
     for plain in (False, True):
-        state, tx = full_state(torch, dev, mixed=False)
+        state, tx = full_state(torch, dev, mixed=False, small=small)
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         state, metrics = make_train_step(state["model"], tx, LOSS_KW, iters=TRAIN_ITERS,
@@ -2688,7 +2718,8 @@ def check_train_plain(torch, ops, dev, card, batch):
                    for n in gp)
     grads_equal = sum(torch.equal(gk[n], gp[n]) for n in gp)
     state_equal = sum(torch.equal(pk[k], pp[k]) for k in pp)
-    log(f"f32 full-recipe step, kernels against plain versions (deterministic cuDNN): loss "
+    log(f"f32 full-recipe step{' of the small model' if small else ''}, kernels against "
+        f"plain versions (deterministic cuDNN): loss "
         f"{lk:.6f} vs {lp:.6f} (relative gap {loss_gap:.3e}, tolerance "
         f"{TRAIN_PLAIN_TOL['loss']}); gradients: largest gap {grad_gap:.3e} of the tensor's "
         f"largest |gradient| (tolerance {TRAIN_PLAIN_TOL['grad']}), {grads_equal} of "
@@ -2886,6 +2917,13 @@ def device_busy_ms(prof) -> float:
     from torch.autograd import DeviceType
     return sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0) / 1e3
+
+
+def device_launches(prof) -> int:
+    """The device kernels (and memsets, copies) a profiler recorded."""
+    from torch.autograd import DeviceType
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0)
 
 
 def run_stream(torch, ops, dev, cfg, frames, label, per_step, gated=(), gate=True,
@@ -3254,6 +3292,357 @@ def run_streaming(torch, ops, dev, card):
     return cs, launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 16: the RAFT variants
+# --------------------------------------------------------------------------- #
+SMALL_RADIUS, SMALL_C = 3, 128   # the small model's lookup radius and fnet width
+VARIANT_FRAMES = 3               # tracked frames of each big variant
+# the big model's variants: name -> raft_params; 'morelayers' has an OU tree
+# of its own (random weights), the others share the committed weights' tree
+BIG_VARIANTS = {
+    "morelayers": {"occlusion_module": "separate_with_uncertainty_morelayers"},
+    "upsample8": {"occlusion_module": "separate_with_uncertainty_upsample8"},
+    "relu_uncertainty": {"relu_uncertainty": True},
+    "normalized_features": {"normalized_features": True},
+}
+# stated tolerance of the fused encoder against the two encoders apart, f32,
+# TF32 off: |fused - apart| <= atol + rtol*|apart|. cuDNN sums each grouped
+# conv in an order of its own algorithm; through 17 convs and the instance
+# norms (which divide by the features' spread) f32 rounding stays far below
+# 1e-3 of the features' O(1) values
+FUSED_ENCODER_TOL = (1e-3, 1e-3)
+
+
+def small_config(method="auto"):
+    """``default_config()`` with the small RAFT: its raft_params with
+    ``small`` set (and ``corr_method``), random weights from seed 0."""
+    from mft_tpu_torch.config import default_config
+    cfg = default_config()
+    cfg.flow_config.raft_params = dict(cfg.flow_config.raft_params, small=True,
+                                       corr_method=method)
+    return cfg
+
+
+def check_small_lookup(torch, ops, dev, card):
+    """16a: K2 at the small model's radius 3 on the 512x512 slice's volume
+    (7 pairs x 4096 pixels, levels 64^2..8^2: the volume of C = 128 features
+    has the big model's shape), uniform and local coordinates, f32 and bf16:
+    bit for bit with its plain version (the same float ops in the same
+    order, as at radius 4), timed by graph replay beside the plain version,
+    ``F.grid_sample`` per level and the bound. returns {(dtype, kind):
+    stats}."""
+    r, n = SMALL_RADIUS, (2 * SMALL_RADIUS + 1) ** 2
+    gen = torch.Generator(device=dev).manual_seed(31)
+    coords = {kind: lookup_coords(torch, dev, kind, gen) for kind in ("uniform", "local")}
+    stats = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        pyr = [torch.randn((B, P, h, w), device=dev, generator=gen).to(dtype)
+               for h, w in LEVELS]
+        for kind, c in coords.items():
+            kernel = lambda: ops.corr_lookup(pyr, c, r)
+            plain = lambda: ops.corr_lookup_ref(pyr, c, r)
+            got = kernel()
+            torch.cuda.synchronize()
+            want = plain()
+            differ = differing(torch, got, want)
+            label = f"lookup r {r} {name} {kind}"
+            log(f"check {label}: shape {tuple(got.shape)}, {differ} of {got.numel()} outputs "
+                f"differ from the plain version's bits (tolerance: bit for bit)")
+            check(tuple(got.shape) == (B, P, len(LEVELS) * n) and differ == 0,
+                  f"{label} disagrees with its plain version")
+            ms = graph_ms(kernel)
+            plain_ms = cuda_ms(plain, reps=3, warmup=1)
+            nbytes = (window_tap_bytes(LEVELS, c, pyr[0].element_size(), r) + c.numel() * 4
+                      + got.numel() * got.element_size())
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            lib_ms, lib = grid_sample_lookup(torch, pyr, c, r)
+            log(f"time {label}: kernel {ms:.4f} ms (graph replay), plain {plain_ms:.3f} ms, "
+                f"F.grid_sample per level {lib_ms:.4f} ms (max_abs_err to the plain version "
+                f"{max_err(lib, want):.3e}), bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB) "
+                f"[{card}]")
+            stats[(name, kind)] = dict(max_abs_err=max_err(got, want), ms=ms, plain_ms=plain_ms,
+                                       bound_ms=bound, bound_by="bytes", library_ms=lib_ms)
+            del got, want, lib
+        del pyr
+    return stats
+
+
+def run_small_path(torch, ops, dev, card, method="auto"):
+    """16b: ``MFT(small_config(method))`` at 512x512 (7 deltas, 12
+    iterations, bf16, random weights): FRAMES tracked frames, launches a
+    frame ('auto': K1 0, K2 12, K3 1; 'alt': K4 12, K3 1), outputs, ms a
+    frame, peak memory, a profiler pass of 2 more frames (device busy ms,
+    idle share) and one frame through the kernels against one through the
+    plain versions from the same state (the frame gate). returns (launches,
+    stats)."""
+    from torch.profiler import ProfilerActivity, profile
+    from mft_tpu_torch.tracker import MFT
+    label = f"small {method}"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tracker = MFT(small_config(method), device=dev)
+    cfg = tracker.flower.cfg
+    check(cfg.small and cfg.effective_corr_radius == SMALL_RADIUS
+          and tracker.flower.model.fnet.conv2.out_channels == SMALL_C,
+          f"{label}: not the small model ({cfg})")
+    iters = tracker.flower.iters
+    frames = synthetic_clip(FRAMES + 3)
+    ops.reset_launch_counts()
+    results, frame_ms = track_frames(torch, tracker, frames[:FRAMES + 1])
+    counts = ops.launch_counts()
+    per_frame = {"corr_lookup" if method == "auto" else KERNEL_OF[method]: iters}
+    want = expected_counts(ops, **{k: FRAMES * v for k, v in per_frame.items()},
+                           chain_select=FRAMES)
+    log(f"{label}: launches over {FRAMES} tracked frames: {counts}")
+    check(counts == want, f"{label}: launch counts {counts} != {want} ({per_frame}, no "
+                          f"fused lookup, and 1 chain + select per tracked frame)")
+    check_tensor_cores(ops, label)
+    H, W = frames[0].shape[:2]
+    check_results(torch, results, H, W, label)
+    median = median_after_warmup(frame_ms)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for img in frames[FRAMES + 1:FRAMES + 3]:
+            tracker.track(img)
+        torch.cuda.synchronize()
+        prof_ms = 1e3 * (time.perf_counter() - t1) / 2
+    busy = device_busy_ms(prof) / 2
+    launches = device_launches(prof) / 2
+    log(f"{label} frame ms: {', '.join(f'{m:.2f}' for m in frame_ms)}; median after "
+        f"{WARMUP} warm-up frames {median:.3f} ms ({1e3 / median:.2f} frames/s); peak device "
+        f"memory {peak:.3f} GB; profiled frames: wall {prof_ms:.3f} ms, device busy "
+        f"{busy:.3f} ms, idle share {1 - busy / prof_ms:.1%}, {launches:.1f} device "
+        f"launches a frame [{card}]")
+    del prof
+    check_kernels_vs_plain(torch, tracker, frames[FRAMES + 3], label)
+    return counts, dict(ms=median, busy_ms=busy, idle=1 - busy / prof_ms, peak_gb=peak)
+
+
+def run_big_variants(torch, ops, dev, card):
+    """16c: ``MFT`` with each big variant of BIG_VARIANTS at 512x512,
+    VARIANT_FRAMES tracked frames each: launches K1 11, K2 1, K3 1 a frame,
+    outputs, a frame through the kernels against the plain versions (the
+    frame gate); the variants that share the committed weights' tree on
+    them, 'morelayers' on random weights. Then the RAFT without OU heads
+    (occlusion_module None, random weights) on one 7-pair batch: K1 on all
+    12 iterations and no K2 (convc1 is the lookup's only consumer), its flow
+    against the plain versions' (the frame gate's flow terms)."""
+    import numpy as np
+    from mft_tpu_torch.config import default_config, synth_config
+    from mft_tpu_torch.models.raft import RAFT
+    from mft_tpu_torch.models.raft.raft import RAFTParams
+    from mft_tpu_torch.models.raft.wrapper import random_init
+    from mft_tpu_torch.tracker import MFT
+    frames = synthetic_clip(VARIANT_FRAMES + 1)
+    for name, params in BIG_VARIANTS.items():
+        cfg = default_config() if name == "morelayers" else synth_config()
+        cfg.flow_config.raft_params = dict(cfg.flow_config.raft_params, **params)
+        tracker = MFT(cfg, device=dev)
+        iters = tracker.flower.iters
+        ops.reset_launch_counts()
+        results, frame_ms = track_frames(torch, tracker, frames[:VARIANT_FRAMES + 1])
+        counts = ops.launch_counts()
+        n = VARIANT_FRAMES
+        want = expected_counts(ops, corr_lookup_fused=n * (iters - 1), corr_lookup=n,
+                               chain_select=n)
+        weights = "random weights" if name == "morelayers" else "committed weights"
+        log(f"{name} ({weights}): launches over {n} tracked frames: {counts}; frame ms "
+            f"{', '.join(f'{m:.2f}' for m in frame_ms)} [{card}]")
+        check(counts == want, f"{name}: launch counts {counts} != {want} (11, 1 and 1 per "
+                              f"tracked frame)")
+        check_tensor_cores(ops, name)
+        H, W = frames[0].shape[:2]
+        check_results(torch, results, H, W, name)
+        check_kernels_vs_plain(torch, tracker, frames[VARIANT_FRAMES + 1], name)
+        del tracker, results
+    model = random_init(RAFT(RAFTParams(occlusion_module=None, compute_dtype="bfloat16")), 0)
+    model = model.to(dev).eval().requires_grad_(False)
+    model.set_compute_dtype(torch.bfloat16)
+    clip = synthetic_clip(B)
+    rgb = lambda ims: torch.from_numpy(np.stack(ims)[..., ::-1].copy()).to(dev).permute(
+        0, 3, 1, 2).float()
+    img1, img2 = rgb([clip[0]] * B), rgb(clip[1:])
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        out = model(img1, img2, iters=12)
+    counts = ops.launch_counts()
+    with torch.no_grad():
+        ref = model(img1, img2, iters=12, plain=True)
+    dflow = (out["flow"] - ref["flow"]).norm(dim=-1)
+    med, far = float(dflow.median()), float((dflow > 0.5).float().mean())
+    ok = (list(out) == ["flow", "coords"] and counts == expected_counts(
+        ops, corr_lookup_fused=12) and bool(torch.isfinite(out["flow"]).all())
+          and med <= 0.05 and far <= 0.01)
+    log(f"check no OU heads (7 pairs, 12 iterations): outputs {list(out)}, launches {counts}; "
+        f"flow against the plain versions: median {med:.3e} px, share > 0.5 px {far:.4%} "
+        f"(tolerance: K1 12, nothing else; median <= 0.05 px, share <= 1%) "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok, "the model without OU heads: launches or flow wrong")
+
+
+def run_small_training(torch, ops, dev, card):
+    """16d: the small model's full recipe through the entry point's parser
+    and ``train`` (``--small``; random weights; TRAIN_STEPS steps of batch
+    TRAIN_B at TRAIN_H x TRAIN_W, 12 iterations, bf16 compute over f32
+    parameters) on a Sintel-form tree: finite losses, every parameter moved,
+    a step 12 K2 launches and 12 backward launches at radius 3 and nothing
+    else, the export, which a small tracker loads and tracks 2 frames with;
+    then one f32 step through the kernels and through the plain versions
+    (deterministic cuDNN) within TRAIN_PLAIN_TOL. returns (launches, ms a
+    step)."""
+    import tempfile
+    from pathlib import Path
+    from types import SimpleNamespace
+    from mft_tpu_torch import environment
+    from mft_tpu_torch.tracker import MFT
+    from mft_tpu_torch.train import loop, synth
+    per_step, step_ms, losses = [], [], []
+
+    def on_step(state, metrics, seconds):
+        per_step.append(ops.launch_counts())
+        ops.reset_launch_counts()
+        step_ms.append(1e3 * seconds)
+        vals = {k: float(v) for k, v in metrics.items()}
+        check(all(math.isfinite(v) for v in vals.values()),
+              f"small step {state['step']}: non-finite metrics {vals}")
+        losses.append(vals["train/loss"])
+
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        synth.write_sintel_tree(tmp / "sintel", frames=SINTEL_FRAMES, H=SINTEL_H, W=SINTEL_W)
+        settings = environment.env_settings
+        environment.env_settings = lambda: SimpleNamespace(sintel_dir=str(tmp / "sintel"))
+        try:
+            args = loop.get_parser().parse_args([
+                "--name", "small", "--stage", "sintel", "--small",
+                "--num_steps", str(TRAIN_STEPS), "--batch_size", str(TRAIN_B),
+                "--image_size", str(TRAIN_H), str(TRAIN_W), "--iters", str(TRAIN_ITERS),
+                "--mixed_precision", "--num_workers", "6", "--lr", "0.000125",
+                "--wdecay", "0.00001", "--gamma=0.85", "--checkpoint_dir",
+                str(tmp / "checkpoints")])
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            state = loop.train(args, on_step=on_step)
+        finally:
+            environment.env_settings = settings
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        model = state["model"]
+        check(model.cfg.small and state["step"] == TRAIN_STEPS
+              and len(per_step) == TRAIN_STEPS, f"small: {state['step']} steps")
+        want = expected_counts(ops, corr_lookup=TRAIN_ITERS, corr_lookup_bwd=TRAIN_ITERS)
+        for k, counts in enumerate(per_step, start=1):
+            check(counts == want, f"small step {k}: launches {counts} != {want}")
+        from mft_tpu_torch.models.raft.wrapper import random_init
+        init = random_init(type(model)(model.cfg), 1234).state_dict()   # build_state's seed
+        after = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        moved = {k for k in after if not torch.equal(after[k], init[k])}
+        weights = [k for k in after if k.endswith(".weight")]
+        # a bias that an instance norm follows has a zero gradient in exact
+        # arithmetic and starts at zero, so it may stay there: not gated
+        log(f"small: {len(moved)} of {len(after)} tensors moved from the initial weights, "
+            f"{sum(k in moved for k in weights)} of {len(weights)} conv weights")
+        check(all(k in moved for k in weights), "small: a conv weight did not move")
+        export = Path(args.checkpoint_dir) / args.name / f"small_step{TRAIN_STEPS}.msgpack"
+        cfg = small_config()
+        cfg.flow_config.model = str(export)
+        tracker = MFT(cfg, device=dev)
+        clip = synthetic_clip(2, H=EXPORT_SIZE, W=EXPORT_SIZE)
+        results, _ = track_frames(torch, tracker, clip)
+        check_results(torch, results, EXPORT_SIZE, EXPORT_SIZE, "small export")
+        del tracker, state, model
+        steady = sorted(step_ms[1:])
+        median = steady[len(steady) // 2] if len(steady) % 2 else 0.5 * (
+            steady[len(steady) // 2 - 1] + steady[len(steady) // 2])
+        log(f"small recipe ({TRAIN_B}x{TRAIN_H}x{TRAIN_W}, {TRAIN_ITERS} iterations, bf16 "
+            f"compute over f32 parameters): losses {', '.join(f'{v:.4f}' for v in losses)}; "
+            f"step ms {', '.join(f'{m:.1f}' for m in step_ms)}; median after 1 warm-up step "
+            f"{median:.1f} ms; peak device memory {peak:.2f} GiB; launches a step K2 "
+            f"{TRAIN_ITERS}, backward {TRAIN_ITERS} at radius {SMALL_RADIUS}; the export "
+            f"tracks 2 frames [{card}]")
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        try:
+            check_train_plain(torch, ops, dev, card, train_batch(torch, dev, tmp), small=True)
+        finally:
+            torch.backends.cudnn.deterministic = False
+    return {k: sum(c[k] for c in per_step) for k in per_step[0]}, median
+
+
+def check_fused_encoder(torch, ops, dev, card):
+    """16e: the fused encoder (one grouped-conv stack, ``fused_encoder``)
+    against fnet and cnet apart on the committed weights at 512x512, f32
+    (TF32 off), to FUSED_ENCODER_TOL; ``padded_encode`` of a flower with
+    ``fused_encoder`` equal to it bit for bit; both timed in f32 and bf16
+    (CUDA events), the bf16 gap printed."""
+    from mft_tpu_torch.config import synth_flow_config
+    from mft_tpu_torch.models.raft import RAFTFlow
+    from mft_tpu_torch.models.raft.encoder_fuse import fused_basic_encode
+    img = synthetic_clip(0)[0]
+    for dtype in ("float32", "bfloat16"):
+        conf = synth_flow_config()
+        conf.raft_params = dict(conf.raft_params, compute_dtype=dtype)
+        conf.fused_encoder = True
+        flower = RAFTFlow(conf, device=dev)
+        check(flower.fused_encoder, "fused_encoder not taken")
+        rgb = torch.from_numpy(img[..., ::-1].copy()).to(dev)[None].float()
+        x = rgb.permute(0, 3, 1, 2)
+        with torch.no_grad():
+            fused = fused_basic_encode(flower.model, x)
+            apart = flower.model.encode(x)
+            via = flower.padded_encode(rgb)
+            fused_ms = cuda_ms(lambda: fused_basic_encode(flower.model, x), reps=10)
+            apart_ms = cuda_ms(lambda: flower.model.encode(x), reps=10)
+        errs = [max_err(a, b) for a, b in zip(fused, apart)]
+        same = all(torch.equal(a, b) for a, b in zip(via, fused))
+        if dtype == "float32":
+            atol, rtol = FUSED_ENCODER_TOL
+            ok = same and all(within(a, b, atol, rtol) for a, b in zip(fused, apart))
+            log(f"check fused encoder f32: fmap max_abs_err {errs[0]:.3e}, cnet {errs[1]:.3e} "
+                f"(tolerance atol {atol} + rtol {rtol}); padded_encode bit for bit {same} "
+                f"{'ok' if ok else 'FAIL'}")
+            check(ok, "the fused encoder disagrees with fnet and cnet apart")
+        else:
+            log(f"fused encoder bf16 (not gated): fmap max_abs_err {errs[0]:.3e}, cnet "
+                f"{errs[1]:.3e}; padded_encode bit for bit {same}")
+        log(f"time encoder {dtype} 512x512: fused {fused_ms:.3f} ms, fnet + cnet apart "
+            f"{apart_ms:.3f} ms (CUDA events, 10 calls) [{card}]")
+        del flower
+
+
+def run_variants(torch, ops, dev, card):
+    """Phase 16: K2, the backward and K4/K5 at radius 3 and C = 128 (a), the
+    small model tracking, 'auto' and 'alt' (b), the big variants (c), the
+    small model's training (d), the fused encoder (e). returns the stats of
+    (a) and the launches of (b) and (d)."""
+    t0 = time.perf_counter()
+    k2 = check_small_lookup(torch, ops, dev, card)
+    bwd = check_lookup_bwd(torch, ops, dev, card, radius=SMALL_RADIUS)
+    fk = check_feature_kernels(torch, ops, dev, card, C=SMALL_C, radius=SMALL_RADIUS)
+    log(f"phase 16a seconds {time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    small_counts, small = run_small_path(torch, ops, dev, card)
+    alt_counts, alt = run_small_path(torch, ops, dev, card, "alt")
+    log(f"phase 16b seconds {time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    run_big_variants(torch, ops, dev, card)
+    log(f"phase 16c seconds {time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    train_counts, train_ms = run_small_training(torch, ops, dev, card)
+    log(f"phase 16d seconds {time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    check_fused_encoder(torch, ops, dev, card)
+    log(f"phase 16e seconds {time.perf_counter() - t0:.2f}")
+    log(f"small model 512x512: 'auto' {small['ms']:.3f} ms a frame (busy {small['busy_ms']:.3f} "
+        f"ms, idle {small['idle']:.1%}, peak {small['peak_gb']:.3f} GB), 'alt' {alt['ms']:.3f} "
+        f"ms (busy {alt['busy_ms']:.3f} ms, idle {alt['idle']:.1%}); training step "
+        f"{train_ms:.1f} ms [{card}]")
+    return dict(k2=k2, bwd=bwd, fk=fk, small=small_counts, alt=alt_counts, train=train_counts)
+
+
 def main() -> int:
     # a hang exits non-zero with a traceback instead of running out the clock
     faulthandler.dump_traceback_later(900, exit=True)
@@ -3365,8 +3754,12 @@ def run() -> int:
         t = time.perf_counter()
         cs_clips, stream_counts = run_streaming(torch, ops, dev, card)
         log(f"phase 15 seconds {time.perf_counter() - t:.2f}")
+        t = time.perf_counter()
+        var = run_variants(torch, ops, dev, card)
+        log(f"phase 16 seconds {time.perf_counter() - t:.2f}")
         for stats in (*lk.values(), cs, *fk.values(), *vk.values(), *fo.values(), cv,
-                      *wk.values(), *bw.values()):
+                      *wk.values(), *bw.values(), *var["k2"].values(), *var["bwd"].values(),
+                      *var["fk"].values()):
             check(all(math.isfinite(stats[k]) for k in
                       ("max_abs_err", "ms", "plain_ms", "bound_ms")),
                   f"non-finite measurement {stats}")
@@ -3442,6 +3835,26 @@ def run() -> int:
                         launches=train["corr_lookup_bwd"], **bw[("train", "bfloat16", "uniform")],
                         ms_local=local["ms"], bound_ms_local=local["bound_ms"],
                         library_ms_local=local["library_ms"]))
+    # the small model (phase 16): its tracked frames' launches ('auto': K2, K3;
+    # 'alt': K4, K3), its training steps' (K2, the backward), and the times at
+    # radius 3 (C = 128 for K4/K5) beside their bounds, bf16, on the
+    # coordinates of each kernel's own entry (K2, the backward: uniform;
+    # K4/K5: local)
+    small = {"corr_lookup": (var["small"], var["k2"][("bfloat16", "uniform")]),
+             "chain_select": (var["small"], None),
+             "corr_lookup_alt": (var["alt"], var["fk"][("corr_lookup_alt", "bfloat16", "local")]),
+             "corr_lookup_win": (None, var["fk"][("corr_lookup_win", "bfloat16", "local")]),
+             "corr_lookup_bwd": (var["train"], var["bwd"][("train", "bfloat16", "uniform")])}
+    for k in kernels:
+        if k["name"] in small:
+            counts_small, st = small[k["name"]]
+            if counts_small is not None:
+                k["launches_small"] = counts_small[k["name"]]
+            if st is not None:
+                k.update({f"{key}_small": st[key] for key in
+                          ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")
+                          if st.get(key) is not None})
+    kernels[1]["launches_small_train"] = var["train"]["corr_lookup"]
     log(f"total seconds {time.perf_counter() - t_all:.2f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

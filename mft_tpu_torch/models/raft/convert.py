@@ -10,7 +10,14 @@ gives one) and returns a state dict for :class:`mft_tpu_torch.models.raft.RAFT`:
   batch_stats .../BatchNorm_i/{mean, var} -> .../norm{i+1}.running_{mean, var}
 
 Every other name is the same in both trees (``fnet/layer2_0/downsample_conv``
-is ``fnet.layer2_0.downsample_conv``). ``flax_from_params`` maps back, for
+is ``fnet.layer2_0.downsample_conv``), in every variant: the small model's
+``fnet``/``cnet`` ``conv1``, ``layer{1,2,3}_{0,1}/conv{1,2,3}`` and
+``downsample_conv`` (its instance norms and 'none' norms have no
+parameters), ``update_block/encoder/{convc1,convf1,convf2,conv}``,
+``update_block/gru/{convz,convr,convq}`` and ``update_block/flow_head``;
+the 'morelayers' heads' ``occlusion_block/{occl_head,uncertainty_head}/
+conv0..conv3``. A tree without batch norm (the small model) has no
+'batch_stats'. ``flax_from_params`` maps back, for
 writing weights the JAX package reads (``flax_msgpack.write_variables``), and
 ``flax_path`` gives a state-dict name's flax path.
 """

@@ -59,6 +59,14 @@ def avg_pool2x2(f: torch.Tensor) -> torch.Tensor:
     return F.avg_pool2d(f, kernel_size=2, stride=2)
 
 
+def normalize_features(f: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) features over their float32 L2 norm along C, the norm
+    rounded to the features' dtype and the division in that dtype (JAX's
+    ``normalized_features``: ``f / norm(f.astype(f32)).astype(f.dtype)``,
+    reference corr.py:59-64)."""
+    return f / torch.linalg.vector_norm(f.float(), dim=1, keepdim=True).to(f.dtype)
+
+
 def build_corr_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor,
                        num_levels: int = 4) -> list:
     """All-pairs correlation pyramid from (B, C, H, W) stride-8 features.

@@ -1,4 +1,4 @@
-"""Encoder building blocks: norms, residual blocks, BasicEncoder.
+"""Encoder building blocks: norms, residual and bottleneck blocks, the encoders.
 
 Port of ``mft_tpu/models/raft/layers.py`` (reference extractor.py):
 - fnet uses instance norm (affine-free, eps 1e-5, biased variance over H, W),
@@ -14,10 +14,13 @@ Port of ``mft_tpu/models/raft/layers.py`` (reference extractor.py):
   package passes explicitly to flax; a conv's ``compute_dtype``, when set,
   casts its input, weight and bias at every call (bf16 compute over float32
   master weights, as flax's ``nn.Conv(dtype=)`` under mixed precision);
-- the encoder's dropout (``dropout`` > 0 in train mode) follows its last conv.
+- the encoder's dropout (``dropout`` > 0 in train mode) follows its last conv;
+- ``SmallEncoder`` (the small RAFT's fnet and cnet) stacks bottleneck blocks
+  of widths (32, 64, 96) on a 32-channel stem.
 
 Module names follow the flax tree (``layer2_0.downsample_conv``); flax's
-``BatchNorm_0/1/2`` are ``norm1/2/3`` here (see convert.py).
+``BatchNorm_0/1/2`` are ``norm1/2/3`` here, a bottleneck block's
+``BatchNorm_0..3`` ``norm1..4`` (see convert.py).
 """
 
 import torch
@@ -126,20 +129,50 @@ class ResidualBlock(nn.Module):
         return torch.relu(x + y)
 
 
+class BottleneckBlock(nn.Module):
+    """1x1 -> 3x3 (strided) -> 1x1 at a quarter of the width, each with norm
+    + relu, and a strided 1x1 shortcut when stride > 1 (reference
+    extractor.py:60-116)."""
+
+    def __init__(self, cin: int, planes: int, norm_fn: str, stride: int = 1):
+        super().__init__()
+        p4 = planes // 4
+        self.conv1 = conv(cin, p4, 1)
+        self.norm1 = make_norm(norm_fn, p4)
+        self.conv2 = conv(p4, p4, 3, stride)
+        self.norm2 = make_norm(norm_fn, p4)
+        self.conv3 = conv(p4, planes, 1)
+        self.norm3 = make_norm(norm_fn, planes)
+        self.downsample_conv = None
+        if stride != 1:
+            self.downsample_conv = conv(cin, planes, 1, stride)
+            self.norm4 = make_norm(norm_fn, planes)
+
+    def forward(self, x):
+        y = torch.relu(self.norm1(self.conv1(x)))
+        y = torch.relu(self.norm2(self.conv2(y)))
+        y = torch.relu(self.norm3(self.conv3(y)))
+        if self.downsample_conv is not None:
+            x = self.norm4(self.downsample_conv(x))
+        return torch.relu(x + y)
+
+
 class BasicEncoder(nn.Module):
     """Stride-8 residual encoder: 7x7/2 stem, stages (64, 96, 128), 1x1 head."""
+
+    STEM, STAGES, BLOCK = 64, ((64, 1), (96, 2), (128, 2)), ResidualBlock
 
     def __init__(self, output_dim: int = 128, norm_fn: str = "batch", dropout: float = 0.0):
         super().__init__()
         self.dropout = nn.Dropout(dropout) if dropout > 0 else None
-        self.conv1 = conv(3, 64, 7, 2)
-        self.norm1 = make_norm(norm_fn, 64)
-        cin = 64
-        for i, (dim, stride) in enumerate([(64, 1), (96, 2), (128, 2)], start=1):
-            setattr(self, f"layer{i}_0", ResidualBlock(cin, dim, norm_fn, stride))
-            setattr(self, f"layer{i}_1", ResidualBlock(dim, dim, norm_fn, 1))
+        self.conv1 = conv(3, self.STEM, 7, 2)
+        self.norm1 = make_norm(norm_fn, self.STEM)
+        cin = self.STEM
+        for i, (dim, stride) in enumerate(self.STAGES, start=1):
+            setattr(self, f"layer{i}_0", self.BLOCK(cin, dim, norm_fn, stride))
+            setattr(self, f"layer{i}_1", self.BLOCK(dim, dim, norm_fn, 1))
             cin = dim
-        self.conv2 = conv(128, output_dim, 1)
+        self.conv2 = conv(cin, output_dim, 1)
 
     def forward(self, x):
         x = torch.relu(self.norm1(self.conv1(x)))
@@ -150,3 +183,10 @@ class BasicEncoder(nn.Module):
         if self.dropout is not None:
             x = self.dropout(x)
         return x
+
+
+class SmallEncoder(BasicEncoder):
+    """The small RAFT's stride-8 encoder: 7x7/2 stem of 32, bottleneck stages
+    (32, 64, 96), 1x1 head (reference extractor.py:198-270)."""
+
+    STEM, STAGES, BLOCK = 32, ((32, 1), (64, 2), (96, 2)), BottleneckBlock

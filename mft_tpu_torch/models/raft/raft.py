@@ -1,7 +1,8 @@
 """RAFT-OU flow network: encoders -> correlation pyramid -> GRU loop -> OU heads.
 
-Port of ``mft_tpu/models/raft/raft.py``, big model only, in test mode and in
-train mode:
+Port of ``mft_tpu/models/raft/raft.py``, every variant of the JAX model
+(``RAFTParams``: the big and the small model, the OU modules, normalized
+features, relu on the uncertainty), in test mode and in train mode:
 - inputs are (B, 3, H, W) float images in [0, 255], H and W divisible by 8;
 - ``forward(image1, image2, iters, flow_init, test_mode)`` runs fnet on both
   frames in one batch and cnet on the first, then :meth:`flow_from_features`;
@@ -35,6 +36,20 @@ train mode:
   path (K1 + K2).
 - ``iters`` given per pair (a tuple) runs :meth:`RAFT._flow_scheduled`:
   each pair its own number of iterations, the active pairs a batch prefix.
+- ``small`` builds the small RAFT (bottleneck encoders, fnet 128 channels,
+  cnet 96 + 64, ``SmallUpdateBlock``, lookup radius 3 whatever
+  ``corr_radius``): it never fuses the lookup with convc1 (JAX
+  ``_fused_lookup_on``), so every iteration runs the method's lookup, and
+  it upsamples bilinearly (``upflow8``, ``upsample8``), having no mask head.
+- ``occlusion_module`` None builds no OU block; one without
+  'with_uncertainty' drops the uncertainty output; 'morelayers' picks the
+  four-conv heads, 'upsample8' scales the upsampled uncertainty by 8; the
+  outputs hold the 'occlusion' and 'uncertainty' keys of the heads the
+  module has, as JAX's do. With no OU block the last test-mode iteration
+  fuses the lookup too (its only consumer is convc1).
+- ``normalized_features`` divides both frames' features by their norm
+  (``corr.normalize_features``) before any volume or feature pyramid.
+- ``relu_uncertainty`` applies relu to the upsampled uncertainty.
 
 ``test_mode=False`` runs :meth:`RAFT._flow_sequence` (JAX ``flow_from_features``
 with ``test_mode=False``): lists, one entry per iteration, of the upsampled
@@ -62,15 +77,14 @@ from mft_tpu_torch.models.raft.corr import (build_corr_pyramid, build_corr_pyram
                                             build_corr_pyramid_i8, build_corr_pyramid_mixed,
                                             build_corr_pyramid_t, build_feature_pyramid,
                                             corr_lookup, corr_lookup_features,
-                                            corr_lookup_fused_conv, pack_corr_pyramid,
-                                            pack_corr_pyramid_i8)
-from mft_tpu_torch.models.raft.layers import BasicEncoder, BatchNorm, Conv2d
+                                            corr_lookup_fused_conv, normalize_features,
+                                            pack_corr_pyramid, pack_corr_pyramid_i8)
+from mft_tpu_torch.models.raft.layers import BasicEncoder, BatchNorm, Conv2d, SmallEncoder
 from mft_tpu_torch.models.raft.update import (BasicUpdateBlock,
-                                              OcclusionAndUncertaintyBlock)
-from mft_tpu_torch.models.raft.upsample import convex_upsample_multi
+                                              OcclusionAndUncertaintyBlock,
+                                              SmallUpdateBlock)
+from mft_tpu_torch.models.raft.upsample import convex_upsample_multi, upflow8, upsample8
 
-
-HIDDEN_DIM = CONTEXT_DIM = 128   # big model
 # corr_method: 'auto' is the all-pairs volume; 'alt' and 'win' recompute the
 # windows from the features; the volume methods store it in another form.
 # The aliases are the JAX package's other lookups of the 'auto' volume (the
@@ -86,13 +100,21 @@ SCHEDULE_METHODS = ("auto", *AUTO_ALIASES, "mixed", "packed", "packed_i8")
 
 @dataclasses.dataclass(frozen=True)
 class RAFTParams:
-    """Static model configuration (the ported subset of the JAX RAFTParams:
-    big model, 'separate_with_uncertainty' heads)."""
+    """Static model configuration (the JAX ``RAFTParams``; its TPU-only
+    knobs ``corr_tile`` and ``fuse_lookup`` are read and checked by
+    ``wrapper.raft_params_from_config``)."""
+    small: bool = False
+    # None: no OU heads; a name with 'with_uncertainty' adds the uncertainty
+    # output, 'morelayers' the four-conv heads, 'upsample8' scales the
+    # upsampled uncertainty by 8
+    occlusion_module: str | None = "separate_with_uncertainty"
     corr_levels: int = 4
-    corr_radius: int = 4
+    corr_radius: int = 4            # the small model looks up at radius 3
+    normalized_features: bool = False
     compute_dtype: str = "float32"  # 'bfloat16' | 'float32' | 'auto' (bf16 on CUDA)
     corr_method: str = "auto"       # one of CORR_METHODS
     conv_backend: str = "auto"      # 'pallas': update-block convs on the product kernel
+    relu_uncertainty: bool = False  # relu on the upsampled uncertainty
     ou_last_iter_only: bool = False  # test_mode=False: OU heads on the last iteration only
     dropout: float = 0.0            # the encoders' dropout in train mode
 
@@ -102,6 +124,36 @@ class RAFTParams:
         if self.conv_backend not in ("auto", "pallas"):
             raise ValueError(f"unknown conv_backend {self.conv_backend!r}")
 
+    @property
+    def occlusion_estimation(self) -> bool:
+        return self.occlusion_module is not None
+
+    @property
+    def uncertainty_estimation(self) -> bool:
+        return self.occlusion_estimation and "with_uncertainty" in self.occlusion_module
+
+    @property
+    def uncertainty_upsample_mult(self) -> float:
+        return 8.0 if self.occlusion_module and "upsample8" in self.occlusion_module else 1.0
+
+    @property
+    def ou_architecture(self) -> str:
+        return ("morelayers" if self.occlusion_module and "morelayers" in self.occlusion_module
+                else "simple")
+
+    @property
+    def effective_corr_radius(self) -> int:
+        # the reference forces radius 3 for the small model (raft.py:37-40)
+        return 3 if self.small else self.corr_radius
+
+    @property
+    def hidden_dim(self) -> int:
+        return 96 if self.small else 128
+
+    @property
+    def context_dim(self) -> int:
+        return 64 if self.small else 128
+
     def dtype(self, device) -> torch.dtype:
         if self.compute_dtype == "auto":
             return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
@@ -109,7 +161,7 @@ class RAFTParams:
 
 
 class RAFT(nn.Module):
-    """RAFT with separate occlusion + uncertainty heads."""
+    """RAFT, big or small, with the OU heads of ``occlusion_module``."""
 
     def __init__(self, cfg: RAFTParams = RAFTParams(), train_mode: bool = False):
         super().__init__()
@@ -117,20 +169,31 @@ class RAFT(nn.Module):
         self.train_mode = train_mode
         self._compute_dtype = None
         dropout = cfg.dropout if train_mode else 0.0
-        self.fnet = BasicEncoder(output_dim=256, norm_fn="instance", dropout=dropout)
-        self.cnet = BasicEncoder(output_dim=HIDDEN_DIM + CONTEXT_DIM,
-                                 norm_fn="batch", dropout=dropout)
-        for m in self.cnet.modules():
-            if isinstance(m, BatchNorm):
-                m.use_batch_stats = train_mode
-        corr_channels = cfg.corr_levels * (2 * cfg.corr_radius + 1) ** 2
-        # the product kernel has no backward: train on cuDNN, as JAX swaps
-        # conv_pallas for its differentiable lowering in train mode
-        backend = "auto" if train_mode else cfg.conv_backend
-        self.update_block = BasicUpdateBlock(HIDDEN_DIM, corr_channels, backend)
-        # [net, inp, corr, flow, delta_flow, motion features] = 712 channels
-        self.occlusion_block = OcclusionAndUncertaintyBlock(
-            HIDDEN_DIM + CONTEXT_DIM + corr_channels + 2 + 2 + 128)
+        corr_channels = cfg.corr_levels * (2 * cfg.effective_corr_radius + 1) ** 2
+        if cfg.small:
+            self.fnet = SmallEncoder(output_dim=128, norm_fn="instance", dropout=dropout)
+            self.cnet = SmallEncoder(output_dim=cfg.hidden_dim + cfg.context_dim,
+                                     norm_fn="none", dropout=dropout)
+            self.update_block = SmallUpdateBlock(cfg.hidden_dim, corr_channels)
+            motion = 82
+        else:
+            self.fnet = BasicEncoder(output_dim=256, norm_fn="instance", dropout=dropout)
+            self.cnet = BasicEncoder(output_dim=cfg.hidden_dim + cfg.context_dim,
+                                     norm_fn="batch", dropout=dropout)
+            for m in self.cnet.modules():
+                if isinstance(m, BatchNorm):
+                    m.use_batch_stats = train_mode
+            # the product kernel has no backward: train on cuDNN, as JAX swaps
+            # conv_pallas for its differentiable lowering in train mode
+            backend = "auto" if train_mode else cfg.conv_backend
+            self.update_block = BasicUpdateBlock(cfg.hidden_dim, corr_channels, backend)
+            motion = 128
+        if cfg.occlusion_estimation:
+            # [net, inp, corr, flow, delta_flow, motion features]: 712 channels
+            # in the big model, 442 in the small one
+            self.occlusion_block = OcclusionAndUncertaintyBlock(
+                cfg.hidden_dim + cfg.context_dim + corr_channels + 2 + 2 + motion,
+                architecture=cfg.ou_architecture)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -178,15 +241,17 @@ class RAFT(nn.Module):
                            flow_init=None, plain: bool = False, test_mode: bool = True):
         """Everything after the encoders.
 
-        args: fmap1/fmap2 (B, 256, H8, W8) fnet features, cnet
-          (B, 256, H8, W8) context features of frame 1, iters an int or one
-          count per pair (:meth:`_flow_scheduled`), flow_init optional
-          (B, H8, W8, 2) low-resolution initial flow; ``plain`` runs the
-          kernels' plain PyTorch versions instead of the kernels.
+        args: fmap1/fmap2 (B, 256, H8, W8) fnet features (128 channels in
+          the small model), cnet (B, hidden + context, H8, W8) context
+          features of frame 1, iters an int or one count per pair
+          (:meth:`_flow_scheduled`), flow_init optional (B, H8, W8, 2)
+          low-resolution initial flow; ``plain`` runs the kernels' plain
+          PyTorch versions instead of the kernels.
         returns: {'flow': (B, H, W, 2), 'occlusion': (B, H, W, 2) logits,
-          'uncertainty': (B, H, W, 1) log-variance, 'coords': (B, H8, W8, 2)};
-          with ``test_mode`` False (:meth:`_flow_sequence`) the first three
-          are lists, one entry per iteration.
+          'uncertainty': (B, H, W, 1) log-variance, 'coords': (B, H8, W8, 2)},
+          'occlusion' and 'uncertainty' only where ``occlusion_module`` has
+          those heads; with ``test_mode`` False (:meth:`_flow_sequence`) the
+          head outputs are lists, one entry per iteration.
         """
         if not test_mode:
             if isinstance(iters, (tuple, list)):
@@ -196,15 +261,18 @@ class RAFT(nn.Module):
             return self._flow_scheduled(fmap1, fmap2, cnet, tuple(iters), flow_init, plain)
         cfg = self.cfg
         B, _, H8, W8 = fmap1.shape
-        radius, method = cfg.corr_radius, cfg.corr_method
+        radius, method = cfg.effective_corr_radius, cfg.corr_method
+        fmap1, fmap2 = self._corr_features(fmap1, fmap2)
         features = method in FEATURE_METHODS
         if features:
             f1 = fmap1.permute(0, 2, 3, 1).contiguous()     # (B, H8, W8, C)
             f2_pyramid = build_feature_pyramid(fmap2, cfg.corr_levels)
         else:
             pyramid = self.stored_volume(fmap1, fmap2, plain)
-        net = torch.tanh(cnet[:, :HIDDEN_DIM])
-        inp = torch.relu(cnet[:, HIDDEN_DIM:])
+        # the lookup fuses with convc1 on the 'auto' volume where convc1 is
+        # its only consumer: not on the last iteration when OU heads follow
+        fuse = not (features or cfg.small or method in VOLUME_METHODS)
+        net, inp = self._context(cnet)
         coords0, coords1 = _initial_coords(fmap1, flow_init)
 
         to_nchw = lambda t: _to_nchw(t, H8, W8)
@@ -213,7 +281,7 @@ class RAFT(nn.Module):
             if features:
                 corr = to_nchw(corr_lookup_features(method, f1, f2_pyramid,
                                                     coords1, radius, plain))
-            elif last or method in VOLUME_METHODS:
+            elif not fuse or (last and cfg.occlusion_estimation):
                 corr = to_nchw(corr_lookup(pyramid, coords1, radius, plain))
             else:
                 corr = lambda w, b, _c=coords1: to_nchw(corr_lookup_fused_conv(
@@ -224,10 +292,8 @@ class RAFT(nn.Module):
             delta_flow = delta_flow.float()
             coords1 = coords1 + delta_flow.permute(0, 2, 3, 1).reshape(coords1.shape)
 
-        flow_up, occl_up, unc_up, low = self._heads(net, inp, corr, coords1 - coords0,
-                                                    delta_flow, motion, up_mask, H8, W8)
-        return {"flow": flow_up, "occlusion": occl_up, "uncertainty": unc_up,
-                "coords": low}
+        return self._heads(net, inp, corr, coords1 - coords0, delta_flow, motion, up_mask,
+                           H8, W8)
 
     def _flow_sequence(self, fmap1, fmap2, cnet, iters: int, flow_init=None,
                        plain: bool = False):
@@ -236,7 +302,8 @@ class RAFT(nn.Module):
         its OU heads' outputs, with JAX's gradient stops."""
         cfg = self.cfg
         B, _, H8, W8 = fmap1.shape
-        radius = cfg.corr_radius
+        radius = cfg.effective_corr_radius
+        fmap1, fmap2 = self._corr_features(fmap1, fmap2)
         # the methods whose lookups have no backward train on the 'auto' volume
         method = "auto" if self.train_mode else cfg.corr_method
         if method in FEATURE_METHODS:
@@ -246,34 +313,43 @@ class RAFT(nn.Module):
         else:
             pyramid = self.stored_volume(fmap1, fmap2, plain, method)
             lookup = lambda c: corr_lookup(pyramid, c, radius, plain)
-        net = torch.tanh(cnet[:, :HIDDEN_DIM])
-        inp = torch.relu(cnet[:, HIDDEN_DIM:])
+        net, inp = self._context(cnet)
         coords0, coords1 = _initial_coords(fmap1, flow_init)
         to_nchw = lambda t: _to_nchw(t, H8, W8)
-        flows, occls, uncs = [], [], []
+        preds = {"flow": [], "occlusion": [], "uncertainty": []}
         for itr in range(iters):
             coords1 = coords1.detach()
-            heads = not cfg.ou_last_iter_only or itr == iters - 1
             corr = to_nchw(lookup(coords1))
             net, up_mask, delta_flow, motion = self.update_block(
                 net, inp, corr, to_nchw(coords1 - coords0), need_mask=True, plain=plain)
             delta_flow = delta_flow.float()
             coords1 = coords1 + delta_flow.permute(0, 2, 3, 1).reshape(coords1.shape)
-            flow_nchw = to_nchw(coords1 - coords0)
-            fields, coefs = [flow_nchw], [8.0]
-            if heads:
-                occlusion, uncertainty = self.occlusion_block(
-                    net.detach(), inp, corr.detach(), flow_nchw.detach(),
-                    delta_flow.detach(), motion)
-                fields += [occlusion.float(), uncertainty.float()]
-                coefs += [1.0, 1.0]
-            ups = convex_upsample_multi(fields, up_mask.float(), coefs)
-            flows.append(ups[0])
-            if heads:
-                occls.append(ups[1])
-                uncs.append(ups[2])
-        return {"flow": flows, "occlusion": occls, "uncertainty": uncs,
-                "coords": (coords1 - coords0).reshape(B, H8, W8, 2)}
+            heads = not cfg.ou_last_iter_only or itr == iters - 1
+            outs = self._heads(net, inp, corr, coords1 - coords0, delta_flow, motion,
+                               up_mask, H8, W8, ou=heads, detach=True)
+            for key in preds:
+                if key in outs:
+                    preds[key].append(outs[key])
+        out = {key: v for key, v in preds.items() if key == "flow" or key in self._head_keys()}
+        out["coords"] = (coords1 - coords0).reshape(B, H8, W8, 2)
+        return out
+
+    def _corr_features(self, fmap1, fmap2):
+        """The features the volume or the feature pyramid is built from:
+        normalized under ``normalized_features``."""
+        if self.cfg.normalized_features:
+            return normalize_features(fmap1), normalize_features(fmap2)
+        return fmap1, fmap2
+
+    def _context(self, cnet):
+        """(net, inp): tanh of cnet's hidden channels, relu of the rest."""
+        hd = self.cfg.hidden_dim
+        return torch.tanh(cnet[:, :hd]), torch.relu(cnet[:, hd:])
+
+    def _head_keys(self):
+        """The output keys of the OU heads ``occlusion_module`` has."""
+        keys = ("occlusion",) if self.cfg.occlusion_estimation else ()
+        return keys + (("uncertainty",) if self.cfg.uncertainty_estimation else ())
 
     def stored_volume(self, fmap1, fmap2, plain: bool = False, method=None):
         """The stored volume of a volume method (the configured one by
@@ -296,18 +372,39 @@ class RAFT(nn.Module):
             return ("packed", *pack_corr_pyramid(pyramid))
         return pyramid
 
-    def _heads(self, net, inp, corr, flow_lo, delta_flow, motion, up_mask, H8, W8):
-        """OU heads and one shared convex upsampling of the pairs that end
-        here. flow_lo (B, P, 2) float32 low-resolution flow; the others NCHW.
-        returns: flow (B, H, W, 2), occlusion logits (B, H, W, 2),
-          uncertainty (B, H, W, 1), low-resolution flow (B, H8, W8, 2)."""
+    def _heads(self, net, inp, corr, flow_lo, delta_flow, motion, up_mask, H8, W8,
+               ou: bool = True, detach: bool = False):
+        """OU heads (where ``ou`` and the model has them) and the 8x
+        upsampling of the flow and their outputs: one shared convex
+        upsampling, or bilinear where there is no mask (the small model).
+        flow_lo (B, P, 2) float32 low-resolution flow; the others NCHW;
+        ``detach`` stops the gradient at the heads' inputs as JAX's train
+        mode does (``net``, ``corr``, the flow and ``delta_flow``).
+        returns: {'flow': (B, H, W, 2), 'occlusion': (B, H, W, 2) logits,
+          'uncertainty': (B, H, W, 1), 'coords': (B, H8, W8, 2)}, the head
+          keys only for the heads run."""
+        cfg = self.cfg
         flow_nchw = _to_nchw(flow_lo, H8, W8)
-        occlusion, uncertainty = self.occlusion_block(
-            net, inp, corr, flow_nchw, delta_flow, motion)
-        flow_up, occl_up, unc_up = convex_upsample_multi(
-            [flow_nchw, occlusion.float(), uncertainty.float()], up_mask.float(),
-            [8.0, 1.0, 1.0])
-        return flow_up, occl_up, unc_up, flow_lo.reshape(-1, H8, W8, 2)
+        fields, coefs = [flow_nchw], [8.0]
+        keys = self._head_keys() if ou else ()
+        if keys:
+            stop = (lambda t: t.detach()) if detach else (lambda t: t)
+            occlusion, uncertainty = self.occlusion_block(
+                stop(net), inp, stop(corr), stop(flow_nchw), stop(delta_flow), motion)
+            fields.append(occlusion.float())
+            coefs.append(1.0)
+            if "uncertainty" in keys:
+                fields.append(uncertainty.float())
+                coefs.append(cfg.uncertainty_upsample_mult)
+        if up_mask is None:   # small model: plain x8 bilinear
+            ups = [upflow8(fields[0])] + [upsample8(f * c) for f, c in zip(fields[1:], coefs[1:])]
+        else:
+            ups = convex_upsample_multi(fields, up_mask.float(), coefs)
+        out = dict(zip(("flow", *keys), ups))
+        if "uncertainty" in out and cfg.relu_uncertainty:
+            out["uncertainty"] = torch.relu(out["uncertainty"])
+        out["coords"] = flow_lo.reshape(-1, H8, W8, 2)
+        return out
 
     def _flow_scheduled(self, fmap1, fmap2, cnet, iters_schedule, flow_init=None,
                         plain: bool = False):
@@ -342,11 +439,12 @@ class RAFT(nn.Module):
             # waits for the card's queue
             permute = lambda t: None if t is None else torch.cat([t[b:b + 1] for b in order])
             fmap1, fmap2, cnet, flow_init = map(permute, (fmap1, fmap2, cnet, flow_init))
-        pyramid = self.stored_volume(fmap1, fmap2, plain)
-        net = torch.tanh(cnet[:, :HIDDEN_DIM])
-        inp = torch.relu(cnet[:, HIDDEN_DIM:])
+        pyramid = self.stored_volume(*self._corr_features(fmap1, fmap2), plain)
+        net, inp = self._context(cnet)
         coords0, coords1 = _initial_coords(fmap1, flow_init)
-        radius, fuse = cfg.corr_radius, not isinstance(pyramid, tuple)   # the 'auto' volume
+        # K1 on the 'auto' volume of the big model
+        radius = cfg.effective_corr_radius
+        fuse = not (cfg.small or isinstance(pyramid, tuple))
 
         to_nchw = lambda t: _to_nchw(t, H8, W8)
         outs = [None] * B   # in the pairs' own order
@@ -374,10 +472,8 @@ class RAFT(nn.Module):
             ends = self._heads(net[sl], inp[sl], corr[sl], (coords1 - coords0)[sl],
                                delta_flow[sl], motion[sl], up_mask, H8, W8)
             for j, row in enumerate(range(m_next, m)):
-                outs[order[row]] = [t[j] for t in ends]
-        flow_up, occl_up, unc_up, low = (torch.stack(t) for t in zip(*outs))
-        return {"flow": flow_up, "occlusion": occl_up, "uncertainty": unc_up,
-                "coords": low}
+                outs[order[row]] = {k: t[j] for k, t in ends.items()}
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
 
 def _to_nchw(t, H8: int, W8: int):

@@ -1,15 +1,21 @@
-"""Update blocks: motion encoder, separable ConvGRU, flow/mask heads, OU heads.
+"""Update blocks: motion encoders, ConvGRUs, flow/mask heads, OU heads.
 
-Port of ``mft_tpu/models/raft/update.py`` (reference MFT/RAFT/core/update.py)
-for the big model, NCHW:
+Port of ``mft_tpu/models/raft/update.py`` (reference MFT/RAFT/core/update.py),
+NCHW:
 - BasicMotionEncoder: corr -> 256 (1x1) -> 192 (3x3), flow -> 128 (7x7) ->
   64 (3x3), concat -> 126 (3x3), concat raw flow -> 128 channels;
 - SepConvGRU: a (1,5) then a (5,1) pass; z and r share their input and run
   as one conv with the two kernels concatenated (same math as two convs);
 - BasicUpdateBlock: flow head 128->256->2, mask head 128->256->576 * 0.25;
-- OcclusionAndUncertaintyBlock ('simple' heads): input concat
-  [net, inp, corr, flow, delta_flow, motion] = 712 channels, both heads'
-  first convs run as one 712->256 conv.
+- the small model's SmallMotionEncoder (corr -> 96 (1x1), flow -> 64 (7x7)
+  -> 32 (3x3), concat -> 80 (3x3), concat raw flow -> 82 channels), ConvGRU
+  (3x3 convz, convr, convq) and SmallUpdateBlock (flow head 96->128->2, no
+  mask head), all plain convs as in JAX, whatever ``conv_backend``;
+- OcclusionAndUncertaintyBlock: input concat [net, inp, corr, flow,
+  delta_flow, motion] (712 channels in the big model, 442 in the small
+  one); 'simple' heads (conv-relu-conv) whose first convs run as one conv
+  of both heads' kernels, or 'morelayers' heads (four 3x3 convs), run
+  apart.
 
 The convs that the JAX package routes through its ``conv_apply`` (convc1
 when unfused, convc2, convf2, conv, the GRU's zr pair and q in both passes,
@@ -182,6 +188,65 @@ class BasicUpdateBlock(nn.Module):
         return net, up_mask, delta_flow, motion_features
 
 
+class SmallMotionEncoder(nn.Module):
+    """Encode (corr window samples, flow) into 82 motion channels."""
+
+    def __init__(self, corr_channels: int = 196):
+        super().__init__()
+        self.convc1 = conv(corr_channels, 96, 1)
+        self.convf1 = conv(2, 64, 7)
+        self.convf2 = conv(64, 32, 3)
+        self.conv = conv(128, 80, 3)
+
+    def forward(self, flow, corr):
+        dt = compute_dtype(self.conv)
+        flow = flow.to(dt)
+        cor = torch.relu(self.convc1(corr.to(dt)))
+        flo = torch.relu(self.convf2(torch.relu(self.convf1(flow))))
+        out = torch.relu(self.conv(torch.cat([cor, flo], dim=1)))
+        return torch.cat([out, flow], dim=1)
+
+
+class ConvGRU(nn.Module):
+    """Plain 3x3 ConvGRU (reference update.py:79-94)."""
+
+    def __init__(self, hidden_dim: int = 96, input_dim: int = 146):
+        super().__init__()
+        for gate in "zrq":
+            setattr(self, f"conv{gate}", conv(hidden_dim + input_dim, hidden_dim, 3))
+
+    def forward(self, h, x):
+        hx = torch.cat([h, x], dim=1)
+        z = torch.sigmoid(self.convz(hx))
+        r = torch.sigmoid(self.convr(hx))
+        q = torch.tanh(self.convq(torch.cat([r * h, x], dim=1)))
+        return (1.0 - z) * h + z * q
+
+
+class SmallUpdateBlock(nn.Module):
+    """The small RAFT's refinement step: motion encoder -> ConvGRU -> flow
+    delta; no mask head (the small model upsamples bilinearly)."""
+
+    def __init__(self, hidden_dim: int = 96, corr_channels: int = 196):
+        super().__init__()
+        self.encoder = SmallMotionEncoder(corr_channels)
+        self.gru = ConvGRU(hidden_dim, 64 + 82)
+        self.flow_head = FlowHead(hidden_dim, 128, 2)
+
+    def routed_convs(self):
+        """None: JAX's small block runs plain ``nn.Conv``s, biases in the
+        compute dtype."""
+        return []
+
+    def forward(self, net, inp, corr, flow, need_mask: bool = True, plain: bool = False,
+                mask_rows=None):
+        """One iteration; ``need_mask``, ``plain`` and ``mask_rows`` are
+        :class:`BasicUpdateBlock`'s arguments, with nothing to act on here."""
+        motion_features = self.encoder(flow, corr)
+        net = self.gru(net, torch.cat([inp, motion_features], dim=1))
+        return net, None, self.flow_head(net), motion_features
+
+
 class SimpleHead(nn.Module):
     def __init__(self, cin: int, hidden_dim: int, out_dim: int):
         super().__init__()
@@ -189,18 +254,41 @@ class SimpleHead(nn.Module):
         self.conv2 = conv(hidden_dim, out_dim, 3)
 
 
-class OcclusionAndUncertaintyBlock(nn.Module):
-    """Separate occlusion (2 logits) and uncertainty (1 log-variance) heads."""
+class MoreLayersHead(nn.Module):
+    """'morelayers' head: three 3x3 convs with relu, then a 3x3 conv to
+    ``out_dim`` (reference update.py:27-36)."""
 
-    def __init__(self, cin: int = 712, hidden_dim: int = 128):
+    def __init__(self, cin: int, hidden_dim: int, out_dim: int):
         super().__init__()
-        self.occl_head = SimpleHead(cin, hidden_dim, 2)
-        self.uncertainty_head = SimpleHead(cin, hidden_dim, 1)
+        for i in range(4):
+            setattr(self, f"conv{i}", conv(cin if i == 0 else hidden_dim,
+                                           out_dim if i == 3 else hidden_dim, 3))
+
+    def forward(self, x):
+        for i in range(3):
+            x = torch.relu(getattr(self, f"conv{i}")(x))
+        return self.conv3(x)
+
+
+class OcclusionAndUncertaintyBlock(nn.Module):
+    """Separate occlusion (2 logits) and uncertainty (1 log-variance) heads
+    of architecture 'simple' or 'morelayers' on ``cin`` input channels."""
+
+    def __init__(self, cin: int = 712, hidden_dim: int = 128, architecture: str = "simple"):
+        super().__init__()
+        if architecture not in ("simple", "morelayers"):
+            raise ValueError(f"unknown OU architecture {architecture!r}")
+        self.architecture = architecture
+        head = SimpleHead if architecture == "simple" else MoreLayersHead
+        self.occl_head = head(cin, hidden_dim, 2)
+        self.uncertainty_head = head(cin, hidden_dim, 1)
 
     def forward(self, net, inp, corr, flow, delta_flow, motion_features):
-        dt = compute_dtype(self.occl_head.conv1)
+        dt = compute_dtype(self.occl_head.conv2)   # both architectures have a conv2
         x = torch.cat([t.to(dt) for t in (net, inp, corr, flow, delta_flow,
                                            motion_features)], dim=1)
+        if self.architecture == "morelayers":
+            return self.occl_head(x), self.uncertainty_head(x)
         h = torch.relu(_fused_pair(self.occl_head.conv1,
                                    self.uncertainty_head.conv1, x))
         hd = self.occl_head.conv1.out_channels

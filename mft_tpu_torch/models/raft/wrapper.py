@@ -26,8 +26,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from mft_tpu_torch.config import cfg_value
+from mft_tpu_torch.core.coords import grid_coords
 from mft_tpu_torch.core.device import resolve_device
 from mft_tpu_torch.models.raft.convert import params_from_flax
+from mft_tpu_torch.models.raft.encoder_fuse import fused_basic_encode
 from mft_tpu_torch.models.raft.flax_msgpack import read_variables
 from mft_tpu_torch.models.raft.raft import RAFT, RAFTParams
 from mft_tpu_torch.models.raft.upsample import downsample_flow8
@@ -63,30 +65,21 @@ def check_corr_tile(v) -> int:
 
 def raft_params_from_config(raft_kwargs) -> RAFTParams:
     """RAFTParams from a reference-style raft_params mapping (as JAX
-    ``raft_params_from_config``). An option whose value the port does not
-    implement raises instead of being ignored; ``corr_tile`` and
+    ``raft_params_from_config``): every option of the JAX model. An unknown
+    ``corr_method`` or ``conv_backend`` raises; ``corr_tile`` and
     ``fuse_lookup`` choose the TPU's tiling and fusion, not the function, so
     every valid value is accepted."""
     get = (raft_kwargs.get if hasattr(raft_kwargs, "get")
            else lambda k, d=None: getattr(raft_kwargs, k, d))
-    if get("small", False):
-        raise NotImplementedError("the small RAFT is not ported")
-    module = get("occlusion_module", "separate_with_uncertainty")
-    if module != "separate_with_uncertainty":
-        raise NotImplementedError(f"occlusion_module={module!r}: only "
-                                  "'separate_with_uncertainty' is ported")
-    unported = {
-        "normalized_features": "ROADMAP A3 (normalized features)",
-        "relu_uncertainty": "ROADMAP A3 (relu on the upsampled uncertainty)",
-    }
-    for key, item in unported.items():
-        if get(key, False):
-            raise NotImplementedError(f"{key}=True is not ported yet ({item})")
     backend = str(get("conv_backend", "auto"))
     if backend not in CONV_BACKENDS:
         raise ValueError(f"unknown conv_backend {backend!r}")
     check_corr_tile(get("corr_tile", 0))
-    return RAFTParams(compute_dtype=str(get("compute_dtype", "auto")),
+    return RAFTParams(small=bool(get("small", False)),
+                      occlusion_module=get("occlusion_module", "separate_with_uncertainty"),
+                      normalized_features=bool(get("normalized_features", False)),
+                      relu_uncertainty=bool(get("relu_uncertainty", False)),
+                      compute_dtype=str(get("compute_dtype", "auto")),
                       corr_method=str(get("corr_method", "auto")),
                       conv_backend="pallas" if backend == "pallas" else "auto",
                       ou_last_iter_only=bool(get("OU_last_iter_only", False)))
@@ -133,6 +126,9 @@ class RAFTFlow:
         if self.iters < 1:
             raise ValueError(f"flow_iters must be >= 1, got {self.iters}")
         self.plain_ops = False  # True: plain PyTorch lookups on the card too
+        # one grouped-conv stack for fnet and cnet (encoder_fuse.py); the big
+        # model's encoders only, as in JAX
+        self.fused_encoder = bool(config.fused_encoder) and not self.cfg.small
         model = RAFT(self.cfg)
         path = Path(config.model) if config.model else None
         if path is not None and path.exists():
@@ -156,12 +152,16 @@ class RAFTFlow:
     # ------------------------------------------------------------------ #
     def padded_encode(self, images, with_context: bool = True):
         """(B, H, W, 3) RGB images in [0, 255] -> (fmap, cnet) at the padded
-        stride-8 resolution, NCHW in the compute dtype."""
+        stride-8 resolution, NCHW in the compute dtype; with the config's
+        ``fused_encoder`` (big model) fnet and cnet run as one grouped-conv
+        stack (:func:`encoder_fuse.fused_basic_encode`)."""
         (pt, pb), (pl, pr) = pad_to_8(images.shape[1], images.shape[2])
         x = images.to(self.device).float().permute(0, 3, 1, 2)
         if pt or pb or pl or pr:
             x = F.pad(x, (pl, pr, pt, pb), mode="replicate")
         with torch.no_grad():
+            if with_context and self.fused_encoder:
+                return fused_basic_encode(self.model, x)
             return self.model.encode(x, with_context=with_context)
 
     def features_forward(self, fmap1, fmap2, cnet1, H: int, W: int,
@@ -176,8 +176,14 @@ class RAFTFlow:
           iterations per pair (``RAFT._flow_scheduled``) in place of
           ``flow_iters``.
         returns: flow (B, H, W, 2), occlusion (B, H, W), sigma (B, H, W),
-          float32, unpadded.
+          float32, unpadded. A model without the occlusion or the
+          uncertainty head raises ValueError (JAX's fails on the missing
+          output).
         """
+        if not self.cfg.uncertainty_estimation:
+            missing = "occlusion" if not self.cfg.occlusion_estimation else "uncertainty"
+            raise ValueError(f"occlusion_module={self.cfg.occlusion_module!r} has no "
+                             f"{missing} head: the flow service returns occlusion and sigma")
         (pt, pb), (pl, pr) = pad_to_8(H, W)
         flow_init = None
         if init_flow is not None:
@@ -212,14 +218,17 @@ class RAFTFlow:
 
     def compute_flow(self, src_img, dst_img, mode="flow", init_flow=None,
                      numpy_out=False):
-        """Single-pair API (reference MFT/raft.py:30-94), flow mode.
+        """Single-pair API (reference MFT/raft.py:30-94).
 
-        args: src_img, dst_img (H, W, 3) uint8 BGR images; init_flow optional
-          (H, W, 2).
-        returns: flow (H, W, 2), {'occlusion': (H, W), 'sigma': (H, W)}.
+        args: src_img, dst_img (H, W, 3) uint8 BGR images; mode 'flow'
+          (dense) or 'TC' (correspondences); init_flow optional (H, W, 2).
+        returns (mode='flow'): flow (H, W, 2), {'occlusion': (H, W),
+          'sigma': (H, W)}; (mode='TC'): src (H*W, 2) pixel coordinates
+          (x, y) in raster order, dst = src + flow, {'occlusion': (H*W,),
+          'sigma': (H*W,)}.
         """
-        if mode != "flow":
-            raise NotImplementedError(f"mode={mode!r}: only 'flow' is ported")
+        if mode not in ("flow", "TC"):
+            raise ValueError(f"unknown mode {mode!r}")
         to_t = lambda im: torch.from_numpy(
             np.ascontiguousarray(im[:, :, ::-1]).astype(np.float32))[None]
         fi = None
@@ -228,6 +237,13 @@ class RAFTFlow:
         flow, occl, sigma = self.forward_batch(to_t(src_img), to_t(dst_img),
                                                init_flow=fi)
         flow, occl, sigma = flow[0], occl[0], sigma[0]
+        if mode == "TC":
+            H, W = flow.shape[:2]
+            src = grid_coords(H, W, device=flow.device).reshape(-1, 2)
+            flow, occl, sigma = src + flow.reshape(-1, 2), occl.reshape(-1), sigma.reshape(-1)
         if numpy_out:
             flow, occl, sigma = (t.cpu().numpy() for t in (flow, occl, sigma))
-        return flow, {"occlusion": occl, "sigma": sigma}
+            if mode == "TC":
+                src = src.cpu().numpy()
+        extra = {"occlusion": occl, "sigma": sigma}
+        return (src, flow, extra) if mode == "TC" else (flow, extra)

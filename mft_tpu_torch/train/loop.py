@@ -157,14 +157,10 @@ def train(args, on_step=None):
     """Run a training job from parsed CLI ``args``; ``on_step(state,
     metrics, seconds)`` is called after every step (``seconds``: the step's
     host time, ending when its loss reached the host). returns the state."""
-    if args.small:
-        raise NotImplementedError("the small RAFT is not ported (ROADMAP A3)")
-    if args.occlusion_module != "separate_with_uncertainty":
-        raise NotImplementedError(f"occlusion_module={args.occlusion_module!r}: only "
-                                  "'separate_with_uncertainty' is ported")
     device = resolve_device(getattr(args, "device", "cuda"))
-    model = RAFT(RAFTParams(compute_dtype="float32"),
-                 train_mode=not args.freeze_features_training).to(device)
+    cfg = RAFTParams(small=args.small, occlusion_module=args.occlusion_module,
+                     compute_dtype="float32")
+    model = RAFT(cfg, train_mode=not args.freeze_features_training).to(device)
     if args.mixed_precision:
         model.cast_per_call(torch.bfloat16)
 

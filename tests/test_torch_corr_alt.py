@@ -20,7 +20,7 @@ from mft_tpu.ops.alt_corr_pallas import (build_feature_pyramid as jax_feature_py
                                          build_feature_pyramid_slab, corr_lookup_alt,
                                          corr_lookup_win)
 from mft_tpu_torch import ops
-from mft_tpu_torch.models.raft.corr import build_feature_pyramid
+from mft_tpu_torch.models.raft.corr import build_feature_pyramid, normalize_features
 from mft_tpu_torch.models.raft.raft import (AUTO_ALIASES, CORR_METHODS,
                                             VOLUME_METHODS, RAFT, RAFTParams)
 from mft_tpu_torch.models.raft.wrapper import SAME_CONV_BACKENDS, raft_params_from_config
@@ -214,45 +214,52 @@ def test_ported_corr_methods_are_read():
                                        ("OU_last_iter_only", True),
                                        ("conv_backend", "pallas")])
 def test_unported_raft_options_raise(key, value):
-    """Options the port does not implement raise instead of being ignored.
-    conv_backend 'pallas', ported since, is read and runs: the model's
-    update block takes it, and one step of it computes the 'auto' block's
-    result (f32, 1e-4; the product kernel's plain version on the CPU).
-    OU_last_iter_only, ported since, is read; in test mode the heads run on
-    the last iteration either way, so the flow is the default model's, bit
-    for bit (its train-mode effect is held against JAX in
-    tests/test_torch_train_model.py)."""
-    if (key, value) == ("OU_last_iter_only", True):
+    """Every option of this list, once unported, is read and runs now; none
+    raises. normalized_features: the model on (f1, f2) gives the default
+    model's outputs on the normalized features (``corr.normalize_features``),
+    bit for bit (the context features are not normalized). relu_uncertainty:
+    the default model's outputs with relu on the uncertainty, bit for bit.
+    conv_backend 'pallas' is read and runs: the model's update block takes
+    it, and one step of it computes the 'auto' block's result (f32, 1e-4;
+    the product kernel's plain version on the CPU). OU_last_iter_only is
+    read; in test mode the heads run on the last iteration either way, so
+    the flow is the default model's, bit for bit (its train-mode effect is
+    held against JAX in tests/test_torch_train_model.py). Their JAX parity
+    is in tests/test_torch_raft_variants.py."""
+    f = torch.randn((1, 256, 8, 8), generator=torch.Generator().manual_seed(0))
+    if key in ("normalized_features", "relu_uncertainty", "OU_last_iter_only"):
         params = raft_params_from_config({key: value})
-        assert params.ou_last_iter_only
+        assert getattr(params, {"OU_last_iter_only": "ou_last_iter_only"}.get(key, key))
         default = RAFT(raft_params_from_config({}))
         model = RAFT(params)
         model.load_state_dict(default.state_dict())
-        f = torch.randn((1, 256, 8, 8), generator=torch.Generator().manual_seed(0))
         with torch.no_grad():
             got = model.flow_from_features(f, f.flip(-1), f, iters=2)
-            want = default.flow_from_features(f, f.flip(-1), f, iters=2)
+            if key == "normalized_features":
+                want = default.flow_from_features(normalize_features(f),
+                                                  normalize_features(f.flip(-1)), f, iters=2)
+            else:
+                want = default.flow_from_features(f, f.flip(-1), f, iters=2)
+        if key == "relu_uncertainty":
+            assert bool((got["uncertainty"] >= 0).all())
+            want["uncertainty"] = torch.relu(want["uncertainty"])
+        assert list(got) == list(want)
         for k in want:
             assert torch.equal(got[k], want[k]), k
         return
-    if (key, value) == ("conv_backend", "pallas"):
-        params = raft_params_from_config({key: value})
-        assert params.conv_backend == "pallas"
-        block = RAFT(params).update_block
-        assert block.conv_backend == "pallas"
-        auto = RAFT(raft_params_from_config({})).update_block
-        block.load_state_dict(auto.state_dict())
-        gen = torch.Generator().manual_seed(0)
-        t = lambda c: torch.randn((1, c, 3, 5), generator=gen)
-        args = (t(128), t(128), t(324), t(2))
-        with torch.no_grad():
-            for g, w in zip(block(*args, need_mask=False), auto(*args, need_mask=False)):
-                if w is not None:
-                    torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        raft_params_from_config({key: value})
-    raft_params_from_config({key: False if value is True else "auto"})
+    params = raft_params_from_config({key: value})
+    assert params.conv_backend == "pallas"
+    block = RAFT(params).update_block
+    assert block.conv_backend == "pallas"
+    auto = RAFT(raft_params_from_config({})).update_block
+    block.load_state_dict(auto.state_dict())
+    gen = torch.Generator().manual_seed(0)
+    t = lambda c: torch.randn((1, c, 3, 5), generator=gen)
+    args = (t(128), t(128), t(324), t(2))
+    with torch.no_grad():
+        for g, w in zip(block(*args, need_mask=False), auto(*args, need_mask=False)):
+            if w is not None:
+                torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
 
 
 def test_conv_backends_of_the_same_convolution_are_accepted():

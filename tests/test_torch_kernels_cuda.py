@@ -309,6 +309,29 @@ def test_mft_main_path_launches_each_kernel(cuda):
     assert ops.launch_counts() == want
 
 
+@pytest.mark.parametrize("method", ["auto", "alt"])
+def test_mft_small_model_launches_its_kernels(cuda, method):
+    """The small RAFT on the card (``small`` in the default config's
+    raft_params): every iteration launches the method's lookup at radius 3
+    ('auto': K2, never the fused K1), the frame one chain + select; finite
+    flow."""
+    cfg = default_config()
+    cfg.flow_config.flow_iters = 3
+    cfg.flow_config.raft_params.update(small=True, corr_method=method)
+    tracker = MFT(cfg, device=cuda)
+    rng = np.random.default_rng(0)
+    tex = (rng.random((80, 80, 3)) * 255).astype(np.uint8)
+    ops.reset_launch_counts()
+    tracker.init(tex[:64, :64])
+    for k in range(1, 3):
+        res = tracker.track(np.ascontiguousarray(tex[k:k + 64, 2 * k:2 * k + 64])).result
+        assert res.flow.shape == (64, 64, 2) and bool(torch.isfinite(res.flow).all())
+    name = {"auto": "corr_lookup", "alt": "corr_lookup_alt"}[method]
+    want = {k: 0 for k in ops.launch_counts()}
+    want.update({name: 6, "chain_select": 2})
+    assert ops.launch_counts() == want
+
+
 def _alt_inputs(np_rng, dtype, dev, kind, B=2, H8=13, W8=21, C=64, levels=4):
     """13x21 source pixels: ragged 8x8 tiles and odd pyramid levels."""
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
@@ -329,15 +352,15 @@ def _alt_inputs(np_rng, dtype, dev, kind, B=2, H8=13, W8=21, C=64, levels=4):
 ALT_TOL = {"float32": (1e-6, 1e-6)}
 
 
-def _check_window(got, f1, pyr, coords, dtype):
+def _check_window(got, f1, pyr, coords, dtype, radius=4):
     """K4/K5 against their plain version: float32 to ALT_TOL; bfloat16 (the
     tile product on the tensor cores) within ops.product_error_bound (K = C,
     scale 1/sqrt(C), S from ops.corr_window_magnitude) on every element."""
-    want = ops.corr_lookup_alt_ref(f1, pyr, coords, 4)
+    want = ops.corr_lookup_alt_ref(f1, pyr, coords, radius)
     assert got.dtype == DT[dtype] and got.shape == want.shape
     if dtype == "bfloat16":
         C = f1.shape[-1]
-        _assert_within_bound(got, want, ops.corr_window_magnitude(f1, pyr, coords, 4), C,
+        _assert_within_bound(got, want, ops.corr_window_magnitude(f1, pyr, coords, radius), C,
                              ops.product.corr_scale(C))
     else:
         atol, rtol = ALT_TOL[dtype]
@@ -356,6 +379,22 @@ def test_alt_kernels_match_plain(np_rng, cuda, dtype, kind, name):
     assert ops.tensor_core_launch_counts()[name] == (dtype == "bfloat16")
     assert got.shape == (2, 13 * 21, 324)
     _check_window(got, f1, pyr, coords, dtype)
+
+
+@pytest.mark.parametrize("kind", ["wild", "local"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["corr_lookup_alt", "corr_lookup_win"])
+def test_alt_kernels_match_plain_small_model(np_rng, cuda, dtype, kind, name):
+    """K4/K5 at the small model's shapes: C = 128 features (two of the
+    kernel's four 8-channel chunks a lane) and radius 3 (196 outputs a
+    pixel), 13x21 pixels; f32 to ALT_TOL, bf16 within the bound."""
+    f1, pyr, coords = _alt_inputs(np_rng, dtype, cuda, kind, C=128)
+    ops.reset_launch_counts()
+    got = getattr(ops, name)(f1, pyr, coords, 3)
+    assert ops.launch_counts()[name] == 1
+    assert ops.tensor_core_launch_counts()[name] == (dtype == "bfloat16")
+    assert got.shape == (2, 13 * 21, 196)
+    _check_window(got, f1, pyr, coords, dtype, radius=3)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -1389,6 +1428,34 @@ def test_mft_cache_paths_launch_their_kernels(cuda):
     for a, img in zip(chunked, frames[1:]):
         b = tracker.track(img).result
         assert torch.equal(a.result.flow, b.flow) and torch.equal(a.result.occlusion, b.occlusion)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_small_model_lookup_and_backward_match_plain(np_rng, cuda, dtype):
+    """K2 and its backward at the small model's radius 3 on a 7-pair volume
+    of 16x24 pixels (levels 16x24 .. 2x3): the 196 samples a pixel and the
+    (2r+2)^2 = 64 box values a pixel's gradient stages, bit for bit with the
+    plain versions; the autograd function's level gradients equal to the
+    plain backward's."""
+    B, H8, W8 = 7, 16, 24
+    pyr, coords, _, _ = _lookup_inputs(np_rng, dtype, cuda, B=B, H8=H8, W8=W8, radius=3)
+    pyr = [torch.from_numpy(np_rng.standard_normal((B, H8 * W8, H8 >> l, W8 >> l)).astype(
+        np.float32)).to(cuda).to(DT[dtype]) for l in range(4)]
+    ops.reset_launch_counts()
+    got = ops.corr_lookup(pyr, coords, 3)
+    assert ops.launch_counts()["corr_lookup"] == 1 and got.shape == (B, H8 * W8, 196)
+    assert torch.equal(got, ops.corr_lookup_ref(pyr, coords, 3))
+    dims = [tuple(lvl.shape[2:]) for lvl in pyr]
+    g = torch.from_numpy(np_rng.standard_normal((B, H8 * W8, 196)).astype(np.float32))
+    g = g.to(cuda).to(DT[dtype])
+    bwd = ops.corr_lookup_bwd(g, coords, dims, 3)
+    assert ops.launch_counts()["corr_lookup_bwd"] == 1
+    for a, b in zip(bwd, ops.corr_lookup_bwd_ref(g, coords, dims, 3)):
+        assert torch.equal(a, b)
+    levels = [lvl.clone().requires_grad_() for lvl in pyr]
+    ops.corr_lookup(levels, coords, 3).backward(g)
+    for lvl, b in zip(levels, bwd):
+        assert torch.equal(lvl.grad, b)
 
 
 @pytest.mark.parametrize("radius", [4, 3])
