@@ -188,6 +188,23 @@ non-zero and prints no result line):
    encoder (``fused_encoder``, one grouped-conv stack for fnet and cnet)
    against the two encoders apart in f32 within ``FUSED_ENCODER_TOL``,
    both timed.
+17. the demo apps and the submission writers: (a) ``apps.demo.run`` on 12
+   frames of the synthetic clip written as PNGs, ``synth`` (the committed
+   weights), grid spacing 30: 12 PNGs in each output directory, each
+   512x512x3; launches K1 11, K2 1, K3 1 a tracked frame and the warp 1 a
+   point conversion; the median error of the last frame's tracks (queries
+   whose true position stays 16 px inside) <= 1 px; every frame's
+   ``warp_forward`` of the edit and of its mask on the card against the
+   plain splat on the CPU within ``SPLAT_ATOL`` (0-255 units), the uint8
+   edit frames within 1 level, the differing pixels counted; frames/s end
+   to end and the PNG decode and encode share printed; (b)
+   ``apps.flow_demo.run`` on 4 pairs with ``--show_ou``: 1536x512x3
+   panels, K1 11 and K2 1 a pair, the median flow against the true
+   (-2, -1) printed; (c) the Sintel writer on a ``test/final`` tree of 2
+   scenes x 3 frames of 436x1024 (each .flo equal to a direct
+   ``compute_flow`` with the same ``init_flow`` chain) and the KITTI writer
+   on ``testing/image_2`` with 2 pairs of 375x1242 (each PNG within the
+   1/64 px quantisation of a direct ``compute_flow``), committed weights.
 
 Every bf16 launch of K1, #5, #13, K4 and K5 on the main path, conv_backend
 'pallas', 'alt' and 'win' at 512x512 and 2160x3840, 'auto' at 1080x1920
@@ -3643,6 +3660,257 @@ def run_variants(torch, ops, dev, card):
     return dict(k2=k2, bwd=bwd, fk=fk, small=small_counts, alt=alt_counts, train=train_counts)
 
 
+# --------------------------------------------------------------------------- #
+# phase 17: the demo apps and the submission writers
+# --------------------------------------------------------------------------- #
+DEMO_FRAMES = 12        # frames of the demo's clip (11 tracked)
+DEMO_INSIDE = 16        # px: the queries scored stay this far inside the frame
+FLOW_DEMO_PAIRS = 4
+SPLAT_ATOL = 1e-3       # 0-255 units: the card's splat against the CPU's
+SINTEL_SHAPE, KITTI_SHAPE = (436, 1024), (375, 1242)
+
+
+def write_png_dir(path, frames):
+    from mft_tpu_torch.io.png import encode_png
+    path.mkdir(parents=True)
+    for k, img in enumerate(frames):
+        (path / f"{k:05d}.png").write_bytes(encode_png(img))
+
+
+def check_png_dir(path, n, shape, label):
+    from mft_tpu_torch.io.png import decode_png
+    files = sorted(path.iterdir())
+    check(len(files) == n, f"{label}: {len(files)} files in {path.name}, want {n}")
+    for f in files:
+        img = decode_png(f.read_bytes())
+        check(img.shape == shape and img.dtype.name == "uint8",
+              f"{label}: {f.name} decodes to {img.shape} {img.dtype}, want {shape} uint8")
+
+
+def check_demo_splats(torch, records, label):
+    """The card's warp_forward of the edit and of its mask against the plain
+    splat of the same flow on the CPU; the uint8 edit frames within 1 level.
+    returns: (largest float gap, pixels of the edit frames that differ)."""
+    import numpy as np
+    from mft_tpu_torch.apps import demo
+    from mft_tpu_torch.core import FlowOU
+    gap, n_diff, worst = 0.0, 0, 0
+    for frame, result, edit, mask in records:
+        cpu = FlowOU(result.flow.cpu(), result.occlusion.cpu(), result.sigma.cpu())
+        got = result.warp_forward(edit.astype(np.float32), mask=mask, border=0.0).cpu()
+        want = cpu.warp_forward(edit.astype(np.float32), mask=mask, border=0.0)
+        gap = max(gap, float((got - want).abs().max()))
+        got = result.warp_forward(mask.astype(np.float32)[..., None], border=0.0).cpu()
+        want = cpu.warp_forward(mask.astype(np.float32)[..., None], border=0.0)
+        gap = max(gap, 255.0 * float((got - want).abs().max()))
+        a = demo.draw_edit(frame, result, edit, mask).astype(np.int16)
+        b = demo.draw_edit(frame, cpu, edit, mask).astype(np.int16)
+        n_diff += int((a != b).any(axis=2).sum())
+        worst = max(worst, int(np.abs(a - b).max()))
+    log(f"{label}: card splat vs CPU splat over {len(records)} frames: largest gap "
+        f"{gap:.3g} (0-255 units), edit frames' pixels that differ {n_diff}, by at most "
+        f"{worst} level(s)")
+    check(gap <= SPLAT_ATOL, f"{label}: splat gap {gap} > {SPLAT_ATOL}")
+    check(worst <= 1, f"{label}: edit frames differ by {worst} levels")
+    return gap, n_diff
+
+
+def run_demo(torch, ops, dev, card, tmp):
+    """17a: ``apps.demo.run`` on 12 frames of the synthetic clip written as
+    PNGs, synth config, grid spacing 30. returns the launch counts."""
+    import argparse
+    import numpy as np
+    from mft_tpu_torch.apps import demo
+    from mft_tpu_torch.io import video as demo_video
+    frames = synthetic_clip(DEMO_FRAMES - 1)
+    H, W = frames[0].shape[:2]
+    write_png_dir(tmp / "clip", frames)
+    io_s = [0.0, 0.0, 0.0]                      # PNG decode, PNG encode, rendering
+    records, tracks, stamps = [], [], []
+
+    def timed_frames(path, reverse=False):
+        it = demo_video.get_video_frames(path, reverse)
+        while True:
+            t = time.perf_counter()
+            frame = next(it, None)
+            io_s[0] += time.perf_counter() - t
+            if frame is None:
+                return
+            yield frame
+
+    class TimedWriter(demo_video.VideoWriter):
+        def write(self, frame):
+            t = time.perf_counter()
+            super().write(frame)
+            io_s[1] += time.perf_counter() - t
+
+    def recording_render(frame, result, queries, edit, edit_mask):
+        t = time.perf_counter()
+        out = render(frame, result, queries, edit, edit_mask)
+        io_s[2] += time.perf_counter() - t
+        records.append((frame, result, edit, edit_mask))
+        tracks.append(out[2])
+        stamps.append(time.perf_counter())
+        return out
+
+    render = demo.render_frame
+    args = argparse.Namespace(video=str(tmp / "clip"), config="synth", out=str(tmp / "demo"),
+                              grid_spacing=30, fps=25.0, max_frames=None, device=str(dev))
+    saved = demo.get_video_frames, demo.VideoWriter, demo.render_frame
+    demo.get_video_frames, demo.VideoWriter, demo.render_frame = (timed_frames, TimedWriter,
+                                                                  recording_render)
+    try:
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        n = demo.run(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        counts = ops.launch_counts()
+    finally:
+        demo.get_video_frames, demo.VideoWriter, demo.render_frame = saved
+    tracked = DEMO_FRAMES - 1
+    steady = (len(stamps) - 2) / (stamps[-1] - stamps[1])
+    log(f"demo: {n} frames in {seconds:.3f} s ({n / seconds:.2f} frames/s end to end, "
+        f"set-up and first frame included; {steady:.2f} frames/s from frame 2 on), PNG "
+        f"decode {io_s[0]:.3f} s + encode {io_s[1]:.3f} s = "
+        f"{(io_s[0] + io_s[1]) / seconds:.1%} of it; rendering (point conversion, dots, "
+        f"two splats, their fetch and the blend) {io_s[2]:.3f} s = {io_s[2] / seconds:.1%} "
+        f"[{card}]")
+    log(f"demo: launches over {n} frames: {counts}")
+    check(n == DEMO_FRAMES, f"demo wrote {n} frames, want {DEMO_FRAMES}")
+    for name in ("points", "edit"):
+        check_png_dir(tmp / "demo" / f"clip_{name}", DEMO_FRAMES, (H, W, 3), f"demo {name}")
+    want = expected_counts(ops, corr_lookup_fused=11 * tracked, corr_lookup=tracked,
+                           chain_select=tracked, bilinear_warp=DEMO_FRAMES)
+    check(counts == want, f"demo launch counts {counts} != {want} (K1 11, K2 1, K3 1 a "
+                          f"tracked frame, the warp 1 a point conversion)")
+    queries = demo.get_queries(frames[0].shape, 30)
+    true = queries - tracked * np.asarray(SHIFT, np.float32)
+    inside = ((true >= DEMO_INSIDE) & (true <= np.array([W, H]) - 1 - DEMO_INSIDE)).all(1)
+    err = np.linalg.norm(tracks[-1][inside] - true[inside], axis=1)
+    log(f"demo: frame {tracked} tracks of {int(inside.sum())} of {len(queries)} queries "
+        f"{DEMO_INSIDE} px inside: error to the true position median {np.median(err):.4f} "
+        f"px, largest {err.max():.4f} px")
+    check(float(np.median(err)) <= 1.0, f"demo: median track error {np.median(err)} > 1 px")
+    check_demo_splats(torch, records, "demo")
+    return counts, n / seconds
+
+
+def run_flow_demo(torch, ops, dev, card, tmp):
+    """17b: ``apps.flow_demo.run`` on 4 pairs of the clip with --show_ou."""
+    import argparse
+    import numpy as np
+    from mft_tpu_torch.apps import flow_demo
+    frames = synthetic_clip(FLOW_DEMO_PAIRS)
+    H, W = frames[0].shape[:2]
+    write_png_dir(tmp / "pairs", frames)
+    flows = []
+    panel = flow_demo.flow_panel
+
+    def recording_panel(frame, flow, extra=None):
+        flows.append(flow)
+        return panel(frame, flow, extra)
+
+    args = argparse.Namespace(video=str(tmp / "pairs"), config="synth", out=str(tmp / "flow"),
+                              mp4=False, show_ou=True, fps=10.0, device=str(dev))
+    flow_demo.flow_panel = recording_panel
+    try:
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        n = flow_demo.run(args)
+        seconds = time.perf_counter() - t
+        counts = ops.launch_counts()
+    finally:
+        flow_demo.flow_panel = panel
+    log(f"flow demo: {n} pairs in {seconds:.3f} s; launches {counts} [{card}]")
+    check(n == FLOW_DEMO_PAIRS, f"flow demo wrote {n} panels")
+    check_png_dir(tmp / "flow", FLOW_DEMO_PAIRS, (3 * H, W, 3), "flow demo")
+    want = expected_counts(ops, corr_lookup_fused=11 * n, corr_lookup=n)
+    check(counts == want, f"flow demo launch counts {counts} != {want} (K1 11, K2 1 a pair)")
+    epe = np.linalg.norm(np.stack(flows) - np.asarray([-SHIFT[0], -SHIFT[1]], np.float32),
+                         axis=-1)
+    log(f"flow demo (not gated): flow against ({-SHIFT[0]}, {-SHIFT[1]}): median "
+        f"end-point error {np.median(epe):.4f} px, median flow "
+        f"({np.median(np.stack(flows)[..., 0]):.4f}, {np.median(np.stack(flows)[..., 1]):.4f})")
+    return counts
+
+
+def run_submissions(torch, ops, dev, card, tmp):
+    """17c: the Sintel and KITTI writers on synthetic test trees, the
+    committed weights, against direct ``compute_flow`` calls."""
+    import numpy as np
+    from mft_tpu_torch.config import synth_flow_config
+    from mft_tpu_torch.eval import submissions
+    from mft_tpu_torch.io.png import imread
+    from mft_tpu_torch.models.raft import RAFTFlow
+    from mft_tpu_torch.train.flow_readers import read_flo, read_kitti_flow
+    flower = RAFTFlow(synth_flow_config(), device=dev)
+    sintel = tmp / "sintel" / "test" / "final"
+    for s in range(2):
+        write_png_dir(sintel / f"scene_{s}", synthetic_clip(2, *SINTEL_SHAPE, seed=10 + s))
+    t = time.perf_counter()
+    n = submissions.create_sintel_submission(flower, tmp / "sintel", tmp / "sintel_out")
+    sintel_s = time.perf_counter() - t
+    out = sorted((tmp / "sintel_out" / "final").rglob("*.flo"))
+    check(n == 4 and len(out) == 4, f"sintel submission: {n} flows, {len(out)} files, want 4")
+    gap = 0.0
+    for s in range(2):
+        images = sorted((sintel / f"scene_{s}").glob("*.png"))
+        prev = None
+        for i in range(len(images) - 1):
+            flow, _ = flower.compute_flow(imread(images[i]), imread(images[i + 1]),
+                                          init_flow=prev, numpy_out=True)
+            got = read_flo(tmp / "sintel_out" / "final" / f"scene_{s}" / f"frame_{i + 1:04d}.flo")
+            gap = max(gap, float(np.abs(got - flow).max()))
+            prev = flow
+    log(f"sintel submission: 4 .flo of {SINTEL_SHAPE} in {sintel_s:.3f} s, largest gap to "
+        f"direct compute_flow with the same init_flow chain {gap:.3g} px [{card}]")
+    check(gap == 0.0, f"sintel submission differs from compute_flow by {gap} px")
+
+    kitti = tmp / "kitti" / "testing" / "image_2"
+    kitti.mkdir(parents=True)
+    from mft_tpu_torch.io.png import encode_png
+    for i in range(2):
+        a, b = synthetic_clip(1, *KITTI_SHAPE, seed=20 + i)
+        (kitti / f"{i:06d}_10.png").write_bytes(encode_png(a))
+        (kitti / f"{i:06d}_11.png").write_bytes(encode_png(b))
+    t = time.perf_counter()
+    n = submissions.create_kitti_submission(flower, tmp / "kitti", tmp / "kitti_out")
+    kitti_s = time.perf_counter() - t
+    out = sorted((tmp / "kitti_out" / "flow").glob("*.png"))
+    check(n == 2 and len(out) == 2, f"kitti submission: {n} flows, {len(out)} files, want 2")
+    gap = 0.0
+    for i in range(2):
+        flow, _ = flower.compute_flow(imread(kitti / f"{i:06d}_10.png"),
+                                      imread(kitti / f"{i:06d}_11.png"), numpy_out=True)
+        got, valid = read_kitti_flow(tmp / "kitti_out" / "flow" / f"{i:06d}_10.png")
+        check(bool((valid == 1).all()), "kitti submission: valid channel not 1")
+        gap = max(gap, float(np.abs(got - flow).max()))
+    log(f"kitti submission: 2 PNGs of {KITTI_SHAPE} in {kitti_s:.3f} s, largest gap to "
+        f"direct compute_flow {gap:.4g} px (quantisation step 1/64) [{card}]")
+    check(gap <= 1 / 64, f"kitti submission differs from compute_flow by {gap} px")
+
+
+def run_apps(torch, ops, dev, card):
+    """Phase 17: the demo (a), the flow demo (b), the submissions (c).
+    returns the demo's launch counts."""
+    import tempfile
+    from pathlib import Path
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        t0 = time.perf_counter()
+        counts, fps = run_demo(torch, ops, dev, card, tmp)
+        log(f"phase 17a seconds {time.perf_counter() - t0:.2f}")
+        t0 = time.perf_counter()
+        run_flow_demo(torch, ops, dev, card, tmp)
+        log(f"phase 17b seconds {time.perf_counter() - t0:.2f}")
+        t0 = time.perf_counter()
+        run_submissions(torch, ops, dev, card, tmp)
+        log(f"phase 17c seconds {time.perf_counter() - t0:.2f}")
+    return counts
+
+
 def main() -> int:
     # a hang exits non-zero with a traceback instead of running out the clock
     faulthandler.dump_traceback_later(900, exit=True)
@@ -3757,6 +4025,9 @@ def run() -> int:
         t = time.perf_counter()
         var = run_variants(torch, ops, dev, card)
         log(f"phase 16 seconds {time.perf_counter() - t:.2f}")
+        t = time.perf_counter()
+        demo_counts = run_apps(torch, ops, dev, card)
+        log(f"phase 17 seconds {time.perf_counter() - t:.2f}")
         for stats in (*lk.values(), cs, *fk.values(), *vk.values(), *fo.values(), cv,
                       *wk.values(), *bw.values(), *var["k2"].values(), *var["bwd"].values(),
                       *var["fk"].values()):
@@ -3855,6 +4126,9 @@ def run() -> int:
                           ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")
                           if st.get(key) is not None})
     kernels[1]["launches_small_train"] = var["train"]["corr_lookup"]
+    for k in kernels:   # the demo's 12 frames (phase 17a): 11 tracked, 12 conversions
+        if k["name"] in ("corr_lookup_fused", "corr_lookup", "chain_select", "bilinear_warp"):
+            k["launches_demo"] = demo_counts[k["name"]]
     log(f"total seconds {time.perf_counter() - t_all:.2f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -5,9 +5,10 @@ in [0, 1], sigma (H, W) >= 0; a stacked candidate axis may lead.
 
 The algebra of ``mft_tpu/core/flowou.py`` (reference MFT/results.py): chain,
 backward warp, point warp, sampling, chaining two results, forward-backward
-error. Every sample is one launch of ``ops.bilinear_warp`` in its 'exact'
-mode (float32 taps, zeros outside the image); ``plain=True`` runs its plain
-version on any device. ``ops`` is imported inside the functions, because it
+error, and the forward splat of an image (``warp_forward``, an
+``index_add_``). Every sample is one launch of ``ops.bilinear_warp`` in its
+'exact' mode (float32 taps, zeros outside the image); ``plain=True`` runs its
+plain version on any device. ``ops`` is imported inside the functions, because it
 imports this module's neighbours. ``FlowOU.write`` / ``FlowOU.read`` go
 through the flowou codecs (``mft_tpu_torch.io.flowou_codecs``).
 """
@@ -17,6 +18,7 @@ import dataclasses
 import torch
 
 from mft_tpu_torch.core.coords import grid_coords
+from mft_tpu_torch.core.interp import warp_forward_image
 from mft_tpu_torch.io import flowou_codecs
 
 
@@ -47,6 +49,15 @@ class FlowOU:
 
     def sample(self, points, plain: bool = False):
         return sample_flowou(self, points, plain)
+
+    def warp_forward(self, img, mask=None, border=None):
+        """Splat ``img`` ((H, W) or (H, W, C), a tensor or an array) along
+        the flow (:func:`~mft_tpu_torch.core.interp.warp_forward_image`);
+        the inputs are moved to the flow's device, and so is the result."""
+        dev = self.flow.device
+        img = torch.as_tensor(img, device=dev)
+        mask = None if mask is None else torch.as_tensor(mask, device=dev)
+        return warp_forward_image(img, self.flow, mask=mask, border=border)
 
     def invalid_mask(self):
         return invalid_mask(self.flow)

@@ -1,9 +1,9 @@
 """TAP-Vid evaluation: dataset reading, metrics, the benchmark runner,
-the evaluator and the report (port of ``mft_tpu/eval``; reference
-MFT/evaluation/, MFT/runners/ and run_eval_report.py).
+the evaluator and the report, and the Sintel/KITTI submission writers (port
+of ``mft_tpu/eval``; reference MFT/evaluation/, MFT/runners/,
+run_eval_report.py and MFT/RAFT/evaluate.py).
 
-Not ported (ROADMAP A12): ``submissions.py``, the Kinetics, RGB-Stacking
-and JHMDB readers.
+Not ported (ROADMAP A12): the Kinetics reader (JPEG frames).
 """
 
 from mft_tpu_torch.eval.metrics import compute_tapvid_metrics

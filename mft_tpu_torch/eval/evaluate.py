@@ -23,6 +23,7 @@ import numpy as np
 from mft_tpu_torch.config import dataset_config, tracker_config
 from mft_tpu_torch.eval.metrics import compute_tapvid_metrics
 from mft_tpu_torch.eval.tapvid import create_tapvid_dataset
+from mft_tpu_torch.utils.various import debug_entry
 
 logger = logging.getLogger(__name__)
 
@@ -102,10 +103,15 @@ def get_parser():
     return parser
 
 
-def main():
+def _main():
     logging.basicConfig(level=logging.INFO)
     run(get_parser().parse_args())
     return 0
+
+
+def main():
+    """The CLI; with ``MFT_TPU_DEBUG`` set, an exception opens pdb post mortem."""
+    return debug_entry(_main)()
 
 
 if __name__ == "__main__":

@@ -35,6 +35,7 @@ from mft_tpu_torch.eval.tapvid import create_tapvid_dataset
 from mft_tpu_torch.io.cache import FlowCache
 from mft_tpu_torch.tracker.point_tracking import convert_to_point_tracking_batch
 from mft_tpu_torch.utils.repro import code_export
+from mft_tpu_torch.utils.various import debug_entry
 
 logger = logging.getLogger(__name__)
 
@@ -254,10 +255,15 @@ def get_parser():
     return parser
 
 
-def main():
+def _main():
     logging.basicConfig(level=logging.INFO)
     run(get_parser().parse_args())
     return 0
+
+
+def main():
+    """The CLI; with ``MFT_TPU_DEBUG`` set, an exception opens pdb post mortem."""
+    return debug_entry(_main)()
 
 
 if __name__ == "__main__":

@@ -17,16 +17,20 @@ weights summed in float32 in OpenCV's order), ``INTER_LINEAR`` otherwise
 ((b0 * (S0 >> 4) >> 16) + (b1 * (S1 >> 4) >> 16) + 2) >> 2), a copy when the
 size is unchanged.
 
-Not ported (ROADMAP A12): Kinetics shards (JPEG frames: the card's machine
-has no JPEG decoder), the RGB-Stacking and the JHMDB readers; each raises
-``NotImplementedError``.
+The RGB-Stacking reader takes its pickle of decoded arrays, the JHMDB
+reader its PNG frames (through :mod:`mft_tpu_torch.io.png`, converted to
+RGB where the JAX package uses PIL) and ``joint_positions.mat`` (through
+``scipy.io``). Not ported (ROADMAP A12): Kinetics shards (JPEG frames: the
+card's machine has no JPEG decoder) raise ``NotImplementedError``.
 """
 
 import math
 import pickle
+from pathlib import Path
 
 import numpy as np
 
+from mft_tpu_torch.io.png import decode_png, to_bgr
 from mft_tpu_torch.utils.misc import parse_scale_WH
 
 COEF_BITS = 11                      # cv2's INTER_RESIZE_COEF_BITS
@@ -254,12 +258,109 @@ def create_tapvid_dataset(pickle_path, query_modes, scaling=None,
         yield {"video_name": name, "data": data}
 
 
-def create_rgb_stacking_dataset(pickle_path, query_mode="strided", train_size=(256, 256)):
-    """TAP-Vid RGB-Stacking: not ported yet (ROADMAP A12)."""
-    raise NotImplementedError("the TAP-Vid RGB-Stacking reader is not ported yet "
-                              "(ROADMAP A12)")
+def create_rgb_stacking_dataset(pickle_path, query_mode="strided",
+                                train_size=(256, 256)):
+    """TAP-Vid RGB-stacking (robotics) sequences.
+
+    Reference parity: tapvid_eval_stuff.py:675-702 — a pickle holding a LIST
+    of examples with decoded video arrays; frames are normalized to [-1, 1]
+    and the point coordinates scaled to the fixed 256x256 protocol size.
+
+    yields: {'robotics': sampled record}.
+    """
+    with open(pickle_path, "rb") as f:
+        examples = pickle.load(f)
+    H, W = train_size
+    for example in examples:
+        frames = example["video"]
+        if frames.shape[1:3] != (H, W):  # native RGB-stacking is 256x256
+            frames = resize_video(frames, (H, W))
+        frames = frames.astype(np.float32) / 255.0 * 2.0 - 1.0
+        points = example["points"] * np.array([W, H])
+        occluded = example["occluded"]
+        if query_mode == "strided":
+            converted = sample_queries_strided(occluded, points, frames)
+        elif query_mode == "first":
+            converted = sample_queries_first(occluded, points, frames)
+        else:
+            raise ValueError(f"unknown query mode {query_mode!r}")
+        yield {"robotics": converted}
+
+
+def _read_rgb(path) -> np.ndarray:
+    """(H, W, 3) uint8 RGB of a PNG, as PIL's ``Image.open(path).convert('RGB')``
+    gives it for 8-bit grey, RGB and RGBA files (alpha dropped)."""
+    img = decode_png(Path(path).read_bytes())
+    if img.dtype != np.uint8:
+        raise ValueError(f"{path}: JHMDB frames are 8-bit PNGs")
+    return np.ascontiguousarray(to_bgr(img)[:, :, ::-1])
 
 
 def create_jhmdb_dataset(jhmdb_path, train_size=(256, 256)):
-    """JHMDB pose tracking: not ported yet (ROADMAP A12)."""
-    raise NotImplementedError("the JHMDB reader is not ported yet (ROADMAP A12)")
+    """JHMDB pose-tracking sequences (split1 test videos) for PCK eval.
+
+    Reference parity: tapvid_eval_stuff.py:389-485, without the TF I/O and
+    without the convergence-display shuffle (videos come in sorted order —
+    the per-video records are identical). Layout expected under
+    ``jhmdb_path``: ``splits/*_test_split1.txt`` (``<video>.avi 2`` marks
+    test videos), ``joint_positions/<video>/joint_positions.mat`` (field
+    ``pos_img`` (2, n_joints, n_frames)), ``Rename_Images/<video>/*.png``.
+
+    yields: {'jhmdb': record} with video/query/target points scaled to
+    ``train_size``, invalid first-frame joints set to -1, frames in [-1, 1].
+    """
+    from scipy import io as scipy_io
+
+    root = Path(jhmdb_path)
+    videos = []
+    for split_file in sorted((root / "splits").glob("*split1.txt")):
+        video_folder = "_".join(split_file.name.split("_")[:-2])
+        for line in split_file.read_text().splitlines():
+            if not line.strip():
+                continue
+            video, traintest = line.split()
+            video = video.rsplit(".", 1)[0]
+            if int(traintest) == 2:
+                videos.append(f"{video_folder}/{video}")
+    if not videos:
+        raise ValueError(f"No JHMDB videos found in directory {jhmdb_path}")
+
+    Ht, Wt = train_size
+    for video in videos:
+        joints = root / "joint_positions" / video / "joint_positions.mat"
+        if not joints.exists():
+            continue
+        gt_pose = scipy_io.loadmat(str(joints))["pos_img"]
+        gt_pose = np.transpose(gt_pose, [1, 2, 0])  # (n_joints, n_frames, 2)
+
+        frame_files = sorted((root / "Rename_Images" / video).glob("*.png"))
+        frames = np.stack([_read_rgb(f) for f in frame_files])
+        height, width = frames.shape[1:3]
+
+        invalid = np.logical_or(
+            np.logical_or(gt_pose[:, 0:1, 0] < 0, gt_pose[:, 0:1, 0] >= width),
+            np.logical_or(gt_pose[:, 0:1, 1] < 0, gt_pose[:, 0:1, 1] >= height))
+        invalid = np.tile(invalid, [1, gt_pose.shape[1]])[..., None].astype(np.float32)
+
+        gt_pose_orig = gt_pose
+        gt_pose = gt_pose * np.array([Wt / width, Ht / height])
+        gt_pose = (1.0 - invalid) * gt_pose + invalid * (-1.0)
+
+        frames = resize_video(frames, (Ht, Wt))
+        frames = frames / (255.0 / 2.0) - 1.0
+        queries = gt_pose[:, 0]
+        queries = np.concatenate([queries[..., 0:1] * 0, queries[..., ::-1]],
+                                 axis=-1)
+        if gt_pose.shape[1] < frames.shape[0]:
+            frames = frames[: gt_pose.shape[1]]  # pose shorter than video
+
+        yield {"jhmdb": {
+            "video": frames[np.newaxis],
+            "query_points": queries[np.newaxis],
+            "target_points": gt_pose[np.newaxis],
+            "gt_pose": gt_pose[np.newaxis],
+            "gt_pose_orig": gt_pose_orig[np.newaxis],
+            "occluded": gt_pose[np.newaxis, ..., 0] * 0,
+            "fname": video,
+            "im_size": np.array([height, width]),
+        }}

@@ -16,6 +16,8 @@ non-interlaced 8- or 16-bit grey, RGB or RGBA PNG: all five row filters
 anti-diagonals, whose pixels do not depend on each other), any number of
 IDAT chunks; it checks every chunk's CRC and raises ``ValueError`` for a
 file it cannot decode. :func:`read_text` returns the ``tEXt`` chunks.
+:func:`to_bgr` and :func:`imread` give what ``cv2.imread(path)``
+(``IMREAD_COLOR``) gives.
 """
 
 import struct
@@ -169,3 +171,20 @@ def decode_png(buf) -> np.ndarray:
         out = out.view(">u2").astype(np.uint16)
     img = out.reshape(H, W, C)[..., _BGR[C]]
     return np.ascontiguousarray(img[..., 0] if C == 1 else img)
+
+
+def to_bgr(img: np.ndarray) -> np.ndarray:
+    """(H, W, 3) uint8 BGR of a decoded array, as ``cv2.imread(path,
+    IMREAD_COLOR)`` converts it: grey replicated, alpha dropped, 16-bit
+    samples >> 8."""
+    if img.dtype == np.uint16:
+        img = (img >> 8).astype(np.uint8)
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, axis=2)
+    return np.ascontiguousarray(img[..., :3])
+
+
+def imread(path) -> np.ndarray:
+    """(H, W, 3) uint8 BGR of a PNG file, as ``cv2.imread(path)`` reads it."""
+    with open(path, "rb") as f:
+        return to_bgr(decode_png(f.read()))

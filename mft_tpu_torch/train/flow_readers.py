@@ -15,7 +15,7 @@ from pathlib import Path
 
 import numpy as np
 
-from mft_tpu_torch.io.png import decode_png, encode_png
+from mft_tpu_torch.io.png import decode_png, encode_png, to_bgr
 
 FLO_MAGIC = 202021.25
 
@@ -138,12 +138,7 @@ def read_image(path):
     if data[:3] == b"\xff\xd8\xff":
         raise NotImplementedError(f"{path}: JPEG images are not read (no JPEG decoder on the "
                                   "card's machine; ROADMAP A14)")
-    img = decode_png(data)
-    if img.dtype == np.uint16:
-        img = (img >> 8).astype(np.uint8)
-    if img.ndim == 2:
-        img = np.repeat(img[..., None], 3, axis=2)
-    return np.ascontiguousarray(img[:, :, 2::-1])
+    return np.ascontiguousarray(to_bgr(decode_png(data))[:, :, ::-1])
 
 
 def write_image(path, img):

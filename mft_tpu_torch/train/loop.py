@@ -36,6 +36,7 @@ from mft_tpu_torch.models.raft.raft import RAFT, RAFTParams
 from mft_tpu_torch.train.losses import (FLOW_RATIOS, MAX_FLOW, flow_metric_sums,
                                         sequence_loss)
 from mft_tpu_torch.train.optim import apply_updates, make_optimizer
+from mft_tpu_torch.utils.various import debug_entry
 
 logger = logging.getLogger(__name__)
 
@@ -271,9 +272,14 @@ def get_parser():
     return parser
 
 
-def main(argv=None):
+def _main(argv=None):
     logging.basicConfig(level=logging.INFO)
     train(get_parser().parse_args(argv))
+
+
+def main(argv=None):
+    """The CLI; with ``MFT_TPU_DEBUG`` set, an exception opens pdb post mortem."""
+    debug_entry(_main)(argv)
 
 
 if __name__ == "__main__":

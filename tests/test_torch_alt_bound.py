@@ -42,6 +42,17 @@ R = 4
 REPAIR_WINDOW = 2.0 ** -21
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's CPU torch ops: the suite runs 6
+    xdist workers, and each one's default thread pool (every core)
+    oversubscribes the CPU; at these sizes one thread is as fast alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(rng, kind, B=2, H8=13, W8=21, C=64, levels=4):
     """bf16 (B, H8, W8, C) source features, the pooled pyramid of bf16 target
     features, and coords: 'wild' past every edge, 'local' the pixel grid +

@@ -20,6 +20,17 @@ from mft_tpu_torch.ops.chain_select import chained_sigma
 from mft_tpu_torch.tracker.fused import chain_select, chain_select_ref
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's CPU torch ops: the suite runs 6
+    xdist workers, and each one's default thread pool (every core)
+    oversubscribes the CPU; at these sizes one thread is as fast alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _maps(rng, N=4, H=16, W=16, spread=6.0, tie=False):
     mk = lambda *s: rng.random(s).astype(np.float32)
     left = (mk(N, H, W, 2) * spread - spread / 2, mk(N, H, W) * 0.03,

@@ -30,6 +30,17 @@ SHAPES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's CPU torch ops: the suite runs 6
+    xdist workers, and each one's default thread pool (every core)
+    oversubscribes the CPU; at these sizes one thread is as fast alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(rng, Cout, Cin, kh, kw, B=2, H=8, W=16):
     x = rng.standard_normal((B, H, W, Cin)).astype(np.float32)
     k = (rng.standard_normal((kh, kw, Cin, Cout)) / np.sqrt(Cin * kh * kw)).astype(np.float32)

@@ -29,6 +29,17 @@ R = 4
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's CPU torch ops: the suite runs 6
+    xdist workers, and each one's default thread pool (every core)
+    oversubscribes the CPU; at these sizes one thread is as fast alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _features(rng, B, H8, W8, C):
     f1 = rng.standard_normal((B, H8, W8, C)).astype(np.float32)
     f2 = rng.standard_normal((B, H8, W8, C)).astype(np.float32)

@@ -39,6 +39,17 @@ from mft_tpu_torch.models.raft import corr as tcorr
 B, C = 2, 16
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's CPU torch ops: the suite runs 6
+    xdist workers, and each one's default thread pool (every core)
+    oversubscribes the CPU; at these sizes one thread is as fast alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _features(rng, H8, W8):
     return (rng.standard_normal((B, H8, W8, C)).astype(np.float32),
             rng.standard_normal((B, H8, W8, C)).astype(np.float32))

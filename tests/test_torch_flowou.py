@@ -29,6 +29,17 @@ from mft_tpu_torch.tracker.select import select_best
 H, W = 24, 20
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's CPU torch ops: the suite runs 6
+    xdist workers, and each one's default thread pool (every core)
+    oversubscribes the CPU; at these sizes one thread is as fast alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _result(rng, spread=16.0, lead=()):
     """A FlowOU of numpy arrays: flows up to +-spread/2 px (some endpoints
     leave the image), occlusion in [0, 0.04), sigma in [0.1, 2.1)."""

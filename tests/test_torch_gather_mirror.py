@@ -36,6 +36,17 @@ CHUNK = 8                     # corr_gather.cuh kChunk: bytes a staging load
 ITEMSIZE = {"float32": 4, "bfloat16": 2, "int8": 1}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's CPU torch ops: the suite runs 6
+    xdist workers, and each one's default thread pool (every core)
+    oversubscribes the CPU; at these sizes one thread is as fast alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _distinct_banks(pitch, n, rows, groups):
     for a in range(groups):
         for b in range(a + 1, groups):

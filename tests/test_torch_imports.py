@@ -72,7 +72,11 @@ def test_port_modules_list_is_complete():
                  "mft_tpu_torch.train.augment", "mft_tpu_torch.train.datasets",
                  "mft_tpu_torch.train.validate", "mft_tpu_torch.train.logger",
                  "mft_tpu_torch.parallel", "mft_tpu_torch.parallel.mesh",
-                 "mft_tpu_torch.parallel.streaming"):
+                 "mft_tpu_torch.parallel.streaming", "mft_tpu_torch.apps",
+                 "mft_tpu_torch.apps.demo", "mft_tpu_torch.apps.flow_demo",
+                 "mft_tpu_torch.io.video", "mft_tpu_torch.eval.submissions",
+                 "mft_tpu_torch.utils.various", "mft_tpu_torch.utils.rand_utils",
+                 "mft_tpu_torch.utils.notifications"):
         assert want in mods
 
 
@@ -87,6 +91,22 @@ def test_port_and_chip_smoke_import_without_jax():
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("app", ["demo", "flow_demo"])
+def test_app_help_runs_without_jax(app):
+    """``python -m mft_tpu_torch.apps.<app> --help`` with the imports blocked."""
+    code = ("import runpy\n"
+            f"sys.argv = ['{app}', '--help']\n"
+            "try:\n"
+            f"    runpy.run_module('mft_tpu_torch.apps.{app}', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {BLOCKED!r}]\n"
+            "assert not bad, bad\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "--video" in proc.stdout and "--device" in proc.stdout
 
 
 def test_blocker_blocks():

@@ -1547,3 +1547,52 @@ def test_train_step_on_the_card(cuda):
     ops.reset_launch_counts()
     make_train_step(model, tx, lk, iters=3, plain=True)(state, batch)
     assert all(n == 0 for n in ops.launch_counts().values())
+
+
+SPLAT_ATOL = 1e-3        # in 0-255 units: chip_smoke.py phase 17a's gate
+
+
+def test_forward_splat_on_the_card_matches_cpu(np_rng, cuda):
+    """``FlowOU.warp_forward`` of a 0-255 edit and of its mask: the card's
+    float atomics add in no fixed order, so the gate is a tolerance; the
+    uint8 edit frames (the demo's ``draw_edit``) within 1 level."""
+    from mft_tpu_torch.apps import demo
+    from mft_tpu_torch.core import FlowOU
+    H, W = 96, 128
+    flow = np_rng.normal(0.0, 4.0, (H, W, 2)).astype(np.float32)
+    zeros = np.zeros((H, W), np.float32)
+    frame = (np_rng.random((H, W, 3)) * 255).astype(np.uint8)
+    edit = demo.make_default_edit(frame)
+    mask = edit.any(axis=2)
+    results = [FlowOU(*(torch.from_numpy(a).to(d) for a in (flow, zeros, zeros)))
+               for d in (cuda, torch.device("cpu"))]
+    got, want = (r.warp_forward(edit.astype(np.float32), mask=mask, border=0.0)
+                 for r in results)
+    assert got.device.type == "cuda"
+    assert float((got.cpu() - want).abs().max()) <= SPLAT_ATOL
+    got, want = (r.warp_forward(mask.astype(np.float32)[..., None], border=0.0)
+                 for r in results)
+    assert float((got.cpu() - want).abs().max()) <= SPLAT_ATOL / 255
+    a, b = (demo.draw_edit(frame, r, edit, mask) for r in results)
+    assert np.abs(a.astype(int) - b).max() <= 1
+
+
+def test_demo_launches_per_frame(tmp_path, cuda):
+    """The demo on the card, 3 frames of 128x128 on default_config(): K1 11,
+    K2 1, K3 1 a tracked frame, one warp a point conversion (frame 0's too)."""
+    from mft_tpu_torch.apps import demo
+    from mft_tpu_torch.io.png import encode_png
+    rng = np.random.default_rng(0)
+    tex = (rng.random((140, 140, 3)) * 255).astype(np.uint8)
+    (tmp_path / "clip").mkdir()
+    for k in range(3):
+        (tmp_path / "clip" / f"{k:03d}.png").write_bytes(
+            encode_png(np.ascontiguousarray(tex[k:k + 128, 2 * k:2 * k + 128])))
+    ops.reset_launch_counts()
+    n = demo.main(["--video", str(tmp_path / "clip"), "--out", str(tmp_path / "out")])
+    counts = ops.launch_counts()
+    assert n == 3
+    want = {k: 0 for k in counts}
+    want.update(corr_lookup_fused=22, corr_lookup=2, chain_select=2, bilinear_warp=3)
+    assert counts == want
+    assert len(list((tmp_path / "out" / "clip_points").iterdir())) == 3

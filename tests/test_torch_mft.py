@@ -27,6 +27,17 @@ FRAMES = 5
 DELTAS = [np.inf, 1, 2, 4, 8, 16, 32]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's CPU torch ops: the suite runs 6
+    xdist workers, and each one's default thread pool (every core)
+    oversubscribes the CPU; at these sizes one thread is as fast alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _config(cls, flower_cls, corr_method="auto", conv_backend="auto"):
     conf = cls()
     flow = cls()

@@ -29,6 +29,17 @@ CACHE_FRAMES = 2
 CACHE_BATCHES = {"cold": [3, 3], "warm": [1, 1], "no_raft": []}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's CPU torch ops: the suite runs 6
+    xdist workers, and each one's default thread pool (every core)
+    oversubscribes the CPU; at these sizes one thread is as fast alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def cache_runs():
     """Both trackers (deltas {inf, 1, 2}), each with its own FlowCache, over

@@ -8,11 +8,23 @@ suite's workers can run the two halves at once.
 
 import numpy as np
 import pytest
+import torch
 
 from test_torch_mft import _run_both
 
 
 INT8_FRAMES = 3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's CPU torch ops: the suite runs 6
+    xdist workers, and each one's default thread pool (every core)
+    oversubscribes the CPU; at these sizes one thread is as fast alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

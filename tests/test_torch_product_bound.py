@@ -37,6 +37,17 @@ CUDA_SHAPES = [(64, 81, 1, 1), (48, 64, 3, 3), (16, 32, 3, 3), (32, 64, 3, 3),
                (64, 96, 1, 5), (32, 96, 5, 1), (64, 32, 3, 3), (2, 64, 3, 3)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's CPU torch ops: the suite runs 6
+    xdist workers, and each one's default thread pool (every core)
+    oversubscribes the CPU; at these sizes one thread is as fast alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _violations(got, want, magnitude, K, scale=1.0) -> int:
     """Elements with |got - want| above the bound."""
     bound = ops.product_error_bound(want, magnitude, K, scale)

@@ -21,6 +21,17 @@ from mft_tpu_torch.models.raft.convert import params_from_flax
 H, W, ITERS = 60, 68, 3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's CPU torch ops: the suite runs 6
+    xdist workers, and each one's default thread pool (every core)
+    oversubscribes the CPU; at these sizes one thread is as fast alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _flow_config(cls, dtype, corr_method="auto", conv_backend="auto"):
     conf = cls()
     conf.raft_params = {"occlusion_module": "separate_with_uncertainty",

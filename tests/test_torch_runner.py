@@ -15,6 +15,7 @@ import pickle
 import numpy as np
 import pandas as pd
 import pytest
+import torch
 
 from mft_tpu.eval import evaluate as jax_evaluate
 from mft_tpu.eval import report as jax_report
@@ -59,6 +60,17 @@ def get_config():
     conf.name = "synth"
     return conf
 """
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's CPU torch ops: the suite runs 6
+    xdist workers, and each one's default thread pool (every core)
+    oversubscribes the CPU; at these sizes one thread is as fast alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _synthetic_pickle(path):

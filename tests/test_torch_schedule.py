@@ -37,6 +37,17 @@ SIZES = {"mixed": (64, 256)}
 H, W = 64, 64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's CPU torch ops: the suite runs 6
+    xdist workers, and each one's default thread pool (every core)
+    oversubscribes the CPU; at these sizes one thread is as fast alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def jax_variables():
     """The committed weights, restored by flax (no flax init needed)."""

@@ -129,15 +129,16 @@ def test_dataset_records_match_jax(tmp_path, rng, scaling):
 
 
 def test_unported_readers_raise(tmp_path):
+    """Kinetics shards (JPEG frames) still raise, through the loader and
+    the dataset; the RGB-Stacking and JHMDB readers are ported
+    (tests/test_torch_eval_extra.py)."""
     shard = tmp_path / "kinetics.pkl"
     with open(shard, "wb") as f:
         pickle.dump([{"video": [b"\xff\xd8"]}], f)
     with pytest.raises(NotImplementedError, match="A12"):
         tapvid.load_pickle_sequences(shard)
     with pytest.raises(NotImplementedError, match="A12"):
-        tapvid.create_rgb_stacking_dataset(shard)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tapvid.create_jhmdb_dataset(tmp_path)
+        next(tapvid.create_tapvid_dataset(shard, "first"))
 
 
 @pytest.mark.parametrize("scale", ["fullres", "256x256", "256x256_512x512", "x256",

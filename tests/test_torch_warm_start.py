@@ -35,6 +35,17 @@ SCHEDULE = {np.inf: 2, 1: 1, 2: 2, 4: 3}
 ITERS = 3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's CPU torch ops: the suite runs 6
+    xdist workers, and each one's default thread pool (every core)
+    oversubscribes the CPU; at these sizes one thread is as fast alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _flow_config(cls):
     flow = cls()
     flow.raft_params = {"occlusion_module": "separate_with_uncertainty",

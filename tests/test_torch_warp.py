@@ -33,6 +33,17 @@ MODES = {  # port mode -> (JAX dot_dtype, snap)
     "tpu": (jnp.bfloat16, True), "bf16": (jnp.bfloat16, False)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's CPU torch ops: the suite runs 6
+    xdist workers, and each one's default thread pool (every core)
+    oversubscribes the CPU; at these sizes one thread is as fast alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _coords(rng, kind, N, H, W, P=None):
     """(N, P, 2) float32; P < H*W samples the first P grid pixels."""
     P = P or H * W

@@ -20,6 +20,7 @@ from pathlib import Path
 import msgpack
 import numpy as np
 import pytest
+import torch
 from flax import serialization
 
 from mft_tpu.config import Config as JaxConfig, load_config
@@ -30,6 +31,17 @@ from mft_tpu_torch.models.raft.flax_msgpack import loads, read_variables
 
 REPO = Path(__file__).resolve().parents[1]
 WEIGHTS = REPO / "weights" / "raftou_synth.msgpack"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's CPU torch ops: the suite runs 6
+    xdist workers, and each one's default thread pool (every core)
+    oversubscribes the CPU; at these sizes one thread is as fast alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _leaves(tree, path=()):
