@@ -204,7 +204,26 @@ non-zero and prints no result line):
    scenes x 3 frames of 436x1024 (each .flo equal to a direct
    ``compute_flow`` with the same ``init_flow`` chain) and the KITTI writer
    on ``testing/image_2`` with 2 pairs of 375x1242 (each PNG within the
-   1/64 px quantisation of a direct ``compute_flow``), committed weights.
+   1/64 px quantisation of a direct ``compute_flow``), committed weights;
+18. the rest of training: (a) ``train.gen_synth_data`` writes 6 shards of
+   256x320, T = 8, and ``train.train_synth`` trains on them at its defaults
+   (batch 8, 256x320, 12 iterations, bf16 over f32, train-mode batch norm)
+   for 20 steps with a checkpoint, an export and a validation every 10, then
+   ``--resume`` to step 24: finite losses, the resumed step count, launches
+   a step K2 12 and the backward 12 (the validation's 12 K2 counted apart),
+   the export read back bit for bit with the model, ``run_val`` leaving the
+   running statistics as they were; steps/s and the data-wait share; (b)
+   ``python -m mft_tpu_torch.parallel.multicard --ranks 1``: a frozen-BN and
+   a full-recipe step (global batch 8 at 368x768) and streaming 8 clips at
+   512x512 through a mesh of one NCCL rank, bit for bit with one process,
+   launches K2 12 and backward 12 a step, K1 11, K2 1, K3 1 a timestep; (c)
+   ``train.generate_occlusions_ft3d`` on a FlyingThings3D-form pair at
+   540x960 (PFM flows from a seed) on the card against the CPU: a pixel may
+   differ only at the consistency test's margin (``MARGIN_RTOL``); (d)
+   ``train.kubric_longflow.track_scene`` on a MOVi-E-form scene (24 frames,
+   256x256, 10 instances) on the card against the CPU: flows within 1
+   float32 ulp, occlusions equal except at the depth test's margin; the
+   time a pair and a scene printed.
 
 Every bf16 launch of K1, #5, #13, K4 and K5 on the main path, conv_backend
 'pallas', 'alt' and 'win' at 512x512 and 2160x3840, 'auto' at 1080x1920
@@ -3911,6 +3930,294 @@ def run_apps(torch, ops, dev, card):
     return counts
 
 
+# --------------------------------------------------------------------------- #
+# phase 18: the synthetic-shard trainer, the multi-card check, the offline
+# ground-truth generators
+# --------------------------------------------------------------------------- #
+SHARDS, SHARD_T, SHARD_SIZE = 6, 8, (256, 320)   # shards, frames a scene, size
+SYNTH_STEPS, SYNTH_SAVE, SYNTH_RESUMED = 20, 10, 24
+FT3D_SIZE = (540, 960)                           # FlyingThings3D's frame size
+MOVI_T, MOVI_SIZE, MOVI_K = 24, (256, 256), 10   # a MOVi-E scene: frames, size, instances
+# phases 18c and 18d's stated tolerance: the generators' float64 operations are
+# the CPU's one for one (no fused kernel), so equal results are expected; an
+# occlusion bit may differ only where the test's two sides lie within this
+# relative distance on the CPU, flows within 1 float32 ulp
+MARGIN_RTOL = 1e-9
+
+
+def synth_step_counts(ops, k, val_after):
+    """Launches in on_step's window of step k: 12 K2 and 12 backward, and
+    12 more K2 where the validation of step k - 1 ran before it."""
+    extra = TRAIN_ITERS if k - 1 in val_after else 0
+    return expected_counts(ops, corr_lookup=TRAIN_ITERS + extra, corr_lookup_bwd=TRAIN_ITERS)
+
+
+def run_synth_training(torch, ops, dev, card, tmp):
+    """18a: 6 shards through ``gen_synth_data``, then ``train_synth`` at its
+    defaults for SYNTH_STEPS steps with a checkpoint every SYNTH_SAVE, then
+    ``--resume`` to SYNTH_RESUMED. Gates: the shard count, finite losses,
+    the resumed step count, launches a step, the export bit for bit with the
+    model, the validation leaving the running statistics as they were.
+    returns the K2 and backward launches of the steps, validation aside."""
+    from pathlib import Path
+    from mft_tpu_torch.models.raft.wrapper import load_weights
+    from mft_tpu_torch.train import gen_synth_data, train_synth
+    t0 = time.perf_counter()
+    pairs = gen_synth_data.generate(tmp / "shards", SHARD_SIZE, SHARD_T,
+                                    count=SHARDS * (SHARD_T - 1), log=lambda msg: None)
+    check(pairs == SHARDS * (SHARD_T - 1) and len(list((tmp / "shards").glob("shard_*.npz")))
+          == SHARDS, f"synth shards: {pairs} pairs")
+    log(f"18a: {SHARDS} shards of {SHARD_SIZE[0]}x{SHARD_SIZE[1]}, T = {SHARD_T} "
+        f"(gen_synth_data) in {time.perf_counter() - t0:.2f} s")
+    base = ["--data", str(tmp / "shards"), "--save_every", str(SYNTH_SAVE), "--log_every",
+            str(SYNTH_SAVE), "--out", str(tmp / "synth_run"), "--export",
+            str(tmp / "synth.msgpack")]
+    runs = {}
+    for label, extra in (("first", ["--steps", str(SYNTH_STEPS)]),
+                         ("resumed", ["--steps", str(SYNTH_RESUMED), "--resume"])):
+        counts, losses = [], []
+
+        def on_step(state, metrics):
+            counts.append(ops.launch_counts())
+            ops.reset_launch_counts()
+            losses.append(metrics["train/loss"].detach())
+
+        args = train_synth.get_parser().parse_args(base + extra)
+        check(args.batch == 8 and tuple(args.size) == SHARD_SIZE and args.iters == TRAIN_ITERS,
+              "train_synth's defaults moved")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        res = train_synth.train(args, on_step=on_step)
+        res.update(losses=[float(v) for v in losses], counts=counts,
+                   peak=torch.cuda.max_memory_allocated() / 2**30)
+        runs[label] = res
+    first, resumed = runs["first"], runs["resumed"]
+    check(first["state"]["step"] == SYNTH_STEPS and len(first["counts"]) == SYNTH_STEPS,
+          f"synth training took {first['state']['step']} steps")
+    check(resumed["state"]["step"] == SYNTH_RESUMED
+          and resumed["steps"] == SYNTH_RESUMED - SYNTH_STEPS,
+          f"resume: at step {resumed['state']['step']} after {resumed['steps']} steps")
+    steps = {"corr_lookup": 0, "corr_lookup_bwd": 0}
+    for label, res in runs.items():
+        check(all(math.isfinite(v) for v in res["losses"]), f"synth {label}: non-finite loss")
+        val_after = set(range(SYNTH_SAVE, SYNTH_RESUMED + 1, SYNTH_SAVE)) if label == "first" \
+            else set()
+        start = res["state"]["step"] - res["steps"]
+        for k, c in enumerate(res["counts"], start=start + 1):
+            want = synth_step_counts(ops, k, val_after)
+            check(c == want, f"synth {label} step {k}: launches {c} != {want}")
+            for name in steps:   # the step's own, the validation's aside
+                steps[name] += c[name] - (want[name] - TRAIN_ITERS)
+    model = resumed["state"]["model"]
+    saved = load_weights(Path(tmp / "synth.msgpack"))
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    same = sum(torch.equal(saved[k], state[k]) for k in state)
+    check(saved.keys() == state.keys() and same == len(state),
+          f"the export differs from the model: {same} of {len(state)} tensors equal")
+    vbatch = train_synth.fixed_val_batch(*SHARD_SIZE)
+    before = {k: v.clone() for k, v in model.named_buffers()}
+    val = train_synth.run_val(model, vbatch, TRAIN_ITERS)
+    kept = all(torch.equal(v, before[k]) for k, v in model.named_buffers())
+    check(kept and all(math.isfinite(v) for v in val.values()),
+          f"run_val: statistics kept {kept}, figures {val}")
+    for label, res in runs.items():
+        log(f"18a synth trainer, {label} run (batch 8 at {SHARD_SIZE[0]}x{SHARD_SIZE[1]}, "
+            f"{TRAIN_ITERS} iterations, bf16 over f32, train-mode batch norm): {res['steps']} "
+            f"steps to step {res['state']['step']}, losses "
+            f"{', '.join(f'{v:.3f}' for v in res['losses'])}; "
+            f"{res['steps'] / res['seconds']:.3f} steps/s over {res['seconds']:.2f} s "
+            f"(checkpoints, exports and validations inside it included), data-wait share "
+            f"{res['data_wait'] / res['seconds']:.1%}; peak device memory {res['peak']:.2f} GiB; "
+            f"launches a step K2 {TRAIN_ITERS}, backward {TRAIN_ITERS} (+{TRAIN_ITERS} K2 after "
+            f"a validation) [{card}]")
+    log(f"18a: resumed at step {SYNTH_STEPS}, ended at {SYNTH_RESUMED}; the export equals the "
+        f"model in {same} of {len(state)} tensors; run_val kept the running statistics "
+        f"({kept}): {', '.join(f'{k} {v:.4f}' for k, v in val.items())}")
+    return steps
+
+
+def run_multicard_one(torch, card):
+    """18b: ``python -m mft_tpu_torch.parallel.multicard --ranks 1``: the
+    mesh of one NCCL rank against one process, bit for bit (the full recipe
+    with batch statistics included), its launches. returns its summary."""
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, "-m", "mft_tpu_torch.parallel.multicard",
+                           "--ranks", "1"], cwd=HERE, capture_output=True, text=True,
+                          timeout=900)
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        if line.startswith("multicard:"):
+            log("18b " + line)
+    check(proc.returncode == 0, f"multicard --ranks 1 exited {proc.returncode}: "
+          f"{proc.stdout[-3000:]} {proc.stderr[-3000:]}")
+    summary = json.loads(next(x for x in lines if x.startswith("MULTICARD "))[len("MULTICARD "):])
+    for recipe in ("frozen", "full"):
+        got = {k: v for k, v in summary[recipe]["launches"].items() if v}
+        check(summary[recipe]["bit_for_bit"] and got == {"corr_lookup": TRAIN_ITERS,
+                                                         "corr_lookup_bwd": TRAIN_ITERS},
+              f"multicard {recipe}: {summary[recipe]}")
+    got = {k: v for k, v in summary["stream"]["launches"].items() if v}
+    check(summary["stream"]["bit_for_bit"] and got == {"corr_lookup_fused": 11,
+                                                       "corr_lookup": 1, "chain_select": 1},
+          f"multicard streaming: {summary['stream']}")
+    return summary
+
+
+def fb_flows(np, rng, H, W):
+    """A forward flow of a few px (leaving the frame at the right border)
+    and a backward flow that undoes it, except in a block: float32."""
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float64)
+    fwd = np.stack([2.5 + 3 * np.sin(ys / 37) + xs / W * 6, 1.5 * np.cos(xs / 41)], -1)
+    fwd += rng.normal(scale=0.2, size=(H, W, 2))
+    bwd = -fwd + rng.normal(scale=0.3, size=(H, W, 2))
+    h, w = H // 4, W // 4
+    bwd[h:2 * h, w:2 * w] += rng.normal(scale=4.0, size=(h, w, 2))
+    return fwd.astype(np.float32), bwd.astype(np.float32)
+
+
+def run_occlusion_generator(torch, dev, card, tmp):
+    """18c: ``generate_occlusions_ft3d.process_pair_dir`` on the card on one
+    FlyingThings3D-form pair at 540x960 (PFM flows from a seed), against the
+    same maps on the CPU: a pixel may differ only at the threshold's margin."""
+    import numpy as np
+    from mft_tpu_torch.io.png import decode_png
+    from mft_tpu_torch.train import generate_occlusions_ft3d as occ
+    from mft_tpu_torch.train.flow_readers import write_pfm
+    H, W = FT3D_SIZE
+    fwd, bwd = fb_flows(np, np.random.default_rng(18), H, W)
+    dirs = {d: tmp / "ft3d" / d for d in ("fwd", "bwd", "occ_fwd", "occ_bwd")}
+    for d in ("fwd", "bwd"):
+        dirs[d].mkdir(parents=True)
+    zero = np.zeros((H, W, 1), np.float32)
+    for i in range(2):   # frames 6 and 7: into_future 6 pairs with into_past 7
+        write_pfm(dirs["fwd"] / f"OpticalFlowIntoFuture_{6 + i:04d}_L.pfm",
+                  np.concatenate([fwd if i == 0 else -bwd, zero], -1))
+        write_pfm(dirs["bwd"] / f"OpticalFlowIntoPast_{6 + i:04d}_L.pfm",
+                  np.concatenate([-fwd if i == 0 else bwd, zero], -1))
+    occ.process_pair_dir(dirs["fwd"], dirs["bwd"], dirs["occ_fwd"], dirs["occ_bwd"], device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = occ.process_pair_dir(dirs["fwd"], dirs["bwd"], dirs["occ_fwd"], dirs["occ_bwd"],
+                             device=dev)
+    pair_s = time.perf_counter() - t0
+    check(n == 1, f"18c: {n} pairs")
+    differ = margin = 0
+    shares = []
+    for f, b, out in ((fwd, bwd, dirs["occ_fwd"] / "OpticalFlowIntoFuture_0006_L.png"),
+                      (bwd, fwd, dirs["occ_bwd"] / "OpticalFlowIntoPast_0007_L.png")):
+        card_map = decode_png(out.read_bytes()) > 127
+        terms = [occ.occlusion_terms(torch.from_numpy(f).to(d), torch.from_numpy(b).to(d))
+                 for d in (dev, torch.device("cpu"))]
+        (rt_c, rhs_c, out_c), (rt, rhs, oof) = [[t.cpu() for t in ts] for ts in terms]
+        cpu_map = ((rt > rhs) | oof).numpy()
+        card_terms = ((rt_c > rhs_c) | out_c).numpy()
+        check(np.array_equal(card_map, card_terms), "18c: the PNG is not the card's map")
+        diff = card_map != cpu_map
+        near = ((rt - rhs).abs() <= MARGIN_RTOL * rhs.abs()).numpy()
+        differ += int(diff.sum())
+        margin += int((diff & near).sum())
+        check(not (diff & ~near).any(), f"18c: {int((diff & ~near).sum())} pixels differ "
+              "from the CPU's off the threshold's margin")
+        shares.append(float(cpu_map.mean()))
+    t0 = time.perf_counter()
+    for _ in range(3):
+        occ.occlusion_terms(torch.from_numpy(fwd).to(dev), torch.from_numpy(bwd).to(dev))
+    torch.cuda.synchronize()
+    test_ms = 1e3 * (time.perf_counter() - t0) / 3
+    log(f"18c occlusion generator, one FlyingThings3D-form pair at {H}x{W} on the card: "
+        f"{differ} pixels differ from the CPU's maps, {margin} of them at the threshold's "
+        f"margin ({MARGIN_RTOL:g} relative); occluded shares {shares[0]:.3f} / "
+        f"{shares[1]:.3f}; {pair_s:.3f} s a pair "
+        f"(two PFM reads, two maps, two PNG writes), {test_ms:.2f} ms a map's test with its "
+        f"upload [{card}]")
+    return differ
+
+
+def movi_scene(np, rng, T, size, K):
+    """A MOVi-E-form scene: smooth depth, K rectangular instances over the
+    background, a camera moving a little, each instance under its own rigid
+    motion."""
+    H, W = size
+
+    def quats(n, spread):
+        q = rng.normal(scale=spread, size=(n, 4))
+        q[:, 0] += 1.0
+        return (q / np.linalg.norm(q, axis=-1, keepdims=True)).astype(np.float32)
+
+    ys, xs = np.mgrid[0:H, 0:W]
+    depth = np.empty((T, H, W), np.float32)
+    seg = np.zeros((T, H, W), np.int32)
+    for t in range(T):
+        depth[t] = 6.0 + np.sin(xs / 37.0 + t / 5) + 0.5 * np.cos(ys / 29.0)
+        for k in range(K):
+            y0, x0 = rng.integers(0, H - H // 5), rng.integers(0, W - W // 4)
+            seg[t, y0:y0 + H // 5, x0:x0 + W // 4] = k + 1
+            depth[t, y0:y0 + H // 5, x0:x0 + W // 4] = 2.0 + 0.3 * k
+    return {"depth": depth, "segmentation": seg,
+            "camera": {"focal_length": np.float32(35.0), "sensor_width": np.float32(32.0),
+                       "positions": np.cumsum(rng.normal(scale=0.03, size=(T, 3)),
+                                              0).astype(np.float32),
+                       "quaternions": quats(T, 0.01)},
+            "instances": {"positions": np.cumsum(rng.normal(scale=0.05, size=(K, T, 3)),
+                                                 1).astype(np.float32),
+                          "quaternions": quats(K * T, 0.05).reshape(K, T, 4)}}
+
+
+def run_kubric_generator(torch, dev, card):
+    """18d: ``kubric_longflow.track_scene`` on the card on a MOVi-E-form
+    scene (24 frames, 256x256, 10 instances) against the CPU: flows within 1
+    float32 ulp, occlusions equal except at the depth test's margin."""
+    import numpy as np
+    from mft_tpu_torch.train import kubric_longflow as kub
+    scene = movi_scene(np, np.random.default_rng(19), MOVI_T, MOVI_SIZE, MOVI_K)
+    kub.track_scene(scene, device=dev)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_res = [t.cpu() for t in kub.track_terms(scene, device=dev)]
+    scene_s = time.perf_counter() - t0
+    flows_c, occl_c, marker_c, z_c, lim_c = card_res
+    flows, occl, marker, z, lim = kub.track_terms(scene, device="cpu")
+    a, b = flows.numpy(), flows_c.numpy()
+    ulp = np.spacing(np.maximum(np.abs(a), np.abs(b)))
+    flow_off = int((np.abs(a - b) > ulp).sum())
+    flow_equal = int((a == b).sum())
+    diff = (occl != occl_c).numpy()
+    near = (((z - lim).abs() <= MARGIN_RTOL * lim.abs()) | (z.isnan() != z_c.isnan())).numpy()
+    log(f"18d Kubric generator, a MOVi-E-form scene of {MOVI_T} frames at {MOVI_SIZE[0]}x"
+        f"{MOVI_SIZE[1]}, {MOVI_K} instances, on the card: flows beyond 1 float32 ulp of the "
+        f"CPU's {flow_off} ({flow_equal} of {a.size} equal); occlusions differing {int(diff.sum())}"
+        f", {int((diff & near).sum())} of them at the margin; occluded share "
+        f"{float(occl[1:].mean()):.3f}; {scene_s:.3f} s a scene [{card}]")
+    check(flow_off == 0, "18d: flows beyond 1 ulp of the CPU's")
+    check(torch.equal(marker, marker_c) and not (diff & ~near).any(),
+          "18d: occlusions differ from the CPU's off the margin")
+    return int(diff.sum())
+
+
+def run_generators_and_trainer(torch, ops, dev, card):
+    """Phase 18: the synthetic-shard trainer (a), the multi-card check on
+    one card (b), the occlusion generator (c) and the Kubric generator (d).
+    returns the trainer's launches."""
+    import tempfile
+    from pathlib import Path
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        t0 = time.perf_counter()
+        launches = run_synth_training(torch, ops, dev, card, tmp)
+        log(f"phase 18a seconds {time.perf_counter() - t0:.2f}")
+        t0 = time.perf_counter()
+        run_multicard_one(torch, card)
+        log(f"phase 18b seconds {time.perf_counter() - t0:.2f}")
+        t0 = time.perf_counter()
+        run_occlusion_generator(torch, dev, card, tmp)
+        log(f"phase 18c seconds {time.perf_counter() - t0:.2f}")
+        t0 = time.perf_counter()
+        run_kubric_generator(torch, dev, card)
+        log(f"phase 18d seconds {time.perf_counter() - t0:.2f}")
+    return launches
+
+
 def main() -> int:
     # a hang exits non-zero with a traceback instead of running out the clock
     faulthandler.dump_traceback_later(900, exit=True)
@@ -4028,6 +4335,9 @@ def run() -> int:
         t = time.perf_counter()
         demo_counts = run_apps(torch, ops, dev, card)
         log(f"phase 17 seconds {time.perf_counter() - t:.2f}")
+        t = time.perf_counter()
+        synth_counts = run_generators_and_trainer(torch, ops, dev, card)
+        log(f"phase 18 seconds {time.perf_counter() - t:.2f}")
         for stats in (*lk.values(), cs, *fk.values(), *vk.values(), *fo.values(), cv,
                       *wk.values(), *bw.values(), *var["k2"].values(), *var["bwd"].values(),
                       *var["fk"].values()):
@@ -4129,6 +4439,10 @@ def run() -> int:
     for k in kernels:   # the demo's 12 frames (phase 17a): 11 tracked, 12 conversions
         if k["name"] in ("corr_lookup_fused", "corr_lookup", "chain_select", "bilinear_warp"):
             k["launches_demo"] = demo_counts[k["name"]]
+    # the synthetic-shard trainer's steps (phase 18a, 24 steps, validation aside)
+    for k in kernels:
+        if k["name"] in synth_counts:
+            k["launches_synth_train"] = synth_counts[k["name"]]
     log(f"total seconds {time.perf_counter() - t_all:.2f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

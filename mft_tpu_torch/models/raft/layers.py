@@ -6,7 +6,8 @@ Port of ``mft_tpu/models/raft/layers.py`` (reference extractor.py):
   flax's ``nn.BatchNorm(use_running_average=False, momentum=0.9)``: the
   batch's mean and biased variance over (N, H, W), the variance as
   E[x^2] - E[x]^2 clipped at 0 (flax's fast variance), and the running
-  statistics updated to 0.9 * running + 0.1 * batch;
+  statistics updated to 0.9 * running + 0.1 * batch; under a data-parallel
+  step the batch is the global one (``BatchNorm.mesh``);
 - both norms compute in float32 and return the input dtype, so under a bf16
   compute dtype the convolutions run in bf16 and the statistics in f32, as
   the JAX package does;
@@ -44,7 +45,13 @@ class InstanceNorm(nn.Module):
 class BatchNorm(nn.Module):
     """Batch norm with float32 parameters and statistics: the running
     statistics unless ``use_batch_stats``, else the batch's, which also
-    update the running ones (flax ``nn.BatchNorm`` with momentum 0.9)."""
+    update the running ones (flax ``nn.BatchNorm`` with momentum 0.9).
+
+    ``mesh`` (set by the data-parallel train step for its forward only): the
+    batch is this rank's equal slice of a global batch, and the statistics
+    are the global batch's, E[x] and E[x^2] of the slices averaged over the
+    mesh's ``"data"`` axis in one differentiable all-reduce; the running
+    statistics then move alike on every rank."""
 
     MOMENTUM = 0.9
 
@@ -52,6 +59,7 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.eps = eps
         self.use_batch_stats = False
+        self.mesh = None
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -61,7 +69,11 @@ class BatchNorm(nn.Module):
         x32 = x.float()
         if self.use_batch_stats:
             mean = x32.mean(dim=(0, 2, 3))
-            var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            mean_sq = (x32 * x32).mean(dim=(0, 2, 3))
+            if self.mesh is not None:
+                from mft_tpu_torch.parallel.mesh import axis_mean
+                mean, mean_sq = axis_mean(torch.stack([mean, mean_sq]), self.mesh).unbind()
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.MOMENTUM
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)

@@ -16,7 +16,10 @@ same layout is made per process:
 - :func:`shard_batch_fn` wraps a train step: the state replicated on the
   first call, each batch leaf sliced; the step itself all-reduces the
   gradients (``train/loop.py make_train_step(mesh=)``), which XLA does in
-  JAX.
+  JAX;
+- :func:`axis_mean`, a differentiable mean over the ranks: a train-mode
+  batch norm takes its statistics over the global batch through it, as
+  XLA reduces over the whole sharded array in JAX.
 
 The caller starts the process group, e.g. ``torchrun`` or
 ``torch.distributed.init_process_group("nccl", init_method="tcp://localhost:<port>",
@@ -122,6 +125,35 @@ def all_reduce_sum(tensors, mesh: DeviceMesh, axis: str = "data"):
     """Each tensor replaced in place by its sum over ``axis``'s ranks: one
     all-reduce of a flat buffer per dtype (integer counts stay exact)."""
     return _all_reduce(tensors, mesh, axis, mean=False)
+
+
+class _AxisMean(torch.autograd.Function):
+    """The mean over an axis's ranks, differentiable: forward the flat
+    all-reduce of :func:`all_reduce_mean` on a copy; backward the same mean
+    of the incoming gradient. Every rank's loss reaches every rank's
+    contribution to the mean, so each rank sends back the ranks' summed
+    gradients over w; once the step averages the parameter gradients over
+    the axis, they are the gradients of the ranks' mean loss."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        out = x.clone(memory_format=torch.contiguous_format)
+        all_reduce_mean([out], mesh, axis)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        all_reduce_mean([grad], ctx.mesh, ctx.axis)
+        return grad, None, None
+
+
+def axis_mean(x: torch.Tensor, mesh: DeviceMesh, axis: str = "data") -> torch.Tensor:
+    """A new tensor, the mean of ``x`` over ``axis``'s ranks, through which
+    gradients flow (one all-reduce forward and one backward; at size 1 the
+    values are ``x``'s bits). Every rank calls it in the same order."""
+    return _AxisMean.apply(x, mesh, axis)
 
 
 def _state_tensors(tree):

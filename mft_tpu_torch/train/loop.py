@@ -32,6 +32,7 @@ from pathlib import Path
 import torch
 
 from mft_tpu_torch.core.device import resolve_device
+from mft_tpu_torch.models.raft.layers import BatchNorm
 from mft_tpu_torch.models.raft.raft import RAFT, RAFTParams
 from mft_tpu_torch.train.losses import (FLOW_RATIOS, MAX_FLOW, flow_metric_sums,
                                         sequence_loss)
@@ -64,17 +65,16 @@ def make_train_step(model, tx, loss_kwargs, iters=12, plain=False, mesh=None):
     (``losses.FLOW_RATIOS``) are ratios over the valid pixels, whose count
     differs between slices: their sums and the count are summed over the
     axis and divided once, JAX's ``vmean`` over the global batch. A model
-    that normalises with batch statistics (``train_mode=True``) would take
-    them over each rank's slice, not over the global batch as JAX does:
-    with more than one rank it raises ``NotImplementedError``.
+    that normalises with batch statistics (``train_mode=True``) takes them
+    over the global batch, as JAX's sharded step does: for the step's
+    forward each such ``BatchNorm`` gets the mesh (``BatchNorm.mesh``) and
+    averages its slice's E[x] and E[x^2] over the axis, one differentiable
+    all-reduce a layer and direction; validation and tracking, outside the
+    step, never reach a collective. With one rank the step is bit for bit
+    the step without a mesh.
     """
     if mesh is not None:
-        from mft_tpu_torch.parallel.mesh import (all_reduce_mean, all_reduce_sum, axis_size,
-                                                 shard_batch_fn)
-        if getattr(model, "train_mode", False) and axis_size(mesh) > 1:
-            raise NotImplementedError(
-                "batch statistics over the global batch are not ported: with more than "
-                "one rank, train the frozen-BN model (train_mode=False)")
+        from mft_tpu_torch.parallel.mesh import all_reduce_mean, all_reduce_sum, shard_batch_fn
 
     def step(state, batch):
         m = state["model"]
@@ -82,8 +82,16 @@ def make_train_step(model, tx, loss_kwargs, iters=12, plain=False, mesh=None):
         params = dict(m.named_parameters())
         for p in params.values():
             p.grad = None
-        preds = m(img1.permute(0, 3, 1, 2), img2.permute(0, 3, 1, 2), iters=iters,
-                  test_mode=False, plain=plain)
+        norms = [] if mesh is None else [b for b in m.modules()
+                                         if isinstance(b, BatchNorm) and b.use_batch_stats]
+        for b in norms:
+            b.mesh = mesh
+        try:
+            preds = m(img1.permute(0, 3, 1, 2), img2.permute(0, 3, 1, 2), iters=iters,
+                      test_mode=False, plain=plain)
+        finally:
+            for b in norms:
+                b.mesh = None
         loss, metrics = sequence_loss(preds, flow_gt, valid, occl_gt=occl_gt, **loss_kwargs)
         loss.backward()
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)

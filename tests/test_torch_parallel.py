@@ -11,11 +11,15 @@ One gloo run of 2 processes (this file run as a script, one rank each,
   which the first call's broadcast must replace with rank 0's; the last
   sample keeps a quarter of its valid pixels, so the ranks' valid counts
   differ (the flow metrics are ratios over them);
+- takes one step of the full recipe on the same batch (``RAFT(train_mode=
+  True)``: the context encoder's batch norms take their statistics over
+  the global batch through the mesh), rank 1 again from other weights;
 - tracks 2 clips of 64x64 for 2 timesteps with ``StreamingTracker(mesh=)``,
   one clip a rank.
 
-Rank 0 then takes the same step in one process on the whole batch, and
-tracks the 2 clips in one process. The ranks write their numbers to files
+Rank 0 then takes the same steps in one process on the whole batch, tracks
+the 2 clips in one process, and takes the full-recipe step once more through
+the mesh of a gloo group of one rank. The ranks write their numbers to files
 that the test compares.
 """
 
@@ -36,20 +40,25 @@ CLIPS, STEPS, CH, CW = 2, 2, 64, 64
 # conv biases that an instance norm follows (the feature encoder): their
 # gradient is zero in exact arithmetic, rounding noise in both steps
 BEFORE_NORM = re.compile(r"^fnet\.(conv1|layer\d_\d\.(conv1|conv2|downsample_conv))\.bias$")
+# in the full recipe the context encoder's batch norms take batch
+# statistics, which take the mean out of their convs' biases too
+BEFORE_BATCH_NORM = re.compile(
+    r"^(fnet|cnet)\.(conv1|layer\d_\d\.(conv1|conv2|downsample_conv))\.bias$")
 LOSS_KW = dict(gamma=0.85, freeze_optical_flow=False,
                occlusion_module="separate_with_uncertainty",
                uncertainty_loss_type="huber_non_occluded", optical_flow_loss_type="L1",
                weighting_unc_loss=False)
 
 
-def _state(seed):
-    """A frozen-BN model (batch norm on running statistics), all parameters
-    trained, random weights from ``seed``; its optimizer."""
+def _state(seed, train_mode=False):
+    """A frozen-BN model (batch norm on running statistics; ``train_mode``:
+    on batch statistics), all parameters trained, random weights from
+    ``seed``; its optimizer."""
     from mft_tpu_torch.models.raft import RAFT
     from mft_tpu_torch.models.raft.raft import RAFTParams
     from mft_tpu_torch.train.loop import build_state
     from mft_tpu_torch.train.optim import make_optimizer
-    model = RAFT(RAFTParams(compute_dtype="float32"), train_mode=False)
+    model = RAFT(RAFTParams(compute_dtype="float32"), train_mode=train_mode)
     tx, _ = make_optimizer(lr=1e-4, num_steps=10)
     return build_state(model, tx, seed=seed), tx
 
@@ -68,11 +77,12 @@ def _batch():
                  for b in (img1, img2, flow, valid, occl))
 
 
-def _step(mesh, seed):
+def _step(mesh, seed, train_mode=False):
     """One train step; returns (loss, {name: gradient}, {name: parameter},
-    the flow metrics (4,), the forward's predictions {key: (ITERS, ...)})."""
+    the flow metrics (4,), the forward's predictions {key: (ITERS, ...)},
+    {name: running statistic})."""
     from mft_tpu_torch.train.loop import make_train_step
-    state, tx = _state(seed)
+    state, tx = _state(seed, train_mode)
     model = state["model"]
     preds = {}
     hook = model.register_forward_hook(lambda m, args, out: preds.update(
@@ -85,7 +95,15 @@ def _step(mesh, seed):
              for n, p in model.named_parameters()}
     params = {n: p.detach().numpy().copy() for n, p in model.named_parameters()}
     ratios = np.array([float(metrics[k]) for k in FLOW_RATIOS])
-    return float(metrics["train/loss"]), grads, params, ratios, preds
+    stats = {n: b.numpy().copy() for n, b in model.named_buffers()}
+    return float(metrics["train/loss"]), grads, params, ratios, preds, stats
+
+
+def _put(res, prefix, loss, grads, params, stats):
+    res[f"{prefix}_loss"] = np.float64(loss)
+    res.update({f"{prefix}_grad/{n}": g for n, g in grads.items()})
+    res.update({f"{prefix}_param/{n}": p for n, p in params.items()})
+    res.update({f"{prefix}_stat/{n}": b for n, b in stats.items()})
 
 
 def _stream_config():
@@ -125,19 +143,20 @@ def _stream(n_clips, mesh=None, clip=None):
 def worker(rank: int, port: int, out: str):
     import torch.distributed as dist
     from mft_tpu_torch.parallel import StreamingTracker, make_mesh
-    from mft_tpu_torch.models.raft import RAFT
-    from mft_tpu_torch.train.loop import make_train_step
     torch.set_num_threads(1)   # two ranks beside the suite's other workers
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2,
                             rank=rank)
     try:
         mesh = make_mesh()
         res = {}
-        loss, grads, params, ratios, _ = _step(mesh, seed=1234 if rank == 0 else 99)
+        loss, grads, params, ratios, _, _ = _step(mesh, seed=1234 if rank == 0 else 99)
         res["dp_loss"] = np.float64(loss)
         res["dp_ratios"] = ratios
         res.update({f"dp_grad/{n}": g for n, g in grads.items()})
         res.update({f"dp_param/{n}": p for n, p in params.items()})
+        loss, grads, params, _, _, stats = _step(mesh, seed=1234 if rank == 0 else 99,
+                                                 train_mode=True)
+        _put(res, "bn_dp", loss, grads, params, stats)
         for k, x in enumerate(_stream(CLIPS, mesh=mesh)):
             res[f"stream_mesh/{k}"] = x
         for k, x in enumerate(_stream(1, clip=rank)):
@@ -147,16 +166,12 @@ def worker(rank: int, port: int, out: str):
             StreamingTracker(_stream_config(), n_clips=3, mesh=mesh, device="cpu")
         except ValueError as e:
             errors.append(f"ValueError {e}")
-        try:
-            make_train_step(RAFT(train_mode=True), None, LOSS_KW, mesh=mesh)
-        except NotImplementedError as e:
-            errors.append(f"NotImplementedError {e}")
         res["errors"] = np.array(errors)
         dist.barrier()
     finally:
         dist.destroy_process_group()
     if rank == 0:   # the references, in one process
-        loss, grads, params, ratios, preds = _step(None, seed=1234)
+        loss, grads, params, ratios, preds, _ = _step(None, seed=1234)
         res["one_loss"] = np.float64(loss)
         res["one_ratios"] = ratios
         res.update({f"one_pred/{k}": v for k, v in preds.items()})
@@ -164,6 +179,16 @@ def worker(rank: int, port: int, out: str):
         res.update({f"one_param/{n}": p for n, p in params.items()})
         for k, x in enumerate(_stream(CLIPS)):
             res[f"stream_one/{k}"] = x
+        loss, grads, params, _, _, stats = _step(None, seed=1234, train_mode=True)
+        _put(res, "bn_one", loss, grads, params, stats)
+        # the full-recipe step through the mesh of a group of one rank
+        dist.init_process_group("gloo", init_method=f"file://{out}.store", world_size=1,
+                                rank=0)
+        try:
+            loss, grads, params, _, _, stats = _step(make_mesh(), seed=1234, train_mode=True)
+        finally:
+            dist.destroy_process_group()
+        _put(res, "bn_rank1", loss, grads, params, stats)
     np.savez(out, **res)
 
 
@@ -264,12 +289,95 @@ def test_streaming_over_mesh_matches_one_process(ranks):
 
 
 def test_mesh_errors(ranks):
-    """3 clips over 2 ranks and a batch-statistics model over 2 ranks raise."""
+    """3 clips over 2 ranks raise (a batch-statistics model over 2 ranks no
+    longer does: test_dp_train_mode_step_matches_one_process_step)."""
     for res in ranks:
         errors = list(res["errors"])
-        assert len(errors) == 2, errors
+        assert len(errors) == 1, errors
         assert errors[0].startswith("ValueError") and "split evenly" in errors[0]
-        assert errors[1].startswith("NotImplementedError")
+
+
+def _names(res, prefix, kind):
+    head = f"{prefix}_{kind}/"
+    return [k[len(head):] for k in res if k.startswith(head)]
+
+
+def test_dp_train_mode_step_matches_one_process_step(ranks):
+    """The full recipe (batch statistics) on 2 ranks against one process on
+    the whole batch from the same weights, at the tolerances of
+    test_dp_step_matches_one_process_step: the loss within 1e-6 relative,
+    each gradient within 1e-5 of its tensor's largest |gradient| (the biases
+    that a norm follows, zero in exact arithmetic, within 1e-5 of their conv
+    weight's largest), every running_mean and running_var within 1e-6 of its
+    tensor's largest |value|; gradients, parameters and statistics equal on both ranks (rank
+    1 started from other weights and statistics)."""
+    r0, r1 = ranks
+    one, dp = float(r0["bn_one_loss"]), float(r0["bn_dp_loss"])
+    assert abs(dp - one) <= 1e-6 * abs(one), (dp, one)
+    assert float(r1["bn_dp_loss"]) == dp
+    names = _names(r0, "bn_one", "grad")
+    assert len(names) > 100
+    for n in names:
+        want, got = r0[f"bn_one_grad/{n}"], r0[f"bn_dp_grad/{n}"]
+        if BEFORE_BATCH_NORM.match(n):
+            scale = float(np.abs(r0[f"bn_one_grad/{n[:-len('bias')]}weight"]).max())
+            assert float(np.abs(got).max()) <= 1e-5 * scale, n
+            assert float(np.abs(want).max()) <= 1e-5 * scale, n
+        else:
+            scale = max(float(np.abs(want).max()), 1e-30)
+            assert float(np.abs(got - want).max()) <= 1e-5 * scale, n
+        np.testing.assert_array_equal(r1[f"bn_dp_grad/{n}"], got, err_msg=n)
+        np.testing.assert_array_equal(r1[f"bn_dp_param/{n}"], r0[f"bn_dp_param/{n}"],
+                                      err_msg=n)
+    stats = _names(r0, "bn_one", "stat")
+    assert len(stats) == 2 * 15 and all(n.startswith("cnet.") for n in stats), stats
+    for n in stats:
+        want, got = r0[f"bn_one_stat/{n}"], r0[f"bn_dp_stat/{n}"]
+        init = 0.0 if n.endswith("running_mean") else 1.0
+        assert (want != init).all(), n   # the step moved them
+        # relative to the tensor's largest |value|: a channel whose mean
+        # nearly cancels carries the rounding of the larger sums it came from
+        assert float(np.abs(got - want).max()) <= 1e-6 * float(np.abs(want).max()), n
+        np.testing.assert_array_equal(r1[f"bn_dp_stat/{n}"], got, err_msg=n)
+
+
+def test_one_rank_mesh_step_is_the_step_without_one(ranks):
+    """The full-recipe step through the mesh of a gloo group of one rank is
+    bit for bit the step with no mesh: loss, every gradient, parameter and
+    running statistic."""
+    r0 = ranks[0]
+    assert r0["bn_rank1_loss"] == r0["bn_one_loss"]
+    for kind in ("grad", "param", "stat"):
+        names = _names(r0, "bn_one", kind)
+        assert names and names == _names(r0, "bn_rank1", kind)
+        for n in names:
+            np.testing.assert_array_equal(r0[f"bn_rank1_{kind}/{n}"], r0[f"bn_one_{kind}/{n}"],
+                                          err_msg=n)
+
+
+def test_multicard_check_on_the_cpu():
+    """``python -m mft_tpu_torch.parallel.multicard --device cpu --ranks 2``
+    at a small size (global batch 8 at 64x96, 2 iterations, 8 clips of
+    64x64 for 1 timestep): exits 0 with every check met, both ranks hold
+    the same parameters and statistics after each recipe's steps, and its
+    summary line reports the gaps to one process within ``GAP_LIMITS``."""
+    import json
+    from mft_tpu_torch.parallel.multicard import GAP_LIMITS
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-m", "mft_tpu_torch.parallel.multicard",
+                           "--device", "cpu", "--ranks", "2", "--size", "64", "96", "--iters",
+                           "2", "--stream_size", "64", "--timesteps", "1"], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    line = next(x for x in proc.stdout.splitlines() if x.startswith("MULTICARD "))
+    summary = json.loads(line[len("MULTICARD "):])
+    assert summary["ok"] and summary["ranks"] == 2 and summary["device"] == "cpu"
+    for recipe in ("frozen", "full"):
+        res = summary[recipe]
+        assert res["same_on_every_rank"], recipe
+        assert res["loss_gap"] <= GAP_LIMITS["loss"] and res["grad_l2"] <= GAP_LIMITS["grad_l2"]
+    assert np.isfinite(summary["stream"]["gap_max"])
+    assert sum("multicard:" in x for x in proc.stdout.splitlines()) == 5
 
 
 if __name__ == "__main__":
