@@ -190,14 +190,14 @@ non-zero and prints no result line):
    both timed.
 17. the demo apps and the submission writers: (a) ``apps.demo.run`` on 12
    frames of the synthetic clip written as PNGs, ``synth`` (the committed
-   weights), grid spacing 30: 12 PNGs in each output directory, each
-   512x512x3; launches K1 11, K2 1, K3 1 a tracked frame and the warp 1 a
+   weights), grid spacing 30: 12 JPEGs in each output directory (J3 and J1
+   once a frame each), each 512x512x3; launches K1 11, K2 1, K3 1 a tracked frame and the warp 1 a
    point conversion; the median error of the last frame's tracks (queries
    whose true position stays 16 px inside) <= 1 px; every frame's
    ``warp_forward`` of the edit and of its mask on the card against the
    plain splat on the CPU within ``SPLAT_ATOL`` (0-255 units), the uint8
    edit frames within 1 level, the differing pixels counted; frames/s end
-   to end and the PNG decode and encode share printed; (b)
+   to end and the PNG decode and JPEG encode shares printed; (b)
    ``apps.flow_demo.run`` on 4 pairs with ``--show_ou``: 1536x512x3
    panels, K1 11 and K2 1 a pair, the median flow against the true
    (-2, -1) printed; (c) the Sintel writer on a ``test/final`` tree of 2
@@ -223,7 +223,29 @@ non-zero and prints no result line):
    ``train.kubric_longflow.track_scene`` on a MOVi-E-form scene (24 frames,
    256x256, 10 instances) on the card against the CPU: flows within 1
    float32 ulp, occlusions equal except at the depth test's margin; the
-   time a pair and a scene printed.
+   time a pair and a scene printed;
+19. JPEG (no Pallas site: the JAX package runs cv2/PIL on the host): (a) J1
+   (host entropy coding, ``jpeg_entropy.cu``), J2 and J3 (the decode and
+   encode pixel stages, ``jpeg.cu``) bit for bit with their plain versions
+   (0 differing coefficients, bytes and pixels) over 4:4:4, 4:2:2, 4:2:0,
+   4:4:0, 4:1:1 and grey, qualities 15, 50, 95, sizes 1x1, 37x53, 127x65,
+   512x512 and a 1080x1920 frame, restart intervals 0 and 3; J2 and J3 timed
+   by graph replay at 512x512 and 1080x1920 (4:2:0, quality 95) beside their
+   bound ((coefficient + pixel bytes) / 3.35 TB/s) and their plain versions,
+   J1's native host ms a frame beside the Python plain version's and its
+   host bound (the serial chain through the bitstream: cycles a Huffman
+   code and a bit field of this frame's scan, at the host's clock); (b) the
+   demo of 17a on the clip written as JPEGs by the port's encoder: one J1
+   and one J2 a frame read, K1, K2, K3 and warp launches as 17a's, frames/s
+   and the decode, encode and rendering shares; (c) a Kinetics-form shard
+   (2 records x 24 JPEG frames of 256x256) through ``create_tapvid_dataset``
+   and the runner (synth, 'first', 512x512): one J1 a frame and one J2 a
+   record, <delta_avg >= 0.9, frames/s; (d) the official recipe for 5
+   steps over a Sintel-form tree without the flag, with
+   ``--dashcam_augmenentation`` and without it again, one tree and one
+   process: 14b's gates each time, J2 = J3 launches > 0 with the flag; ms a
+   step, wall ms between steps, the loader-wait share and the loader
+   threads' ms a ``jpeg_corrupt``.
 
 Every bf16 launch of K1, #5, #13, K4 and K5 on the main path, conv_backend
 'pallas', 'alt' and 'win' at 512x512 and 2160x3840, 'auto' at 1080x1920
@@ -2587,10 +2609,13 @@ def check_lookup_bwd(torch, ops, dev, card, radius=RADIUS):
     return stats
 
 
-def train_args(tmp, recipe):
-    """The recipe's CLI arguments, as an @file the parser reads."""
+def train_args(tmp, recipe, dashcam=False, name=None):
+    """The recipe's CLI arguments, as an @file the parser reads
+    (``dashcam``: with ``--dashcam_augmenentation``; ``name``: the run's,
+    which names its checkpoint directory)."""
     from mft_tpu_torch.config import SYNTH_WEIGHTS
-    lines = ["--name", recipe, "--stage", "sintel", "--restore_ckpt", str(SYNTH_WEIGHTS),
+    name = name or (f"{recipe}_dashcam" if dashcam else recipe)
+    lines = ["--name", name, "--stage", "sintel", "--restore_ckpt", str(SYNTH_WEIGHTS),
              "--num_steps", str(TRAIN_STEPS), "--batch_size", str(TRAIN_B),
              "--image_size", str(TRAIN_H), str(TRAIN_W), "--iters", str(TRAIN_ITERS),
              "--mixed_precision", "--num_workers", "6", "--lr", "0.000125",
@@ -2598,18 +2623,26 @@ def train_args(tmp, recipe):
              "huber_non_occluded", "--checkpoint_dir", str(tmp / "checkpoints")]
     if recipe == "official":
         lines += ["--freeze_optical_flow_training", "--freeze_features_training"]
-    path = tmp / f"{recipe}.txt"
+    if dashcam:
+        lines += ["--dashcam_augmenentation"]
+    path = tmp / f"{name}.txt"
     path.write_text("\n".join(lines) + "\n")
     return f"@{path}"
 
 
-def run_recipe(torch, ops, dev, card, tmp, recipe):
-    """14b: one recipe through the entry point's parser and ``train``.
+def run_recipe(torch, ops, dev, card, tmp, recipe, dashcam=False, name=None):
+    """14b (and 19d, with ``dashcam`` and without): one recipe through the
+    entry point's parser and ``train``.
     Gates: finite losses and metrics; frozen parameters bit-identical and
     trainable ones moved; batch statistics unchanged (official) or moved
     (full); per step 12 K2 launches and 12 (full) or 0 (official) backward
-    launches and nothing else; the checkpoint and its msgpack export, which
-    RAFTFlow loads and tracks 2 frames with. returns stats."""
+    launches and nothing else (with ``dashcam``, J2 and J3 launches from
+    the loader's threads beside them); the checkpoint and its msgpack
+    export, which RAFTFlow loads and tracks 2 frames with. returns stats:
+    ``step_ms`` from the batch on the card to the step's loss, ``wait_share``
+    the rest of the wall time between the first step and the last (the wait
+    for the loader), ``launches`` over the steps (and the loader's J2 and J3
+    after the last one)."""
     from pathlib import Path
     from mft_tpu_torch.config import SYNTH_WEIGHTS, synth_config
     from mft_tpu_torch.models.raft.wrapper import load_weights
@@ -2617,9 +2650,10 @@ def run_recipe(torch, ops, dev, card, tmp, recipe):
     from mft_tpu_torch.train import loop
     official = recipe == "official"
     before = load_weights(Path(SYNTH_WEIGHTS))
-    per_step, step_ms, losses = [], [], []
+    per_step, step_ms, losses, stamps = [], [], [], []
 
     def on_step(state, metrics, seconds):
+        stamps.append(time.perf_counter())
         per_step.append(ops.launch_counts())
         ops.reset_launch_counts()
         step_ms.append(1e3 * seconds)
@@ -2628,20 +2662,26 @@ def run_recipe(torch, ops, dev, card, tmp, recipe):
               f"{recipe} step {state['step']}: non-finite metrics {vals}")
         losses.append(vals["train/loss"])
 
-    args = loop.get_parser().parse_args([train_args(tmp, recipe)])
+    args = loop.get_parser().parse_args([train_args(tmp, recipe, dashcam, name)])
+    recipe = args.name
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     state = loop.train(args, on_step=on_step)
     seconds = time.perf_counter() - t0
+    tail = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     check(state["step"] == TRAIN_STEPS and len(per_step) == TRAIN_STEPS,
           f"{recipe}: {state['step']} steps, {len(per_step)} reported")
     bwd = 0 if official else TRAIN_ITERS
     want = expected_counts(ops, corr_lookup=TRAIN_ITERS, corr_lookup_bwd=bwd)
+    # with the flag the loader's threads launch J2 and J3 during the steps
+    loader = ("jpeg_decode_pixels", "jpeg_encode_pixels") if dashcam else ()
     for k, counts in enumerate(per_step, start=1):
-        check(counts == want, f"{recipe} step {k}: launches {counts} != {want}")
+        seen = {n: c for n, c in counts.items() if n not in loader}
+        check(seen == {n: c for n, c in want.items() if n not in loader},
+              f"{recipe} step {k}: launches {counts} != {want}")
     after = {k: v.detach().cpu() for k, v in state["model"].state_dict().items()}
     stats_keys = [k for k in after if k.endswith(("running_mean", "running_var"))]
     params = [k for k in after if k not in stats_keys]
@@ -2673,14 +2713,20 @@ def run_recipe(torch, ops, dev, card, tmp, recipe):
     steady = sorted(step_ms[1:])
     median = steady[len(steady) // 2] if len(steady) % 2 else 0.5 * (
         steady[len(steady) // 2 - 1] + steady[len(steady) // 2])
+    wall_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    wait_share = 1.0 - sum(step_ms[1:]) / sum(wall_ms)
     log(f"{recipe} recipe ({TRAIN_B}x{TRAIN_H}x{TRAIN_W}, {TRAIN_ITERS} iterations, bf16 "
         f"compute over f32 parameters): losses {', '.join(f'{v:.4f}' for v in losses)}; "
         f"step ms {', '.join(f'{m:.1f}' for m in step_ms)}; median after 1 warm-up step "
-        f"{median:.1f} ms; peak device memory {peak / 2**30:.2f} GiB; launches a step "
-        f"K2 {TRAIN_ITERS}, backward {bwd}; {seconds:.1f} s with data, checkpoint and "
-        f"export; the export tracks 2 frames [{card}]")
-    return dict(median_ms=median, step_ms=step_ms, peak_gib=peak / 2**30,
-                launches={k: sum(c[k] for c in per_step) for k in per_step[0]})
+        f"{median:.1f} ms; wall ms between steps {', '.join(f'{m:.1f}' for m in wall_ms)}, "
+        f"the wait for the loader {wait_share:.1%} of it; peak device memory "
+        f"{peak / 2**30:.2f} GiB; launches a step K2 {TRAIN_ITERS}, backward {bwd}; "
+        f"{seconds:.1f} s with data, checkpoint and export; the export tracks 2 frames "
+        f"[{card}]")
+    return dict(median_ms=median, step_ms=step_ms, wall_ms=wall_ms, wait_share=wait_share,
+                peak_gib=peak / 2**30,
+                launches={k: sum(c[k] for c in per_step) + (tail[k] if k in loader else 0)
+                          for k in tail})
 
 
 def train_batch(torch, dev, tmp, n=TRAIN_B, seed=0):
@@ -3579,9 +3625,10 @@ def run_small_training(torch, ops, dev, card):
         weights = [k for k in after if k.endswith(".weight")]
         # a bias that an instance norm follows has a zero gradient in exact
         # arithmetic and starts at zero, so it may stay there: not gated
+        still = [k for k in weights if k not in moved]
         log(f"small: {len(moved)} of {len(after)} tensors moved from the initial weights, "
-            f"{sum(k in moved for k in weights)} of {len(weights)} conv weights")
-        check(all(k in moved for k in weights), "small: a conv weight did not move")
+            f"{len(weights) - len(still)} of {len(weights)} conv weights; not moved: {still}")
+        check(not still, f"small: conv weights did not move: {still}")
         export = Path(args.checkpoint_dir) / args.name / f"small_step{TRAIN_STEPS}.msgpack"
         cfg = small_config()
         cfg.flow_config.model = str(export)
@@ -3696,14 +3743,26 @@ def write_png_dir(path, frames):
         (path / f"{k:05d}.png").write_bytes(encode_png(img))
 
 
-def check_png_dir(path, n, shape, label):
-    from mft_tpu_torch.io.png import decode_png
+def write_jpeg_dir(path, frames, dev, quality=95):
+    """The frames as JPEG files, written by the port's encoder on the card."""
+    from mft_tpu_torch.io.jpeg import encode_jpeg
+    path.mkdir(parents=True)
+    for k, img in enumerate(frames):
+        (path / f"{k:05d}.jpg").write_bytes(encode_jpeg(img, quality, dev))
+
+
+def check_image_dir(path, n, shape, label, dev, suffix):
+    """n files named *suffix* that the port's reader decodes to ``shape``
+    uint8 (a JPEG on the card)."""
+    from mft_tpu_torch.io.image import imdecode
     files = sorted(path.iterdir())
-    check(len(files) == n, f"{label}: {len(files)} files in {path.name}, want {n}")
+    check(len(files) == n and all(f.suffix == suffix for f in files),
+          f"{label}: {[f.name for f in files]} in {path.name}, want {n} {suffix} files")
     for f in files:
-        img = decode_png(f.read_bytes())
-        check(img.shape == shape and img.dtype.name == "uint8",
-              f"{label}: {f.name} decodes to {img.shape} {img.dtype}, want {shape} uint8")
+        img = imdecode(f.read_bytes(), dev)
+        check(img is not None and img.shape == shape and img.dtype.name == "uint8",
+              f"{label}: {f.name} decodes to {None if img is None else img.shape}, want "
+              f"{shape} uint8")
 
 
 def check_demo_splats(torch, records, label):
@@ -3734,21 +3793,28 @@ def check_demo_splats(torch, records, label):
     return gap, n_diff
 
 
-def run_demo(torch, ops, dev, card, tmp):
-    """17a: ``apps.demo.run`` on 12 frames of the synthetic clip written as
-    PNGs, synth config, grid spacing 30. returns the launch counts."""
+def run_demo(torch, ops, dev, card, tmp, fmt="png"):
+    """17a (``fmt`` 'png') and 19b ('jpg'): ``apps.demo.run`` on 12 frames of
+    the synthetic clip written as PNGs or as JPEGs (the port's encoder on the
+    card, quality 95), synth config, grid spacing 30; the demo writes JPEG
+    frames. returns (launch counts, frames/s, the decode, encode and
+    rendering shares)."""
     import argparse
     import numpy as np
     from mft_tpu_torch.apps import demo
     from mft_tpu_torch.io import video as demo_video
     frames = synthetic_clip(DEMO_FRAMES - 1)
     H, W = frames[0].shape[:2]
-    write_png_dir(tmp / "clip", frames)
-    io_s = [0.0, 0.0, 0.0]                      # PNG decode, PNG encode, rendering
+    clip = tmp / f"clip_{fmt}"
+    if fmt == "png":
+        write_png_dir(clip, frames)
+    else:
+        write_jpeg_dir(clip, frames, dev)
+    io_s = [0.0, 0.0, 0.0]                      # decode, JPEG encode, rendering
     records, tracks, stamps = [], [], []
 
-    def timed_frames(path, reverse=False):
-        it = demo_video.get_video_frames(path, reverse)
+    def timed_frames(path, reverse=False, device="cuda"):
+        it = demo_video.get_video_frames(path, reverse, device)
         while True:
             t = time.perf_counter()
             frame = next(it, None)
@@ -3773,7 +3839,8 @@ def run_demo(torch, ops, dev, card, tmp):
         return out
 
     render = demo.render_frame
-    args = argparse.Namespace(video=str(tmp / "clip"), config="synth", out=str(tmp / "demo"),
+    out = tmp / f"demo_{fmt}"
+    args = argparse.Namespace(video=str(clip), config="synth", out=str(out),
                               grid_spacing=30, fps=25.0, max_frames=None, device=str(dev))
     saved = demo.get_video_frames, demo.VideoWriter, demo.render_frame
     demo.get_video_frames, demo.VideoWriter, demo.render_frame = (timed_frames, TimedWriter,
@@ -3790,20 +3857,26 @@ def run_demo(torch, ops, dev, card, tmp):
         demo.get_video_frames, demo.VideoWriter, demo.render_frame = saved
     tracked = DEMO_FRAMES - 1
     steady = (len(stamps) - 2) / (stamps[-1] - stamps[1])
-    log(f"demo: {n} frames in {seconds:.3f} s ({n / seconds:.2f} frames/s end to end, "
-        f"set-up and first frame included; {steady:.2f} frames/s from frame 2 on), PNG "
-        f"decode {io_s[0]:.3f} s + encode {io_s[1]:.3f} s = "
-        f"{(io_s[0] + io_s[1]) / seconds:.1%} of it; rendering (point conversion, dots, "
-        f"two splats, their fetch and the blend) {io_s[2]:.3f} s = {io_s[2] / seconds:.1%} "
-        f"[{card}]")
-    log(f"demo: launches over {n} frames: {counts}")
+    shares = dict(decode=io_s[0] / seconds, encode=io_s[1] / seconds, render=io_s[2] / seconds)
+    log(f"demo ({fmt.upper()} frames in, JPEG frames out): {n} frames in {seconds:.3f} s "
+        f"({n / seconds:.2f} frames/s end to end, set-up and first frame included; "
+        f"{steady:.2f} frames/s from frame 2 on), {fmt.upper()} decode {io_s[0]:.3f} s "
+        f"({shares['decode']:.1%}) + JPEG encode {io_s[1]:.3f} s ({shares['encode']:.1%}); "
+        f"rendering (point conversion, dots, two splats, their fetch and the blend) "
+        f"{io_s[2]:.3f} s ({shares['render']:.1%}) [{card}]")
+    log(f"demo ({fmt}): launches over {n} frames: {counts}")
     check(n == DEMO_FRAMES, f"demo wrote {n} frames, want {DEMO_FRAMES}")
     for name in ("points", "edit"):
-        check_png_dir(tmp / "demo" / f"clip_{name}", DEMO_FRAMES, (H, W, 3), f"demo {name}")
+        check_image_dir(out / f"{clip.name}_{name}", DEMO_FRAMES, (H, W, 3),
+                        f"demo {name}", dev, ".jpg")
+    reads = DEMO_FRAMES if fmt == "jpg" else 0
     want = expected_counts(ops, corr_lookup_fused=11 * tracked, corr_lookup=tracked,
-                           chain_select=tracked, bilinear_warp=DEMO_FRAMES)
+                           chain_select=tracked, bilinear_warp=DEMO_FRAMES,
+                           jpeg_huff_decode=reads, jpeg_decode_pixels=reads,
+                           jpeg_huff_encode=2 * DEMO_FRAMES, jpeg_encode_pixels=2 * DEMO_FRAMES)
     check(counts == want, f"demo launch counts {counts} != {want} (K1 11, K2 1, K3 1 a "
-                          f"tracked frame, the warp 1 a point conversion)")
+                          f"tracked frame, the warp 1 a point conversion; one J1 and one J2 "
+                          f"a JPEG frame read, one J3 and one J1 a frame written)")
     queries = demo.get_queries(frames[0].shape, 30)
     true = queries - tracked * np.asarray(SHIFT, np.float32)
     inside = ((true >= DEMO_INSIDE) & (true <= np.array([W, H]) - 1 - DEMO_INSIDE)).all(1)
@@ -3813,7 +3886,7 @@ def run_demo(torch, ops, dev, card, tmp):
         f"px, largest {err.max():.4f} px")
     check(float(np.median(err)) <= 1.0, f"demo: median track error {np.median(err)} > 1 px")
     check_demo_splats(torch, records, "demo")
-    return counts, n / seconds
+    return counts, n / seconds, shares
 
 
 def run_flow_demo(torch, ops, dev, card, tmp):
@@ -3844,7 +3917,7 @@ def run_flow_demo(torch, ops, dev, card, tmp):
         flow_demo.flow_panel = panel
     log(f"flow demo: {n} pairs in {seconds:.3f} s; launches {counts} [{card}]")
     check(n == FLOW_DEMO_PAIRS, f"flow demo wrote {n} panels")
-    check_png_dir(tmp / "flow", FLOW_DEMO_PAIRS, (3 * H, W, 3), "flow demo")
+    check_image_dir(tmp / "flow", FLOW_DEMO_PAIRS, (3 * H, W, 3), "flow demo", dev, ".png")
     want = expected_counts(ops, corr_lookup_fused=11 * n, corr_lookup=n)
     check(counts == want, f"flow demo launch counts {counts} != {want} (K1 11, K2 1 a pair)")
     epe = np.linalg.norm(np.stack(flows) - np.asarray([-SHIFT[0], -SHIFT[1]], np.float32),
@@ -3919,7 +3992,7 @@ def run_apps(torch, ops, dev, card):
     with tempfile.TemporaryDirectory() as tmpdir:
         tmp = Path(tmpdir)
         t0 = time.perf_counter()
-        counts, fps = run_demo(torch, ops, dev, card, tmp)
+        counts, fps, _ = run_demo(torch, ops, dev, card, tmp)
         log(f"phase 17a seconds {time.perf_counter() - t0:.2f}")
         t0 = time.perf_counter()
         run_flow_demo(torch, ops, dev, card, tmp)
@@ -4218,6 +4291,362 @@ def run_generators_and_trainer(torch, ops, dev, card):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 19: JPEG on the card: J1-J3, the demo on a JPEG directory, a
+# Kinetics-form shard through the runner, the dashcam recipe
+# --------------------------------------------------------------------------- #
+JPEG_SAMPLINGS = ("444", "422", "420", "440", "411", "grey")
+JPEG_QUALITIES = (15, 50, 95)
+JPEG_SIZES = ((1, 1), (37, 53), (127, 65), (512, 512))
+JPEG_PY_MAX = 127 * 65          # J1 against Python on every case up to this size
+JPEG_TIMED = ((512, 512), (1080, 1920))
+KIN_RECORDS, KIN_T, KIN_SIZE = 2, 24, 256
+DASHCAM_WORKERS = 6             # the recipe's --num_workers (train_args)
+
+
+def jpeg_frames(N, H, W, seed, channels=3, noise=12.0):
+    """N uint8 frames: the synthetic texture plus Gaussian noise (every
+    coefficient band in use), grey as (N, H, W, 1)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in range(N):
+        img = synthetic_clip(0, H, W, seed=seed + k)[0].astype(np.float32)
+        out.append((img + rng.normal(0, noise, img.shape)).clip(0, 255).astype(np.uint8))
+    return np.ascontiguousarray(np.stack(out)[..., :channels])
+
+
+def jpeg_case(torch, dev, J, OJ, H, W, sampling, quality, restart, python_j1):
+    """One geometry through J3, J2 and J1 against the plain versions.
+    returns (differing J3 coefficients, J2 pixels, J1 coefficients, J1 bytes),
+    and the largest absolute differences {j3, j2, dec, enc}."""
+    import numpy as np
+    C = 1 if sampling == "grey" else 3
+    img = jpeg_frames(2, H, W, seed=H * 7 + W + quality, channels=C)
+    geom = J.geometry_for(H, W, C, "420" if C == 1 else sampling)
+    qtabs, recips = J._tables(geom, quality)
+    coefs = OJ.jpeg_encode_pixels(torch.from_numpy(img).to(dev), torch.from_numpy(recips).to(dev),
+                                  geom).cpu().numpy()
+    want = J.encode_pixels_ref(img, recips, geom)
+    d3 = int((coefs != want).sum())
+    gap = lambda a, b: int(np.abs(a.astype(np.int64) - b).max()) if a.size else 0
+    err = dict(j3=gap(coefs, want), j2=0, dec=0, enc=0)
+    q = np.ascontiguousarray(np.broadcast_to(qtabs, (2,) + qtabs.shape))
+    pix = OJ.jpeg_decode_pixels(torch.from_numpy(want).to(dev), torch.from_numpy(q).to(dev),
+                                geom).cpu().numpy()
+    ref = J.decode_pixels_ref(want, q, geom)
+    d2, err["j2"] = int((pix != ref).sum()), gap(pix, ref)
+    d1c = d1b = 0
+    if python_j1:
+        mcux, mcuy = J.scan_mcus(geom)
+        args = (want[0], J.encode_comp_info(geom), J.STD_CODE_TABLES, mcux, mcuy, restart)
+        native, plain = OJ.jpeg_huff_encode(*args, dev), OJ.jpeg_huff_encode(*args, "cpu")
+        d1b = int(native != plain)        # a length that differs counts here
+        n = min(len(native), len(plain))
+        err["enc"] = gap(np.frombuffer(native[:n], np.uint8), np.frombuffer(plain[:n], np.uint8))
+        data = J.file_header(geom, qtabs, restart) + native + b"\xff\xd9"
+        scan = J.parse_jpeg(data).scans[0]
+        a, b = (np.zeros((geom.blocks, 64), np.int16) for _ in range(2))
+        OJ.jpeg_huff_decode(scan, a, dev)
+        OJ.jpeg_huff_decode(scan, b, "cpu")
+        real = np.zeros_like(a)
+        for c in range(geom.ncomp):      # the coded blocks inside each component
+            grid = want[0, geom.boff[c]:geom.boff[c] + geom.bw[c] * geom.bh[c]].reshape(
+                geom.bh[c], geom.bw[c], 64)
+            out = real[geom.boff[c]:geom.boff[c] + geom.bw[c] * geom.bh[c]].reshape(grid.shape)
+            out[:geom.rbh[c], :geom.rbw[c]] = grid[:geom.rbh[c], :geom.rbw[c]]
+            got = a[geom.boff[c]:geom.boff[c] + geom.bw[c] * geom.bh[c]].reshape(grid.shape)
+            d1c += int((got[:geom.rbh[c], :geom.rbw[c]] != grid[:geom.rbh[c], :geom.rbw[c]])
+                       .sum())
+            err["dec"] = max(err["dec"], gap(got[:geom.rbh[c], :geom.rbw[c]],
+                                             grid[:geom.rbh[c], :geom.rbw[c]]))
+        d1c += int((a != b).sum())
+        err["dec"] = max(err["dec"], gap(a, b))
+    return (d3, d2, d1c, d1b), err
+
+
+# J1's bound is the host's, not the card's: entropy coding is one serial
+# chain through the bitstream, each code's position hanging on the one
+# before. The decoder's chain takes a dependent L1 load (its lookahead-table
+# lookup, 4 cycles on x86 server cores) a Huffman code and a shift a bit
+# field; the encoder's a shift and an OR (2 cycles) a code or field it puts.
+HOST_CYCLES_CODE_DECODE = 4
+HOST_CYCLES_PUT = 2
+
+
+def host_clock_hz():
+    """The host's highest core clock: cpufreq's cpuinfo_max_freq, else the
+    largest 'cpu MHz' in /proc/cpuinfo."""
+    try:
+        with open("/sys/devices/system/cpu/cpu0/cpufreq/cpuinfo_max_freq") as f:
+            return 1e3 * int(f.read())
+    except (OSError, ValueError):
+        with open("/proc/cpuinfo") as f:
+            return 1e6 * max(float(line.split(":")[1]) for line in f
+                             if line.startswith("cpu MHz"))
+
+
+def entropy_symbols(J, coefs, geom):
+    """(Huffman codes, AC bit fields) in the one scan of a frame's quantized
+    coefficients ((blocks, 64), natural order), counted from this data: a DC
+    code a block the scan codes (an interleaved scan's dummy blocks with an
+    EOB each); a code and a bit field a nonzero AC coefficient, a ZRL a run
+    of 16 zeros before one, an EOB where the last coefficient is zero. The
+    DC differences' bit fields are left out, so the count stays a floor."""
+    import numpy as np
+    codes = fields = 0
+    for c in range(geom.ncomp):
+        grid = coefs[geom.boff[c]:geom.boff[c] + geom.bw[c] * geom.bh[c]].reshape(
+            geom.bh[c], geom.bw[c], 64)
+        real = grid[:geom.rbh[c], :geom.rbw[c]].reshape(-1, 64)[:, J.ZIGZAG[1:]] != 0
+        if geom.ncomp > 1:
+            codes += 2 * (geom.bw[c] * geom.bh[c] - len(real))     # DC + EOB a dummy block
+        rows, cols = np.nonzero(real)
+        prev = np.where(np.r_[False, rows[1:] == rows[:-1]], np.r_[-1, cols[:-1]], -1)
+        codes += len(real) + len(rows) + int(((cols - prev - 1) // 16).sum())
+        codes += int((~real[:, -1]).sum())                          # EOBs
+        fields += len(rows)
+    return codes, fields
+
+
+def median_s(fn, reps=3):
+    t = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        t.append(time.perf_counter() - t0)
+    return sorted(t)[len(t) // 2]
+
+
+def time_jpeg(torch, dev, card, J, OJ, H, W):
+    """J2 and J3 by graph replay at H x W (4:2:0, quality 95, one frame),
+    each with its bound and its plain version's time; J1's native host ms
+    a frame beside the Python plain version's."""
+    import numpy as np
+    img = jpeg_frames(1, H, W, seed=5)
+    geom = J.geometry_for(H, W, 3, "420")
+    qtabs, recips = J._tables(geom, 95)
+    img_t, rc_t = torch.from_numpy(img).to(dev), torch.from_numpy(recips).to(dev)
+    coefs = OJ.jpeg_encode_pixels(img_t, rc_t, geom)
+    q_t = torch.from_numpy(qtabs[None]).to(dev)
+    j3_ms = graph_ms(lambda: OJ.jpeg_encode_pixels(img_t, rc_t, geom))
+    j2_ms = graph_ms(lambda: OJ.jpeg_decode_pixels(coefs, q_t, geom))
+    coef_np = coefs.cpu().numpy()
+    j3_plain = 1e3 * median_s(lambda: J.encode_pixels_ref(img, recips, geom), 1)
+    j2_plain = 1e3 * median_s(lambda: J.decode_pixels_ref(coef_np, qtabs[None], geom), 1)
+    coef_bytes, pix_bytes = geom.blocks * 64 * 2, H * W * 3
+    j2_bound = 1e3 * (coef_bytes + qtabs.nbytes + pix_bytes) / HBM_BYTES_PER_S
+    j3_bound = 1e3 * (pix_bytes + recips.nbytes + coef_bytes) / HBM_BYTES_PER_S
+    mcux, mcuy = J.scan_mcus(geom)
+    args = (coef_np[0], J.encode_comp_info(geom), J.STD_CODE_TABLES, mcux, mcuy, 0)
+    data = J.file_header(geom, qtabs) + OJ.jpeg_huff_encode(*args, dev) + b"\xff\xd9"
+    scan = J.parse_jpeg(data).scans[0]
+    out = np.zeros((geom.blocks, 64), np.int16)
+    dec_ms = 1e3 * median_s(lambda: OJ.jpeg_huff_decode(scan, out, dev), 5)
+    enc_ms = 1e3 * median_s(lambda: OJ.jpeg_huff_encode(*args, dev), 5)
+    dec_py = 1e3 * median_s(lambda: OJ.jpeg_huff_decode(scan, np.zeros_like(out), "cpu"), 1)
+    enc_py = 1e3 * median_s(lambda: OJ.jpeg_huff_encode(*args, "cpu"), 1)
+    codes, fields = entropy_symbols(J, coef_np[0], geom)
+    clock = host_clock_hz()
+    dec_bound = 1e3 * (HOST_CYCLES_CODE_DECODE * codes + fields) / clock
+    enc_bound = 1e3 * HOST_CYCLES_PUT * (codes + fields) / clock
+    log(f"19a {H}x{W} 4:2:0 q95 ({len(data)} bytes): J2 {j2_ms:.4f} ms (bound {j2_bound:.4f}, "
+        f"plain {j2_plain:.2f}), J3 {j3_ms:.4f} ms (bound {j3_bound:.4f}, plain {j3_plain:.2f}) "
+        f"by graph replay; J1 host ms a frame: decode {dec_ms:.3f} (bound {dec_bound:.3f}, "
+        f"Python {dec_py:.1f}), encode {enc_ms:.3f} (bound {enc_bound:.3f}, Python "
+        f"{enc_py:.1f}); the scan's {codes} Huffman codes and {fields} AC bit fields, host "
+        f"clock {clock / 1e9:.3f} GHz [{card}]")
+    return dict(j2=dict(ms=j2_ms, plain_ms=j2_plain, bound_ms=j2_bound, bound_by="bytes"),
+                j3=dict(ms=j3_ms, plain_ms=j3_plain, bound_ms=j3_bound, bound_by="bytes"),
+                dec=dict(ms=dec_ms, plain_ms=dec_py, bound_ms=dec_bound, bound_by="operations"),
+                enc=dict(ms=enc_ms, plain_ms=enc_py, bound_ms=enc_bound, bound_by="operations"))
+
+
+def check_jpeg_kernels(torch, dev, card):
+    """19a: J1, J2 and J3 bit for bit with their plain versions over every
+    sampling and grey, qualities 15-95, odd sizes and restart intervals, and
+    at 1080x1920; then the times. returns {size: stats}."""
+    from mft_tpu_torch.io import jpeg as J
+    from mft_tpu_torch.ops import jpeg as OJ
+    totals, cases, errs = [0, 0, 0, 0], 0, dict(j3=0, j2=0, dec=0, enc=0)
+
+    def add(case):
+        nonlocal totals, cases
+        d, e = case
+        totals = [a + b for a, b in zip(totals, d)]
+        errs.update({k: max(errs[k], v) for k, v in e.items()})
+        cases += 1
+
+    for H, W in JPEG_SIZES:
+        for sampling in JPEG_SAMPLINGS:
+            for quality in JPEG_QUALITIES:
+                for restart in (0, 3):
+                    python_j1 = H * W <= JPEG_PY_MAX or (quality == 95 and restart == 0)
+                    if restart and not python_j1:
+                        continue
+                    add(jpeg_case(torch, dev, J, OJ, H, W, sampling, quality, restart,
+                                  python_j1))
+    add(jpeg_case(torch, dev, J, OJ, *JPEG_TIMED[1], "420", 95, 0, True))
+    log(f"19a: {cases} cases (samplings {', '.join(JPEG_SAMPLINGS)}; qualities "
+        f"{JPEG_QUALITIES}; sizes {JPEG_SIZES} and 1080x1920; restart intervals 0, 3): "
+        f"differing J3 coefficients {totals[0]}, J2 pixels {totals[1]}, J1 coefficients "
+        f"{totals[2]}, J1 scans {totals[3]}; largest absolute differences {errs}")
+    check(totals == [0, 0, 0, 0], f"JPEG kernels differ from their plain versions: {totals}")
+    stats = {hw: time_jpeg(torch, dev, card, J, OJ, *hw) for hw in JPEG_TIMED}
+    for st in stats.values():
+        for key, e in errs.items():
+            st[key]["max_abs_err"] = float(e)
+    return stats
+
+
+def kinetics_shard(path, dev):
+    """A Kinetics-form shard: KIN_RECORDS records of KIN_T JPEG frames of
+    KIN_SIZE px (the port's encoder on the card, quality 95), the texture
+    moving 1 px right and 1 px down a frame, TAPVID_GRID^2 points in view."""
+    import pickle
+    import numpy as np
+    from mft_tpu_torch.io.jpeg import encode_jpeg
+    step = (KIN_SIZE - 32 - KIN_T) // (TAPVID_GRID - 1)
+    grid = 16.0 + step * np.arange(TAPVID_GRID)
+    xy = np.stack(np.meshgrid(grid, grid, indexing="xy"), -1).reshape(-1, 1, 2)
+    points = (xy + np.arange(KIN_T).reshape(1, -1, 1)) / KIN_SIZE
+    records = []
+    for s in range(KIN_RECORDS):
+        clip = synthetic_clip(KIN_T - 1, KIN_SIZE, KIN_SIZE, seed=s, shift=(1, 1))[::-1]
+        records.append({"video": [encode_jpeg(f, 95, dev) for f in clip], "points": points,
+                        "occluded": np.zeros(points.shape[:2], bool)})
+    with open(path, "wb") as f:
+        pickle.dump(records, f)
+
+
+def run_kinetics(torch, ops, dev, card, tmp):
+    """19c: a Kinetics-form shard through ``create_tapvid_dataset`` and the
+    runner (synth, mode 'first', tracked at 512x512), then evaluate. Gates:
+    the prediction files, one J1 a frame and one J2 a record, <delta_avg >=
+    0.9. returns (launch counts, frames/s)."""
+    from mft_tpu_torch.eval import evaluate, runner
+    kinetics_shard(tmp / "kinetics_synth.pkl", dev)
+    (tmp / "kinetics.py").write_text(DATASET_CONFIG.format(
+        pickle=str(tmp / "kinetics_synth.pkl"), scaling=TAPVID_SCALING))
+    common = ["--dataset", str(tmp / "kinetics.py"), "--export", str(tmp / "kin_export")]
+    args = runner.get_parser().parse_args(
+        ["--trackers", "synth", "--cache", str(tmp / "kin_cache"), "--mode", "first", *common])
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = runner.run(args)
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    names = sorted(p.name for p in (tmp / "kin_export").rglob("*.pklz"))
+    want = sorted(f"kin-kinetics_synth-{i:04d}-first.pklz" for i in range(KIN_RECORDS))
+    check(names == want, f"kinetics prediction files {names} != {want}")
+    frames = sum(p["frames"] for p in out["passes"])
+    track_s = sum(p["seconds"] for p in out["passes"])
+    log(f"19c kinetics-form shard ({KIN_RECORDS} records x {KIN_T} JPEG frames of "
+        f"{KIN_SIZE}x{KIN_SIZE}, tracked at 512x512, synth, 'first'): {frames} frames tracked "
+        f"in {track_s:.2f} s ({frames / track_s:.2f} frames/s), the run {seconds:.2f} s with "
+        f"loading; launches {counts} [{card}]")
+    check(counts["jpeg_huff_decode"] == KIN_RECORDS * KIN_T
+          and counts["jpeg_decode_pixels"] == KIN_RECORDS,
+          f"kinetics decode: {counts} (want one J1 a frame, one J2 a record)")
+    means = evaluate.run(evaluate.get_parser().parse_args(
+        ["--trackers", "synth", "--mode", "first", *common]))
+    for (name, mode), m in sorted(means.items()):
+        ok = m["average_pts_within_thresh"] >= 0.9
+        log(f"19c TAP-Vid {name} {mode} (Kinetics-form synthetic shard, x100): AJ "
+            f"{100 * m['average_jaccard']:.2f}, <delta_avg "
+            f"{100 * m['average_pts_within_thresh']:.2f}, OA "
+            f"{100 * m['occlusion_accuracy']:.2f} (gate: <delta_avg >= 90) "
+            f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"kinetics {name} {mode}: <delta_avg {m['average_pts_within_thresh']:.4f}")
+    return counts, frames / track_s
+
+
+def run_dashcam(torch, ops, dev, card, tmp, plain_recipe):
+    """19d: the official recipe for TRAIN_STEPS steps over a Sintel-form tree
+    as phase 14's, without the flag, with --dashcam_augmenentation, and
+    without it again: one tree and one process, so that order, tree and
+    warm-up do not tell the runs apart. run_recipe's gates each time, and
+    with the flag J2 and J3 launches > 0, one J2 a J3 (each corruption one of
+    each), no J1. The loader threads' time in ``jpeg_corrupt`` is summed.
+    returns (the flagged run's launch counts, {run: stats})."""
+    import threading
+    from types import SimpleNamespace
+    from mft_tpu_torch import environment
+    from mft_tpu_torch.train import augment, synth
+    synth.write_sintel_tree(tmp / "sintel", frames=SINTEL_FRAMES, H=SINTEL_H, W=SINTEL_W)
+    settings, corrupt = environment.env_settings, augment.jpeg_corrupt
+    environment.env_settings = lambda: SimpleNamespace(sintel_dir=str(tmp / "sintel"))
+    lock, spent = threading.Lock(), [0, 0.0]     # corruptions, their seconds on loader threads
+
+    def timed_corrupt(*args, **kwargs):
+        t = time.perf_counter()
+        out = corrupt(*args, **kwargs)
+        with lock:
+            spent[0] += 1
+            spent[1] += time.perf_counter() - t
+        return out
+
+    augment.jpeg_corrupt = timed_corrupt
+    try:
+        runs = {}
+        for run, dashcam in (("without", False), ("dashcam", True), ("without_again", False)):
+            runs[run] = run_recipe(torch, ops, dev, card, tmp, "official", dashcam=dashcam,
+                                   name=f"official_{run}")
+    finally:
+        environment.env_settings, augment.jpeg_corrupt = settings, corrupt
+    counts = runs["dashcam"]["launches"]
+    ms_each = 1e3 * spent[1] / max(spent[0], 1)
+    wall = {run: sorted(st["wall_ms"])[len(st["wall_ms"]) // 2] for run, st in runs.items()}
+    log(f"19d official recipe ({TRAIN_STEPS} steps of {TRAIN_B}x{TRAIN_H}x{TRAIN_W}, one tree, "
+        f"one process), median ms a step after 1 warm-up step, from the batch on the card to "
+        f"the loss: without the flag {runs['without']['median_ms']:.1f}, with "
+        f"--dashcam_augmenentation {runs['dashcam']['median_ms']:.1f}, without it again "
+        f"{runs['without_again']['median_ms']:.1f} (phase 14b: "
+        f"{plain_recipe['median_ms']:.1f}); median wall ms between steps "
+        f"{wall['without']:.1f} / {wall['dashcam']:.1f} / {wall['without_again']:.1f}, the "
+        f"wait for the loader {runs['without']['wait_share']:.1%} / "
+        f"{runs['dashcam']['wait_share']:.1%} / {runs['without_again']['wait_share']:.1%} of "
+        f"it; jpeg_corrupt on the loader threads: {spent[0]} calls, {ms_each:.2f} ms each, "
+        f"{spent[1]:.3f} s in all; J2/J3 launches over the flagged run (the loader's "
+        f"prefetch included) {counts['jpeg_decode_pixels']} / {counts['jpeg_encode_pixels']}, "
+        f"{counts['jpeg_decode_pixels'] / TRAIN_STEPS:.1f} J2 and "
+        f"{counts['jpeg_encode_pixels'] / TRAIN_STEPS:.1f} J3 a step [{card}]")
+    # a loader thread may sit between the J3 and the J2 of one corruption
+    # when the counts are read
+    gap = counts["jpeg_encode_pixels"] - counts["jpeg_decode_pixels"]
+    check(counts["jpeg_decode_pixels"] > 0 and 0 <= gap <= DASHCAM_WORKERS
+          and counts["jpeg_huff_decode"] == counts["jpeg_huff_encode"] == 0,
+          f"dashcam launches {counts}: want J2 and J3 > 0, one J2 a J3, no J1")
+    return counts, runs
+
+
+def run_jpeg(torch, ops, dev, card, recipes):
+    """Phase 19: J1-J3 (a), the demo on a JPEG directory (b), a Kinetics-form
+    shard through the runner (c), the dashcam recipe (d)."""
+    import tempfile
+    from pathlib import Path
+    t0 = time.perf_counter()
+    stats = check_jpeg_kernels(torch, dev, card)
+    log(f"phase 19a seconds {time.perf_counter() - t0:.2f}")
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        t0 = time.perf_counter()
+        demo_counts, fps, shares = run_demo(torch, ops, dev, card, tmp, fmt="jpg")
+        log(f"phase 19b seconds {time.perf_counter() - t0:.2f}")
+        t0 = time.perf_counter()
+        kin_counts, kin_fps = run_kinetics(torch, ops, dev, card, tmp)
+        log(f"phase 19c seconds {time.perf_counter() - t0:.2f}")
+        t0 = time.perf_counter()
+        dash_counts, dash = run_dashcam(torch, ops, dev, card, tmp, recipes["official"])
+        log(f"phase 19d seconds {time.perf_counter() - t0:.2f}")
+    log(f"JPEG: demo on JPEG frames {fps:.2f} frames/s (decode {shares['decode']:.1%}, "
+        f"encode {shares['encode']:.1%}, rendering {shares['render']:.1%}); Kinetics-form "
+        f"runner {kin_fps:.2f} frames/s; official step {dash['dashcam']['median_ms']:.1f} ms "
+        f"with the dashcam flag, {dash['without']['median_ms']:.1f} / "
+        f"{dash['without_again']['median_ms']:.1f} without [{card}]")
+    return dict(stats=stats, demo=demo_counts, kinetics=kin_counts, dashcam=dash_counts)
+
+
 def main() -> int:
     # a hang exits non-zero with a traceback instead of running out the clock
     faulthandler.dump_traceback_later(900, exit=True)
@@ -4338,6 +4767,13 @@ def run() -> int:
         t = time.perf_counter()
         synth_counts = run_generators_and_trainer(torch, ops, dev, card)
         log(f"phase 18 seconds {time.perf_counter() - t:.2f}")
+        t = time.perf_counter()
+        jp = run_jpeg(torch, ops, dev, card, recipes)
+        for name in ("corr_lookup_fused", "corr_lookup", "chain_select", "bilinear_warp"):
+            check(jp["demo"][name] == demo_counts[name],
+                  f"{name}: the JPEG demo's launches {jp['demo'][name]} differ from the PNG "
+                  f"demo's {demo_counts[name]}")
+        log(f"phase 19 seconds {time.perf_counter() - t:.2f}")
         for stats in (*lk.values(), cs, *fk.values(), *vk.values(), *fo.values(), cv,
                       *wk.values(), *bw.values(), *var["k2"].values(), *var["bwd"].values(),
                       *var["fk"].values()):
@@ -4443,6 +4879,25 @@ def run() -> int:
     for k in kernels:
         if k["name"] in synth_counts:
             k["launches_synth_train"] = synth_counts[k["name"]]
+    # JPEG (phase 19): no Pallas site, cv2/PIL on the host in JAX; launches
+    # from the demo on a JPEG directory (19b), the Kinetics-form runner (19c)
+    # and the dashcam recipe (19d); times at 512x512, "_hd" at 1080x1920
+    jpeg_rows = (("jpeg_huff_decode", "jpeg_entropy.cu", "mft_tpu/io/video.py:37", "dec"),
+                 ("jpeg_huff_encode", "jpeg_entropy.cu", "mft_tpu/io/video.py:82", "enc"),
+                 ("jpeg_decode_pixels", "jpeg.cu", "mft_tpu/train/augment.py:68", "j2"),
+                 ("jpeg_encode_pixels", "jpeg.cu", "mft_tpu/train/augment.py:65", "j3"))
+    for kname, source, where, key in jpeg_rows:
+        st, hd = jp["stats"][(512, 512)][key], jp["stats"][(1080, 1920)][key]
+        kernels.append(dict(name=kname, route="cuda", source=src + source, replaces=where,
+                            launches=jp["demo"][kname], **st, library_ms=None,
+                            ms_hd=hd["ms"], plain_ms_hd=hd["plain_ms"],
+                            bound_ms_hd=hd["bound_ms"],
+                            launches_kinetics=jp["kinetics"][kname],
+                            launches_dashcam=jp["dashcam"][kname],
+                            runs_on="host" if key in ("dec", "enc") else "card"))
+    for k in kernels:   # the demo on JPEG frames (phase 19b): as on PNG frames
+        if k["name"] in ("corr_lookup_fused", "corr_lookup", "chain_select", "bilinear_warp"):
+            k["launches_demo_jpeg"] = jp["demo"][k["name"]]
     log(f"total seconds {time.perf_counter() - t_all:.2f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

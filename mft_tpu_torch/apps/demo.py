@@ -4,9 +4,10 @@ Port of ``mft_tpu/apps/demo.py`` (role parity with reference demo.py): a
 query grid is tracked from frame 0, drawn as occlusion-colored dots into
 ``<out>/<name>_points/``, and an "edit" overlay drawn on the first frame is
 propagated to every frame by forward splatting into ``<out>/<name>_edit/``.
-Input and outputs are PNG image directories (:mod:`mft_tpu_torch.io.video`).
+Input is a PNG/JPEG image directory, outputs are JPEG image directories
+(:mod:`mft_tpu_torch.io.video`; JPEG through the port's codec on the card).
 
-    python -m mft_tpu_torch.apps.demo --video <png-dir> [--config synth]
+    python -m mft_tpu_torch.apps.demo --video <image-dir> [--config synth]
         [--out demo_out] [--grid_spacing 30] [--max_frames N] [--device cpu]
 
 Drawing without OpenCV: a dot is the filled radius-3 disc of
@@ -103,11 +104,11 @@ def run(args):
 
     queries = None
     edit = edit_mask = None
-    writer_pts = VideoWriter(out_dir / f"{video_name}_points", fps=args.fps)
-    writer_edit = VideoWriter(out_dir / f"{video_name}_edit", fps=args.fps)
+    writer_pts = VideoWriter(out_dir / f"{video_name}_points", fps=args.fps, device=args.device)
+    writer_edit = VideoWriter(out_dir / f"{video_name}_edit", fps=args.fps, device=args.device)
     n_frames = 0
     try:
-        for i, frame in enumerate(get_video_frames(args.video)):
+        for i, frame in enumerate(get_video_frames(args.video, device=args.device)):
             if args.max_frames and i >= args.max_frames:
                 break
             if i == 0:
@@ -130,7 +131,7 @@ def run(args):
 
 def get_parser():
     parser = argparse.ArgumentParser(description="mft-tpu demo (PyTorch port)")
-    parser.add_argument("--video", required=True, help="input PNG image directory")
+    parser.add_argument("--video", required=True, help="input PNG/JPEG image directory")
     parser.add_argument("--config", default="default",
                         help="tracker config: default, synth, fast, warm, demo_cpu "
                              "or a .py file building a port config")

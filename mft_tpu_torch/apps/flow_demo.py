@@ -2,15 +2,15 @@
 render flow-colorwheel panels.
 
 Port of ``mft_tpu/apps/flow_demo.py`` (role parity with the reference's RAFT
-demo, MFT/RAFT/demo.py:42-75): read a PNG image directory, compute flow for
+demo, MFT/RAFT/demo.py:42-75): read a PNG/JPEG image directory, compute flow for
 each consecutive pair, and write each panel (frame stacked over flow color,
 reference demo.py:33) to ``<out>/flow_XXXX.png``.
 
-    python -m mft_tpu_torch.apps.flow_demo --video <png-dir> [--config synth]
+    python -m mft_tpu_torch.apps.flow_demo --video <image-dir> [--config synth]
         [--out flow_demo_out] [--show_ou] [--mp4] [--device cpu]
 
-``--mp4`` writes the panels a second time as the numbered frames of the
-image directory ``<out>/flow/`` (``00000.png``, ...), where the JAX demo
+``--mp4`` writes the panels a second time as the numbered JPEG frames of
+the image directory ``<out>/flow/`` (``00000.jpg``, ...), where the JAX demo
 writes ``flow.mp4``: the card's machine has no video encoder (ROADMAP A11).
 """
 
@@ -49,10 +49,11 @@ def run(args):
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
 
-    writer = VideoWriter(out_dir / "flow", fps=args.fps) if args.mp4 else None
+    writer = (VideoWriter(out_dir / "flow", fps=args.fps, device=args.device)
+              if args.mp4 else None)
     prev = None
     n = 0
-    for frame in get_video_frames(args.video):
+    for frame in get_video_frames(args.video, device=args.device):
         if prev is not None:
             flow, extra = flower.compute_flow(prev, frame, mode="flow", numpy_out=True)
             panel = flow_panel(prev, flow, extra if args.show_ou else None)
@@ -69,7 +70,7 @@ def run(args):
 
 def get_parser():
     parser = argparse.ArgumentParser(description="pairwise-flow demo (PyTorch port)")
-    parser.add_argument("--video", required=True, help="PNG image directory")
+    parser.add_argument("--video", required=True, help="PNG/JPEG image directory")
     parser.add_argument("--config", default="default",
                         help="tracker config (default, synth, fast, warm, demo_cpu or "
                              "a .py file); its flow_config selects the net")

@@ -1,9 +1,8 @@
 """TAP-Vid evaluation: dataset reading, metrics, the benchmark runner,
 the evaluator and the report, and the Sintel/KITTI submission writers (port
 of ``mft_tpu/eval``; reference MFT/evaluation/, MFT/runners/,
-run_eval_report.py and MFT/RAFT/evaluate.py).
-
-Not ported (ROADMAP A12): the Kinetics reader (JPEG frames).
+run_eval_report.py and MFT/RAFT/evaluate.py). TAP-Vid-Kinetics shards'
+JPEG frames decode through the port's codec (:mod:`mft_tpu_torch.io.jpeg`).
 """
 
 from mft_tpu_torch.eval.metrics import compute_tapvid_metrics

@@ -147,7 +147,8 @@ def run(args):
     report = {"passes": [], "caches": {}}
 
     for pickle_path in dataset_conf.pickles:
-        dataset = create_tapvid_dataset(pickle_path, query_modes, dataset_conf.scaling)
+        dataset = create_tapvid_dataset(pickle_path, query_modes, dataset_conf.scaling,
+                                        device=args.device)
         for seq in dataset:
             name = seq["video_name"]
             if args.seq and name not in args.seq:

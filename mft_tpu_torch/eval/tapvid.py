@@ -20,8 +20,11 @@ size is unchanged.
 The RGB-Stacking reader takes its pickle of decoded arrays, the JHMDB
 reader its PNG frames (through :mod:`mft_tpu_torch.io.png`, converted to
 RGB where the JAX package uses PIL) and ``joint_positions.mat`` (through
-``scipy.io``). Not ported (ROADMAP A12): Kinetics shards (JPEG frames: the
-card's machine has no JPEG decoder) raise ``NotImplementedError``.
+``scipy.io``). A TAP-Vid-Kinetics shard (a list of records whose frames are
+JPEG bytes) is decoded by the port's codec as the JAX package's
+``PIL.Image.open`` decodes it: RGB, no EXIF orientation, a grey file as
+(H, W); each record's files are entropy-decoded on host threads and go
+through J2 in one launch where their sizes agree (:mod:`mft_tpu_torch.io.jpeg`).
 """
 
 import math
@@ -30,6 +33,7 @@ from pathlib import Path
 
 import numpy as np
 
+from mft_tpu_torch.io.jpeg import decode_jpeg_frames
 from mft_tpu_torch.io.png import decode_png, to_bgr
 from mft_tpu_torch.utils.misc import parse_scale_WH
 
@@ -203,24 +207,35 @@ def sample_queries_strided(target_occluded, target_points, frames,
     }
 
 
-def load_pickle_sequences(pickle_path):
-    """A DAVIS-form TAP-Vid pickle as its ordered {name: record} dict
-    (reference tapvid_eval_stuff.py:552-579). A Kinetics shard (a list of
-    records with JPEG frames) raises ``NotImplementedError``."""
+def _load_kinetics_video(data, device):
+    """A Kinetics record's list of JPEG byte strings -> (N, H, W, 3) uint8
+    RGB (or (N, H, W) for grey files), as ``PIL.Image.open`` decodes them."""
+    frames = decode_jpeg_frames(data["video"], device, orient=False, rgb=True, keep_grey=True)
+    data["video"] = np.stack(frames)
+    return data
+
+
+def load_pickle_sequences(pickle_path, device="cuda"):
+    """A TAP-Vid pickle as its ordered {name: record} dict (reference
+    tapvid_eval_stuff.py:552-579): a DAVIS-form dict as it is, a Kinetics
+    shard (a list of records with JPEG frames) as records ``kin-<shard>-<i>``
+    with decoded frames (``device`` runs the decoder)."""
     with open(pickle_path, "rb") as f:
         data = pickle.load(f)
     if isinstance(data, list):
-        raise NotImplementedError("TAP-Vid-Kinetics shards (JPEG frames) are not "
-                                  "ported yet (ROADMAP A12)")
+        shard = Path(pickle_path).stem
+        data = {f"kin-{shard}-{i:04d}": _load_kinetics_video(rec, device)
+                for i, rec in enumerate(data)}
     return data
 
 
 def create_tapvid_dataset(pickle_path, query_modes, scaling=None,
-                          fake_video=False, lazy_video=False):
+                          fake_video=False, lazy_video=False, device="cuda"):
     """Yield per-sequence evaluation records.
 
     args:
-      pickle_path: DAVIS-form TAP-Vid pickle.
+      pickle_path: TAP-Vid pickle (DAVIS dict or Kinetics shard list; the
+        shard's JPEG frames are decoded for ``device``).
       query_modes: iterable of 'first' / 'strided'.
       scaling: resolution string ('256x256', '256x256_512x512', 'fullres',
         ...): the video passes through ALL stages in order; query and target
@@ -232,7 +247,7 @@ def create_tapvid_dataset(pickle_path, query_modes, scaling=None,
     """
     if isinstance(query_modes, str):
         query_modes = [query_modes]
-    sequences = load_pickle_sequences(pickle_path)
+    sequences = load_pickle_sequences(pickle_path, device)
     for name, record in sequences.items():
         frames = record["video"]
         N, H, W, C = frames.shape

@@ -16,8 +16,9 @@ non-interlaced 8- or 16-bit grey, RGB or RGBA PNG: all five row filters
 anti-diagonals, whose pixels do not depend on each other), any number of
 IDAT chunks; it checks every chunk's CRC and raises ``ValueError`` for a
 file it cannot decode. :func:`read_text` returns the ``tEXt`` chunks.
-:func:`to_bgr` and :func:`imread` give what ``cv2.imread(path)``
-(``IMREAD_COLOR``) gives.
+:func:`to_bgr` gives what ``cv2.imread(path)`` (``IMREAD_COLOR``) gives of
+a decoded PNG; :func:`imread` reads any image file through
+:mod:`mft_tpu_torch.io.image`.
 """
 
 import struct
@@ -184,7 +185,9 @@ def to_bgr(img: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(img[..., :3])
 
 
-def imread(path) -> np.ndarray:
-    """(H, W, 3) uint8 BGR of a PNG file, as ``cv2.imread(path)`` reads it."""
-    with open(path, "rb") as f:
-        return to_bgr(decode_png(f.read()))
+def imread(path, device="cuda"):
+    """(H, W, 3) uint8 BGR of an image file, as ``cv2.imread(path)`` reads
+    it: :func:`mft_tpu_torch.io.image.imread` (PNG, JPEG, PPM; ``device``
+    decodes a JPEG)."""
+    from mft_tpu_torch.io.image import imread as _imread
+    return _imread(path, device)

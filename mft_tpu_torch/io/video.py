@@ -2,13 +2,16 @@
 
 A copy of ``mft_tpu/io/video.py`` (reference MFT/utils/io.py:566-615 and
 vis_utils.py:621-658) without OpenCV. Frames are (H, W, 3) uint8 BGR, as
-``cv2.imread`` gives them; PNGs go through :mod:`mft_tpu_torch.io.png`.
+``cv2.imread`` gives them: PNG and JPEG frames go through
+:func:`mft_tpu_torch.io.image.imread` (a JPEG through the port's codec,
+:mod:`mft_tpu_torch.io.jpeg`: J1 on host threads and J2 on the card for a
+CUDA ``device``). A writer for a path without a suffix writes
+``00000.jpg``, ``00001.jpg``, ... at quality 95 (``cv2.imwrite``'s
+default), as the JAX package does, through J3 and J1.
 
-Differences by design (ROADMAP A11): the card's machine has no video or JPEG
-codec, so a video file, a ``.jpg``/``.jpeg`` frame and a writer for a path
-with a suffix (``.mp4``) raise ``NotImplementedError``; a writer for a path
-without a suffix writes numbered PNG frames (``00000.png``, ...) where the
-JAX package writes JPEGs.
+Difference by design (ROADMAP A11): the card's machine has no video codec,
+so a video file and a writer for a path with a suffix (``.mp4``) raise
+``NotImplementedError``.
 """
 
 from collections import deque
@@ -16,24 +19,26 @@ from pathlib import Path
 
 import numpy as np
 
-from mft_tpu_torch.io.png import encode_png, imread
+from mft_tpu_torch.io.image import imread
+from mft_tpu_torch.io.jpeg import encode_jpeg
 
 IMAGE_SUFFIXES = {".jpg", ".jpeg", ".png"}
 
 
 def _no_codec(what):
     return NotImplementedError(
-        f"{what}: the port reads and writes PNG image directories only; video "
-        "files and JPEG need a codec (OpenCV's), which the card's machine lacks "
-        "(ROADMAP A11)")
+        f"{what}: the port reads and writes image directories only; video files "
+        "need a video codec (OpenCV's), which the card's machine lacks (ROADMAP A11)")
 
 
 class GeneralVideoCapture:
     """A directory of images read as a video, in sorted file-name order
-    (reversed with ``reverse``); ``read()`` as ``cv2.VideoCapture.read``."""
+    (reversed with ``reverse``); ``read()`` as ``cv2.VideoCapture.read``.
+    ``device`` decodes JPEG frames."""
 
-    def __init__(self, path, reverse=False):
+    def __init__(self, path, reverse=False, device="cuda"):
         path = Path(path)
+        self.device = device
         self.image_inputs = path.is_dir()
         if not self.image_inputs:
             raise _no_codec(f"video file {path}")
@@ -48,10 +53,8 @@ class GeneralVideoCapture:
         if self.i >= len(self.images):
             return False, None
         image = self.images[self.i]
-        if image.suffix.lower() != ".png":
-            raise _no_codec(f"JPEG frame {image}")
         self.frame_src = image.name
-        img = imread(image)
+        img = imread(image, self.device)
         self.i += 1
         return True, img
 
@@ -59,9 +62,9 @@ class GeneralVideoCapture:
         pass
 
 
-def get_video_frames(path, reverse=False):
+def get_video_frames(path, reverse=False, device="cuda"):
     """Generator of (H, W, 3) uint8 BGR frames."""
-    cap = GeneralVideoCapture(path, reverse=reverse)
+    cap = GeneralVideoCapture(path, reverse=reverse, device=device)
     try:
         while True:
             ok, frame = cap.read()
@@ -72,17 +75,19 @@ def get_video_frames(path, reverse=False):
         cap.release()
 
 
-def get_video_length(path):
-    return sum(1 for _ in get_video_frames(path))
+def get_video_length(path, device="cuda"):
+    return sum(1 for _ in get_video_frames(path, device=device))
 
 
 class VideoWriter:
     """Image-sequence writer for visualizations: ``path`` without a suffix
-    is a directory that receives ``00000.png``, ``00001.png``, ..."""
+    is a directory that receives ``00000.jpg``, ``00001.jpg``, ... (JPEG at
+    quality 95, encoded for ``device``)."""
 
-    def __init__(self, path, fps=25.0):
+    def __init__(self, path, fps=25.0, device="cuda"):
         self.path = Path(path)
         self.fps = fps
+        self.device = device
         if self.path.suffix != "":
             raise _no_codec(f"video writer for {self.path}")
         self.path.mkdir(parents=True, exist_ok=True)
@@ -90,7 +95,8 @@ class VideoWriter:
 
     def write(self, frame):
         """frame: (H, W, 3) uint8 BGR."""
-        (self.path / f"{self.i:05d}.png").write_bytes(encode_png(np.asarray(frame)))
+        (self.path / f"{self.i:05d}.jpg").write_bytes(
+            encode_jpeg(np.asarray(frame), 95, self.device))
         self.i += 1
 
     def close(self):

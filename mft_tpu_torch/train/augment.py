@@ -16,19 +16,29 @@ the same transforms. The OpenCV calls are written in numpy:
   integer tables (shift 12) one way and its float sector formula the other
   (1 - s*h fused; the blocks of 32 pixels of a row that OpenCV's vector
   code converts truncated to uint8, the rest of the row rounded), equal to
-  cv2's (OpenCV 5 on x86) on every input tried.
+  cv2's (OpenCV 5 on x86) on every input tried;
+- ``cv2.resize(INTER_AREA)`` of the float32 blend image, shrinking (the
+  area table of ``eval/tapvid.py``, or block sums for integer factors) and
+  growing (OpenCV's area-mode bilinear weights);
+- ``cv2.imencode``/``cv2.imdecode`` of the JPEG corruption: the port's codec
+  (:func:`mft_tpu_torch.io.jpeg.jpeg_roundtrip`: J3 then J2 on the card, no
+  entropy stage, for the augmenter's ``device``), and ``cv2.imread`` of the
+  blend images: :func:`mft_tpu_torch.io.image.imread`.
 
-Not ported (ROADMAP A14): ``jpeg_corrupt``, ``BlendAugmenter`` with a source
-directory and ``TextAugmenter`` with text on need a JPEG codec, image files
-and a font rasterizer that the card's machine lacks; enabling them raises
-``NotImplementedError``. Disabled, they draw nothing, as in JAX.
+Not ported (ROADMAP A14): ``TextAugmenter`` with text on needs OpenCV's
+Hershey font data; enabling it raises ``NotImplementedError``. Disabled, it
+draws nothing, as in JAX.
 """
+
+import os
 
 import numpy as np
 
-from mft_tpu_torch.eval.tapvid import _resize_linear
+from mft_tpu_torch.eval.tapvid import _area_tab, _resize_linear
+from mft_tpu_torch.io.image import imread
+from mft_tpu_torch.io.jpeg import jpeg_roundtrip
 
-_NOT_PORTED = "ROADMAP A14: no JPEG codec, image decoder or font rasterizer on the card's machine"
+_NOT_PORTED = "ROADMAP A14: no font rasterizer (OpenCV's Hershey fonts) on the card's machine"
 HSV_SHIFT = 12
 HSV2RGB_BLOCK = 32   # pixels of a row that OpenCV's vector HSV -> RGB code takes at once
 
@@ -147,23 +157,166 @@ def hsv_to_rgb(hsv):
     return np.clip(out, 0, 255).astype(np.uint8)
 
 
+def _resize_area_float(a, Ho: int, Wo: int):
+    """``cv2.resize(a, (Wo, Ho), interpolation=cv2.INTER_AREA)`` of a
+    float32 (H, W, C) image."""
+    a = np.asarray(a, np.float32)
+    H, W, C = a.shape
+    if (Ho, Wo) == (H, W):
+        return a.copy()
+    scale_x, scale_y = W / Wo, H / Ho
+    if scale_x >= 1 and scale_y >= 1:
+        ix, iy = int(round(scale_x)), int(round(scale_y))
+        eps = np.finfo(np.float64).eps
+        if abs(scale_x - ix) < eps and abs(scale_y - iy) < eps:
+            # integer factors (resizeAreaFast): the block's samples summed in
+            # row-major order, four at a time, times 1/area in float32
+            blocks = a.reshape(Ho, iy, Wo, ix, C).transpose(0, 2, 1, 3, 4).reshape(Ho, Wo, -1, C)
+            area = ix * iy
+            acc = np.zeros((Ho, Wo, C), np.float32)
+            k = 0
+            while k + 4 <= area:
+                acc = acc + (((blocks[:, :, k] + blocks[:, :, k + 1]) + blocks[:, :, k + 2])
+                             + blocks[:, :, k + 3])
+                k += 4
+            for k in range(k, area):
+                acc = acc + blocks[:, :, k]
+            return acc * np.float32(1.0 / area)
+        rows = np.zeros((H, Wo, C), np.float32)
+        for dx, sx, alpha in _area_tab(W, Wo):
+            rows[:, dx] = rows[:, dx] + a[:, sx] * alpha
+        out = np.zeros((Ho, Wo, C), np.float32)
+        prev = None
+        for dy, sy, beta in _area_tab(H, Ho):
+            if dy != prev:
+                out[dy] = beta * rows[sy]
+                prev = dy
+            else:
+                out[dy] = out[dy] + beta * rows[sy]
+        return out
+
+    # growing on either side: OpenCV's area-mode bilinear weights
+    def tab(ssize, dsize):
+        d = np.arange(dsize)
+        s0 = np.floor(d * (ssize / dsize)).astype(np.int64)
+        f = ((d + 1) - (s0 + 1) * (dsize / ssize)).astype(np.float32)
+        f = np.where(f <= 0, np.float32(0), f - np.floor(f))
+        return s0, f.astype(np.float32)
+
+    sx, fx = tab(W, Wo)
+    edge = sx >= W - 1
+    fx[edge] = 0
+    sx[edge] = W - 1
+    a0 = (np.float32(1) - fx)[None, :, None]
+    a1 = fx[None, :, None]
+    rows = np.where(edge[None, :, None], a[:, sx],
+                    a[:, sx] * a0 + a[:, np.minimum(sx + 1, W - 1)] * a1)
+    sy, fy = tab(H, Ho)
+    b0 = (np.float32(1) - fy)[:, None, None]
+    b1 = fy[:, None, None]
+    return rows[np.clip(sy, 0, H - 1)] * b0 + rows[np.clip(sy + 1, 0, H - 1)] * b1
+
+
+def _perlin_noise_2d(shape, res, rng):
+    """Gradient (Perlin) noise in [-1, 1] on an H x W grid, the JAX package's
+    (``shape`` a multiple of ``res``; the same draws from ``rng``)."""
+    H, W = shape
+    gy, gx = res
+    d0, d1 = H // gy, W // gx
+    angles = 2.0 * np.pi * rng.random((gy + 1, gx + 1))
+    grad = np.stack([np.cos(angles), np.sin(angles)], axis=-1)
+    y = np.arange(H, dtype=np.float64) / d0
+    x = np.arange(W, dtype=np.float64) / d1
+    yi = np.minimum(y.astype(np.int64), gy - 1)
+    xi = np.minimum(x.astype(np.int64), gx - 1)
+    yf = (y - yi)[:, None]
+    xf = (x - xi)[None, :]
+    g00 = grad[yi][:, xi]
+    g01 = grad[yi][:, xi + 1]
+    g10 = grad[yi + 1][:, xi]
+    g11 = grad[yi + 1][:, xi + 1]
+    n00 = g00[..., 0] * xf + g00[..., 1] * yf
+    n01 = g01[..., 0] * (xf - 1.0) + g01[..., 1] * yf
+    n10 = g10[..., 0] * xf + g10[..., 1] * (yf - 1.0)
+    n11 = g11[..., 0] * (xf - 1.0) + g11[..., 1] * (yf - 1.0)
+    u = xf ** 3 * (xf * (xf * 6.0 - 15.0) + 10.0)
+    v = yf ** 3 * (yf * (yf * 6.0 - 15.0) + 10.0)
+    nx0 = n00 * (1.0 - u) + n01 * u
+    nx1 = n10 * (1.0 - u) + n11 * u
+    return np.sqrt(2.0) * (nx0 * (1.0 - v) + nx1 * v)
+
+
 # --------------------------------------------------------------------------- #
-# the corruption augmenters (not ported)
+# the corruption augmenters
 # --------------------------------------------------------------------------- #
-def jpeg_corrupt(img, severity):
-    raise NotImplementedError(f"jpeg_corrupt: {_NOT_PORTED}")
+# JPEG-corruption severity -> libjpeg quality (the JAX package's table)
+_JPEG_SEVERITY_QUALITY = {1: 25, 2: 18, 3: 15}
+
+
+def jpeg_corrupt(img, severity, device="cuda"):
+    """Encode + decode a uint8 RGB image as JPEG at the severity's quality
+    (JAX ``augment.py:57-68``: ``cv2.imencode`` of the BGR flip, 4:2:0, then
+    ``cv2.imdecode``, flipped back): J3 then J2 for ``device``."""
+    quality = _JPEG_SEVERITY_QUALITY[int(severity)]
+    bgr = np.ascontiguousarray(np.asarray(img)[:, :, ::-1])
+    return np.ascontiguousarray(jpeg_roundtrip(bgr, quality, device)[:, :, ::-1])
 
 
 class BlendAugmenter:
-    """Lighten-only blend of a distractor image (reference augmentor.py:26-93):
-    not ported; without a source directory it is off and does nothing."""
+    """Lighten-only blend of a random distractor image through Perlin alpha
+    (reference augmentor.py:26-93, JAX ``augment.py:71-127``): a random image
+    under ``source_dir`` (read for ``device``), resized to the frame, its
+    alpha clipped Perlin noise, blended identically into both frames with
+    random opacity in [0, 0.6]."""
 
-    def __init__(self, source_dir=None, do_blend_transform=True, **kwargs):
-        if do_blend_transform and source_dir:
-            raise NotImplementedError(f"BlendAugmenter: {_NOT_PORTED}")
+    def __init__(self, source_dir=None, do_blend_transform=True,
+                 blend_prop=0.5, blend_clip_min=0.5, blend_clip_max=0.8,
+                 octaves=8, rng=None, device="cuda"):
+        self.do_blend_transform = bool(do_blend_transform and source_dir)
+        self.blend_prop = blend_prop
+        self.blend_clip_min = blend_clip_min
+        self.blend_clip_max = blend_clip_max
+        self.octaves = octaves
+        self.rng = rng if rng is not None else np.random.default_rng()
+        self.device = device
+        self.image_list = []
+        if self.do_blend_transform:
+            for root, _dirs, files in os.walk(source_dir):
+                self.image_list += [os.path.join(root, f) for f in files]
+            self.image_list.sort()
+            self.do_blend_transform = bool(self.image_list)
+
+    def _perlin_alpha(self, H, W):
+        g = self.octaves
+        Hb = ((H // g ** 2) + 1) * g ** 2
+        Wb = ((W // g ** 2) + 1) * g ** 2
+        noise = _perlin_noise_2d((Hb, Wb), (g, g), self.rng)[:H, :W]
+        noise = noise - noise.min()
+        noise = np.clip(noise, self.blend_clip_min, self.blend_clip_max)
+        noise = noise - self.blend_clip_min
+        m = noise.max()
+        return noise / m if m > 0 else noise
+
+    def _lighten_only(self, img, blend_rgb, alpha, opacity):
+        """max-blend composited at per-pixel ratio alpha*opacity."""
+        ratio = (alpha * opacity)[..., None]
+        comp = np.maximum(img.astype(np.float32), blend_rgb)
+        out = comp * ratio + img.astype(np.float32) * (1.0 - ratio)
+        return np.round(out).astype(np.uint8)
 
     def __call__(self, img1, img2):
-        return img1, img2
+        if not self.do_blend_transform or self.rng.uniform() >= self.blend_prop:
+            return img1, img2
+        H, W = img1.shape[:2]
+        path = self.image_list[int(self.rng.integers(len(self.image_list)))]
+        blend = imread(path, self.device)
+        if blend is None:
+            return img1, img2
+        blend = _resize_area_float(blend[:, :, ::-1].astype(np.float32), H, W)
+        alpha = self._perlin_alpha(H, W)
+        opacity = self.rng.uniform(0.0, 0.6)
+        return (self._lighten_only(img1, blend, alpha, opacity),
+                self._lighten_only(img2, blend, alpha, opacity))
 
 
 class TextAugmenter:
@@ -205,7 +358,7 @@ class FlowAugmenter:
                  v_flip_prob=0.1, out_of_frame_occlusion=True, seed=None,
                  do_jpeg_transform=False, jpeg_prop=0.8, blend_source=None,
                  do_blend_transform=None, blend_prop=0.5, do_add_text_transform=False,
-                 add_text_prop=0.5, max_add_text=3):
+                 add_text_prop=0.5, max_add_text=3, device="cuda"):
         self.crop_size = tuple(crop_size)
         self.min_scale = min_scale
         self.max_scale = max_scale
@@ -220,14 +373,17 @@ class FlowAugmenter:
         self.v_flip_prob = v_flip_prob
         self.out_of_frame_occlusion = out_of_frame_occlusion
         self.rng = np.random.default_rng(seed)
-        # the corruptions (blend -> text -> jpeg after the spatial transform
-        # in JAX) are not ported; off, they draw nothing
-        if do_jpeg_transform:
-            raise NotImplementedError(f"do_jpeg_transform: {_NOT_PORTED}")
+        # the corruptions (reference augmentor.py:169-183): blend -> text ->
+        # jpeg after the spatial transform; ``device`` runs the JPEG codec
+        self.device = device
+        self.do_jpeg_transform = do_jpeg_transform
+        self.jpeg_prop = jpeg_prop
         if do_blend_transform is None:
             do_blend_transform = blend_source is not None
-        BlendAugmenter(source_dir=blend_source, do_blend_transform=do_blend_transform)
-        TextAugmenter(do_add_text=do_add_text_transform)
+        self.blend_aug = BlendAugmenter(source_dir=blend_source,
+                                        do_blend_transform=do_blend_transform,
+                                        blend_prop=blend_prop, rng=self.rng, device=device)
+        self.text_aug = TextAugmenter(do_add_text=do_add_text_transform)
 
     def color_transform(self, img1, img2):
         """Strong symmetric jitter, then with probability a weak asymmetric
@@ -239,6 +395,15 @@ class FlowAugmenter:
             weak = dict(brightness=0.2, contrast=0.2, saturation=0.2, hue=0.05)
             img1 = _adjust_photometric(img1, self.rng, **weak)
             img2 = _adjust_photometric(img2, self.rng, **weak)
+        return img1, img2
+
+    def jpeg_transform(self, img1, img2):
+        """JPEG-corrupt both frames at a shared random severity 1..3
+        (reference augmentor.py:212-218)."""
+        if self.do_jpeg_transform and self.rng.uniform() < self.jpeg_prop:
+            severity = int(self.rng.integers(1, 4))
+            img1 = jpeg_corrupt(img1, severity, self.device)
+            img2 = jpeg_corrupt(img2, severity, self.device)
         return img1, img2
 
     def eraser_transform(self, img1, img2, bounds=(50, 100)):
@@ -324,6 +489,10 @@ class FlowAugmenter:
         valid = valid[..., 0] if valid.ndim == 3 else valid
         img1, img2, flow, occl2d, valid = self.spatial_transform(img1, img2, flow, occl2d,
                                                                  valid)
+        # post-spatial corruptions, reference order: blend -> text -> jpeg
+        img1, img2 = self.blend_aug(img1, img2)
+        img1, img2, valid = self.text_aug(img1, img2, valid)
+        img1, img2 = self.jpeg_transform(img1, img2)
         valid = valid.astype(np.float32)
         if occl2d is not None and self.out_of_frame_occlusion:
             occl2d = self.mark_out_of_frame_occluded(flow, occl2d)
@@ -347,6 +516,7 @@ class SparseFlowAugmenter:
         self.eraser_aug_prob = 0.5
         self._dense = FlowAugmenter(crop_size, seed=seed, **kwargs)
         self._dense.rng = self.rng
+        self._dense.blend_aug.rng = self.rng
 
     @staticmethod
     def resize_sparse_flow_map(flow, valid, fx, fy):
@@ -401,6 +571,9 @@ class SparseFlowAugmenter:
         sl = (slice(y0, y0 + self.crop_size[0]), slice(x0, x0 + self.crop_size[1]))
         img1, img2 = img1[sl], img2[sl]
         flow, valid = flow[sl], valid[sl]
+        img1, img2 = self._dense.blend_aug(img1, img2)
+        img1, img2, valid = self._dense.text_aug(img1, img2, valid)
+        img1, img2 = self._dense.jpeg_transform(img1, img2)
         valid = valid.astype(np.float32)
         occl_out = np.zeros((*flow.shape[:2], 1), np.float32)
         return (np.ascontiguousarray(img1), np.ascontiguousarray(img2),

@@ -13,9 +13,10 @@ subsplit), FlyingChairs, FlyingThings3D (+ generated occlusion PNGs),
 KubricLongTerm (template -> frame flow with first-frame motion
 compensation), KITTI, VIPER and HD1K (sparse). ``fetch_dataset`` builds
 every stage of the JAX package. Files are read by
-:mod:`mft_tpu_torch.train.flow_readers` (PNG, PPM, .flo, .pfm, .npz; a JPEG
-raises). :class:`BatchLoader` assembles batches in worker threads; the train
-loop moves each batch to the card once.
+:mod:`mft_tpu_torch.train.flow_readers` (PNG, JPEG, PPM, .flo, .pfm, .npz);
+a dataset's JPEG images (VIPER's frames) decode for its ``device``, which
+its augmenter's JPEG corruption uses too. :class:`BatchLoader` assembles
+batches in worker threads; the train loop moves each batch to the card once.
 """
 
 import logging
@@ -47,9 +48,11 @@ class FlowDataset:
         self.sparse = sparse
         self.load_occlusion = load_occlusion
         self.augmentor = None
+        self.device = "cuda"        # where JPEG images decode
         if aug_params is not None:
             cls = SparseFlowAugmenter if sparse else FlowAugmenter
             self.augmentor = cls(**aug_params)
+            self.device = aug_params.get("device", self.device)
         self.image_list = []
         self.flow_list = []
         self.occlusion_list = []
@@ -66,22 +69,22 @@ class FlowDataset:
             else:  # KITTI / HD1K 16-bit png
                 flow, valid = fr.read_kitti_flow(path)
             return flow, valid
-        data = fr.read_gen(self.flow_list[index])
+        data = fr.read_gen(self.flow_list[index], self.device)
         flow = data[0] if isinstance(data, tuple) else data
         return np.asarray(flow, np.float32), None
 
     def _read_occl(self, index):
         if not self.occlusion_list:
             return None
-        occl = fr.read_image(self.occlusion_list[index])[..., 0].astype(np.float32)
+        occl = fr.read_image(self.occlusion_list[index], self.device)[..., 0].astype(np.float32)
         if occl.max() >= 1.1:
             occl = occl / 255.0
         return occl
 
     def __getitem__(self, index):
         index = index % len(self.image_list)
-        img1 = fr.read_image(self.image_list[index][0]).astype(np.uint8)
-        img2 = fr.read_image(self.image_list[index][1]).astype(np.uint8)
+        img1 = fr.read_image(self.image_list[index][0], self.device).astype(np.uint8)
+        img2 = fr.read_image(self.image_list[index][1], self.device).astype(np.uint8)
         flow, valid = self._read_flow(index)
         occl = self._read_occl(index)
         occl_in = occl[..., None] if occl is not None else np.zeros(
@@ -236,8 +239,8 @@ class KubricLongTerm(FlowDataset):
 
     def __getitem__(self, index):
         index = index % len(self.image_list)
-        img1 = fr.read_image(self.image_list[index][0]).astype(np.uint8)
-        img2 = fr.read_image(self.image_list[index][1]).astype(np.uint8)
+        img1 = fr.read_image(self.image_list[index][0], self.device).astype(np.uint8)
+        img2 = fr.read_image(self.image_list[index][1], self.device).astype(np.uint8)
         flow, occl, _ = fr.read_flowou_png(self.flow_list[index])
         occl = occl.astype(np.float32)
         valid = None
@@ -355,7 +358,7 @@ class MixedDataset:
         return self.parts[part][index - self.offsets[part]]
 
 
-def fetch_dataset(stage, image_size, env=None, dashcam_augmentation=False):
+def fetch_dataset(stage, image_size, env=None, dashcam_augmentation=False, device="cuda"):
     """Build the training mix for an official stage name.
 
     Official MFT stage 'sintel_things_kubric_train_subsplit' mixes
@@ -363,11 +366,12 @@ def fetch_dataset(stage, image_size, env=None, dashcam_augmentation=False):
     zoom-in augmentation for kubric (reference datasets.py:541-630).
     ``dashcam_augmentation`` adds JPEG corruption at p=0.5 to every stage
     (reference datasets.py:546-552: do_jpeg_transform=True, jpeg_prop=0.5).
+    ``device`` decodes JPEG images and runs the JPEG corruption.
     """
     from mft_tpu_torch.environment import env_settings
     env = env or env_settings()
     aug = {"crop_size": image_size, "min_scale": -0.2, "max_scale": 0.6,
-           "do_flip": True}
+           "do_flip": True, "device": device}
     if dashcam_augmentation:
         aug.update({"do_jpeg_transform": True, "jpeg_prop": 0.5})
 

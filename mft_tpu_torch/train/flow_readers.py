@@ -2,12 +2,11 @@
 flowou PNG, and images.
 
 Port of ``mft_tpu/train/flow_readers.py`` (reference
-MFT/RAFT/core/utils/frame_utils.py:12-161) without OpenCV: PNGs go through
-:mod:`mft_tpu_torch.io.png` (OpenCV's BGR order, so ``read_image`` flips to
-RGB as the JAX package does after ``cv2.imread``), binary PPM (FlyingChairs)
-is read in numpy, and a JPEG raises ``NotImplementedError``: the card's
-machine has no JPEG decoder (ROADMAP A14). All readers return channel-last
-numpy arrays.
+MFT/RAFT/core/utils/frame_utils.py:12-161) without OpenCV: images go through
+:func:`mft_tpu_torch.io.image.imread` in ``cv2.imread``'s role (PNG, JPEG
+through the port's codec (VIPER's frames), binary PPM (FlyingChairs); BGR,
+so ``read_image`` flips to RGB as the JAX package does after ``cv2.imread``).
+All readers return channel-last numpy arrays.
 """
 
 import re
@@ -15,7 +14,8 @@ from pathlib import Path
 
 import numpy as np
 
-from mft_tpu_torch.io.png import decode_png, encode_png, to_bgr
+from mft_tpu_torch.io.image import imread
+from mft_tpu_torch.io.png import decode_png, encode_png
 
 FLO_MAGIC = 202021.25
 
@@ -105,40 +105,15 @@ def read_flowou_png(path):
     return read_flowou(path)
 
 
-def _read_ppm(data: bytes) -> np.ndarray:
-    """Binary (P6) 8-bit PPM -> (H, W, 3) uint8 RGB."""
-    fields, pos = [], 2
-    while len(fields) < 3:
-        while data[pos:pos + 1].isspace():
-            pos += 1
-        if data[pos:pos + 1] == b"#":
-            pos = data.index(b"\n", pos) + 1
-            continue
-        end = pos
-        while not data[end:end + 1].isspace():
-            end += 1
-        fields.append(int(data[pos:end]))
-        pos = end
-    W, H, maxval = fields
-    if maxval > 255:
-        raise ValueError("16-bit PPM is not read")
-    return np.frombuffer(data, np.uint8, count=H * W * 3, offset=pos + 1).reshape(H, W, 3).copy()
-
-
-def read_image(path):
-    """RGB uint8 image (H, W, 3) of a PNG or binary PPM file, as
+def read_image(path, device="cuda"):
+    """RGB uint8 image (H, W, 3) of a PNG, JPEG or binary PPM file, as
     ``cv2.imread(path, IMREAD_COLOR)`` and a BGR -> RGB flip give it: grey
-    replicated to 3 channels, alpha dropped, 16-bit samples >> 8."""
-    path = Path(path)
-    if not path.is_file():
+    replicated to 3 channels, alpha dropped, 16-bit samples >> 8, a JPEG
+    turned by its EXIF orientation (decoded for ``device``)."""
+    img = imread(path, device)
+    if img is None:
         raise FileNotFoundError(path)
-    data = path.read_bytes()
-    if data[:2] == b"P6":
-        return _read_ppm(data)
-    if data[:3] == b"\xff\xd8\xff":
-        raise NotImplementedError(f"{path}: JPEG images are not read (no JPEG decoder on the "
-                                  "card's machine; ROADMAP A14)")
-    return np.ascontiguousarray(to_bgr(decode_png(data))[:, :, ::-1])
+    return np.ascontiguousarray(img[:, :, ::-1])
 
 
 def write_image(path, img):
@@ -146,14 +121,15 @@ def write_image(path, img):
     Path(path).write_bytes(encode_png(np.ascontiguousarray(np.asarray(img)[:, :, ::-1])))
 
 
-def read_gen(path):
-    """Extension-dispatching reader (reference frame_utils.py:146-161)."""
+def read_gen(path, device="cuda"):
+    """Extension-dispatching reader (reference frame_utils.py:146-161);
+    ``device`` decodes a JPEG."""
     ext = Path(path).suffix.lower()
     name = Path(path).name.lower()
     if ext in (".png", ".jpeg", ".ppm", ".jpg"):
         if name.endswith(".flowou.png"):
             return read_flowou_png(path)
-        return read_image(path)
+        return read_image(path, device)
     if ext == ".flo":
         return read_flo(path)
     if ext == ".pfm":

@@ -208,7 +208,8 @@ def train(args, on_step=None):
 
     from mft_tpu_torch.train.datasets import BatchLoader, fetch_dataset
     dataset = fetch_dataset(args.stage, args.image_size,
-                            dashcam_augmentation=args.dashcam_augmenentation)
+                            dashcam_augmentation=args.dashcam_augmenentation,
+                            device=device)
     loader = BatchLoader(dataset, args.batch_size, num_workers=args.num_workers)
 
     from mft_tpu_torch.train.checkpoint import export_weights, save_checkpoint

@@ -142,4 +142,5 @@ def run_validation(name, model, iters=12, max_samples=32):
         ds = D.VIPER(None, root=getattr(env, "viper_dir", "datasets/VIPER"))
     else:
         raise ValueError(f"unknown validation set {name!r}")
+    ds.device = next(model.parameters()).device
     return validate_dataset(ds, model, iters, max_samples)

@@ -4,10 +4,12 @@ The forward splat (``bilinear_splat``, ``warp_forward_image``,
 ``FlowOU.warp_forward``), the demo's drawing (``draw_dots`` bit for bit with
 OpenCV's filled circle, ``make_default_edit``'s rectangle) and its
 per-frame function against JAX's composition on the same FlowOU arrays,
-``flow_panel``, the video I/O over PNG directories, and one JAX-free run of
+``flow_panel``, the video I/O over PNG/JPEG directories (the writer's JPEG
+files byte for byte with JAX's ``cv2.imwrite``), and one JAX-free run of
 each app on ``demo_cpu`` at 128x128 against a direct run of the port's
-tracker / flow network. No JAX tracker runs here (``test_torch_mft.py``
-holds the tracker's parity).
+tracker / flow network (its JPEG frames against ``jpeg_roundtrip`` of the
+drawn ones). No JAX tracker runs here (``test_torch_mft.py`` holds the
+tracker's parity).
 """
 
 import cv2
@@ -27,6 +29,7 @@ from mft_tpu_torch.apps import demo, flow_demo
 from mft_tpu_torch.config import demo_cpu_config
 from mft_tpu_torch.core import FlowOU, bilinear_splat, warp_forward_image
 from mft_tpu_torch.io import video
+from mft_tpu_torch.io.jpeg import jpeg_roundtrip
 from mft_tpu_torch.io.png import encode_png
 from mft_tpu_torch.tracker.point_tracking import convert_to_point_tracking
 
@@ -228,8 +231,9 @@ def demo_runs(tmp_path_factory):
 
 
 def test_demo_run_matches_direct_tracker(demo_runs):
-    """The demo's PNGs equal a direct port MFT run plus
-    convert_to_point_tracking and the drawing functions."""
+    """The demo's JPEG frames, as cv2 reads them, equal a direct port MFT
+    run plus convert_to_point_tracking and the drawing functions, through
+    the codec at quality 95."""
     frames, n, _, tmp = demo_runs
     assert n == 3
     pts, edits = _read_dir(tmp / "out" / "clip_points"), _read_dir(tmp / "out" / "clip_edit")
@@ -241,8 +245,10 @@ def test_demo_run_matches_direct_tracker(demo_runs):
     for i, frame in enumerate(frames):
         result = (tracker.init(frame) if i == 0 else tracker.track(frame)).result
         coords, occl = convert_to_point_tracking(result, queries)
-        assert np.array_equal(pts[i], demo.draw_dots(frame, coords, occl)), i
-        assert np.array_equal(edits[i], demo.draw_edit(frame, result, edit, edit.any(axis=2))), i
+        dots = demo.draw_dots(frame, coords, occl)
+        edited = demo.draw_edit(frame, result, edit, edit.any(axis=2))
+        assert np.array_equal(pts[i], jpeg_roundtrip(dots, 95, device="cpu")), i
+        assert np.array_equal(edits[i], jpeg_roundtrip(edited, 95, device="cpu")), i
 
 
 def test_flow_demo_run_matches_direct_flow(demo_runs):
@@ -251,14 +257,14 @@ def test_flow_demo_run_matches_direct_flow(demo_runs):
     conf = demo_cpu_config()
     flower = conf.flow_config.of_class(conf.flow_config, device="cpu")
     copies = _read_dir(tmp / "flow" / "flow")
-    assert [p.name for p in sorted((tmp / "flow" / "flow").iterdir())] == ["00000.png",
-                                                                            "00001.png"]
+    assert [p.name for p in sorted((tmp / "flow" / "flow").iterdir())] == ["00000.jpg",
+                                                                            "00001.jpg"]
     for k in range(2):
         flow, extra = flower.compute_flow(frames[k], frames[k + 1], numpy_out=True)
         want = flow_demo.flow_panel(frames[k], flow, extra)
         assert want.shape == (3 * 128, 128, 3)
         assert np.array_equal(cv2.imread(str(tmp / "flow" / f"flow_{k:04d}.png")), want)
-        assert np.array_equal(copies[k], want)
+        assert np.array_equal(copies[k], jpeg_roundtrip(want, 95, device="cpu"))
 
 
 def _png_dir(path):
@@ -300,14 +306,20 @@ def test_lookahead_iter_matches_jax():
 
 
 def test_video_writer_writes_png_frames(tmp_path):
+    """The image-directory writer writes JAX's frames: ``%05d.jpg`` at
+    quality 95, byte for byte with ``cv2.imwrite``."""
     rng = np.random.default_rng(6)
     frames = [(rng.random((10, 14, 3)) * 255).astype(np.uint8) for _ in range(2)]
-    with video.VideoWriter(tmp_path / "out") as w:
+    with video.VideoWriter(tmp_path / "out", device="cpu") as w, \
+            jax_video.VideoWriter(tmp_path / "jax") as jw:
         for f in frames:
             w.write(f)
-    assert sorted(p.name for p in (tmp_path / "out").iterdir()) == ["00000.png", "00001.png"]
-    for k, f in enumerate(frames):
-        assert np.array_equal(cv2.imread(str(tmp_path / "out" / f"{k:05d}.png")), f)
+            jw.write(f)
+    names = sorted(p.name for p in (tmp_path / "out").iterdir())
+    assert names == sorted(p.name for p in (tmp_path / "jax").iterdir()) == ["00000.jpg",
+                                                                             "00001.jpg"]
+    for name in names:
+        assert (tmp_path / "out" / name).read_bytes() == (tmp_path / "jax" / name).read_bytes()
 
 
 def test_video_codecs_raise(tmp_path):
@@ -319,12 +331,13 @@ def test_video_codecs_raise(tmp_path):
         video.VideoWriter(tmp_path / "out.mp4")
     d = tmp_path / "jpg"
     d.mkdir()
-    assert cv2.imwrite(str(d / "0.png"), np.zeros((4, 4, 3), np.uint8))
-    assert cv2.imwrite(str(d / "1.jpg"), np.zeros((4, 4, 3), np.uint8))
-    frames = video.get_video_frames(d)
-    assert next(frames).shape == (4, 4, 3)
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        next(frames)
+    rng = np.random.default_rng(8)
+    assert cv2.imwrite(str(d / "0.png"), (rng.random((4, 4, 3)) * 255).astype(np.uint8))
+    assert cv2.imwrite(str(d / "1.jpg"), (rng.random((4, 4, 3)) * 255).astype(np.uint8))
+    got = list(video.get_video_frames(d, device="cpu"))
+    want = list(jax_video.get_video_frames(d))
+    assert len(got) == len(want) == 2
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
 
 
 def test_demo_defaults_to_the_card():

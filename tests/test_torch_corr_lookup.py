@@ -200,7 +200,9 @@ def test_wrappers_use_plain_version_on_cpu(rng):
     assert all(torch.equal(a, b) for a, b in zip(ops.corr_lookup_bwd(g, tc, dims, R),
                                                    ops.corr_lookup_bwd_ref(g, tc, dims, R)))
     assert ops.launch_counts() == {k.__name__: 0 for k in ops.KERNELS}
-    assert len(ops.KERNELS) == 15   # the 14 kernels of the Pallas sites' paths + the backward
+    # the 14 kernels of the Pallas sites' paths, the backward, JPEG's J1 (decode,
+    # encode), J2 and J3
+    assert len(ops.KERNELS) == 19
 
 
 @pytest.mark.parametrize("radius", [0, 1, 4, 5])

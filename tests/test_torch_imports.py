@@ -1,13 +1,13 @@
 """The port stands alone: no module of mft_tpu_torch, and not chip_smoke.py,
 imports JAX or the JAX package, nor the JAX tools of ``tools/``, optax,
-orbax, OpenCV, pandas, tabulate, PIL or tensorflow_datasets (the card's
-machine has none of them), and chip_smoke.py refuses to run without a card
-or without the package beside it.
+orbax, OpenCV, pandas, tabulate, PIL, torchvision or tensorflow_datasets
+(the card's machine has none of them), and chip_smoke.py refuses to run
+without a card or without the package beside it.
 
 Each check runs in a fresh interpreter whose import system refuses ``jax``,
 ``flax``, ``optax``, ``orbax``, ``msgpack``, ``mft_tpu``, ``cv2``,
-``pandas``, ``tabulate``, ``PIL``, ``tools`` and ``tensorflow_datasets``
-(and their submodules).
+``pandas``, ``tabulate``, ``PIL``, ``torchvision``, ``tools`` and
+``tensorflow_datasets`` (and their submodules).
 """
 
 import os
@@ -23,7 +23,7 @@ import mft_tpu_torch
 
 REPO = Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "mft_tpu", "cv2",
-           "pandas", "tabulate", "PIL", "tools", "tensorflow_datasets")
+           "pandas", "tabulate", "PIL", "torchvision", "tools", "tensorflow_datasets")
 
 _BLOCKER = f"""
 import importlib.abc, sys
@@ -81,7 +81,8 @@ def test_port_modules_list_is_complete():
                  "mft_tpu_torch.utils.notifications", "mft_tpu_torch.parallel.multicard",
                  "mft_tpu_torch.train.gen_synth_data", "mft_tpu_torch.train.train_synth",
                  "mft_tpu_torch.train.generate_occlusions_ft3d",
-                 "mft_tpu_torch.train.kubric_longflow"):
+                 "mft_tpu_torch.train.kubric_longflow", "mft_tpu_torch.io.jpeg",
+                 "mft_tpu_torch.ops.jpeg", "mft_tpu_torch.io.image"):
         assert want in mods
 
 

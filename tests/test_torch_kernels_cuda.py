@@ -1579,7 +1579,8 @@ def test_forward_splat_on_the_card_matches_cpu(np_rng, cuda):
 
 def test_demo_launches_per_frame(tmp_path, cuda):
     """The demo on the card, 3 frames of 128x128 on default_config(): K1 11,
-    K2 1, K3 1 a tracked frame, one warp a point conversion (frame 0's too)."""
+    K2 1, K3 1 a tracked frame, one warp a point conversion (frame 0's too),
+    one J3 and one J1 encode a JPEG frame written (two directories)."""
     from mft_tpu_torch.apps import demo
     from mft_tpu_torch.io.png import encode_png
     rng = np.random.default_rng(0)
@@ -1593,6 +1594,112 @@ def test_demo_launches_per_frame(tmp_path, cuda):
     counts = ops.launch_counts()
     assert n == 3
     want = {k: 0 for k in counts}
-    want.update(corr_lookup_fused=22, corr_lookup=2, chain_select=2, bilinear_warp=3)
+    want.update(corr_lookup_fused=22, corr_lookup=2, chain_select=2, bilinear_warp=3,
+                jpeg_encode_pixels=6, jpeg_huff_encode=6)
     assert counts == want
     assert len(list((tmp_path / "out" / "clip_points").iterdir())) == 3
+
+
+# --------------------------------------------------------------------------- #
+# JPEG: J1 (host entropy coding), J2 (decode pixels), J3 (encode pixels)
+# --------------------------------------------------------------------------- #
+def _jpeg_frames(np_rng, N, H, W, C):
+    """Smooth texture plus noise: every coefficient band, runs of zeros."""
+    y, x = np.mgrid[:H, :W]
+    base = 127 + 60 * np.sin(x / 5.0)[..., None] * np.cos(y / 7.0)[..., None]
+    img = base + np_rng.normal(0, 25, (N, H, W, 3))
+    return np.ascontiguousarray(np.clip(img, 0, 255).astype(np.uint8)[..., :C])
+
+
+@pytest.mark.parametrize("quality", [15, 95])
+@pytest.mark.parametrize("sampling", ["411", "420", "422", "440", "444", "grey"])
+@pytest.mark.parametrize("shape", [(1, 1), (37, 53), (128, 96)])
+def test_jpeg_pixel_kernels_match_plain(np_rng, cuda, shape, sampling, quality):
+    """J3's coefficients and J2's pixels bit for bit with the plain versions,
+    a batch of 3 frames in one launch each."""
+    from mft_tpu_torch.io import jpeg as J
+    from mft_tpu_torch.ops import jpeg as OJ
+    C = 1 if sampling == "grey" else 3
+    img = _jpeg_frames(np_rng, 3, *shape, C)
+    geom = J.geometry_for(*shape, C, "420" if C == 1 else sampling)
+    qtabs, recips = J._tables(geom, quality)
+    ops.reset_launch_counts()
+    got = OJ.jpeg_encode_pixels(torch.from_numpy(img).to(cuda), torch.from_numpy(recips).to(cuda),
+                                geom)
+    want = J.encode_pixels_ref(img, recips, geom)
+    assert np.array_equal(got.cpu().numpy(), want)
+    q = np.ascontiguousarray(np.broadcast_to(qtabs, (3,) + qtabs.shape))
+    pix = OJ.jpeg_decode_pixels(got, torch.from_numpy(q).to(cuda), geom)
+    torch.cuda.synchronize()
+    assert np.array_equal(pix.cpu().numpy(), J.decode_pixels_ref(want, q, geom))
+    assert ops.launch_counts() == {**{k: 0 for k in ops.launch_counts()},
+                                   "jpeg_decode_pixels": 1, "jpeg_encode_pixels": 1}
+
+
+def _jpeg_encode(img, quality, sampling, restart, device):
+    """encode_jpeg's steps at any sampling and restart interval (the entry
+    point writes cv2's default, 4:2:0 without restarts)."""
+    from mft_tpu_torch.io import jpeg as J
+    from mft_tpu_torch.ops import jpeg as OJ
+    geom = J.geometry_for(*img.shape, sampling)
+    qtabs, recips = J._tables(geom, quality)
+    coefs = OJ.jpeg_encode_pixels(torch.from_numpy(img[None]).to(device),
+                                  torch.from_numpy(recips).to(device), geom)[0].cpu().numpy()
+    mcux, mcuy = J.scan_mcus(geom)
+    body = OJ.jpeg_huff_encode(coefs, J.encode_comp_info(geom), J.STD_CODE_TABLES, mcux, mcuy,
+                               restart, device)
+    return J.file_header(geom, qtabs, restart) + body + b"\xff\xd9"
+
+
+@pytest.mark.parametrize("restart", [0, 2])
+@pytest.mark.parametrize("sampling", ["420", "444", "grey"])
+def test_jpeg_entropy_and_entry_points_match_plain(np_rng, cuda, sampling, restart):
+    """J1's native decoder and encoder bit for bit with the Python ones; the
+    entry points on the card give the CPU's bytes and pixels."""
+    from mft_tpu_torch.io import jpeg as J
+    from mft_tpu_torch.ops import jpeg as OJ
+    img = _jpeg_frames(np_rng, 1, 45, 70, 1 if sampling == "grey" else 3)[0]
+    s = "420" if sampling == "grey" else sampling
+    data = _jpeg_encode(img, 60, s, restart, cuda)
+    assert data == _jpeg_encode(img, 60, s, restart, "cpu")
+    if s == "420" and restart == 0:     # the entry point's sampling, no restarts
+        grey = img[..., 0] if sampling == "grey" else img
+        assert J.encode_jpeg(grey, 60, device=cuda) == data
+    jf = J.parse_jpeg(data)
+    a, b = (np.zeros((jf.geom.blocks, 64), np.int16) for _ in range(2))
+    OJ.jpeg_huff_decode(jf.scans[0], a, "cpu")
+    OJ.jpeg_huff_decode(jf.scans[0], b, cuda)
+    assert np.array_equal(a, b)
+    assert np.array_equal(J.decode_jpeg(data, device=cuda), J.decode_jpeg(data, device="cpu"))
+    frames = J.decode_jpeg_frames([data, data], device=cuda, rgb=True, keep_grey=True)
+    assert all(np.array_equal(f, J.decode_jpeg_frames([data], "cpu", rgb=True,
+                                                      keep_grey=True)[0]) for f in frames)
+
+
+def _bad_dc_table(data):
+    """The file with the first DHT's last DC symbol (a bit count, at most
+    15) raised to 200."""
+    at = data.index(b"\xff\xc4")
+    assert data[at + 4] == 0                              # class 0 (DC), slot 0
+    end = at + 21 + sum(data[at + 5:at + 21])
+    return data[:end - 1] + bytes([200]) + data[end:]
+
+
+def test_jpeg_bad_dc_table_raises(np_rng, cuda):
+    """A DC table with a symbol over 15 is refused as corrupt on the card as
+    on the CPU, and J1's native decoder refuses such a table when it is given
+    one."""
+    from mft_tpu_torch.io import jpeg as J
+    from mft_tpu_torch.ops import jpeg as OJ
+    data = J.encode_jpeg(_jpeg_frames(np_rng, 1, 24, 40, 3)[0], 60, device=cuda)
+    for device in (cuda, "cpu"):
+        with pytest.raises(ValueError, match="bad DHT"):
+            J.decode_jpeg(_bad_dc_table(data), device=device)
+    scan = J.parse_jpeg(data).scans[0]
+    luts = scan.luts.copy()
+    luts[0] = np.where(luts[0] > 0, (luts[0] & 0xFF00) | 200, 0)
+    bad = J.Scan(scan.data, scan.comp_info, luts, scan.mcux, scan.mcuy, scan.restart)
+    for device in (cuda, "cpu"):
+        with pytest.raises(ValueError, match="bad Huffman code"):
+            OJ.jpeg_huff_decode(bad, np.zeros((J.parse_jpeg(data).geom.blocks, 64), np.int16),
+                                device)

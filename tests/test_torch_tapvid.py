@@ -129,16 +129,27 @@ def test_dataset_records_match_jax(tmp_path, rng, scaling):
 
 
 def test_unported_readers_raise(tmp_path):
-    """Kinetics shards (JPEG frames) still raise, through the loader and
-    the dataset; the RGB-Stacking and JHMDB readers are ported
-    (tests/test_torch_eval_extra.py)."""
+    """Kinetics shards (JPEG frames) are read now, through the loader and
+    the dataset, as JAX reads them (PIL's RGB decode); the RGB-Stacking and
+    JHMDB readers are ported (tests/test_torch_eval_extra.py)."""
+    import cv2
+    rng = np.random.default_rng(3)
+    frames = [(rng.random((32, 40, 3)) * 255).astype(np.uint8) for _ in range(3)]
     shard = tmp_path / "kinetics.pkl"
     with open(shard, "wb") as f:
-        pickle.dump([{"video": [b"\xff\xd8"]}], f)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tapvid.load_pickle_sequences(shard)
-    with pytest.raises(NotImplementedError, match="A12"):
-        next(tapvid.create_tapvid_dataset(shard, "first"))
+        pickle.dump([{"video": [cv2.imencode(".jpg", x)[1].tobytes() for x in frames],
+                      "points": rng.random((4, 3, 2)), "occluded": rng.random((4, 3)) > 0.5}],
+                    f)
+    got = tapvid.load_pickle_sequences(shard, device="cpu")
+    want = jax_tapvid.load_pickle_sequences(shard)
+    assert list(got) == list(want) == ["kin-kinetics-0000"]
+    assert np.array_equal(got["kin-kinetics-0000"]["video"], want["kin-kinetics-0000"]["video"])
+    for mode in ("first", "strided"):
+        g = next(tapvid.create_tapvid_dataset(shard, mode, "64x64", device="cpu"))
+        w = next(jax_tapvid.create_tapvid_dataset(shard, mode, "64x64"))
+        assert g["video_name"] == w["video_name"]
+        for key, val in w["data"][mode].items():
+            assert np.array_equal(g["data"][mode][key], val), key
 
 
 @pytest.mark.parametrize("scale", ["fullres", "256x256", "256x256_512x512", "x256",

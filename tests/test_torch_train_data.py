@@ -112,8 +112,10 @@ def test_flow_readers_cross_read(tmp_path):
     cv2.imwrite(str(tmp_path / "p.ppm"), img[:, :, ::-1])
     assert np.array_equal(tfr.read_image(tmp_path / "p.ppm"), jfr.read_image(tmp_path / "p.ppm"))
     cv2.imwrite(str(tmp_path / "p.jpg"), img)
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        tfr.read_image(tmp_path / "p.jpg")
+    assert np.array_equal(tfr.read_image(tmp_path / "p.jpg", device="cpu"),
+                          jfr.read_image(tmp_path / "p.jpg"))
+    assert np.array_equal(tfr.read_gen(tmp_path / "p.jpg", device="cpu"),
+                          jfr.read_gen(tmp_path / "p.jpg"))
 
 
 @pytest.mark.parametrize("shape,new_wh", [((37, 53, 3), (71, 40)), ((37, 53, 3), (30, 20)),
@@ -190,13 +192,20 @@ def test_augmenters_match_jax(seed, kind):
     assert ja.rng.random() == ta.rng.random()        # the same number of draws
 
 
-def test_unported_corruptions_raise():
-    for kw in (dict(do_jpeg_transform=True), dict(blend_source="x"),
-               dict(do_add_text_transform=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-            taug.FlowAugmenter((8, 8), **kw)
-    with pytest.raises(NotImplementedError):
-        taug.jpeg_corrupt(np.zeros((4, 4, 3), np.uint8), 1)
+def test_unported_corruptions_raise(tmp_path):
+    """Text overlays still raise (no font rasterizer); the JPEG corruption
+    and the blend with a source directory are ported: the JPEG corruption
+    bit for bit with JAX's, the augmenters built with JAX's settings."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
+        taug.FlowAugmenter((8, 8), do_add_text_transform=True)
+    img = np.random.default_rng(1).integers(0, 256, (20, 30, 3), dtype=np.uint8)
+    assert np.array_equal(taug.jpeg_corrupt(img, 1, device="cpu"), jaug.jpeg_corrupt(img, 1))
+    cv2.imwrite(str(tmp_path / "b.png"), img)
+    for kw in (dict(do_jpeg_transform=True), dict(blend_source=str(tmp_path))):
+        t, j = taug.FlowAugmenter((8, 8), device="cpu", **kw), jaug.FlowAugmenter((8, 8), **kw)
+        assert t.do_jpeg_transform == j.do_jpeg_transform
+        assert t.blend_aug.do_blend_transform == j.blend_aug.do_blend_transform
+        assert t.blend_aug.image_list == j.blend_aug.image_list
 
 
 @pytest.fixture(scope="module")
