@@ -183,7 +183,10 @@ non-zero and prints no result line):
    K2; (d) the small model's full recipe through the entry point
    (``--small``, random weights, 5 steps of batch 6 at 368x768, bf16 over
    f32): launches a step K2 12 and the backward 12 at radius 3, every conv
-   weight moved, the export tracked with; one f32 step through the kernels
+   weight's gradient finite and nonzero on some step (whether each moved is
+   printed: with random weights the loss can reach 1e18-1e25, the
+   gradients' float32 global norm overflows, and the clip then scales every
+   update to 0, as optax's does), the export tracked with; one f32 step through the kernels
    against the plain versions within ``TRAIN_PLAIN_TOL``; (e) the fused
    encoder (``fused_encoder``, one grouped-conv stack for fnet and cnet)
    against the two encoders apart in f32 within ``FUSED_ENCODER_TOL``,
@@ -245,7 +248,28 @@ non-zero and prints no result line):
    ``--dashcam_augmenentation`` and without it again, one tree and one
    process: 14b's gates each time, J2 = J3 launches > 0 with the flag; ms a
    step, wall ms between steps, the loader-wait share and the loader
-   threads' ms a ``jpeg_corrupt``.
+   threads' ms a ``jpeg_corrupt``;
+20. against the committed fixtures of ``tests/data/torch_fixtures/``
+   (``tools/torch_make_fixtures.py`` made them with cv2, PIL and the JAX
+   package, which the card's machine lacks): (a) progressive JPEG: J1's
+   progressive routine (``jpeg_entropy.cu
+   mft_jpeg_huff_decode_progressive``, host code) against its plain version
+   scan by scan on every committed progressive file, each decode's sha256
+   against cv2's (BGR) and PIL's (RGB); its host ms a frame at 512x512 and
+   1080x1920 beside its plain version, its host bound (the codes and bit
+   fields of the file's scans) and the baseline file of the same pixels at
+   the same quality; ``apps.demo.run`` with the default configuration (the
+   big RAFT-OU, 512x512, 7 deltas, 12 iterations, bf16) on the 8 committed
+   progressive frames: K1 11, K2 1, K3 1 a tracked frame, the warp 1 a
+   frame, J1's progressive routine once a scan and J2 once a frame read,
+   and its tracks bit for bit with a fresh tracker's on the same decoded
+   pixels as arrays; (b) the PNG kinds (palettes with and without tRNS,
+   1/2/4-bit grey and palettes, grey+alpha at 8 and 16 bits, Adam7) against
+   cv2's and PIL's decodes; a 512x512 frame tracked from a reference-named
+   ``.pth`` of the committed weights bit for bit with one from the msgpack;
+   ``frame_flops()`` at 512x512 and ``peak_flops()``; (c) every ported
+   ``utils/vis.py`` helper on seeded inputs against the JAX module's
+   outputs' sha256.
 
 Every bf16 launch of K1, #5, #13, K4 and K5 on the main path, conv_backend
 'pallas', 'alt' and 'win' at 512x512 and 2160x3840, 'auto' at 1080x1920
@@ -3569,9 +3593,14 @@ def run_small_training(torch, ops, dev, card):
     """16d: the small model's full recipe through the entry point's parser
     and ``train`` (``--small``; random weights; TRAIN_STEPS steps of batch
     TRAIN_B at TRAIN_H x TRAIN_W, 12 iterations, bf16 compute over f32
-    parameters) on a Sintel-form tree: finite losses, every parameter moved,
-    a step 12 K2 launches and 12 backward launches at radius 3 and nothing
-    else, the export, which a small tracker loads and tracks 2 frames with;
+    parameters) on a Sintel-form tree: finite losses, every conv weight's
+    gradient finite and nonzero on at least one step (whether it moved is
+    printed: random weights on unseeded batches can take the gradients' global
+    norm past float32's range, where the clip, as optax's, scales every
+    update to 0, or near it, where a weight's clipped gradient is too small
+    for AdamW's step to change it), a step 12 K2 launches and 12 backward
+    launches at radius 3 and nothing else, the export, which a small tracker
+    loads and tracks 2 frames with;
     then one f32 step through the kernels and through the plain versions
     (deterministic cuDNN) within TRAIN_PLAIN_TOL. returns (launches, ms a
     step)."""
@@ -3581,13 +3610,25 @@ def run_small_training(torch, ops, dev, card):
     from mft_tpu_torch import environment
     from mft_tpu_torch.tracker import MFT
     from mft_tpu_torch.train import loop, synth
-    per_step, step_ms, losses = [], [], []
+    per_step, step_ms, losses, grad_log, norms, terms = [], [], [], {}, [], []
 
     def on_step(state, metrics, seconds):
         per_step.append(ops.launch_counts())
         ops.reset_launch_counts()
         step_ms.append(1e3 * seconds)
+        # each conv weight's largest |gradient| this step (the step leaves
+        # .grad in place until the next one clears it)
+        named = [(n, p) for n, p in state["model"].named_parameters() if n.endswith(".weight")]
+        amax = torch.stack([p.grad.detach().abs().max() if p.grad is not None
+                            else torch.zeros((), device=p.device) for _, p in named]).tolist()
+        for (n, _), g in zip(named, amax):
+            grad_log.setdefault(n, []).append(g)
+        # the global norm the optimizer's clip computes (float32, every
+        # trainable gradient)
+        grads = [p.grad.detach() for p in state["model"].parameters() if p.grad is not None]
+        norms.append(float(torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))))
         vals = {k: float(v) for k, v in metrics.items()}
+        terms.append({k: v for k, v in vals.items() if k.endswith("loss")})
         check(all(math.isfinite(v) for v in vals.values()),
               f"small step {state['step']}: non-finite metrics {vals}")
         losses.append(vals["train/loss"])
@@ -3627,8 +3668,18 @@ def run_small_training(torch, ops, dev, card):
         # arithmetic and starts at zero, so it may stay there: not gated
         still = [k for k in weights if k not in moved]
         log(f"small: {len(moved)} of {len(after)} tensors moved from the initial weights, "
-            f"{len(weights) - len(still)} of {len(weights)} conv weights; not moved: {still}")
-        check(not still, f"small: conv weights did not move: {still}")
+            f"{len(weights) - len(still)} of {len(weights)} conv weights; not moved: "
+            f"{len(still)}; the gradients' global norm a step "
+            f"{', '.join(f'{g:.3e}' for g in norms)}")
+        smallest = sorted(weights, key=lambda k: max(grad_log[k]))[:2]
+        for k in dict.fromkeys(still[:4] + smallest):
+            log(f"small: {k} max |grad| a step {', '.join(f'{g:.3e}' for g in grad_log[k])}"
+                f"{' (not moved)' if k in still else ''}")
+        if still:
+            log(f"small: loss terms a step {terms}")
+        dead = [k for k in weights if not any(math.isfinite(g) and g > 0 for g in grad_log[k])]
+        check(not dead, f"small: conv weights without a finite nonzero gradient on any step: "
+              f"{dead}")
         export = Path(args.checkpoint_dir) / args.name / f"small_step{TRAIN_STEPS}.msgpack"
         cfg = small_config()
         cfg.flow_config.model = str(export)
@@ -4647,6 +4698,338 @@ def run_jpeg(torch, ops, dev, card, recipes):
     return dict(stats=stats, demo=demo_counts, kinetics=kin_counts, dashcam=dash_counts)
 
 
+# --------------------------------------------------------------------------- #
+# phase 20: progressive JPEG (a); the PNG kinds, the reference's .pth and the
+# FLOP budget (b); the vis helpers (c); each against the committed fixtures of
+# tests/data/torch_fixtures/, which tools/torch_make_fixtures.py made with
+# cv2, PIL and the JAX package (the card's machine has none of them)
+# --------------------------------------------------------------------------- #
+FIXTURES = os.path.join(HERE, "tests", "data", "torch_fixtures")
+PROG_DIR = "prog_512"           # the progressive 512x512 frames of a moving scene
+PROG_HD = "prog_1080.jpg"       # one progressive 1080x1920 frame
+PROG_QUALITY = 90               # their quality (cv2's progression script)
+
+
+def array_hash(a) -> str:
+    """dtype:shape:sha256 of an array's C-order bytes (of a str's UTF-8)."""
+    import hashlib
+    import numpy as np
+    if isinstance(a, str):
+        return "str:" + hashlib.sha256(a.encode()).hexdigest()
+    a = np.ascontiguousarray(a)
+    return (f"{a.dtype}:{'x'.join(map(str, a.shape))}:"
+            f"{hashlib.sha256(a.tobytes()).hexdigest()}")
+
+
+def vis_cases(np, vis) -> dict:
+    """{case: output} of every helper that ``mft_tpu_torch/utils/vis.py``
+    ports from ``mft_tpu/utils/vis.py``, on inputs made from seeds; ``vis``
+    is either module (the fixtures hold the JAX module's outputs' hashes)."""
+    rng = np.random.default_rng(20)
+    H, W = 45, 67
+    img = lambda: rng.integers(0, 256, (H, W, 3), dtype=np.uint8)
+    a, b = img(), img()
+    flow = rng.normal(0, 4, (H, W, 2)).astype(np.float32)
+    amap = rng.random((H, W)).astype(np.float32)
+    mask = rng.random((H, W)) > 0.6
+    scalar = rng.normal(size=(H, W)).astype(np.float32)
+    small = [rng.integers(0, 256, (10, 12, 3), dtype=np.uint8) for _ in range(5)]
+    out = {
+        "flow_to_color": vis.flow_to_color(flow),
+        "flow_to_color_bgr_clip": vis.flow_to_color(flow, 3.0, True, 5.0),
+        "vis_flow": vis.vis_flow(flow),
+        "vis_flow_img": vis.vis_flow(flow, a, 0.3, 6.0),
+        "blend": vis.blend(a, b, 0.35),
+        "blend_map": vis.blend(a, b, amap),
+        "checkerboard": vis.checkerboard(H, W, 5, (10, 250)),
+        "image_grid": vis.image_grid(small, cols=2, pad=3, pad_value=200),
+        "hatch_pattern": vis.hatch_pattern((H, W), (1, -3), 6),
+        "hatch_overlay": vis.hatch_overlay(a, mask, (10, 20, 30), 0.7, 6, (1, -3)),
+        "blend_mask": vis.blend_mask(a, mask, (255, 0, 9), 0.2),
+        "blend_with_alpha": vis.blend_with_alpha(a, b, amap),
+        "blend_with_alpha_premult": vis.blend_with_alpha_premult(a // 2, b, amap),
+        "tile_images": vis.tile_images([small[:3], small[2:]], 4, 2, 128),
+        "shorten_text": vis.shorten_text("a_rather_long_name.png", 12, "left"),
+        "to_gray_3ch": vis.to_gray_3ch(a),
+        "color_checkerboard": vis.color_checkerboard(H, W, 3),
+        "color_checkerboard_wide": vis.color_checkerboard(7, 100),
+        "colorbar": vis.colorbar((0, 1), 37, 5),
+        "vis_scalar_map": vis.vis_scalar_map(scalar),
+        "vis_scalar_map_range": vis.vis_scalar_map(scalar, -0.5, 0.5),
+        "flow_to_color_matlab": vis.flow_to_color_matlab(flow, 3.0),
+        "vis_flow_align": vis.vis_flow_align(flow, a, b, 0.25),
+        "vis_alignment_plain": vis.vis_alignment_plain(a, b),
+        "vis_alignment_plain_eq": vis.vis_alignment_plain(a, b, True),
+        "overlay_background": vis.OverlayBackground(a, b).overlay(b, a, alpha=0.3)[1],
+        "knn_interp": vis.make_knn_interp(rng.random((60, 2)) * 50, rng.normal(size=60))(
+            rng.random((25, 2)) * 60, 5, 8.0, 3),
+    }
+    canvas = np.zeros((40, 50, 3), np.uint8)
+    vis.place_img_at(small[0], canvas, 7, 30)
+    out["place_img_at"] = canvas
+    for interp, name in ((0, "nearest"), (1, "linear")):       # cv2.INTER_NEAREST, _LINEAR
+        for align in (False, True):
+            key = f"resize_{name}{'_align' if align else ''}"
+            out[key] = vis.resize(a, (100, 80), interpolation=interp, align_corners=align)
+            out[key + "_fx"] = vis.resize(a[..., 0], None, 0.5, 0.5, interp, align)
+    return out
+
+
+def progressive_coefs(np, J, OJ, data, device, counts=None):
+    """A progressive file's coefficients, scan by scan through J1's
+    progressive routine on ``device`` (the host's native code for CUDA)."""
+    jf = J.parse_jpeg(data)
+    out = np.zeros((jf.geom.blocks, 64), np.int16)
+    for scan in jf.scans:
+        if device == "cpu" and counts is not None:
+            J.huff_decode_progressive_ref(scan, out, counts)
+        else:
+            OJ.jpeg_huff_decode_progressive(scan, out, device)
+    return out
+
+
+def check_progressive_fixtures(torch, dev, card, hashes):
+    """20a: every committed progressive JPEG through J1's native progressive
+    routines against their plain version, scan by scan, and decoded (J1 on
+    the host, J2 on the card) to the sha256 that cv2 (BGR) and PIL (RGB, no
+    EXIF turn) gave. returns (files, differing coefficients, largest gap)."""
+    import numpy as np
+    from mft_tpu_torch.io import jpeg as J
+    from mft_tpu_torch.ops import jpeg as OJ
+    n_diff = worst = scans = 0
+    bad = []
+    for name, want in hashes["jpeg"].items():
+        data = open(os.path.join(FIXTURES, name), "rb").read()
+        jf = J.parse_jpeg(data)
+        a, b = (np.zeros((jf.geom.blocks, 64), np.int16) for _ in range(2))
+        for scan in jf.scans:
+            OJ.jpeg_huff_decode_progressive(scan, a, dev)
+            OJ.jpeg_huff_decode_progressive(scan, b, "cpu")
+            n_diff += int((a != b).sum())
+            worst = max(worst, int(np.abs(a.astype(np.int64) - b).max()))
+            scans += 1
+        bgr = J.decode_jpeg(data, dev)
+        rgb = J.decode_jpeg_frames([data], dev, orient=False, rgb=True)[0]
+        if array_hash(bgr) != want["cv2"]:
+            bad.append(f"{name} (cv2)")
+        if array_hash(rgb) != want["pil"]:
+            bad.append(f"{name} (PIL)")
+    log(f"20a: {len(hashes['jpeg'])} progressive files, {scans} scans: native against plain "
+        f"{n_diff} differing coefficients (largest gap {worst}); decodes whose sha256 differs "
+        f"from cv2's or PIL's: {bad or 'none'}")
+    check(n_diff == 0, f"J1's progressive routine differs from its plain version in {n_diff} "
+                       "coefficients")
+    check(not bad, f"progressive decodes differ from cv2/PIL: {bad}")
+    return len(hashes["jpeg"]), n_diff, worst
+
+
+def time_progressive(torch, dev, card, data, label):
+    """J1's progressive routine a frame (host ms, median of 5) beside its plain
+    version, its host bound (the codes and bit fields this file's scans
+    hold, counted by the plain version) and the baseline file of the same
+    pixels at the same quality (the port's encoder: cv2's bytes): its J1
+    ms and bound, and both files' whole decode (J1 + J2)."""
+    import numpy as np
+    from mft_tpu_torch.io import jpeg as J
+    from mft_tpu_torch.ops import jpeg as OJ
+    counts = {}
+    plain_ms = 1e3 * median_s(lambda: progressive_coefs(np, J, OJ, data, "cpu", counts), 1)
+    ms = 1e3 * median_s(lambda: progressive_coefs(np, J, OJ, data, dev), 5)
+    pixels = J.decode_jpeg(data, dev)
+    base = J.encode_jpeg(pixels, PROG_QUALITY, dev)
+    jf = J.parse_jpeg(base)
+    out = np.zeros((jf.geom.blocks, 64), np.int16)
+    base_ms = 1e3 * median_s(lambda: OJ.jpeg_huff_decode(jf.scans[0], out, dev), 5)
+    codes, fields = entropy_symbols(J, out, jf.geom)
+    clock = host_clock_hz()
+    bound = 1e3 * (HOST_CYCLES_CODE_DECODE * counts["codes"] + counts["fields"]) / clock
+    base_bound = 1e3 * (HOST_CYCLES_CODE_DECODE * codes + fields) / clock
+    whole = 1e3 * median_s(lambda: J.decode_jpeg(data, dev), 5)
+    base_whole = 1e3 * median_s(lambda: J.decode_jpeg(base, dev), 5)
+    log(f"20a {label} progressive ({len(data)} bytes, {len(J.parse_jpeg(data).scans)} scans, "
+        f"{counts['codes']} Huffman codes and {counts['fields']} bit fields) against baseline "
+        f"({len(base)} bytes, {codes} codes and {fields} AC bit fields) of the same pixels, "
+        f"q{PROG_QUALITY}: J1 host ms a frame {ms:.3f} against {base_ms:.3f} (bounds "
+        f"{bound:.3f} / {base_bound:.3f}; Python {plain_ms:.1f}); whole decode (J1 + J2) "
+        f"{whole:.3f} against {base_whole:.3f} ms; host clock {clock / 1e9:.3f} GHz [{card}]")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="operations",
+                baseline_ms=base_ms, baseline_bound_ms=base_bound, decode_ms=whole,
+                baseline_decode_ms=base_whole)
+
+
+def run_progressive_demo(torch, ops, dev, card, tmp):
+    """20a: ``apps.demo.run`` with the default configuration (the big RAFT-OU,
+    512x512, 7 deltas, 12 iterations, bf16, random weights) on the committed
+    directory of progressive frames; its tracks bit for bit with a fresh
+    tracker's on the same decoded pixels passed as arrays (deterministic
+    cuDNN for both). returns the demo's launch counts."""
+    import argparse
+    import numpy as np
+    from mft_tpu_torch.apps import demo
+    from mft_tpu_torch.config import default_config
+    from mft_tpu_torch.io import jpeg as J
+    from mft_tpu_torch.tracker import MFT
+    from mft_tpu_torch.tracker.point_tracking import convert_to_point_tracking
+    clip = os.path.join(FIXTURES, PROG_DIR)
+    files = sorted(os.listdir(clip))
+    datas = [open(os.path.join(clip, f), "rb").read() for f in files]
+    scans = sum(len(J.parse_jpeg(d).scans) for d in datas)
+    tracks = []
+    render = demo.render_frame
+
+    def recording_render(frame, result, queries, edit, edit_mask):
+        out = render(frame, result, queries, edit, edit_mask)
+        tracks.append((out[2], out[3]))
+        return out
+
+    args = argparse.Namespace(video=clip, config="default", out=str(tmp / "prog_demo"),
+                              grid_spacing=30, fps=25.0, max_frames=None, device=str(dev))
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    demo.render_frame = recording_render
+    try:
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        n = demo.run(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        counts = ops.launch_counts()
+        demo.render_frame = render
+        frames = [J.decode_jpeg(d, dev) for d in datas]
+        tracker = MFT(default_config(), device=dev)
+        queries = demo.get_queries(frames[0].shape, 30)
+        mine = []
+        for i, frame in enumerate(frames):
+            meta = tracker.init(frame) if i == 0 else tracker.track(frame)
+            coords, occl = convert_to_point_tracking(meta.result, queries)
+            mine.append((coords, occl))
+    finally:
+        demo.render_frame = render
+        torch.backends.cudnn.deterministic = False
+    tracked = len(files) - 1
+    log(f"20a demo (default config, 512x512, bf16) on {len(files)} progressive frames: "
+        f"{n} frames in {seconds:.3f} s ({n / seconds:.2f} frames/s, set-up and the first "
+        f"frame included); launches {counts} [{card}]")
+    check(n == len(files), f"progressive demo wrote {n} frames, want {len(files)}")
+    want = expected_counts(ops, corr_lookup_fused=11 * tracked, corr_lookup=tracked,
+                           chain_select=tracked, bilinear_warp=len(files),
+                           jpeg_huff_decode_progressive=scans, jpeg_decode_pixels=len(files),
+                           jpeg_huff_encode=2 * len(files), jpeg_encode_pixels=2 * len(files))
+    check(counts == want, f"progressive demo launch counts {counts} != {want}")
+    diff = sum(int((a[0] != b[0]).sum() + (a[1] != b[1]).sum()) for a, b in zip(tracks, mine))
+    finite = all(np.isfinite(c).all() and np.isfinite(o).all() for c, o in tracks)
+    log(f"20a: the demo's tracks of {len(queries)} queries over {len(files)} frames against "
+        f"the same decoded pixels as arrays: {diff} values differ; finite {finite}")
+    check(len(tracks) == len(mine) and diff == 0 and finite,
+          f"progressive demo tracks differ from the arrays' in {diff} values")
+    return counts
+
+
+def check_png_fixtures(hashes):
+    """20b: the committed PNG kinds (palettes with and without tRNS, 1/2/4-bit
+    grey and palettes, grey+alpha at 8 and 16 bits, Adam7) decoded to the
+    sha256 that cv2 (IMREAD_UNCHANGED, IMREAD_COLOR) and PIL's
+    convert('RGB') gave."""
+    from pathlib import Path
+    from mft_tpu_torch.eval.tapvid import _read_rgb
+    from mft_tpu_torch.io.png import decode_png, to_bgr
+    bad = []
+    for name, want in hashes["png"].items():
+        path = Path(FIXTURES) / name
+        img = decode_png(path.read_bytes())
+        for key, got in (("cv2_unchanged", img), ("cv2_color", to_bgr(img)),
+                         ("pil_rgb", _read_rgb(path))):
+            if array_hash(got) != want[key]:
+                bad.append(f"{name} ({key})")
+    log(f"20b: {len(hashes['png'])} PNG files against cv2's and PIL's decodes: differing "
+        f"{bad or 'none'}")
+    check(not bad, f"PNG decodes differ: {bad}")
+
+
+def check_reference_pth(torch, dev, card, tmp):
+    """20b: the committed weights written as a reference-named ``.pth``
+    (``module.`` prefixed) and read back by the tracker: a tracked 512x512
+    frame bit for bit with the tracker on the msgpack itself."""
+    from mft_tpu_torch.config import synth_config
+    from mft_tpu_torch.models.raft import convert
+    from mft_tpu_torch.models.raft.flax_msgpack import read_variables
+    from mft_tpu_torch.tracker import MFT
+    cfg = synth_config()
+    pth = tmp / "raftou_synth_reference.pth"
+    convert.export_torch_checkpoint(convert.params_from_flax(read_variables(
+        cfg.flow_config.model)), pth)
+    clip = synthetic_clip(1)
+    results = []
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        for model in (cfg.flow_config.model, str(pth)):
+            c = synth_config()
+            c.flow_config.model = model
+            results.append(track_frames(torch, MFT(c, device=dev), clip)[0][0])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    a, b = results
+    same = all(torch.equal(getattr(a, k), getattr(b, k)) for k in ("flow", "occlusion", "sigma"))
+    log(f"20b: a 512x512 frame tracked on the reference-named .pth of the committed weights "
+        f"({pth.stat().st_size} bytes) against the msgpack: bit for bit {same} [{card}]")
+    check(same, "the .pth tracker's frame differs from the msgpack tracker's")
+
+
+def check_flops(torch, card):
+    """20b: the FLOP budget of a 512x512 frame and the card's bf16 peak."""
+    from mft_tpu_torch.utils.flops import PEAK_BF16_FLOPS, frame_flops, peak_flops
+    flops, peak = frame_flops(512, 512), peak_flops()
+    name = torch.cuda.get_device_name(0)
+    log(f"20b: frame_flops() at 512x512, 7 pairs, 12 iterations: {flops} ({flops / 1e12:.4f} "
+        f"TFLOP); peak_flops() on {name}: {peak} [{card}]")
+    check(peak == PEAK_BF16_FLOPS.get(name), f"peak_flops() {peak} on {name}")
+    check(flops > 0, "frame_flops")
+
+
+def check_vis(hashes):
+    """20c: every ported vis helper on its seeded inputs, each output's
+    sha256 against the JAX module's."""
+    import numpy as np
+    from mft_tpu_torch.utils import vis
+    out = vis_cases(np, vis)
+    bad = [k for k, v in out.items() if array_hash(v) != hashes["vis"].get(k)]
+    missing = sorted(set(hashes["vis"]) - set(out))
+    log(f"20c: {len(out)} vis outputs against JAX's: differing {bad or 'none'}, "
+        f"missing {missing or 'none'}")
+    check(not bad and not missing, f"vis outputs differ from JAX's: {bad}, missing {missing}")
+
+
+def run_fixtures(torch, ops, dev, card):
+    """Phase 20: progressive JPEG (a); PNG kinds, the reference .pth, the FLOP
+    budget (b); the vis helpers (c). returns the stats of (a)."""
+    import tempfile
+    from pathlib import Path
+    with open(os.path.join(FIXTURES, "hashes.json")) as f:
+        hashes = json.load(f)
+    t0 = time.perf_counter()
+    files, n_diff, worst = check_progressive_fixtures(torch, dev, card, hashes)
+    frame = open(os.path.join(FIXTURES, PROG_DIR, sorted(os.listdir(
+        os.path.join(FIXTURES, PROG_DIR)))[0]), "rb").read()
+    sd = time_progressive(torch, dev, card, frame, "512x512")
+    hd = time_progressive(torch, dev, card, open(os.path.join(FIXTURES, PROG_HD), "rb").read(),
+                          "1080x1920")
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        counts = run_progressive_demo(torch, ops, dev, card, tmp)
+        log(f"phase 20a seconds {time.perf_counter() - t0:.2f}")
+        t0 = time.perf_counter()
+        check_png_fixtures(hashes)
+        check_reference_pth(torch, dev, card, tmp)
+        check_flops(torch, card)
+        log(f"phase 20b seconds {time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    check_vis(hashes)
+    log(f"phase 20c seconds {time.perf_counter() - t0:.2f}")
+    return dict(demo=counts, sd=sd, hd=hd, max_abs_err=worst, files=files)
+
+
 def main() -> int:
     # a hang exits non-zero with a traceback instead of running out the clock
     faulthandler.dump_traceback_later(900, exit=True)
@@ -4774,6 +5157,9 @@ def run() -> int:
                   f"{name}: the JPEG demo's launches {jp['demo'][name]} differ from the PNG "
                   f"demo's {demo_counts[name]}")
         log(f"phase 19 seconds {time.perf_counter() - t:.2f}")
+        t = time.perf_counter()
+        pj = run_fixtures(torch, ops, dev, card)
+        log(f"phase 20 seconds {time.perf_counter() - t:.2f}")
         for stats in (*lk.values(), cs, *fk.values(), *vk.values(), *fo.values(), cv,
                       *wk.values(), *bw.values(), *var["k2"].values(), *var["bwd"].values(),
                       *var["fk"].values()):
@@ -4898,6 +5284,23 @@ def run() -> int:
     for k in kernels:   # the demo on JPEG frames (phase 19b): as on PNG frames
         if k["name"] in ("corr_lookup_fused", "corr_lookup", "chain_select", "bilinear_warp"):
             k["launches_demo_jpeg"] = jp["demo"][k["name"]]
+    # progressive JPEG (phase 20a): J1's progressive routine on the host (its
+    # times a frame at 512x512, "_hd" at 1080x1920, beside the baseline file
+    # of the same pixels); the default-config demo on progressive frames,
+    # its counts reset before it, through K1, K2, K3, the warp and J1-J3
+    sd, hd = pj["sd"], pj["hd"]
+    kernels.append(dict(name="jpeg_huff_decode_progressive", route="cuda",
+                        source=src + "jpeg_entropy.cu", replaces="mft_tpu/io/video.py:37",
+                        launches=pj["demo"]["jpeg_huff_decode_progressive"],
+                        max_abs_err=pj["max_abs_err"],
+                        **{k: sd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                        library_ms=None, ms_hd=hd["ms"], plain_ms_hd=hd["plain_ms"],
+                        bound_ms_hd=hd["bound_ms"], baseline_ms=sd["baseline_ms"],
+                        baseline_ms_hd=hd["baseline_ms"], decode_ms_hd=hd["decode_ms"],
+                        baseline_decode_ms_hd=hd["baseline_decode_ms"], runs_on="host"))
+    for k in kernels:
+        if k["name"] in pj["demo"]:
+            k["launches_progressive_demo"] = pj["demo"][k["name"]]
     log(f"total seconds {time.perf_counter() - t_all:.2f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

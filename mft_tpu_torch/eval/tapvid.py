@@ -41,11 +41,12 @@ COEF_BITS = 11                      # cv2's INTER_RESIZE_COEF_BITS
 COEF_SCALE = 1 << COEF_BITS
 
 
-def _linear_tab(ssize: int, dsize: int, clamp: bool):
+def _linear_tab(ssize: int, dsize: int, clamp: bool, scale=None):
     """cv2's INTER_LINEAR source index and fixed-point weights (a0, a1) per
     destination index; ``clamp`` as on the horizontal axis (the vertical one
-    clips its rows instead)."""
-    scale = 1.0 / (dsize / ssize)
+    clips its rows instead); ``scale`` source pixels a destination pixel
+    (``1 / fx`` where ``cv2.resize`` was given fx; else from the sizes)."""
+    scale = 1.0 / (dsize / ssize) if scale is None else scale
     d = np.arange(dsize, dtype=np.float64)
     f = ((d + 0.5) * scale - 0.5).astype(np.float32)
     s = np.floor(f).astype(np.int64)
@@ -60,13 +61,13 @@ def _linear_tab(ssize: int, dsize: int, clamp: bool):
     return s, a0, a1
 
 
-def _resize_linear(frame, Ho, Wo):
+def _resize_linear(frame, Ho, Wo, scale_x=None, scale_y=None):
     H, W, C = frame.shape
-    sx, a0, a1 = _linear_tab(W, Wo, clamp=True)
+    sx, a0, a1 = _linear_tab(W, Wo, clamp=True, scale=scale_x)
     src = frame.astype(np.int64)
     rows = (src[:, sx] * a0[None, :, None]
             + src[:, np.minimum(sx + 1, W - 1)] * a1[None, :, None])   # (H, Wo, C)
-    sy, b0, b1 = _linear_tab(H, Ho, clamp=False)
+    sy, b0, b1 = _linear_tab(H, Ho, clamp=False, scale=scale_y)
     s0 = rows[np.clip(sy, 0, H - 1)] >> 4
     s1 = rows[np.clip(sy + 1, 0, H - 1)] >> 4
     b0, b1 = b0[:, None, None], b1[:, None, None]
@@ -304,10 +305,12 @@ def create_rgb_stacking_dataset(pickle_path, query_mode="strided",
 
 def _read_rgb(path) -> np.ndarray:
     """(H, W, 3) uint8 RGB of a PNG, as PIL's ``Image.open(path).convert('RGB')``
-    gives it for 8-bit grey, RGB and RGBA files (alpha dropped)."""
+    gives it: alpha dropped, grey replicated, palettes expanded, 16-bit colour
+    samples' high byte, 16-bit grey clipped at 255 (where ``cv2.imread`` keeps
+    the high byte)."""
     img = decode_png(Path(path).read_bytes())
-    if img.dtype != np.uint8:
-        raise ValueError(f"{path}: JHMDB frames are 8-bit PNGs")
+    if img.dtype == np.uint16 and img.ndim == 2:
+        img = np.minimum(img, 255).astype(np.uint8)
     return np.ascontiguousarray(to_bgr(img)[:, :, ::-1])
 
 

@@ -25,17 +25,25 @@ it gives the same pixels bit for bit:
   stages below make the others).
 
 A file is parsed here (SOI, APPn: JFIF, Adobe and the EXIF orientation,
-DQT, SOF0/SOF1, DHT, DRI, SOS with restart markers, EOI; several scans of a
-sequential file are read). Progressive, lossless, arithmetic-coded,
-12-bit, 2- and 4-component files raise ``ValueError`` naming what they are.
+DQT, SOF0/SOF1/SOF2, DHT, DRI, SOS with restart markers, EOI; several scans
+of a sequential file are read). A progressive (SOF2) file's scans (DC first
+and refinement, AC first and refinement, ``jdphuff.c``) accumulate into the
+same coefficient array as a baseline file's, which the pixel stage takes
+unchanged; its scans must bring every coefficient to its last bit, as the
+progression scripts of cv2 and PIL do: a file that leaves bits unsent
+(which libjpeg would smooth, ``jdcoefct.c``), a scan that breaks the
+progression rules of ITU T.81 G.1.1.1 and a truncated file raise
+``ValueError``. Lossless, arithmetic-coded, 12-bit, 2- and 4-component
+files raise ``ValueError`` naming what they are.
 
 Three stages, each with a plain version here and a native one in
 :mod:`mft_tpu_torch.ops.jpeg`:
 
-- entropy coding (J1): :func:`huff_decode_ref` / :func:`huff_encode_ref`,
-  Python over a bit reader with byte unstuffing, restarts, DC prediction
-  and zig-zag order; natively a host routine (``mft_jpeg_huff_decode`` /
-  ``mft_jpeg_huff_encode``);
+- entropy coding (J1): :func:`huff_decode_ref` / :func:`huff_encode_ref`
+  (and :func:`huff_decode_progressive_ref` for a progressive scan), Python
+  over a bit reader with byte unstuffing, restarts, DC prediction and
+  zig-zag order; natively a host routine (``mft_jpeg_huff_decode`` /
+  ``mft_jpeg_huff_decode_progressive`` / ``mft_jpeg_huff_encode``);
 - decode pixels (J2): :func:`decode_pixels_ref`, dequantization + IDCT +
   upsampling + colour conversion of a batch of frames of one geometry;
 - encode pixels (J3): :func:`encode_pixels_ref`, colour conversion +
@@ -113,7 +121,7 @@ YCC, RGB, GREY = 0, 1, 2
 # upsampling methods of a component (decode)
 UP_FULL, UP_H2V1, UP_H1V2, UP_H2V2, UP_REPLICATE = range(5)
 
-_SOF_NAMES = {0xC2: "progressive (SOF2)", 0xC3: "lossless (SOF3)",
+_SOF_NAMES = {0xC3: "lossless (SOF3)",
               0xC5: "differential sequential (SOF5)", 0xC6: "differential progressive (SOF6)",
               0xC7: "differential lossless (SOF7)", 0xC9: "arithmetic sequential (SOF9)",
               0xCA: "arithmetic progressive (SOF10)", 0xCB: "arithmetic lossless (SOF11)",
@@ -301,13 +309,21 @@ def geometry_for(H: int, W: int, channels: int, sampling: str = "420") -> Geomet
 # --------------------------------------------------------------------------- #
 class Scan:
     """One scan: its entropy-coded bytes (stuffing and restart markers
-    included) and what the entropy coder needs to place its blocks."""
+    included) and what the entropy coder needs to place its blocks.
 
-    def __init__(self, data, comp_info, luts, mcux, mcuy, restart):
+    A progressive file's scan (``progressive``) codes the band ``ss..se`` of
+    zig-zag positions at successive-approximation bits ``ah``/``al``: a DC
+    scan (``ss == 0``, first ``ah == 0`` or refinement), or an AC scan of one
+    component (first or refinement)."""
+
+    def __init__(self, data, comp_info, luts, mcux, mcuy, restart, progressive=False,
+                 ss=0, se=63, ah=0, al=0):
         self.data = data              # bytes
         self.comp_info = comp_info    # (ns, 6) int32: h, v, dc slot, ac slot, bw, boff
         self.luts = luts              # (8, 65536) uint16 lookahead tables (DC 0-3, AC 4-7)
         self.mcux, self.mcuy, self.restart = mcux, mcuy, restart
+        self.progressive = progressive
+        self.ss, self.se, self.ah, self.al = ss, se, ah, al
 
 
 class JpegFile:
@@ -356,8 +372,8 @@ def _scan_end(data: bytes, pos: int) -> int:
 
 
 def parse_jpeg(data) -> JpegFile:
-    """Parse a baseline (or extended 8-bit Huffman) sequential JPEG file;
-    ``ValueError`` for a file it cannot decode."""
+    """Parse a baseline, extended sequential (8-bit Huffman) or progressive
+    (SOF2) JPEG file; ``ValueError`` for a file it cannot decode."""
     data = bytes(data)
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file (no SOI marker)")
@@ -371,7 +387,7 @@ def _parse(data: bytes) -> JpegFile:
     pos, n = 2, len(data)
     qt, huff, restart = {}, {}, 0
     sof, jfif, adobe, orientation = None, False, None, 1
-    scans, latched = [], {}
+    scans, latched, progressive, coef_bits = [], {}, False, None
     while pos < n:
         if data[pos] != 0xFF:
             raise ValueError(f"corrupt JPEG: expected a marker at byte {pos}")
@@ -394,8 +410,11 @@ def _parse(data: bytes) -> JpegFile:
             raise ValueError(f"truncated JPEG segment 0x{m:02X}")
         if m in _SOF_NAMES:
             raise ValueError(f"{_SOF_NAMES[m]} JPEG files are not supported "
-                             "(baseline and extended sequential only)")
-        if m in (0xC0, 0xC1):
+                             "(baseline, extended sequential and progressive Huffman only)")
+        if m in (0xC0, 0xC1, 0xC2):
+            if sof is not None:
+                raise ValueError("corrupt JPEG: a second SOF marker")
+            progressive = m == 0xC2
             prec, H, W, nc = struct.unpack(">BHHB", seg[:6])
             if prec != 8:
                 raise ValueError(f"{prec}-bit JPEG files are not supported (8-bit only)")
@@ -408,6 +427,7 @@ def _parse(data: bytes) -> JpegFile:
             comps = [(seg[6 + 3 * i], seg[7 + 3 * i] >> 4, seg[7 + 3 * i] & 15,
                       seg[8 + 3 * i]) for i in range(nc)]
             sof = (H, W, comps)
+            coef_bits = np.full((nc, 64), -1, np.int64)   # jdinput.c's coef_bits
         elif m == 0xC4:
             i = 0
             while i < len(seg):
@@ -448,6 +468,13 @@ def _parse(data: bytes) -> JpegFile:
             geom = _geometry(H, W, comps, jfif, adobe)
             ns = seg[0]
             ids = [c[0] for c in comps]
+            ss, se, ah, al = 0, 63, 0, 0
+            if progressive:
+                ss, se, ah, al = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns] >> 4, \
+                    seg[3 + 2 * ns] & 15
+                _check_progression(coef_bits, [ids.index(seg[1 + 2 * j]) if seg[1 + 2 * j]
+                                               in ids else -1 for j in range(ns)],
+                                   ss, se, ah, al)
             info, luts, used = [], np.zeros((8, 1 << 16), np.uint16), set()
             for j in range(ns):
                 cid, tables = seg[1 + 2 * j], seg[2 + 2 * j]
@@ -460,7 +487,13 @@ def _parse(data: bytes) -> JpegFile:
                         raise ValueError(f"corrupt JPEG: no quantization table {tq}")
                     latched[ci] = qt[tq].copy()
                 td, ta = tables >> 4, tables & 15
-                for cls, slot in ((0, td), (1, ta)):
+                # a progressive scan reads the DC table in a first DC scan, the
+                # AC table in an AC scan and neither in a DC refinement
+                need = ((0, td), (1, ta)) if not progressive else \
+                    (((0, td),) if ah == 0 else ()) if ss == 0 else ((1, ta),)
+                td, ta = (td, ta) if not progressive else (
+                    td if ss == 0 and ah == 0 else 0, ta if ss else 0)
+                for cls, slot in need:
                     if (cls, slot) not in huff:
                         raise ValueError(f"corrupt JPEG: no Huffman table {cls}/{slot}")
                     if (cls, slot) not in used:
@@ -474,16 +507,49 @@ def _parse(data: bytes) -> JpegFile:
                 ci = ids.index(seg[1])
                 mcux, mcuy = geom.rbw[ci], geom.rbh[ci]
             end = _scan_end(data, pos)
+            if progressive and end == n:
+                raise ValueError("truncated progressive JPEG: a scan runs to the end of "
+                                 "the file")
             scans.append(Scan(data[pos:end], np.array(info, np.int32), luts, mcux, mcuy,
-                              restart))
+                              restart, progressive, ss, se, ah, al))
             pos = end
     if sof is None or not scans:
         raise ValueError("corrupt JPEG: no frame or no scan")
+    if progressive and np.any(coef_bits != 0):
+        comp, k = (int(v[0]) for v in np.nonzero(coef_bits))
+        raise ValueError(
+            "progressive JPEG files whose scans leave coefficient bits unsent are not "
+            f"supported (libjpeg smooths their blocks; component {comp}, coefficient {k} "
+            f"at {int(coef_bits[comp, k])} bits unsent, -1 never sent)")
     geom = _geometry(sof[0], sof[1], sof[2], jfif, adobe)
     for c in range(geom.ncomp):              # a component no scan coded stays 0
         latched.setdefault(c, np.ones(64, np.int32))
     qtabs = np.stack([latched[c] for c in range(geom.ncomp)])
     return JpegFile(geom, qtabs, scans, orientation)
+
+
+def _check_progression(coef_bits, comps, ss, se, ah, al):
+    """Refuse a progressive scan whose parameters break ITU T.81 G.1.1.1, as
+    libjpeg's ``start_pass_phuff_decoder`` refuses them (a DC band with
+    Se > 0, an AC band out of order or over several components, a refinement
+    whose Al is not Ah - 1, Al over 13) or only warns about them (an AC scan
+    before the component's first DC scan, a band whose Ah is not the bits
+    that earlier scans left unsent); then record the band's new Al in
+    ``coef_bits`` (components x 64, -1 where nothing was sent yet)."""
+    bad = se != 0 if ss == 0 else (ss > se or se > 63 or len(comps) != 1)
+    if bad or (ah != 0 and al != ah - 1) or al > 13 or -1 in comps:
+        raise ValueError(f"corrupt JPEG: invalid progressive scan (Ss {ss}, Se {se}, Ah {ah}, "
+                         f"Al {al}, {len(comps)} components)")
+    for ci in comps:
+        bits = coef_bits[ci]
+        if ss > 0 and bits[0] < 0:
+            raise ValueError(f"corrupt JPEG: an AC scan of component {ci} before its first "
+                             "DC scan")
+        expected = np.maximum(bits[ss:se + 1], 0)
+        if np.any(expected != ah) or (ah == 0 and np.any(bits[ss:se + 1] >= 0)):
+            raise ValueError(f"corrupt JPEG: progressive scan of component {ci} out of order "
+                             f"(Ss {ss}, Se {se}, Ah {ah})")
+        bits[ss:se + 1] = al
 
 
 def _geometry(H, W, comps, jfif, adobe) -> Geometry:
@@ -591,6 +657,154 @@ def huff_decode_ref(scan: Scan, out: np.ndarray):
     if vals:
         idx = np.fromiter(vals.keys(), np.int64, len(vals))
         flat[idx] = np.fromiter(vals.values(), np.int64, len(vals)).astype(np.int16)
+    return out
+
+
+def huff_decode_progressive_ref(scan: Scan, out: np.ndarray, counts: dict = None):
+    """Decode one progressive scan into ``out`` ((blocks, 64) int16, natural
+    order), accumulating into what earlier scans left there, in Python: the
+    plain version of J1's progressive decoder, ``jdphuff.c``'s four routines
+    step for step:
+
+    - DC first (``ss == 0, ah == 0``; interleaved or one component): the
+      difference-coded DC value, shifted left by ``al``;
+    - DC refinement: one bit a block, or-ed in at bit ``al``;
+    - AC first (one component): the band's values shifted left by ``al``,
+      with EOB runs (EOBn: 2**n plus n appended bits blocks end their band)
+      that cross blocks, not restart intervals;
+    - AC refinement: a correction bit for every coefficient of the band that
+      is already nonzero (its magnitude grows by 2**al when the bit is 1 and
+      that bit is not set yet), newly nonzero coefficients of +-2**al after
+      a run of still-zero ones (ZRL skips 16 of them), and EOB runs over the
+      rest of the band.
+
+    A restart clears the DC predictions and the EOB run. A code that the
+    table does not hold raises, and so does a restart interval whose codes
+    need more bits than its data holds (libjpeg reads zeros there and warns;
+    such a file is truncated or corrupt). ``counts``, if given, gains the
+    scan's Huffman codes (``"codes"``) and raw bit fields (``"fields"``:
+    value bits, EOB run lengths, refinement and correction bits)."""
+    segs = _segments(scan.data)
+    info = scan.comp_info.tolist()
+    luts = [scan.luts[k].tolist() if scan.luts[k].any() else None for k in range(8)]
+    nat = NATURAL.tolist()
+    flat = out.reshape(-1)
+    blocks = sorted({boff + by * bw + bx for h, v, _, _, bw, boff in info
+                     for by in range(scan.mcuy * v) for bx in range(scan.mcux * h)})
+    coef = {b: flat[b * 64:b * 64 + 64].tolist() for b in blocks}
+    ss, se, ah, al = scan.ss, scan.se, scan.ah, scan.al
+    p1, m1 = 1 << al, -(1 << al)
+    nmcu = scan.mcux * scan.mcuy
+    restart = scan.restart
+    preds, eobrun = [0] * len(info), 0
+    seg_i, W, pos, avail = -1, None, 0, 0
+    n_codes = n_fields = 0
+
+    def bits(n):
+        nonlocal pos, n_fields
+        n_fields += 1
+        w = W[pos >> 3] if (pos >> 3) < len(W) else 0
+        r = (w >> (32 - (pos & 7) - n)) & ((1 << n) - 1)
+        pos += n
+        return r
+
+    def symbol(lut):
+        nonlocal pos, n_codes
+        n_codes += 1
+        w = W[pos >> 3] if (pos >> 3) < len(W) else 0
+        e = lut[(w >> (16 - (pos & 7))) & 0xFFFF] if lut is not None else 0
+        if not e:
+            raise ValueError("corrupt JPEG: bad Huffman code")
+        pos += e >> 8
+        return e & 255
+
+    def extend(r, n):
+        return r - (1 << n) + 1 if r < (1 << (n - 1)) else r
+
+    def wrap(x):                       # the int16 store of a JCOEF
+        return ((x + 0x8000) & 0xFFFF) - 0x8000
+
+    for m in range(nmcu):
+        if W is None or (restart and m % restart == 0):
+            if pos > avail:
+                raise ValueError("corrupt JPEG: a progressive scan's data ran out")
+            seg_i += 1
+            seg = segs[seg_i] if seg_i < len(segs) else b""
+            W, pos, avail = _windows(seg), 0, 8 * len(seg)
+            preds, eobrun = [0] * len(info), 0
+        mx, my = m % scan.mcux, m // scan.mcux
+        for ci, (h, v, dcs, acs, bw, boff) in enumerate(info):
+            for yy in range(v):
+                for xx in range(h):
+                    blk = coef[boff + (my * v + yy) * bw + mx * h + xx]
+                    if ss == 0:
+                        if ah == 0:                          # DC first
+                            n = symbol(luts[dcs])
+                            if n > 15:
+                                raise ValueError("corrupt JPEG: bad Huffman code")
+                            if n:
+                                preds[ci] += extend(bits(n), n)
+                            blk[0] = wrap(preds[ci] << al)
+                        elif bits(1):                        # DC refinement
+                            blk[0] |= p1
+                        continue
+                    if ah == 0:                              # AC first
+                        if eobrun:
+                            eobrun -= 1
+                            continue
+                        k = ss
+                        while k <= se:
+                            rs = symbol(luts[acs])
+                            r, n = rs >> 4, rs & 15
+                            if n:
+                                k += r
+                                blk[nat[k]] = wrap(extend(bits(n), n) << al)
+                            elif r == 15:
+                                k += 15
+                            else:
+                                eobrun = (1 << r) + (bits(r) if r else 0) - 1
+                                break
+                            k += 1
+                        continue
+                    k = ss                                   # AC refinement
+                    if not eobrun:
+                        while k <= se:
+                            rs = symbol(luts[acs])
+                            r, n = rs >> 4, rs & 15
+                            if n:
+                                n = p1 if bits(1) else m1
+                            elif r != 15:
+                                eobrun = (1 << r) + (bits(r) if r else 0)
+                                break
+                            while k <= se:
+                                z = nat[k]
+                                c = blk[z]
+                                if c:
+                                    if bits(1) and not c & p1:
+                                        blk[z] = wrap(c + (p1 if c >= 0 else m1))
+                                else:
+                                    r -= 1
+                                    if r < 0:
+                                        break
+                                k += 1
+                            if n:
+                                blk[nat[k]] = n
+                            k += 1
+                    if eobrun:
+                        while k <= se:
+                            z = nat[k]
+                            c = blk[z]
+                            if c and bits(1) and not c & p1:
+                                blk[z] = wrap(c + (p1 if c >= 0 else m1))
+                            k += 1
+                        eobrun -= 1
+    if pos > avail:
+        raise ValueError("corrupt JPEG: a progressive scan's data ran out")
+    for b, vals in coef.items():
+        flat[b * 64:b * 64 + 64] = vals
+    if counts is not None:
+        counts["codes"] = counts.get("codes", 0) + n_codes
+        counts["fields"] = counts.get("fields", 0) + n_fields
     return out
 
 
@@ -950,10 +1164,11 @@ def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
 
 
 def _entropy_decode(jf: JpegFile, device) -> np.ndarray:
-    from mft_tpu_torch.ops.jpeg import jpeg_huff_decode
+    from mft_tpu_torch.ops.jpeg import jpeg_huff_decode, jpeg_huff_decode_progressive
     coefs = np.zeros((jf.geom.blocks, 64), np.int16)
     for scan in jf.scans:
-        jpeg_huff_decode(scan, coefs, device)
+        (jpeg_huff_decode_progressive if scan.progressive else jpeg_huff_decode)(
+            scan, coefs, device)
     return coefs
 
 
@@ -1097,6 +1312,7 @@ def is_jpeg(data: bytes) -> bool:
 
 
 __all__ = ["decode_jpeg", "decode_jpeg_frames", "encode_jpeg", "jpeg_roundtrip", "parse_jpeg",
-           "Geometry", "geometry_for", "huff_decode_ref", "huff_encode_ref",
+           "Geometry", "geometry_for", "huff_decode_ref", "huff_decode_progressive_ref",
+           "huff_encode_ref",
            "decode_pixels_ref", "encode_pixels_ref", "quant_tables", "reciprocals",
            "apply_orientation", "is_jpeg"]

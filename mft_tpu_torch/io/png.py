@@ -10,12 +10,17 @@ cv2 to the same array and the reverse:
 - uint8 gives 8-bit samples, uint16 16-bit ones (big-endian in the file).
 
 :func:`encode_png` writes one IDAT chunk, every row with the Up filter,
-and optional ``tEXt`` chunks after IHDR. :func:`decode_png` reads any
-non-interlaced 8- or 16-bit grey, RGB or RGBA PNG: all five row filters
-(None, Sub, Up, Average, Paeth; rows with Average or Paeth are undone along
-anti-diagonals, whose pixels do not depend on each other), any number of
-IDAT chunks; it checks every chunk's CRC and raises ``ValueError`` for a
-file it cannot decode. :func:`read_text` returns the ``tEXt`` chunks.
+and optional ``tEXt`` chunks after IHDR. :func:`decode_png` reads every
+kind of PNG that libpng expands for OpenCV: grey at 1, 2, 4, 8 and 16 bits
+(1-, 2- and 4-bit samples scaled to 0..255, as
+``png_set_expand_gray_1_2_4_to_8``), RGB, RGBA and grey+alpha at 8 and 16
+bits, palettes at 1, 2, 4 and 8 bits (PLTE, with tRNS giving an alpha
+channel, as ``cv2.imdecode(..., IMREAD_UNCHANGED)`` returns it; so does a
+tRNS colour of an RGB file), non-interlaced or Adam7-interlaced (each pass
+unfiltered on its own); all five row filters (None, Sub, Up, Average,
+Paeth; rows with Average or Paeth are undone along anti-diagonals, whose
+pixels do not depend on each other), any number of IDAT chunks; it checks
+every chunk's CRC and raises ``ValueError`` for a file it cannot decode. :func:`read_text` returns the ``tEXt`` chunks.
 :func:`to_bgr` gives what ``cv2.imread(path)`` (``IMREAD_COLOR``) gives of
 a decoded PNG; :func:`imread` reads any image file through
 :mod:`mft_tpu_torch.io.image`.
@@ -28,7 +33,6 @@ import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _COLOR_TYPES = {1: 0, 3: 2, 4: 6}          # channels -> PNG colour type
-_CHANNELS = {v: k for k, v in _COLOR_TYPES.items()}
 _BGR = {1: [0], 3: [2, 1, 0], 4: [2, 1, 0, 3]}   # array <-> file channel order
 
 
@@ -140,38 +144,100 @@ def _unfilter(filt, raw, H, W, bpp):
     return out[1:, 1:].astype(np.uint8).reshape(H, W * bpp)
 
 
+# colour type -> samples a pixel and the bit depths the PNG spec allows
+_KINDS = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
+          4: (2, (8, 16)), 6: (4, (8, 16))}
+# Adam7 passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+          (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _unpack(rows, depth, n):
+    """(h, rowbytes) unfiltered uint8 rows -> (h, n) samples: uint16 for
+    16-bit depth, else uint8 (1/2/4-bit samples unpacked most significant
+    first, unscaled)."""
+    if depth == 16:
+        return rows.view(">u2")[:, :n].astype(np.uint16)
+    if depth == 8:
+        return rows[:, :n]
+    per = 8 // depth
+    shifts = (8 - depth) - depth * np.arange(per, dtype=np.uint8)
+    samples = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return samples.reshape(rows.shape[0], -1)[:, :n].astype(np.uint8)
+
+
 def decode_png(buf) -> np.ndarray:
     """The array of PNG bytes ``buf``, as ``cv2.imdecode(buf,
     IMREAD_UNCHANGED)`` gives it: (H, W) grey, (H, W, 3) BGR or (H, W, 4)
-    BGRA, uint8 or uint16."""
-    header, idat = None, []
+    BGRA (RGBA and grey+alpha files, and palette or RGB files with a tRNS
+    chunk), uint8 or uint16 (16-bit files)."""
+    header, idat, plte, trns = None, [], None, None
     for kind, data in _chunks(np.asarray(buf, np.uint8).tobytes()
                               if isinstance(buf, np.ndarray) else buf):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", data)
         elif kind == b"IDAT":
             idat.append(data)
+        elif kind == b"PLTE":
+            plte = data
+        elif kind == b"tRNS":
+            trns = data
     if header is None or not idat:
         raise ValueError("PNG file without IHDR or IDAT")
     W, H, depth, ctype, comp, filt_method, interlace = header
-    if ctype not in _CHANNELS or depth not in (8, 16) or comp or filt_method or interlace:
+    if (ctype not in _KINDS or depth not in _KINDS[ctype][1] or comp or filt_method
+            or interlace > 1 or W == 0 or H == 0):
         raise ValueError(f"unsupported PNG: colour type {ctype}, depth {depth}, "
                          f"interlace {interlace}")
-    C = _CHANNELS[ctype]
-    bpp = C * depth // 8
+    if ctype == 3 and (plte is None or not plte or len(plte) % 3 or len(plte) > 768):
+        raise ValueError("corrupt PNG: a palette file without a valid PLTE chunk")
+    spp = _KINDS[ctype][0]
+    bits = spp * depth
+    bpp = max(1, bits // 8)
     try:
         data = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     except zlib.error as e:
         raise ValueError(f"corrupt PNG image data: {e}") from None
-    if data.size != H * (1 + W * bpp):
-        raise ValueError(f"PNG image data holds {data.size} bytes, expected "
-                         f"{H * (1 + W * bpp)}")
-    rows = data.reshape(H, 1 + W * bpp)
-    out = _unfilter(rows[:, 0], rows[:, 1:], H, W, bpp)
-    if depth == 16:
-        out = out.view(">u2").astype(np.uint16)
-    img = out.reshape(H, W, C)[..., _BGR[C]]
-    return np.ascontiguousarray(img[..., 0] if C == 1 else img)
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    dtype = np.uint16 if depth == 16 else np.uint8
+    img = np.zeros((H, W, spp), dtype)
+    pos = 0
+    for x0, y0, dx, dy in passes:
+        pw, ph = -(-(W - x0) // dx), -(-(H - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue                       # an empty pass holds no bytes
+        rowbytes = -(-pw * bits // 8)
+        size = ph * (1 + rowbytes)
+        if pos + size > data.size:
+            raise ValueError(f"PNG image data holds {data.size} bytes, fewer than "
+                             "its size needs")
+        rows = data[pos:pos + size].reshape(ph, 1 + rowbytes)
+        pos += size
+        raw = _unfilter(rows[:, 0], rows[:, 1:], ph, rowbytes // bpp, bpp)
+        img[y0::dy, x0::dx] = _unpack(raw, depth, pw * spp).reshape(ph, pw, spp)
+    if pos != data.size:
+        raise ValueError(f"PNG image data holds {data.size} bytes, expected {pos}")
+    if ctype == 0:
+        if depth < 8:
+            img = img * np.uint8(255 // ((1 << depth) - 1))
+        return np.ascontiguousarray(img[..., 0])
+    if ctype == 4:                         # grey + alpha -> BGRA
+        return np.ascontiguousarray(img[..., [0, 0, 0, 1]])
+    if ctype == 3:
+        pal = np.zeros((256, 4), np.uint8)  # indices past the palette: black
+        pal[:, 3] = 255
+        pal[:len(plte) // 3, :3] = np.frombuffer(plte, np.uint8).reshape(-1, 3)
+        if trns:
+            pal[:len(trns), 3] = np.frombuffer(trns[:256], np.uint8)
+        out = pal[img[..., 0]]
+        return np.ascontiguousarray(out[..., [2, 1, 0, 3]] if trns else out[..., [2, 1, 0]])
+    img = img[..., _BGR[spp]]
+    if ctype == 2 and trns is not None and len(trns) == 6:
+        key = np.array(struct.unpack(">HHH", trns), np.int64)[[2, 1, 0]]
+        opaque = np.any(img.astype(np.int64) != key, axis=-1)
+        alpha = np.where(opaque, np.iinfo(dtype).max, 0).astype(dtype)
+        img = np.concatenate([img, alpha[..., None]], axis=-1)
+    return np.ascontiguousarray(img)
 
 
 def to_bgr(img: np.ndarray) -> np.ndarray:

@@ -171,11 +171,22 @@ def _pack(out: bytearray, v):
     elif isinstance(v, bool):
         out.append(0xC3 if v else 0xC2)
     elif isinstance(v, (int, np.integer)):
+        # the smallest form, as the msgpack package writes an int
         v = int(v)
         if 0 <= v <= 0x7F or -32 <= v < 0:
             out += struct.pack(">b" if v < 0 else ">B", v)
-        elif -(1 << 63) <= v < 1 << 64:
-            out += b"\xd3" + struct.pack(">q", v) if v < 0 else b"\xcf" + struct.pack(">Q", v)
+        elif 0 <= v < 1 << 64:
+            for code, fmt, top in ((0xCC, ">B", 8), (0xCD, ">H", 16), (0xCE, ">I", 32),
+                                   (0xCF, ">Q", 64)):
+                if v < 1 << top:
+                    out += bytes([code]) + struct.pack(fmt, v)
+                    break
+        elif -(1 << 63) <= v < 0:
+            for code, fmt, top in ((0xD0, ">b", 7), (0xD1, ">h", 15), (0xD2, ">i", 31),
+                                   (0xD3, ">q", 63)):
+                if v >= -(1 << top):
+                    out += bytes([code]) + struct.pack(fmt, v)
+                    break
         else:
             raise ValueError(f"integer {v} does not fit msgpack")
     elif isinstance(v, (float, np.floating)):

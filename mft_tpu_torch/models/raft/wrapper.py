@@ -8,7 +8,8 @@ sigma = sqrt(exp(log-variance)).
 Weights: ``config.model`` naming an existing file is loaded by its suffix
 (:func:`load_weights`): a flax ``.msgpack``/``.bin`` variables file, as
 the JAX package writes them (``weights/raftou_synth.msgpack``), or a
-``.pt``/``.pth`` state dict of this port. A missing file means random
+``.pt``/``.pth`` state dict, the reference's (renamed by
+:mod:`mft_tpu_torch.models.raft.convert`) or this port's. A missing file means random
 weights, made from ``config.init_seed`` (default 0) with a
 ``torch.Generator`` in the JAX package's init distributions (lecun-normal
 convs, zero biases, identity batch norm). JAX weights in memory come across
@@ -28,7 +29,8 @@ from torch import nn
 from mft_tpu_torch.config import cfg_value
 from mft_tpu_torch.core.coords import grid_coords
 from mft_tpu_torch.core.device import resolve_device
-from mft_tpu_torch.models.raft.convert import params_from_flax
+from mft_tpu_torch.models.raft.convert import (is_reference_state_dict, params_from_flax,
+                                               params_from_reference)
 from mft_tpu_torch.models.raft.encoder_fuse import fused_basic_encode
 from mft_tpu_torch.models.raft.flax_msgpack import read_variables
 from mft_tpu_torch.models.raft.raft import RAFT, RAFTParams
@@ -105,14 +107,22 @@ def load_weights(path: Path) -> dict:
     """The float32 state dict of an existing weights file, by its suffix:
     ``.msgpack``/``.bin`` a flax variables file (read by
     :mod:`flax_msgpack`, converted by :func:`convert.params_from_flax`, as
-    JAX's ``load_variables`` reads it), ``.pt``/``.pth`` this port's state
-    dict. A file that does not decode raises; it never falls back to random
-    weights."""
+    JAX's ``load_variables`` reads it), ``.pt``/``.pth`` a state dict: the
+    reference's (some name only the reference uses: ``module.``,
+    ``layer2.0``, ``downsample.1``, ...; read by
+    :func:`convert.params_from_reference`, as JAX's ``load_torch_checkpoint``
+    reads it) or this port's. A file that does not decode, or a name that
+    neither form knows, raises (KeyError from the reference's map, or the
+    strict ``load_state_dict``); it never falls back to random weights."""
     if path.suffix in (".msgpack", ".bin"):
         logger.info("loading flax weights %s", path)
         return params_from_flax(read_variables(path))
     if path.suffix in (".pt", ".pth"):
-        return torch.load(path, map_location="cpu", weights_only=True)
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        if is_reference_state_dict(state):
+            logger.info("converting reference checkpoint %s", path)
+            return params_from_reference(state)
+        return state
     raise ValueError(f"unknown checkpoint format: {path}")
 
 

@@ -17,7 +17,7 @@
 | corr_build_folded (mft_corr_build_folded_tc; f32: mft_corr_build_folded) | corr_lookup_pallas.py build_corr_pyramid_pallas |
 | conv_pallas (mft_conv_tc; f32: mft_conv)  | conv_pallas.py conv_pallas                           |
 | bilinear_warp (mft_warp)                  | warp_pallas.py bilinear_warp_pallas, _banded, _tiled |
-| jpeg_huff_decode, jpeg_huff_encode (J1: host code, mft_jpeg_huff_decode / _encode) | no Pallas site: cv2/PIL on the host |
+| jpeg_huff_decode, jpeg_huff_decode_progressive, jpeg_huff_encode (J1: host code, mft_jpeg_huff_decode / _decode_progressive / _encode) | no Pallas site: cv2/PIL on the host |
 | jpeg_decode_pixels (J2: mft_jpeg_decode_pixels) | no Pallas site: cv2/PIL on the host         |
 | jpeg_encode_pixels (J3: mft_jpeg_encode_pixels) | no Pallas site: cv2/PIL on the host         |
 
@@ -45,7 +45,7 @@ from mft_tpu_torch.ops.corr_lookup import (
     corr_lookup_q, corr_lookup_q_ref, corr_lookup_ref, corr_lookup_t,
     corr_lookup_t_ref, lane_major_staged_counts)
 from mft_tpu_torch.ops.jpeg import (jpeg_decode_pixels, jpeg_encode_pixels, jpeg_huff_decode,
-                                    jpeg_huff_encode)
+                                    jpeg_huff_decode_progressive, jpeg_huff_encode)
 from mft_tpu_torch.ops.product import (conv_pallas, conv_pallas_magnitude, conv_pallas_ref,
                                        conv_weight_tiles, corr_build_folded,
                                        corr_build_folded_magnitude, corr_build_folded_ref,
@@ -58,8 +58,8 @@ from mft_tpu_torch.ops.warp import (bilinear_warp, bilinear_warp_banded, bilinea
 KERNELS = (corr_lookup_fused, corr_lookup, corr_lookup_bwd, chain_select, corr_lookup_alt,
            corr_lookup_win, corr_lookup_q, corr_lookup_packed, corr_lookup_packed_i8,
            corr_lookup_t, corr_lookup_folded, corr_build_folded, corr_lookup_mixed,
-           conv_pallas, bilinear_warp, jpeg_huff_decode, jpeg_huff_encode, jpeg_decode_pixels,
-           jpeg_encode_pixels)
+           conv_pallas, bilinear_warp, jpeg_huff_decode, jpeg_huff_decode_progressive,
+           jpeg_huff_encode, jpeg_decode_pixels, jpeg_encode_pixels)
 
 
 def launch_counts() -> dict:
@@ -95,6 +95,7 @@ __all__ = ["chain_select", "chain_select_ref", "corr_lookup", "corr_lookup_ref",
            "product_error_bound", "bilinear_warp",
            "bilinear_warp_ref", "bilinear_warp_pallas", "bilinear_warp_banded",
            "bilinear_warp_blocked", "bilinear_warp_tiled", "snap256", "split_hi_lo",
-           "jpeg_huff_decode", "jpeg_huff_encode", "jpeg_decode_pixels", "jpeg_encode_pixels",
+           "jpeg_huff_decode", "jpeg_huff_decode_progressive", "jpeg_huff_encode",
+           "jpeg_decode_pixels", "jpeg_encode_pixels",
            "KERNELS",
            "launch_counts", "tensor_core_launch_counts", "reset_launch_counts"]

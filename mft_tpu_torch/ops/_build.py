@@ -57,6 +57,7 @@ SIGNATURES = {
     "mft_conv_tc": [_P] * 4 + [_L] * 4 + [_I] * 13 + [_P],
     "mft_warp": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_I] * 3 + [_P],
     "mft_jpeg_huff_decode": [_P, _L, _I, _P, _P, _I, _I, _I, _P],
+    "mft_jpeg_huff_decode_progressive": [_P, _L, _I, _P, _P] + [_I] * 7 + [_P],
     "mft_jpeg_huff_encode": [_P, _I, _P, _P, _I, _I, _I, _P, _L, _P],
     "mft_jpeg_decode_pixels": [_P, _I, _P, _P, _P, _P, _P],
     "mft_jpeg_encode_pixels": [_P, _I, _I, _P, _P, _P, _P],

@@ -188,6 +188,173 @@ extern "C" int mft_jpeg_huff_decode(const uint8_t* data, long len, int ns, const
   return 0;
 }
 
+// Decode one progressive scan into out (blocks x 64 int16, natural order),
+// accumulating into what earlier scans left there: jdphuff.c's DC first, DC
+// refinement, AC first and AC refinement routines, chosen by ss and ah (bit
+// for bit with mft_tpu_torch/io/jpeg.py huff_decode_progressive_ref). info,
+// luts as for mft_jpeg_huff_decode (an AC scan has one component, one block
+// an MCU). Returns 0, -1 for a window that starts no code or a DC bit count
+// over 15, -2 for a restart interval whose codes need more bits than it
+// holds.
+extern "C" int mft_jpeg_huff_decode_progressive(const uint8_t* data, long len, int ns,
+                                                const int* info, const uint16_t* luts, int mcux,
+                                                int mcuy, int restart, int ss, int se, int ah,
+                                                int al, int16_t* out) {
+  Reader rd{data, len, 0, 0, 0, false};
+  long consumed = 0, real = -1;  // bits taken; real bits of the interval (-1: not ended yet)
+  auto fill = [&]() {
+    while (rd.bits <= 56) {
+      bool ended = rd.stop || rd.p >= rd.n;
+      if (!ended) {
+        uint32_t c = rd.d[rd.p];
+        if (c == 0xFF) {
+          long q = rd.p + 1;
+          while (q < rd.n && rd.d[q] == 0xFF) q++;
+          if (q < rd.n && rd.d[q] == 0) {
+            rd.p = q + 1;
+          } else {
+            rd.stop = true;
+            ended = true;
+          }
+        } else {
+          rd.p++;
+        }
+        if (!ended) {
+          rd.acc = (rd.acc << 8) | c;
+          rd.bits += 8;
+          continue;
+        }
+      }
+      if (real < 0) real = consumed + rd.bits;  // the interval's data ends here
+      rd.acc <<= 8;
+      rd.bits += 8;
+    }
+  };
+  auto take = [&](int s) {
+    consumed += s;
+    return rd.get(s);
+  };
+  auto symbol = [&](const uint16_t* lut) -> int {
+    fill();
+    uint32_t e = lut[rd.peek16()];
+    if (!e) return -1;
+    rd.bits -= (int)(e >> 8);
+    consumed += e >> 8;
+    return (int)(e & 255);
+  };
+  auto overrun = [&]() { return real >= 0 && consumed > real; };
+  const int p1 = 1 << al, m1 = -(1 << al);
+  int preds[4] = {0, 0, 0, 0};
+  long eobrun = 0;
+  long nmcu = (long)mcux * mcuy;
+  for (long m = 0; m < nmcu; m++) {
+    if (restart && m && m % restart == 0) {
+      if (overrun()) return -2;
+      rd.restart();
+      consumed = 0;
+      real = -1;
+      eobrun = 0;
+      for (int c = 0; c < 4; c++) preds[c] = 0;
+    }
+    long mx = m % mcux, my = m / mcux;
+    for (int ci = 0; ci < ns; ci++) {
+      const int* f = info + 6 * ci;
+      int h = f[0], v = f[1], bw = f[4];
+      long boff = f[5];
+      const uint16_t* dc = luts + ((long)f[2] << 16);
+      const uint16_t* ac = luts + ((long)f[3] << 16);
+      for (int yy = 0; yy < v; yy++) {
+        for (int xx = 0; xx < h; xx++) {
+          int16_t* blk = out + (boff + (my * v + yy) * (long)bw + mx * h + xx) * 64;
+          if (ss == 0) {
+            if (ah == 0) {  // DC first
+              int s = symbol(dc);
+              if (s < 0 || s > 15) return -1;
+              if (s) {
+                fill();
+                preds[ci] = (int)((unsigned)preds[ci] + (unsigned)extend(take(s), s));
+              }
+              blk[0] = (int16_t)((unsigned)preds[ci] << al);
+            } else {  // DC refinement
+              fill();
+              if (take(1)) blk[0] = (int16_t)(blk[0] | p1);
+            }
+            continue;
+          }
+          if (ah == 0) {  // AC first
+            if (eobrun) {
+              eobrun--;
+              continue;
+            }
+            for (int k = ss; k <= se; k++) {
+              int rs = symbol(ac);
+              if (rs < 0) return -1;
+              int r = rs >> 4, s = rs & 15;
+              if (s) {
+                k += r;
+                fill();
+                blk[kNatural[k]] = (int16_t)((unsigned)extend(take(s), s) << al);
+              } else if (r == 15) {
+                k += 15;
+              } else {
+                eobrun = 1L << r;
+                if (r) {
+                  fill();
+                  eobrun += take(r);
+                }
+                eobrun--;
+                break;
+              }
+            }
+            continue;
+          }
+          int k = ss;  // AC refinement
+          if (!eobrun) {
+            for (; k <= se; k++) {
+              int rs = symbol(ac);
+              if (rs < 0) return -1;
+              int r = rs >> 4, s = rs & 15;
+              if (s) {
+                fill();
+                s = take(1) ? p1 : m1;
+              } else if (r != 15) {
+                eobrun = 1L << r;
+                if (r) {
+                  fill();
+                  eobrun += take(r);
+                }
+                break;
+              }
+              do {
+                int16_t* c = blk + kNatural[k];
+                if (*c) {
+                  fill();
+                  if (take(1) && !(*c & p1)) *c = (int16_t)(*c + (*c >= 0 ? p1 : m1));
+                } else if (--r < 0) {
+                  break;
+                }
+                k++;
+              } while (k <= se);
+              if (s) blk[kNatural[k]] = (int16_t)s;
+            }
+          }
+          if (eobrun) {
+            for (; k <= se; k++) {
+              int16_t* c = blk + kNatural[k];
+              if (*c) {
+                fill();
+                if (take(1) && !(*c & p1)) *c = (int16_t)(*c + (*c >= 0 ? p1 : m1));
+              }
+            }
+            eobrun--;
+          }
+        }
+      }
+    }
+  }
+  return overrun() ? -2 : 0;
+}
+
 // Entropy-code one scan of quantized coefficients (blocks x 64 int16,
 // natural order). info: ns rows of (h, v, dc slot, ac slot, bw, boff, rbw,
 // rbh); blocks outside rbw x rbh are dummy blocks (DC difference 0, EOB).

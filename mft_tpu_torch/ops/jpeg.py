@@ -3,7 +3,10 @@ on the card (J2, J3), each beside its plain version.
 
 - ``jpeg_huff_decode`` / ``jpeg_huff_encode`` (J1): host routines
   ``mft_jpeg_huff_decode`` / ``mft_jpeg_huff_encode``,
-  ``csrc/jpeg_entropy.cu``;
+  ``csrc/jpeg_entropy.cu``; ``jpeg_huff_decode_progressive`` (J1, a
+  progressive file's scans): ``mft_jpeg_huff_decode_progressive``, one
+  routine for the four kinds of scan, accumulating into one coefficient
+  array, which J2 then takes as it takes a baseline file's;
 - ``jpeg_decode_pixels`` (J2): ``mft_jpeg_decode_pixels``, ``csrc/jpeg.cu``
   (dequantize + IDCT, then upsampling + colour conversion);
 - ``jpeg_encode_pixels`` (J3): ``mft_jpeg_encode_pixels``, ``csrc/jpeg.cu``
@@ -36,6 +39,7 @@ from mft_tpu_torch.io import jpeg as _jpeg
 from mft_tpu_torch.ops import _build
 
 huff_decode_ref = _jpeg.huff_decode_ref
+huff_decode_progressive_ref = _jpeg.huff_decode_progressive_ref
 huff_encode_ref = _jpeg.huff_encode_ref
 decode_pixels_ref = _jpeg.decode_pixels_ref
 encode_pixels_ref = _jpeg.encode_pixels_ref
@@ -72,6 +76,40 @@ def jpeg_huff_decode(scan, out: np.ndarray, device) -> np.ndarray:
 
 
 jpeg_huff_decode.launches = 0
+
+
+def jpeg_huff_decode_progressive(scan, out: np.ndarray, device) -> np.ndarray:
+    """Decode one progressive scan into ``out`` ((blocks, 64) int16),
+    accumulating into what the file's earlier scans left there: natively for
+    a CUDA ``device``, in Python (``huff_decode_progressive_ref``) for the
+    CPU."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return huff_decode_progressive_ref(scan, out)
+    if device.type != "cuda":
+        raise ValueError(f"jpeg_huff_decode_progressive: unsupported device {device}")
+    if out.dtype != np.int16 or not out.flags.c_contiguous or out.shape[-1] != 64:
+        raise ValueError("out must be a contiguous (blocks, 64) int16 array")
+    info = np.ascontiguousarray(scan.comp_info, np.int32)
+    last = info[:, 5] + ((scan.mcuy * info[:, 1] - 1) * info[:, 4] + scan.mcux * info[:, 0])
+    if last.max() > out.shape[0]:
+        raise ValueError("the scan's blocks do not fit in out")
+    if not (0 <= scan.ss <= scan.se <= 63 and 0 <= scan.al <= 13):
+        raise ValueError(f"invalid progressive scan (Ss {scan.ss}, Se {scan.se}, Al {scan.al})")
+    luts = np.ascontiguousarray(scan.luts, np.uint16)
+    data = np.frombuffer(scan.data, np.uint8) if len(scan.data) else np.zeros(1, np.uint8)
+    err = _build.library().mft_jpeg_huff_decode_progressive(
+        _ptr(data), len(scan.data), len(info), _ptr(info), _ptr(luts), scan.mcux, scan.mcuy,
+        scan.restart, scan.ss, scan.se, scan.ah, scan.al, _ptr(out))
+    if err == -2:
+        raise ValueError("corrupt JPEG: a progressive scan's data ran out")
+    if err:
+        raise ValueError("corrupt JPEG: bad Huffman code")
+    jpeg_huff_decode_progressive.launches += 1
+    return out
+
+
+jpeg_huff_decode_progressive.launches = 0
 
 
 def jpeg_huff_encode(coefs: np.ndarray, comp_info, codes, mcux: int, mcuy: int,

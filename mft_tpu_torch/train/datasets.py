@@ -487,7 +487,12 @@ class BatchLoader:
             while True:
                 yield q.get()
         finally:
+            # the workers finish the batch they are building, then stop: none
+            # outlives the loop that read from it (its device work, a JPEG
+            # stage's, would land in whatever runs next)
             stop.set()
+            for t in threads:
+                t.join()
 
 
 def save_file_list_cache(path, payload):

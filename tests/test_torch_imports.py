@@ -82,7 +82,8 @@ def test_port_modules_list_is_complete():
                  "mft_tpu_torch.train.gen_synth_data", "mft_tpu_torch.train.train_synth",
                  "mft_tpu_torch.train.generate_occlusions_ft3d",
                  "mft_tpu_torch.train.kubric_longflow", "mft_tpu_torch.io.jpeg",
-                 "mft_tpu_torch.ops.jpeg", "mft_tpu_torch.io.image"):
+                 "mft_tpu_torch.ops.jpeg", "mft_tpu_torch.io.image",
+                 "mft_tpu_torch.utils.flops", "mft_tpu_torch.models.raft.convert"):
         assert want in mods
 
 
@@ -113,6 +114,27 @@ def test_app_help_runs_without_jax(app):
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert "--video" in proc.stdout and "--device" in proc.stdout
+
+
+def test_convert_cli_runs_without_jax(tmp_path):
+    """``python -m mft_tpu_torch.models.raft.convert in.pth out.msgpack`` on a
+    reference-named .pth of the committed weights, the imports blocked; the
+    file it writes reads back through the port's reader."""
+    code = ("import runpy\n"
+            "from mft_tpu_torch.models.raft import convert\n"
+            "from mft_tpu_torch.models.raft.flax_msgpack import read_variables\n"
+            f"src = {str(REPO / 'weights' / 'raftou_synth.msgpack')!r}\n"
+            f"pth, out = {str(tmp_path / 'w.pth')!r}, {str(tmp_path / 'w.msgpack')!r}\n"
+            "convert.export_torch_checkpoint(convert.params_from_flax(read_variables(src)), pth)\n"
+            "sys.argv = ['convert', pth, out]\n"
+            "runpy.run_module('mft_tpu_torch.models.raft.convert', run_name='__main__')\n"
+            "a, b = read_variables(src), read_variables(out)\n"
+            "assert sorted(a) == sorted(b)\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {BLOCKED!r}]\n"
+            "assert not bad, bad\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "wrote" in proc.stdout
 
 
 def test_blocker_blocks():
@@ -147,7 +169,8 @@ def test_chip_smoke_alone_fails(tmp_path):
                                   "tools/torch_lookup_ab.py",
                                   "tools/torch_k1_repair.py",
                                   "tools/torch_window_probe.py",
-                                  "tools/torch_lookup_probe.py"])
+                                  "tools/torch_lookup_probe.py",
+                                  "tools/torch_c8_probe.py"])
 def test_no_jax_import_statements(path):
     """Also by text: no import line names jax, flax, optax, orbax, mft_tpu,
     cv2, pandas, tabulate, PIL, tools or tensorflow_datasets (the port's own

@@ -6,8 +6,11 @@ and the JAX codecs (``mft_tpu/io``) are the reference here. Files written by
 either package decode in the other to the same arrays, bit for bit.
 """
 
+import io
+import os
 import pickle
 import struct
+import tempfile
 import zlib
 
 import cv2
@@ -119,6 +122,151 @@ def test_png_refuses_corrupt_files(rng):
                        (png[:40] + bytes([png[40] ^ 1]) + png[41:], "CRC")):
         with pytest.raises(ValueError, match=match):
             decode_png(bad)
+
+
+def _pack_samples(samples, depth):
+    """(h, n) samples -> (h, rowbytes) uint8 rows at ``depth`` bits a sample
+    (big-endian 16-bit, low depths most significant first, zero-padded)."""
+    h, n = samples.shape
+    if depth == 16:
+        return samples.astype(">u2").view(np.uint8).reshape(h, -1)
+    if depth == 8:
+        return samples.astype(np.uint8)
+    per = 8 // depth
+    s = np.pad(samples.astype(np.int64), ((0, 0), (0, -n % per))).reshape(h, -1, per)
+    out = np.zeros(s.shape[:2], np.int64)
+    for k in range(per):
+        out |= s[:, :, k] << (8 - depth * (k + 1))
+    return out.astype(np.uint8)
+
+
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
+def _kind_png(samples, ctype, depth, interlace, rng, plte=None, trns=None):
+    """A PNG of (H, W, samples a pixel) file-order samples of colour type
+    ``ctype`` at ``depth`` bits, non-interlaced or Adam7 (each pass's rows
+    packed and filtered on their own), every row with a random filter by the
+    specification's formulas."""
+    H, W, spp = samples.shape
+    bpp = max(1, spp * depth // 8)
+    raw = []
+    for x0, y0, dx, dy in (ADAM7 if interlace else ((0, 0, 1, 1),)):
+        sub = samples[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        rows = _pack_samples(sub.reshape(sub.shape[0], -1), depth).astype(np.int64)
+        prev = np.zeros(rows.shape[1], np.int64)
+        for r in rows:
+            f = int(rng.integers(0, 5))
+            line = [f]
+            for i in range(len(r)):
+                a = r[i - bpp] if i >= bpp else 0
+                c = prev[i - bpp] if i >= bpp else 0
+                pred = [0, a, prev[i], (a + prev[i]) // 2, _paeth(a, prev[i], c)][f]
+                line.append((r[i] - pred) % 256)
+            raw.append(bytes(line))
+            prev = r
+    chunk = lambda kind, d: (struct.pack(">I", len(d)) + kind + d
+                             + struct.pack(">I", zlib.crc32(kind + d) & 0xFFFFFFFF))
+    out = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth, ctype,
+                                                              0, 0, interlace))
+    if plte is not None:
+        out += chunk(b"PLTE", plte)
+    if trns is not None:
+        out += chunk(b"tRNS", trns)
+    return out + chunk(b"IDAT", zlib.compress(b"".join(raw))) + chunk(b"IEND", b"")
+
+
+# name -> (colour type, depth, samples a pixel, palette, tRNS)
+PNG_KINDS = {**{f"grey{d}": (0, d, 1, False, False) for d in (1, 2, 4, 8, 16)},
+             **{f"palette{d}": (3, d, 1, True, False) for d in (1, 2, 4, 8)},
+             **{f"palette{d}_trns": (3, d, 1, True, True) for d in (1, 2, 4, 8)},
+             "grey_alpha8": (4, 8, 2, False, False), "grey_alpha16": (4, 16, 2, False, False),
+             "rgb8": (2, 8, 3, False, False), "rgb8_trns": (2, 8, 3, False, True),
+             "rgb16": (2, 16, 3, False, False), "rgba8": (6, 8, 4, False, False),
+             "rgba16": (6, 16, 4, False, False)}
+
+
+@pytest.mark.parametrize("interlace", [0, 1], ids=["non_interlaced", "adam7"])
+@pytest.mark.parametrize("kind", list(PNG_KINDS))
+def test_png_kinds_match_opencv_and_pil(kind, interlace):
+    """Every PNG kind that libpng expands for OpenCV (palettes with and
+    without tRNS, grey+alpha, 1/2/4-bit grey and palettes, Adam7) decodes bit
+    for bit as ``cv2.imdecode`` gives it under IMREAD_UNCHANGED (decode_png)
+    and under IMREAD_COLOR (to_bgr, what ``cv2.imread`` and ``io.image.imread``
+    give), and as PIL's ``convert("RGB")`` (the JHMDB reader's form, JAX
+    ``eval/tapvid.py:243``; the port's ``eval/tapvid.py _read_rgb``).
+
+    cv2 and PIL disagree on 16-bit grey only: cv2 keeps the high byte, PIL
+    clips at 255. Each reader follows the oracle its JAX call site uses:
+    ``to_bgr``/``imread`` cv2 (every ``cv2.imread`` site), ``_read_rgb`` PIL
+    (``Image.open`` at the JHMDB site)."""
+    from PIL import Image
+
+    from mft_tpu_torch.eval.tapvid import _read_rgb
+    from mft_tpu_torch.io.png import to_bgr
+    ctype, depth, spp, palette, trns = PNG_KINDS[kind]
+    rng = np.random.default_rng(len(kind) * 2 + interlace)
+    H, W = 13, 21
+    samples = rng.integers(0, 1 << depth, (H, W, spp))
+    plte = tr = None
+    if palette:
+        plte = rng.integers(0, 256, (1 << depth, 3)).astype(np.uint8).tobytes()
+        if trns:
+            tr = rng.integers(0, 256, max(1, (1 << depth) // 2)).astype(np.uint8).tobytes()
+    elif trns:                              # an RGB key colour that some pixels have
+        samples = rng.integers(0, 4, (H, W, spp))
+        tr = struct.pack(">HHH", *map(int, samples[3, 5]))
+    png = _kind_png(samples, ctype, depth, interlace, rng, plte, tr)
+    buf = np.frombuffer(png, np.uint8)
+    got = decode_png(png)
+    want = cv2.imdecode(buf, cv2.IMREAD_UNCHANGED)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(to_bgr(got), cv2.imdecode(buf, cv2.IMREAD_COLOR))
+    pil = np.asarray(Image.open(io.BytesIO(png)).convert("RGB"))
+    if kind == "grey16":
+        assert not np.array_equal(pil[..., ::-1], to_bgr(got))     # the one disagreement
+    else:
+        np.testing.assert_array_equal(pil[..., ::-1], to_bgr(got))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "f.png")
+        with open(path, "wb") as f:
+            f.write(png)
+        np.testing.assert_array_equal(_read_rgb(path), pil)
+
+
+@pytest.mark.parametrize("mode", ["P", "P_transparency", "P1", "P2", "P4", "LA", "1", "L"])
+def test_pil_written_png_kinds_match_opencv(rng, mode):
+    """Files that PIL writes (palettes at 8 bits and packed into 1/2/4 bits,
+    a palette with a transparent index, grey+alpha, 1-bit) decode as cv2 and
+    PIL decode them."""
+    from PIL import Image
+
+    from mft_tpu_torch.io.png import to_bgr
+    rgb = _image(rng, np.uint8, 3, 17, 29)
+    kw = {}
+    if mode.startswith("P"):
+        colors = {"P1": 2, "P2": 4, "P4": 16}.get(mode, 256)
+        im = Image.fromarray(rgb).quantize(colors)
+        if mode in ("P1", "P2", "P4"):
+            kw["bits"] = int(mode[1])
+        if mode == "P_transparency":
+            kw["transparency"] = 3
+    elif mode == "LA":
+        im = Image.fromarray(np.stack([rgb[..., 0], rgb[..., 1]], -1), "LA")
+    else:
+        im = Image.fromarray(rgb[..., 0]).convert(mode)
+    out = io.BytesIO()
+    im.save(out, "PNG", **kw)
+    png = out.getvalue()
+    buf = np.frombuffer(png, np.uint8)
+    np.testing.assert_array_equal(decode_png(png), cv2.imdecode(buf, cv2.IMREAD_UNCHANGED))
+    np.testing.assert_array_equal(to_bgr(decode_png(png)), cv2.imdecode(buf, cv2.IMREAD_COLOR))
+    np.testing.assert_array_equal(
+        to_bgr(decode_png(png)), np.asarray(Image.open(io.BytesIO(png)).convert("RGB"))[..., ::-1])
 
 
 @pytest.mark.parametrize("ext", EXTS)

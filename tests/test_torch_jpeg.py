@@ -9,7 +9,7 @@ against the JAX package's OpenCV and PIL readers, on the CPU (plain versions).
   cv2's default 4:2:0, its steps at every other sampling and with restarts),
   and ``cv2.imdecode`` of them equals the port's decode and
   ``jpeg_roundtrip``;
-- refusals: progressive, CMYK and corrupt files (a DC Huffman symbol over
+- refusals: arithmetic-coded, CMYK and corrupt files (a DC Huffman symbol over
   15 among them, which cv2 refuses too) raise ``ValueError``;
 - ``jpeg_corrupt``, the jpeg-transform augmenters and ``BlendAugmenter``
   against JAX's; Kinetics shards and mixed PNG/JPEG directories against
@@ -237,8 +237,10 @@ def test_unsupported_files_raise():
     img = _image(np.random.default_rng(2), 24, 32)
     buf = io.BytesIO()
     Image.fromarray(img).save(buf, "JPEG", progressive=True)
-    with pytest.raises(ValueError, match="progressive"):
-        J.decode_jpeg(buf.getvalue(), device="cpu")
+    # progressive files decode (tests/test_torch_jpeg_progressive.py); an
+    # arithmetic-coded one (its SOF2 made SOF10) is refused
+    with pytest.raises(ValueError, match="arithmetic progressive"):
+        J.decode_jpeg(buf.getvalue().replace(b"\xff\xc2", b"\xff\xca", 1), device="cpu")
     buf = io.BytesIO()
     Image.fromarray(img).convert("CMYK").save(buf, "JPEG")
     with pytest.raises(ValueError, match="4-component"):

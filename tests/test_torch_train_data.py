@@ -262,6 +262,29 @@ def _tiny_batch(seed):
     return tuple(torch.from_numpy(np.ascontiguousarray(x)) for x in b)
 
 
+def test_batch_loader_joins_its_workers():
+    """Leaving the loop over a BatchLoader stops and joins its worker
+    threads: a batch still being built finishes before the caller goes on,
+    so no worker's work (a JPEG stage's launches among it) lands in what
+    runs next."""
+    import threading
+    import time
+
+    class Slow:
+        def __len__(self):
+            return 16
+
+        def __getitem__(self, i):
+            time.sleep(0.05)
+            return (np.full(2, i, np.float32),)
+
+    before = set(threading.enumerate())
+    for k, _ in enumerate(tds.BatchLoader(Slow(), 2, num_workers=3)):
+        if k == 1:
+            break
+    assert not [t for t in threading.enumerate() if t not in before and t.is_alive()]
+
+
 def test_checkpoint_resume_equals_uninterrupted(tmp_path):
     """Full recipe on the CPU (64x64, 2 iterations): steps 1-2, save, a
     fresh state restored from the checkpoint takes step 3; its weights,

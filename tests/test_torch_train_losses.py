@@ -187,6 +187,37 @@ def test_optimizer_updates(trainable):
     assert state_t["count"] == 6
 
 
+@pytest.mark.parametrize("peak", [1e27, 1e15], ids=["norm_overflows", "norm_huge"])
+def test_optimizer_step_with_exploding_gradients(peak):
+    """One element's gradient at ``peak``, the rest O(1), on the first step
+    (OneCycle's warm-up): where the float32 global norm overflows (1e27) the
+    clip scales every gradient to 0 and no parameter moves; where it is huge
+    but finite (1e15) the O(1) gradients, clipped to ~1e-15, are far below
+    AdamW's eps and their parameters do not move either. optax does the
+    same: the parameters that move, and their values, equal its."""
+    params = _params()
+    r = np.random.default_rng(10)
+    tx_j, _ = jax_make_optimizer(lr=1.25e-4, num_steps=5, weight_decay=1e-5)
+    pj = jax.tree.map(jnp.asarray, _flax_tree(params))
+    tx_t, _ = make_optimizer(lr=1.25e-4, num_steps=5, weight_decay=1e-5)
+    pt = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    grads = {k: r.normal(size=v.shape).astype(np.float32) for k, v in params.items()}
+    first = next(iter(grads))
+    grads[first].flat[0] = peak
+    upd, _ = tx_j.update(jax.tree.map(jnp.asarray, _flax_tree(grads)), tx_j.init(pj), pj)
+    pj = optax.apply_updates(pj, upd)
+    upd_t, _ = tx_t.update({k: torch.from_numpy(v) for k, v in grads.items()},
+                           tx_t.init(pt), pt)
+    apply_updates(pt, upd_t)
+    moved_t = {k for k in params if not np.array_equal(pt[k].numpy(), params[k])}
+    moved_j = {k for k in params if not np.array_equal(np.asarray(_get(pj, k)), params[k])}
+    assert moved_t == moved_j
+    assert moved_t == (set() if peak > 1e19 else {first})
+    for k in params:
+        np.testing.assert_allclose(pt[k].numpy(), np.asarray(_get(pj, k)), rtol=1e-6,
+                                   atol=1e-9, err_msg=k)
+
+
 def _get(tree, name):
     from mft_tpu_torch.models.raft.convert import flax_path
     node = tree
