@@ -193,8 +193,9 @@ non-zero and prints no result line):
    both timed.
 17. the demo apps and the submission writers: (a) ``apps.demo.run`` on 12
    frames of the synthetic clip written as PNGs, ``synth`` (the committed
-   weights), grid spacing 30: 12 JPEGs in each output directory (J3 and J1
-   once a frame each), each 512x512x3; launches K1 11, K2 1, K3 1 a tracked frame and the warp 1 a
+   weights), grid spacing 30: ``_points.mp4`` and ``_edit.mp4`` (V3, V1 and
+   V2 once a frame each a file) that the port reads back as 12 frames of
+   512x512x3; launches K1 11, K2 1, K3 1 a tracked frame and the warp 1 a
    point conversion; the median error of the last frame's tracks (queries
    whose true position stays 16 px inside) <= 1 px; every frame's
    ``warp_forward`` of the edit and of its mask on the card against the
@@ -238,7 +239,9 @@ non-zero and prints no result line):
    J1's native host ms a frame beside the Python plain version's and its
    host bound (the serial chain through the bitstream: cycles a Huffman
    code and a bit field of this frame's scan, at the host's clock); (b) the
-   demo of 17a on the clip written as JPEGs by the port's encoder: one J1
+   demo of 17a on the clip written as JPEGs by the port's encoder (its
+   outputs ``mp4v``; then the image-directory writer writes the 12 frames
+   as JPEGs, J3 and J1 once a frame): one J1
    and one J2 a frame read, K1, K2, K3 and warp launches as 17a's, frames/s
    and the decode, encode and rendering shares; (c) a Kinetics-form shard
    (2 records x 24 JPEG frames of 256x256) through ``create_tapvid_dataset``
@@ -261,7 +264,8 @@ non-zero and prints no result line):
    the same quality; ``apps.demo.run`` with the default configuration (the
    big RAFT-OU, 512x512, 7 deltas, 12 iterations, bf16) on the 8 committed
    progressive frames: K1 11, K2 1, K3 1 a tracked frame, the warp 1 a
-   frame, J1's progressive routine once a scan and J2 once a frame read,
+   frame, J1's progressive routine once a scan and J2 once a frame read
+   (its outputs ``mp4v``: V3, V1 and V2 once a frame a file),
    and its tracks bit for bit with a fresh tracker's on the same decoded
    pixels as arrays; (b) the PNG kinds (palettes with and without tRNS,
    1/2/4-bit grey and palettes, grey+alpha at 8 and 16 bits, Adam7) against
@@ -269,7 +273,30 @@ non-zero and prints no result line):
    ``.pth`` of the committed weights bit for bit with one from the msgpack;
    ``frame_flops()`` at 512x512 and ``peak_flops()``; (c) every ported
    ``utils/vis.py`` helper on seeded inputs against the JAX module's
-   outputs' sha256.
+   outputs' sha256;
+21. video files (no Pallas site: the JAX package runs cv2's libavcodec on
+   the host): (a) the committed ``mp4v`` fixtures (cv2's writer through the
+   JAX package: a pan past the edge, noise at high motion, a still scene
+   with a moving patch, 72x40): V1 (the VLC stage, host code,
+   ``mpeg4_vlc.cu``) against its plain version (syntax arrays equal), V2
+   (``mpeg4.cu``: dequantization, simple IDCT, motion compensation,
+   colour) on the card against its plain version bit for bit, the Y planes
+   against cv2's sha256 and the BGR frames against cv2's (the gap printed
+   per frame, at most 2 levels); (b) random-syntax streams of the plain
+   stream writer (1MV/4MV, dquant, ac_pred, every DC threshold, vectors
+   past the picture): V1's native writer's bytes and decode and V2 against
+   the plain versions; (c) the encoder at 512x512 and 1080x1920 on the
+   moving clip: the file written on the card (V3, V1, V2) byte for byte
+   with the plain encoder's, decoded back (PSNR printed), V2 and V3 timed
+   by graph replay beside their bounds ((syntax + planes + frame bytes) /
+   3.35 TB/s) and plain versions, V1's host ms a frame (decode, encode)
+   beside the Python plain version and the host bound of its chain of codes
+   and bit fields; (d) ``apps.demo.run`` with the default configuration on
+   a 12-frame ``.mp4``: V1 and V2 once a frame read, V3, V1 and V2 once a
+   frame a file written, K1 11, K2 1, K3 1 a tracked frame, the warp 1 a
+   frame, its tracks bit for bit with a fresh tracker's on the same decoded
+   frames as arrays, ``_points.mp4`` and ``_edit.mp4`` read back, 12 frames
+   each; ``apps.flow_demo --mp4`` on a 3-frame ``.mp4`` writes ``flow.mp4``.
 
 Every bf16 launch of K1, #5, #13, K4 and K5 on the main path, conv_backend
 'pallas', 'alt' and 'win' at 512x512 and 2160x3840, 'auto' at 1080x1920
@@ -3844,12 +3871,27 @@ def check_demo_splats(torch, records, label):
     return gap, n_diff
 
 
+def check_video_file(path, n, shape, label, dev):
+    """An ``.mp4`` that the port's reader decodes (V1 on the host, V2 on the
+    card) to n frames of ``shape`` uint8."""
+    from mft_tpu_torch.io.video import get_video_frames
+    frames = list(get_video_frames(path, device=dev))
+    check(len(frames) == n and all(f.shape == shape and f.dtype.name == "uint8"
+                                   for f in frames),
+          f"{label}: {path.name} reads back as {len(frames)} frames of "
+          f"{frames[0].shape if frames else None}, want {n} of {shape} uint8")
+    return frames
+
+
 def run_demo(torch, ops, dev, card, tmp, fmt="png"):
     """17a (``fmt`` 'png') and 19b ('jpg'): ``apps.demo.run`` on 12 frames of
     the synthetic clip written as PNGs or as JPEGs (the port's encoder on the
-    card, quality 95), synth config, grid spacing 30; the demo writes JPEG
-    frames. returns (launch counts, frames/s, the decode, encode and
-    rendering shares)."""
+    card, quality 95), synth config, grid spacing 30; the demo writes
+    ``mp4v`` files (V3, V1 and V2 once a frame each a file). For 19b the
+    image-directory writer then writes the 12 frames as JPEGs (J3 and J1
+    once a frame), its counts reset before it and read after it. returns
+    (the demo's launch counts, frames/s, the decode, encode and rendering
+    shares, the writer's launch counts or None)."""
     import argparse
     import numpy as np
     from mft_tpu_torch.apps import demo
@@ -3909,25 +3951,40 @@ def run_demo(torch, ops, dev, card, tmp, fmt="png"):
     tracked = DEMO_FRAMES - 1
     steady = (len(stamps) - 2) / (stamps[-1] - stamps[1])
     shares = dict(decode=io_s[0] / seconds, encode=io_s[1] / seconds, render=io_s[2] / seconds)
-    log(f"demo ({fmt.upper()} frames in, JPEG frames out): {n} frames in {seconds:.3f} s "
+    log(f"demo ({fmt.upper()} frames in, mp4v out): {n} frames in {seconds:.3f} s "
         f"({n / seconds:.2f} frames/s end to end, set-up and first frame included; "
         f"{steady:.2f} frames/s from frame 2 on), {fmt.upper()} decode {io_s[0]:.3f} s "
-        f"({shares['decode']:.1%}) + JPEG encode {io_s[1]:.3f} s ({shares['encode']:.1%}); "
+        f"({shares['decode']:.1%}) + mp4v encode {io_s[1]:.3f} s ({shares['encode']:.1%}); "
         f"rendering (point conversion, dots, two splats, their fetch and the blend) "
         f"{io_s[2]:.3f} s ({shares['render']:.1%}) [{card}]")
     log(f"demo ({fmt}): launches over {n} frames: {counts}")
     check(n == DEMO_FRAMES, f"demo wrote {n} frames, want {DEMO_FRAMES}")
-    for name in ("points", "edit"):
-        check_image_dir(out / f"{clip.name}_{name}", DEMO_FRAMES, (H, W, 3),
-                        f"demo {name}", dev, ".jpg")
     reads = DEMO_FRAMES if fmt == "jpg" else 0
     want = expected_counts(ops, corr_lookup_fused=11 * tracked, corr_lookup=tracked,
                            chain_select=tracked, bilinear_warp=DEMO_FRAMES,
                            jpeg_huff_decode=reads, jpeg_decode_pixels=reads,
-                           jpeg_huff_encode=2 * DEMO_FRAMES, jpeg_encode_pixels=2 * DEMO_FRAMES)
+                           mpeg4_encode_pixels=2 * DEMO_FRAMES,
+                           mpeg4_vlc_encode=2 * DEMO_FRAMES,
+                           mpeg4_decode_pixels=2 * DEMO_FRAMES)
     check(counts == want, f"demo launch counts {counts} != {want} (K1 11, K2 1, K3 1 a "
                           f"tracked frame, the warp 1 a point conversion; one J1 and one J2 "
-                          f"a JPEG frame read, one J3 and one J1 a frame written)")
+                          f"a JPEG frame read; V3, V1 and V2 once a frame a file written)")
+    for name in ("points", "edit"):
+        check_video_file(out / f"{clip.name}_{name}.mp4", DEMO_FRAMES, (H, W, 3),
+                         f"demo {name}", dev)
+    if fmt == "jpg":
+        ops.reset_launch_counts()
+        with demo_video.VideoWriter(out / "frames_jpg", device=dev) as w:
+            for frame in frames:
+                w.write(frame)
+        dir_counts = ops.launch_counts()
+        check(dir_counts == expected_counts(ops, jpeg_huff_encode=DEMO_FRAMES,
+                                            jpeg_encode_pixels=DEMO_FRAMES),
+              f"image-directory writer launch counts {dir_counts}")
+        check_image_dir(out / "frames_jpg", DEMO_FRAMES, (H, W, 3), "image-directory writer",
+                        dev, ".jpg")
+    else:
+        dir_counts = None
     queries = demo.get_queries(frames[0].shape, 30)
     true = queries - tracked * np.asarray(SHIFT, np.float32)
     inside = ((true >= DEMO_INSIDE) & (true <= np.array([W, H]) - 1 - DEMO_INSIDE)).all(1)
@@ -3937,7 +3994,7 @@ def run_demo(torch, ops, dev, card, tmp, fmt="png"):
         f"px, largest {err.max():.4f} px")
     check(float(np.median(err)) <= 1.0, f"demo: median track error {np.median(err)} > 1 px")
     check_demo_splats(torch, records, "demo")
-    return counts, n / seconds, shares
+    return counts, n / seconds, shares, dir_counts
 
 
 def run_flow_demo(torch, ops, dev, card, tmp):
@@ -4043,7 +4100,7 @@ def run_apps(torch, ops, dev, card):
     with tempfile.TemporaryDirectory() as tmpdir:
         tmp = Path(tmpdir)
         t0 = time.perf_counter()
-        counts, fps, _ = run_demo(torch, ops, dev, card, tmp)
+        counts, fps, _, _ = run_demo(torch, ops, dev, card, tmp)
         log(f"phase 17a seconds {time.perf_counter() - t0:.2f}")
         t0 = time.perf_counter()
         run_flow_demo(torch, ops, dev, card, tmp)
@@ -4682,7 +4739,8 @@ def run_jpeg(torch, ops, dev, card, recipes):
     with tempfile.TemporaryDirectory() as tmpdir:
         tmp = Path(tmpdir)
         t0 = time.perf_counter()
-        demo_counts, fps, shares = run_demo(torch, ops, dev, card, tmp, fmt="jpg")
+        demo_counts, fps, shares, writer_counts = run_demo(torch, ops, dev, card, tmp,
+                                                           fmt="jpg")
         log(f"phase 19b seconds {time.perf_counter() - t0:.2f}")
         t0 = time.perf_counter()
         kin_counts, kin_fps = run_kinetics(torch, ops, dev, card, tmp)
@@ -4695,7 +4753,8 @@ def run_jpeg(torch, ops, dev, card, recipes):
         f"runner {kin_fps:.2f} frames/s; official step {dash['dashcam']['median_ms']:.1f} ms "
         f"with the dashcam flag, {dash['without']['median_ms']:.1f} / "
         f"{dash['without_again']['median_ms']:.1f} without [{card}]")
-    return dict(stats=stats, demo=demo_counts, kinetics=kin_counts, dashcam=dash_counts)
+    return dict(stats=stats, demo=demo_counts, writer=writer_counts, kinetics=kin_counts,
+                dashcam=dash_counts)
 
 
 # --------------------------------------------------------------------------- #
@@ -4915,7 +4974,8 @@ def run_progressive_demo(torch, ops, dev, card, tmp):
     want = expected_counts(ops, corr_lookup_fused=11 * tracked, corr_lookup=tracked,
                            chain_select=tracked, bilinear_warp=len(files),
                            jpeg_huff_decode_progressive=scans, jpeg_decode_pixels=len(files),
-                           jpeg_huff_encode=2 * len(files), jpeg_encode_pixels=2 * len(files))
+                           mpeg4_encode_pixels=2 * len(files), mpeg4_vlc_encode=2 * len(files),
+                           mpeg4_decode_pixels=2 * len(files))
     check(counts == want, f"progressive demo launch counts {counts} != {want}")
     diff = sum(int((a[0] != b[0]).sum() + (a[1] != b[1]).sum()) for a, b in zip(tracks, mine))
     finite = all(np.isfinite(c).all() and np.isfinite(o).all() for c, o in tracks)
@@ -5030,9 +5090,486 @@ def run_fixtures(torch, ops, dev, card):
     return dict(demo=counts, sd=sd, hd=hd, max_abs_err=worst, files=files)
 
 
+# --------------------------------------------------------------------------- #
+# phase 21: video files: the MPEG-4 Part 2 (mp4v) codec, V1 on the host, V2
+# and V3 on the card, against the committed cv2 fixtures (a), random-syntax
+# streams of the plain stream writer (b), the encoder at 512x512 and
+# 1080x1920 (c) and the default-config demo on an .mp4 (d)
+# --------------------------------------------------------------------------- #
+MP4V_NAMES = ("pan", "noise", "still", "odd")
+MP4V_STREAMS = ((31, 128, 96, "0111101"), (32, 72, 40, "0111111"), (33, 48, 32, "0101"))
+# 21c: (H, W, frames the plain encoder writes too, VOPs of the GOP the plain
+# V1 is timed on); the card encoder writes a whole GOP (12 frames) for V1's
+# times, where fewer VOPs than a GOP are timed in Python the plain time and
+# the bound weigh the I-VOP 1/12 and the P-VOPs' mean 11/12
+MP4V_ENCODE = ((512, 512, 3, 12), (1080, 1920, 2, 2))
+MP4V_MOTION_SEED = 41   # 21c's random-syntax P-VOP at 512x512: V2 timed with motion
+
+
+def syntax_gap(np, a, b) -> int:
+    """The largest absolute difference between two VOPs' syntax arrays."""
+    return max(int(np.abs(x.astype(np.int64) - y).max()) if x.size else 0
+               for x, y in zip(a.arrays(), b.arrays()))
+
+
+def bytes_gap(np, a, b) -> int:
+    """The largest absolute difference between the bytes of two strings;
+    255, the most a byte can differ, where their lengths differ."""
+    if len(a) != len(b):
+        return 255
+    return int(np.abs(np.frombuffer(a, np.uint8).astype(np.int64)
+                      - np.frombuffer(b, np.uint8)).max()) if a else 0
+
+
+def array_gap(np, a, b) -> int:
+    return int(np.abs(np.asarray(a, np.int64) - b).max()) if np.size(a) else 0
+
+
+def vlc_symbols(counts):
+    """(codes, bit fields) a VOP's V1 walks, from the plain decoder's
+    counters: every code of a table, and the bit field beside it (a TCOEF's
+    sign, a nonzero DC size's difference, a nonzero MVD's sign and residue);
+    an escape's fixed fields count as one field."""
+    codes = sum(v for k, v in counts.items() if k[0] != "escape")
+    fields = sum(v for k, v in counts.items()
+                 if k[0].startswith("tcoef") or (k[0] in ("dc_lum", "dc_chrom", "mvd")
+                                                 and k[1] > 0))
+    return codes, fields + sum(v for k, v in counts.items() if k[0] == "escape")
+
+
+def mp4v_syntax_tensors(torch, syn, dev):
+    return [torch.from_numpy(a).to(dev) for a in (syn.levels, syn.mode, syn.qp, syn.mv)]
+
+
+def check_mp4v_fixtures(torch, dev, card, hashes):
+    """21a: every committed fixture (cv2's writer through the JAX package):
+    V1 natively against its plain version (syntax arrays equal), V2 on the
+    card against its plain version (planes and BGR bit for bit), V3 on
+    cv2's frames against its plain version (levels, I-VOP or the residual
+    against the decoded reference), the Y planes against cv2's sha256 and
+    the BGR frames against cv2's (the gap printed per frame). returns (VOPs,
+    the largest gaps to the plain versions {dec, v2, v3}, the largest BGR
+    gap to cv2)."""
+    import numpy as np
+    from mft_tpu_torch.io import mpeg4 as M
+    from mft_tpu_torch.io.mp4 import read_mp4
+    from mft_tpu_torch.ops import mpeg4 as OM
+    vops = worst_bgr = 0
+    err = dict(dec=0, v2=0, v3=0)
+    for name in MP4V_NAMES:
+        key = f"mp4v/{name}.mp4"
+        want = hashes["mp4v"][key]
+        video = read_mp4(os.path.join(FIXTURES, key))
+        cv2_bgr = np.load(os.path.join(FIXTURES, "mp4v", f"{name}.npz"))["bgr"]
+        vol = M.parse_config(video.config)
+        geom = M.Geometry(vol.width, vol.height)
+        ref = ref_t = None
+        n_syn = n_pix = n_v3 = 0
+        y_bad, gaps = [], []
+        k = 0
+        for data in video.read_samples():
+            payload = data[M.find_vop(data, vol)[0]:]
+            syn = OM.mpeg4_vlc_decode(payload, vol, dev)
+            plain = M.vlc_decode_ref(payload, vol)
+            n_syn += 0 if syn.equal(plain) else 1
+            err["dec"] = max(err["dec"], syntax_gap(np, syn, plain))
+            if not syn.coded:
+                continue
+            p = syn.kind == M.P_VOP
+            levels = OM.mpeg4_encode_pixels(torch.from_numpy(cv2_bgr[k]).to(dev),
+                                            ref_t if p else None, M.ENCODER_QP, geom)
+            want_levels = M.encode_pixels_ref(cv2_bgr[k], ref if p else None, M.ENCODER_QP,
+                                              geom)
+            n_v3 += int((levels.cpu().numpy() != want_levels).sum())
+            err["v3"] = max(err["v3"], array_gap(np, levels.cpu().numpy(), want_levels))
+            planes = M.decode_pixels_ref(plain.levels, plain.mode, plain.qp, plain.mv,
+                                         ref if p else None, geom, plain.rounding)
+            ref_t, img = OM.mpeg4_decode_pixels(*mp4v_syntax_tensors(torch, syn, dev),
+                                                ref_t if p else None, geom, syn.rounding)
+            got, img = ref_t.cpu().numpy(), img.cpu().numpy()
+            bgr = M.yuv_to_bgr_ref(planes, geom)
+            n_pix += int((got != planes).sum()) + int((img != bgr).sum())
+            err["v2"] = max(err["v2"], array_gap(np, got, planes), array_gap(np, img, bgr))
+            if array_hash(geom.split(got)[0][:geom.H, :geom.W]) != want["y"][k]:
+                y_bad.append(k)
+            gap = int(np.abs(img.astype(np.int64) - cv2_bgr[k]).max())
+            gaps.append(gap)
+            worst_bgr = max(worst_bgr, gap)
+            ref = planes
+            k += 1
+            vops += 1
+        log(f"21a {key} ({geom.W}x{geom.H}): {k} frames (cv2 {want['frames']}); V1 native "
+            f"against plain: {n_syn} VOPs differ; V2 against plain: {n_pix} bytes differ; V3 "
+            f"on cv2's frames against plain: {n_v3} levels differ; Y "
+            f"planes whose sha256 differs from cv2's: {y_bad or 'none'}; BGR gap to cv2 per "
+            f"frame: {gaps}")
+        check(k == want["frames"], f"{key}: {k} frames, cv2 {want['frames']}")
+        check(n_syn == n_pix == n_v3 == 0, f"{key}: V1/V2/V3 differ from their plain versions")
+        check(not y_bad, f"{key}: Y planes differ from cv2's in frames {y_bad}")
+        check(max(gaps) <= 2, f"{key}: BGR gap to cv2 {max(gaps)} > 2")
+    return vops, err, worst_bgr
+
+
+def check_mp4v_streams(torch, dev, card):
+    """21b: seeded random-syntax streams of the plain stream writer (1MV and
+    4MV, not_coded, dquant, forced and decided ac_pred, every DC threshold,
+    vectors past the picture, stuffing), V1's native writer's bytes and its
+    decode against the plain versions, V2 on the card against the plain
+    decode. returns (the VOPs checked, the largest gaps {dec, enc, v2})."""
+    import numpy as np
+    from mft_tpu_torch.io import mpeg4 as M
+    from mft_tpu_torch.ops import mpeg4 as OM
+    vops = n_bytes = n_syn = n_pix = 0
+    err = dict(dec=0, enc=0, v2=0)
+    for seed, W, H, kinds in MP4V_STREAMS:
+        rng = np.random.default_rng(seed)
+        vol = M.Vol(W, H, 25)
+        geom = M.Geometry(W, H)
+        ref = ref_t = None
+        for i, kind in enumerate(kinds):
+            syn = M.random_syntax(rng, vol, int(kind), 0, i)
+            data = M.vlc_encode_ref(syn, vol, (0, 2))
+            native = OM.mpeg4_vlc_encode(syn, vol, dev, (0, 2))
+            n_bytes += int(native != data)
+            err["enc"] = max(err["enc"], bytes_gap(np, native, data))
+            got = OM.mpeg4_vlc_decode(data[4:], vol, dev)
+            plain = M.vlc_decode_ref(data[4:], vol)
+            n_syn += 0 if got.equal(plain) else 1
+            err["dec"] = max(err["dec"], syntax_gap(np, got, plain))
+            p = got.kind == M.P_VOP
+            planes = M.decode_pixels_ref(plain.levels, plain.mode, plain.qp, plain.mv,
+                                         ref if p else None, geom, plain.rounding)
+            ref_t, img = OM.mpeg4_decode_pixels(*mp4v_syntax_tensors(torch, got, dev),
+                                                ref_t if p else None, geom, got.rounding)
+            bgr = M.yuv_to_bgr_ref(planes, geom)
+            n_pix += int((ref_t.cpu().numpy() != planes).sum())
+            n_pix += int((img.cpu().numpy() != bgr).sum())
+            err["v2"] = max(err["v2"], array_gap(np, ref_t.cpu().numpy(), planes),
+                            array_gap(np, img.cpu().numpy(), bgr))
+            ref = planes
+            vops += 1
+    log(f"21b: {vops} random-syntax VOPs ({len(MP4V_STREAMS)} streams): V1 writer bytes "
+        f"differing in {n_bytes} VOPs, V1 decode in {n_syn}, V2 planes/BGR bytes {n_pix} [{card}]")
+    check(n_bytes == n_syn == n_pix == 0, "V1/V2 differ from their plain versions on the "
+                                          "random-syntax streams")
+    return vops, err
+
+
+def psnr(np, a, b):
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return 10 * math.log10(255.0 ** 2 / max(mse, 1e-12))
+
+
+def gop_weighted(values):
+    """A frame's mean over a GOP from the values of its first VOPs (an
+    I-VOP, then P-VOPs): the I-VOP weighs 1/GOP, the P-VOPs' mean the rest;
+    over a whole GOP the plain mean."""
+    from mft_tpu_torch.io.mpeg4 import GOP
+    if len(values) == 1:
+        return values[0]
+    return (values[0] + (GOP - 1) * sum(values[1:]) / (len(values) - 1)) / GOP
+
+
+def check_mp4v_encoder(torch, dev, card, H, W, n, n_plain, tmp):
+    """21c: the encoder at H x W on the moving synthetic clip: its first n
+    frames written on the card (V3, V1's writer, V2 for the closed loop)
+    byte for byte with the plain encoder's, V3's levels along the closed
+    loop against its plain version, the file decoded back by V1 and V2
+    (frames equal to the plain decode); then a whole GOP (12 frames)
+    written on the card and decoded back (PSNR printed) for the times: V2
+    and V3 by graph replay on its first P-VOP beside their bounds ((syntax
+    + plane + frame bytes) / 3.35 TB/s) and plain versions, V2 also on a
+    random-syntax P-VOP at 512x512 (1MV/4MV, half-pel, vectors past the
+    edge); V1's native host ms a frame over the GOP (decode, encode) beside
+    the Python plain versions and the host bound of its serial chain of
+    codes and bit fields, as J1's, both from the GOP's first ``n_plain``
+    VOPs weighted as a GOP. returns the stats {v2, v3, dec, enc} and the
+    largest gaps to the plain versions {enc, v2, v3}."""
+    import numpy as np
+    from mft_tpu_torch.io import mpeg4 as M
+    from mft_tpu_torch.io.mp4 import read_mp4
+    from mft_tpu_torch.io.video import get_video_frames
+    from mft_tpu_torch.ops import mpeg4 as OM
+    frames = synthetic_clip(M.GOP - 1, H, W, seed=7)
+    geom = M.Geometry(W, H)
+    qp = M.ENCODER_QP
+    paths = {}
+    for d, count, name in ((dev, n, "card"), ("cpu", n, "plain"), (dev, M.GOP, "gop")):
+        paths[name] = tmp / f"enc_{H}_{name}.mp4"
+        enc = M.Mp4vEncoder(paths[name], 25.0, W, H, device=d)
+        for f in frames[:count]:
+            enc.write(f)
+        enc.close()
+    card_bytes, plain_bytes = (paths[k].read_bytes() for k in ("card", "plain"))
+    err = dict(enc=max(bytes_gap(np, a, b) for a, b in zip(
+        read_mp4(paths["card"]).read_samples(), read_mp4(paths["plain"]).read_samples())),
+        v2=0, v3=0)
+    # V3 along the plain encoder's closed loop, from the same references
+    ref = ref_t = None
+    zero_mv = np.zeros((geom.nmb, 5, 2), np.int16)
+    n_v3 = 0
+    for i, f in enumerate(frames[:n]):
+        kind = M.I_VOP if i % M.GOP == 0 else M.P_VOP
+        p = kind == M.P_VOP
+        got = OM.mpeg4_encode_pixels(torch.from_numpy(f).to(dev), ref_t if p else None, qp,
+                                     geom).cpu().numpy()
+        want = M.encode_pixels_ref(f, ref if p else None, qp, geom)
+        n_v3 += int((got != want).sum())
+        err["v3"] = max(err["v3"], array_gap(np, got, want))
+        syn = M.encoder_syntax(want, kind, qp, 0, 0)
+        ref = M.decode_pixels_ref(want, syn.mode, syn.qp, zero_mv, ref if p else None, geom, 0)
+        ref_t = torch.from_numpy(ref).to(dev)
+    got = list(get_video_frames(paths["card"], device=dev))
+    want = list(get_video_frames(paths["card"], device="cpu"))
+    n_diff = sum(int((a != b).sum()) for a, b in zip(got, want))
+    for a, b in zip(got, want):
+        err["v2"] = max(err["v2"], array_gap(np, a, b))
+    gop = list(get_video_frames(paths["gop"], device=dev))
+    quality = psnr(np, np.stack(gop), np.stack(frames))
+    log(f"21c {H}x{W}: {n} frames, qp {qp}: card file {len(card_bytes)} bytes, equal to the "
+        f"plain encoder's: {card_bytes == plain_bytes}; V3 along the closed loop against "
+        f"plain: {n_v3} levels differ; decoded back on the card ({len(got)} frames) against "
+        f"the plain decode: {n_diff} bytes differ; a GOP of {len(gop)} frames written on the "
+        f"card, PSNR {quality:.2f} dB [{card}]")
+    check(card_bytes == plain_bytes, f"21c {H}x{W}: the card's file differs from the plain "
+                                     "encoder's")
+    check(n_v3 == 0, f"21c {H}x{W}: V3 differs from its plain version in {n_v3} levels")
+    check(len(got) == n and n_diff == 0, f"21c {H}x{W}: the decode differs from the plain one")
+    check(len(gop) == M.GOP, f"21c {H}x{W}: the GOP file decodes to {len(gop)} frames")
+    # V2 and V3 on the GOP's first P-VOP (its reference the decoded I-VOP)
+    video = read_mp4(paths["gop"])
+    vol = M.parse_config(video.config)
+    samples = [s[M.find_vop(s, vol)[0]:] for s in video.read_samples()]
+    syn_i, syn_p = (M.vlc_decode_ref(s, vol) for s in samples[:2])
+    ref = M.decode_pixels_ref(syn_i.levels, syn_i.mode, syn_i.qp, syn_i.mv, None, geom, 0)
+    ref_t = torch.from_numpy(ref).to(dev)
+    t = mp4v_syntax_tensors(torch, syn_p, dev)
+    img_t = torch.from_numpy(frames[1]).to(dev)
+    v2_ms = graph_ms(lambda: OM.mpeg4_decode_pixels(*t, ref_t, geom, 0))
+    v3_ms = graph_ms(lambda: OM.mpeg4_encode_pixels(img_t, ref_t, qp, geom))
+    v2_plain = 1e3 * median_s(lambda: M.yuv_to_bgr_ref(M.decode_pixels_ref(
+        syn_p.levels, syn_p.mode, syn_p.qp, syn_p.mv, ref, geom, 0), geom), 1)
+    v3_plain = 1e3 * median_s(lambda: M.encode_pixels_ref(frames[1], ref, qp, geom), 1)
+
+    def v2_bound(syn):
+        syntax_bytes = sum(a.nbytes for a in (syn.levels, syn.mode, syn.qp, syn.mv))
+        return 1e3 * (syntax_bytes + 2 * geom.size + H * W * 3) / HBM_BYTES_PER_S
+
+    v3_bound = 1e3 * (H * W * 3 + geom.size + syn_p.levels.nbytes) / HBM_BYTES_PER_S
+    stats = dict(v2=dict(ms=v2_ms, plain_ms=v2_plain, bound_ms=v2_bound(syn_p), bound_by="bytes"),
+                 v3=dict(ms=v3_ms, plain_ms=v3_plain, bound_ms=v3_bound, bound_by="bytes"))
+    mv_log = ""
+    if (H, W) == (512, 512):
+        # V2 with motion: a random-syntax P-VOP of the plain writer, decoded
+        syn_m = M.random_syntax(np.random.default_rng(MP4V_MOTION_SEED), vol, M.P_VOP, 0, 1)
+        syn_m = M.vlc_decode_ref(M.vlc_encode_ref(syn_m, vol)[4:], vol)
+        tm = mp4v_syntax_tensors(torch, syn_m, dev)
+        planes_t, img_m = OM.mpeg4_decode_pixels(*tm, ref_t, geom, syn_m.rounding)
+        planes = M.decode_pixels_ref(syn_m.levels, syn_m.mode, syn_m.qp, syn_m.mv, ref, geom,
+                                     syn_m.rounding)
+        bgr = M.yuv_to_bgr_ref(planes, geom)
+        n_mv = int((planes_t.cpu().numpy() != planes).sum() + (img_m.cpu().numpy() != bgr).sum())
+        err["v2"] = max(err["v2"], array_gap(np, planes_t.cpu().numpy(), planes),
+                        array_gap(np, img_m.cpu().numpy(), bgr))
+        check(n_mv == 0, f"21c: V2 differs from its plain version on the P-VOP with motion "
+                         f"in {n_mv} bytes")
+        ms_mv = graph_ms(lambda: OM.mpeg4_decode_pixels(*tm, ref_t, geom, syn_m.rounding))
+        plain_mv = 1e3 * median_s(lambda: M.yuv_to_bgr_ref(M.decode_pixels_ref(
+            syn_m.levels, syn_m.mode, syn_m.qp, syn_m.mv, ref, geom, syn_m.rounding), geom), 1)
+        modes = np.bincount(syn_m.mode.astype(np.int64), minlength=4)
+        stats["v2"].update(ms_mv=ms_mv, plain_ms_mv=plain_mv, bound_ms_mv=v2_bound(syn_m))
+        mv_log = (f"; V2 on a random-syntax P-VOP (MBs not_coded/1MV/4MV/intra "
+                  f"{'/'.join(str(int(c)) for c in modes)}, fcode "
+                  f"{int(syn_m.header[4])}, rounding {syn_m.rounding}): {ms_mv:.4f} ms (bound "
+                  f"{v2_bound(syn_m):.4f}, plain {plain_mv:.2f}), 0 bytes from plain")
+    # V1 over the GOP natively; the plain versions and the bound from its
+    # first n_plain VOPs, weighted as a GOP
+    syns = [OM.vlc_decode_native(s, vol) for s in samples]    # bit for bit with plain (21a)
+    dec_t = sorted(median_s(lambda: [OM.mpeg4_vlc_decode(s, vol, dev) for s in samples], 1)
+                   for _ in range(5))
+    enc_t = sorted(median_s(lambda: [OM.mpeg4_vlc_encode(s, vol, dev) for s in syns], 1)
+                   for _ in range(5))
+    dec_ms, enc_ms = (1e3 * ts[2] / len(samples) for ts in (dec_t, enc_t))
+    spread = lambda ts: f"{1e3 * ts[0] / len(samples):.3f}-{1e3 * ts[-1] / len(samples):.3f}"
+    dec_py, enc_py, symbols = [], [], []
+    for s, syn in zip(samples[:n_plain], syns):
+        counts = {}
+        dec_py.append(1e3 * median_s(lambda: M.vlc_decode_ref(s, vol, counts), 1))
+        enc_py.append(1e3 * median_s(lambda: M.vlc_encode_ref(syn, vol), 1))
+        symbols.append(vlc_symbols(counts))
+    dec_py, enc_py = gop_weighted(dec_py), gop_weighted(enc_py)
+    codes = gop_weighted([c for c, _ in symbols])
+    fields = gop_weighted([f for _, f in symbols])
+    clock = host_clock_hz()
+    dec_bound = 1e3 * (HOST_CYCLES_CODE_DECODE * codes + fields) / clock
+    enc_bound = 1e3 * HOST_CYCLES_PUT * (codes + fields) / clock
+    log(f"21c {H}x{W}: V2 {v2_ms:.4f} ms (bound {stats['v2']['bound_ms']:.4f}, plain "
+        f"{v2_plain:.2f}), V3 {v3_ms:.4f} ms (bound {v3_bound:.4f}, plain {v3_plain:.2f}) by "
+        f"graph replay (the first P-VOP){mv_log}; V1 host ms a frame over a GOP of "
+        f"{len(samples)} VOPs: decode {dec_ms:.3f} (5 runs {spread(dec_t)}; bound "
+        f"{dec_bound:.3f}, Python {dec_py:.1f}), encode {enc_ms:.3f} (5 runs {spread(enc_t)}; "
+        f"bound {enc_bound:.3f}, Python {enc_py:.1f}); {codes:.0f} codes and {fields:.0f} bit "
+        f"fields a frame (Python and the bounds from {n_plain} VOPs, weighted as a GOP), host "
+        f"clock {clock / 1e9:.3f} GHz [{card}]")
+    stats.update(dec=dict(ms=dec_ms, plain_ms=dec_py, bound_ms=dec_bound, bound_by="operations"),
+                 enc=dict(ms=enc_ms, plain_ms=enc_py, bound_ms=enc_bound, bound_by="operations"))
+    return stats, err
+
+
+def run_mp4v_demo(torch, ops, dev, card, tmp):
+    """21d: ``apps.demo.run`` with the default configuration (512x512, random
+    weights) on a 12-frame ``.mp4`` the port's encoder wrote on the card:
+    its tracks bit for bit with a fresh tracker's on the same decoded frames
+    as arrays (deterministic cuDNN), ``_points.mp4`` and ``_edit.mp4`` read
+    back by the port, 12 frames each, V1/V2 once a frame read and V3/V1/V2
+    once a frame a file written; then ``apps.flow_demo`` with ``--mp4``
+    writes ``flow.mp4``. returns (the demo's launch counts, frames/s, the
+    codec, model and rendering shares)."""
+    import argparse
+    import numpy as np
+    from mft_tpu_torch.apps import demo, flow_demo
+    from mft_tpu_torch.config import default_config
+    from mft_tpu_torch.io import video as demo_video
+    from mft_tpu_torch.tracker import MFT
+    from mft_tpu_torch.tracker.point_tracking import convert_to_point_tracking
+    frames = synthetic_clip(DEMO_FRAMES - 1)
+    clip = tmp / "clip.mp4"
+    with demo_video.VideoWriter(clip, fps=25.0, device=dev) as w:
+        for f in frames:
+            w.write(f)
+    io_s = [0.0, 0.0, 0.0]                       # decode, encode, rendering
+    tracks = []
+    render = demo.render_frame
+
+    def timed_frames(path, reverse=False, device="cuda"):
+        it = demo_video.get_video_frames(path, reverse, device)
+        while True:
+            t = time.perf_counter()
+            frame = next(it, None)
+            io_s[0] += time.perf_counter() - t
+            if frame is None:
+                return
+            yield frame
+
+    class TimedWriter(demo_video.VideoWriter):
+        def write(self, frame):
+            t = time.perf_counter()
+            super().write(frame)
+            io_s[1] += time.perf_counter() - t
+
+    def recording_render(frame, result, queries, edit, edit_mask):
+        t = time.perf_counter()
+        out = render(frame, result, queries, edit, edit_mask)
+        io_s[2] += time.perf_counter() - t
+        tracks.append((out[2], out[3]))
+        return out
+
+    out = tmp / "mp4_demo"
+    args = argparse.Namespace(video=str(clip), config="default", out=str(out), grid_spacing=30,
+                              fps=25.0, max_frames=None, device=str(dev))
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    saved = demo.get_video_frames, demo.VideoWriter, demo.render_frame
+    demo.get_video_frames, demo.VideoWriter, demo.render_frame = (timed_frames, TimedWriter,
+                                                                  recording_render)
+    try:
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        n = demo.run(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        counts = ops.launch_counts()
+        demo.get_video_frames, demo.VideoWriter, demo.render_frame = saved
+        decoded = list(demo_video.get_video_frames(clip, device=dev))
+        tracker = MFT(default_config(), device=dev)
+        queries = demo.get_queries(decoded[0].shape, 30)
+        mine = []
+        for i, frame in enumerate(decoded):
+            meta = tracker.init(frame) if i == 0 else tracker.track(frame)
+            mine.append(convert_to_point_tracking(meta.result, queries))
+    finally:
+        demo.get_video_frames, demo.VideoWriter, demo.render_frame = saved
+        torch.backends.cudnn.deterministic = False
+    tracked = DEMO_FRAMES - 1
+    model = seconds - sum(io_s)
+    shares = dict(codec=(io_s[0] + io_s[1]) / seconds, decode=io_s[0] / seconds,
+                  encode=io_s[1] / seconds, render=io_s[2] / seconds, model=model / seconds)
+    log(f"21d demo (default config, 512x512, bf16) on a {DEMO_FRAMES}-frame .mp4: {n} frames "
+        f"in {seconds:.3f} s ({n / seconds:.2f} frames/s, set-up and the first frame "
+        f"included); codec {io_s[0] + io_s[1]:.3f} s ({shares['codec']:.1%}: decode "
+        f"{io_s[0]:.3f} s, two writers {io_s[1]:.3f} s), rendering {io_s[2]:.3f} s "
+        f"({shares['render']:.1%}), model and the rest {model:.3f} s ({shares['model']:.1%}); "
+        f"launches {counts} [{card}]")
+    want = expected_counts(ops, corr_lookup_fused=11 * tracked, corr_lookup=tracked,
+                           chain_select=tracked, bilinear_warp=DEMO_FRAMES,
+                           mpeg4_vlc_decode=DEMO_FRAMES, mpeg4_vlc_encode=2 * DEMO_FRAMES,
+                           mpeg4_encode_pixels=2 * DEMO_FRAMES,
+                           mpeg4_decode_pixels=3 * DEMO_FRAMES)
+    check(n == DEMO_FRAMES, f"mp4 demo wrote {n} frames, want {DEMO_FRAMES}")
+    check(counts == want, f"mp4 demo launch counts {counts} != {want} (V1 and V2 a frame "
+                          f"read, V3, V1 and V2 a frame a file written)")
+    diff = sum(int((a[0] != b[0]).sum() + (a[1] != b[1]).sum()) for a, b in zip(tracks, mine))
+    finite = all(np.isfinite(c).all() and np.isfinite(o).all() for c, o in tracks)
+    log(f"21d: the demo's tracks of {len(queries)} queries over {n} frames against the same "
+        f"decoded frames as arrays: {diff} values differ; finite {finite}; V2 "
+        f"{counts['mpeg4_decode_pixels'] / n:.0f} and V3 {counts['mpeg4_encode_pixels'] / n:.0f} "
+        f"launches a frame")
+    check(len(tracks) == len(mine) and diff == 0 and finite,
+          f"mp4 demo tracks differ from the arrays' in {diff} values")
+    H, W = frames[0].shape[:2]
+    for name in ("points", "edit"):
+        check_video_file(out / f"clip_{name}.mp4", DEMO_FRAMES, (H, W, 3),
+                         f"mp4 demo {name}", dev)
+    pairs = tmp / "pairs.mp4"
+    with demo_video.VideoWriter(pairs, fps=25.0, device=dev) as w:
+        for f in frames[:3]:
+            w.write(f)
+    fargs = argparse.Namespace(video=str(pairs), config="synth", out=str(tmp / "flow_mp4"),
+                               mp4=True, show_ou=False, fps=10.0, device=str(dev))
+    m = flow_demo.run(fargs)
+    check(m == 2, f"flow demo on an .mp4 wrote {m} panels")
+    check_video_file(tmp / "flow_mp4" / "flow.mp4", 2, (2 * H, W, 3), "flow.mp4", dev)
+    log(f"21d: flow_demo --mp4 on a 3-frame .mp4 wrote flow.mp4 (2 panels of {2 * H}x{W})")
+    return counts, n / seconds, shares
+
+
+def run_video(torch, ops, dev, card):
+    """Phase 21: the mp4v codec against the fixtures (a), random syntax (b),
+    the encoder (c), the demos on .mp4 (d)."""
+    import tempfile
+    from pathlib import Path
+    with open(os.path.join(FIXTURES, "hashes.json")) as f:
+        hashes = json.load(f)
+    t0 = time.perf_counter()
+    vops, err_a, worst_bgr = check_mp4v_fixtures(torch, dev, card, hashes)
+    log(f"phase 21a seconds {time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    vops_b, err_b = check_mp4v_streams(torch, dev, card)
+    vops += vops_b
+    log(f"phase 21b seconds {time.perf_counter() - t0:.2f}")
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        t0 = time.perf_counter()
+        enc, errs = {}, [err_a, err_b]
+        for H, W, n, n_plain in MP4V_ENCODE:
+            enc[(H, W)], e = check_mp4v_encoder(torch, dev, card, H, W, n, n_plain, tmp)
+            errs.append(e)
+        log(f"phase 21c seconds {time.perf_counter() - t0:.2f}")
+        t0 = time.perf_counter()
+        counts, fps, shares = run_mp4v_demo(torch, ops, dev, card, tmp)
+        log(f"phase 21d seconds {time.perf_counter() - t0:.2f}")
+    # each kernel's largest gap to its plain version over 21a-21c
+    err = {k: max(e.get(k, 0) for e in errs) for k in ("dec", "enc", "v2", "v3")}
+    log(f"21: largest gaps to the plain versions: V1 decode (syntax arrays) {err['dec']}, V1 "
+        f"encode (bytes) {err['enc']}, V2 (planes, BGR) {err['v2']}, V3 (levels) {err['v3']}")
+    return dict(enc=enc, demo=counts, fps=fps, shares=shares, max_abs_err=err,
+                bgr_gap=worst_bgr, vops=vops)
+
+
 def main() -> int:
     # a hang exits non-zero with a traceback instead of running out the clock
-    faulthandler.dump_traceback_later(900, exit=True)
+    faulthandler.dump_traceback_later(1100, exit=True)
     try:
         return run()
     finally:
@@ -5160,6 +5697,9 @@ def run() -> int:
         t = time.perf_counter()
         pj = run_fixtures(torch, ops, dev, card)
         log(f"phase 20 seconds {time.perf_counter() - t:.2f}")
+        t = time.perf_counter()
+        vid = run_video(torch, ops, dev, card)
+        log(f"phase 21 seconds {time.perf_counter() - t:.2f}")
         for stats in (*lk.values(), cs, *fk.values(), *vk.values(), *fo.values(), cv,
                       *wk.values(), *bw.values(), *var["k2"].values(), *var["bwd"].values(),
                       *var["fk"].values()):
@@ -5266,8 +5806,11 @@ def run() -> int:
         if k["name"] in synth_counts:
             k["launches_synth_train"] = synth_counts[k["name"]]
     # JPEG (phase 19): no Pallas site, cv2/PIL on the host in JAX; launches
-    # from the demo on a JPEG directory (19b), the Kinetics-form runner (19c)
-    # and the dashcam recipe (19d); times at 512x512, "_hd" at 1080x1920
+    # from the demo on a JPEG directory (19b: J1's decoder and J2 a frame
+    # read; it writes mp4v, so J1's encoder and J3 stay at 0), the
+    # image-directory writer on the same 12 frames after it (19b, its counts
+    # reset before it), the Kinetics-form runner (19c) and the dashcam recipe
+    # (19d); times at 512x512, "_hd" at 1080x1920
     jpeg_rows = (("jpeg_huff_decode", "jpeg_entropy.cu", "mft_tpu/io/video.py:37", "dec"),
                  ("jpeg_huff_encode", "jpeg_entropy.cu", "mft_tpu/io/video.py:82", "enc"),
                  ("jpeg_decode_pixels", "jpeg.cu", "mft_tpu/train/augment.py:68", "j2"),
@@ -5276,6 +5819,7 @@ def run() -> int:
         st, hd = jp["stats"][(512, 512)][key], jp["stats"][(1080, 1920)][key]
         kernels.append(dict(name=kname, route="cuda", source=src + source, replaces=where,
                             launches=jp["demo"][kname], **st, library_ms=None,
+                            launches_jpeg_writer=jp["writer"][kname],
                             ms_hd=hd["ms"], plain_ms_hd=hd["plain_ms"],
                             bound_ms_hd=hd["bound_ms"],
                             launches_kinetics=jp["kinetics"][kname],
@@ -5301,6 +5845,26 @@ def run() -> int:
     for k in kernels:
         if k["name"] in pj["demo"]:
             k["launches_progressive_demo"] = pj["demo"][k["name"]]
+    # video files (phase 21): no Pallas site, cv2 (libavcodec) on the host in
+    # JAX; launches from the default-config demo on a 12-frame .mp4 (21d, its
+    # counts reset before it); times at 512x512, "_hd" at 1080x1920 (21c; V2
+    # also "_mv" on a P-VOP with motion at 512x512); each row's max_abs_err
+    # its own kernel's largest gap to its plain version over 21a-21c
+    video_rows = (("mpeg4_vlc_decode", "mpeg4_vlc.cu", "mft_tpu/io/video.py:40", "dec"),
+                  ("mpeg4_vlc_encode", "mpeg4_vlc.cu", "mft_tpu/io/video.py:86", "enc"),
+                  ("mpeg4_decode_pixels", "mpeg4.cu", "mft_tpu/io/video.py:40", "v2"),
+                  ("mpeg4_encode_pixels", "mpeg4.cu", "mft_tpu/io/video.py:86", "v3"))
+    for kname, source, where, key in video_rows:
+        st, hd = vid["enc"][(512, 512)][key], vid["enc"][(1080, 1920)][key]
+        kernels.append(dict(name=kname, route="cuda", source=src + source, replaces=where,
+                            launches=vid["demo"][kname],
+                            max_abs_err=float(vid["max_abs_err"][key]), **st,
+                            library_ms=None, ms_hd=hd["ms"], plain_ms_hd=hd["plain_ms"],
+                            bound_ms_hd=hd["bound_ms"],
+                            runs_on="host" if key in ("dec", "enc") else "card"))
+    for k in kernels:   # the mp4 demo (phase 21d): as the demo on PNG frames
+        if k["name"] in ("corr_lookup_fused", "corr_lookup", "chain_select", "bilinear_warp"):
+            k["launches_demo_mp4"] = vid["demo"][k["name"]]
     log(f"total seconds {time.perf_counter() - t_all:.2f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -2,13 +2,17 @@
 
 Port of ``mft_tpu/apps/demo.py`` (role parity with reference demo.py): a
 query grid is tracked from frame 0, drawn as occlusion-colored dots into
-``<out>/<name>_points/``, and an "edit" overlay drawn on the first frame is
-propagated to every frame by forward splatting into ``<out>/<name>_edit/``.
-Input is a PNG/JPEG image directory, outputs are JPEG image directories
-(:mod:`mft_tpu_torch.io.video`; JPEG through the port's codec on the card).
+``<out>/<name>_points.mp4``, and an "edit" overlay drawn on the first frame
+is propagated to every frame by forward splatting into
+``<out>/<name>_edit.mp4``, as the JAX demo writes them. Input is an MP4
+file (MPEG-4 Part 2 video, as cv2's ``mp4v`` writer makes) or a PNG/JPEG
+image directory; the outputs are ``mp4v`` files
+(:mod:`mft_tpu_torch.io.video`: the port's codec, its pixel stages on the
+card).
 
-    python -m mft_tpu_torch.apps.demo --video <image-dir> [--config synth]
-        [--out demo_out] [--grid_spacing 30] [--max_frames N] [--device cpu]
+    python -m mft_tpu_torch.apps.demo --video <clip.mp4 or image-dir>
+        [--config synth] [--out demo_out] [--grid_spacing 30] [--max_frames N]
+        [--device cpu]
 
 Drawing without OpenCV: a dot is the filled radius-3 disc of
 ``cv2.circle(img, center, 3, color, -1)`` (8-connected, not anti-aliased),
@@ -104,8 +108,10 @@ def run(args):
 
     queries = None
     edit = edit_mask = None
-    writer_pts = VideoWriter(out_dir / f"{video_name}_points", fps=args.fps, device=args.device)
-    writer_edit = VideoWriter(out_dir / f"{video_name}_edit", fps=args.fps, device=args.device)
+    writer_pts = VideoWriter(out_dir / f"{video_name}_points.mp4", fps=args.fps,
+                             device=args.device)
+    writer_edit = VideoWriter(out_dir / f"{video_name}_edit.mp4", fps=args.fps,
+                              device=args.device)
     n_frames = 0
     try:
         for i, frame in enumerate(get_video_frames(args.video, device=args.device)):
@@ -131,7 +137,8 @@ def run(args):
 
 def get_parser():
     parser = argparse.ArgumentParser(description="mft-tpu demo (PyTorch port)")
-    parser.add_argument("--video", required=True, help="input PNG/JPEG image directory")
+    parser.add_argument("--video", required=True,
+                        help="input .mp4 (mp4v) file or PNG/JPEG image directory")
     parser.add_argument("--config", default="default",
                         help="tracker config: default, synth, fast, warm, demo_cpu "
                              "or a .py file building a port config")

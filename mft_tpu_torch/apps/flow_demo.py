@@ -2,16 +2,14 @@
 render flow-colorwheel panels.
 
 Port of ``mft_tpu/apps/flow_demo.py`` (role parity with the reference's RAFT
-demo, MFT/RAFT/demo.py:42-75): read a PNG/JPEG image directory, compute flow for
-each consecutive pair, and write each panel (frame stacked over flow color,
-reference demo.py:33) to ``<out>/flow_XXXX.png``.
+demo, MFT/RAFT/demo.py:42-75): read an MP4 file (mp4v) or a PNG/JPEG image
+directory, compute flow for each consecutive pair, and write each panel
+(frame stacked over flow color, reference demo.py:33) to
+``<out>/flow_XXXX.png``; ``--mp4`` also writes the panels to
+``<out>/flow.mp4``, as the JAX demo does (the port's ``mp4v`` encoder).
 
-    python -m mft_tpu_torch.apps.flow_demo --video <image-dir> [--config synth]
-        [--out flow_demo_out] [--show_ou] [--mp4] [--device cpu]
-
-``--mp4`` writes the panels a second time as the numbered JPEG frames of
-the image directory ``<out>/flow/`` (``00000.jpg``, ...), where the JAX demo
-writes ``flow.mp4``: the card's machine has no video encoder (ROADMAP A11).
+    python -m mft_tpu_torch.apps.flow_demo --video <clip.mp4 or image-dir>
+        [--config synth] [--out flow_demo_out] [--show_ou] [--mp4] [--device cpu]
 """
 
 import argparse
@@ -49,8 +47,7 @@ def run(args):
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
 
-    writer = (VideoWriter(out_dir / "flow", fps=args.fps, device=args.device)
-              if args.mp4 else None)
+    writer = None
     prev = None
     n = 0
     for frame in get_video_frames(args.video, device=args.device):
@@ -58,7 +55,9 @@ def run(args):
             flow, extra = flower.compute_flow(prev, frame, mode="flow", numpy_out=True)
             panel = flow_panel(prev, flow, extra if args.show_ou else None)
             (out_dir / f"flow_{n:04d}.png").write_bytes(encode_png(panel))
-            if writer is not None:
+            if args.mp4:
+                if writer is None:
+                    writer = VideoWriter(out_dir / "flow.mp4", fps=args.fps, device=args.device)
                 writer.write(panel)
             n += 1
         prev = frame
@@ -70,13 +69,14 @@ def run(args):
 
 def get_parser():
     parser = argparse.ArgumentParser(description="pairwise-flow demo (PyTorch port)")
-    parser.add_argument("--video", required=True, help="PNG/JPEG image directory")
+    parser.add_argument("--video", required=True,
+                        help=".mp4 (mp4v) file or PNG/JPEG image directory")
     parser.add_argument("--config", default="default",
                         help="tracker config (default, synth, fast, warm, demo_cpu or "
                              "a .py file); its flow_config selects the net")
     parser.add_argument("--out", default="flow_demo_out")
     parser.add_argument("--mp4", action="store_true",
-                        help="also write the panels as the image directory <out>/flow/")
+                        help="also write the panels to <out>/flow.mp4")
     parser.add_argument("--show_ou", action="store_true",
                         help="append an occlusion/sigma panel row")
     parser.add_argument("--fps", type=float, default=10.0)

@@ -1,19 +1,23 @@
 """I/O: PNG and JPEG without OpenCV or PIL, an image reader in
-``cv2.imread``'s role, the flowou codecs, the tiered flow cache, and video
-as PNG/JPEG image directories.
+``cv2.imread``'s role, the flowou codecs, the tiered flow cache, and video:
+MP4 files with MPEG-4 Part 2 video and PNG/JPEG image directories.
 
 Port of ``mft_tpu/io`` (reference MFT/utils/io.py). The codecs' files are
 the JAX package's, so the two packages read each other's caches and exports.
 JPEG runs the port's codec (:mod:`mft_tpu_torch.io.jpeg`: entropy coding on
-host threads, the pixel stages on the card). Video files need a codec the
-card's machine lacks (ROADMAP A11): :mod:`mft_tpu_torch.io.video` raises
-``NotImplementedError`` for them.
+host threads, the pixel stages on the card); ``mp4v`` video its own
+(:mod:`mft_tpu_torch.io.mp4` reads and writes the files,
+:mod:`mft_tpu_torch.io.mpeg4` the VLC stage on host threads, the pixel
+stages on the card). Other video codecs and containers raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from mft_tpu_torch.io.cache import FlowCache
 from mft_tpu_torch.io.flowou_codecs import read_flowou, write_flowou
 from mft_tpu_torch.io.image import imdecode, imread
 from mft_tpu_torch.io.jpeg import decode_jpeg, decode_jpeg_frames, encode_jpeg, jpeg_roundtrip
+from mft_tpu_torch.io.mp4 import Mp4Writer, read_mp4
+from mft_tpu_torch.io.mpeg4 import Mp4vEncoder, decode_frames
 from mft_tpu_torch.io.video import (
     GeneralVideoCapture,
     LookaheadIter,
@@ -25,6 +29,7 @@ from mft_tpu_torch.io.video import (
 __all__ = [
     "read_flowou", "write_flowou", "FlowCache", "imread", "imdecode",
     "decode_jpeg", "decode_jpeg_frames", "encode_jpeg", "jpeg_roundtrip",
+    "read_mp4", "Mp4Writer", "decode_frames", "Mp4vEncoder",
     "GeneralVideoCapture", "get_video_frames", "get_video_length",
     "VideoWriter", "LookaheadIter",
 ]

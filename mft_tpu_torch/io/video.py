@@ -1,17 +1,25 @@
-"""Video input/output over image directories: frame generators and a writer.
+"""Video input/output: MP4 files and image directories, frame generators and
+a writer.
 
 A copy of ``mft_tpu/io/video.py`` (reference MFT/utils/io.py:566-615 and
 vis_utils.py:621-658) without OpenCV. Frames are (H, W, 3) uint8 BGR, as
-``cv2.imread`` gives them: PNG and JPEG frames go through
-:func:`mft_tpu_torch.io.image.imread` (a JPEG through the port's codec,
-:mod:`mft_tpu_torch.io.jpeg`: J1 on host threads and J2 on the card for a
-CUDA ``device``). A writer for a path without a suffix writes
-``00000.jpg``, ``00001.jpg``, ... at quality 95 (``cv2.imwrite``'s
-default), as the JAX package does, through J3 and J1.
+``cv2.VideoCapture.read`` / ``cv2.imread`` give them.
 
-Difference by design (ROADMAP A11): the card's machine has no video codec,
-so a video file and a writer for a path with a suffix (``.mp4``) raise
-``NotImplementedError``.
+- A ``.mp4``, ``.m4v`` or ``.mov`` file is read through the port's MP4
+  reader (:mod:`mft_tpu_torch.io.mp4`) and its MPEG-4 Part 2 (``mp4v``)
+  codec (:mod:`mft_tpu_torch.io.mpeg4`: V1 on the host, V2 on the card
+  for a CUDA ``device``), as cv2's libavcodec decodes it. Another codec
+  (``avc1`` ...) or container (``.avi``, ``.mkv`` ...) raises
+  ``NotImplementedError`` naming its ROADMAP item.
+- PNG and JPEG frames of a directory go through
+  :func:`mft_tpu_torch.io.image.imread` (a JPEG through the port's codec,
+  :mod:`mft_tpu_torch.io.jpeg`).
+- A writer for a path with the suffix ``.mp4`` writes an ``mp4v`` track
+  (V3 and V2 on the card, V1 on the host) at the given fps, as the JAX
+  package's ``cv2.VideoWriter`` with fourcc ``mp4v``; its bytes are the
+  port's own, not libavcodec's. A path without a suffix receives
+  ``00000.jpg``, ``00001.jpg``, ... at quality 95 (``cv2.imwrite``'s
+  default), through J3 and J1.
 """
 
 from collections import deque
@@ -21,28 +29,36 @@ import numpy as np
 
 from mft_tpu_torch.io.image import imread
 from mft_tpu_torch.io.jpeg import encode_jpeg
+from mft_tpu_torch.io.mp4 import MP4_SUFFIXES, read_mp4
+from mft_tpu_torch.io.mpeg4 import Mp4vEncoder, decode_frames, find_vop, parse_config, vop_coded
 
 IMAGE_SUFFIXES = {".jpg", ".jpeg", ".png"}
 
 
-def _no_codec(what):
+def _unsupported(path):
+    item = "MJPEG-in-AVI" if path.suffix.lower() == ".avi" else "other containers"
     return NotImplementedError(
-        f"{what}: the port reads and writes image directories only; video files "
-        "need a video codec (OpenCV's), which the card's machine lacks (ROADMAP A11)")
+        f"video file {path}: the port reads MP4 files ({', '.join(sorted(MP4_SUFFIXES))}) "
+        f"with MPEG-4 Part 2 video and image directories (ROADMAP A11, {item})")
 
 
 class GeneralVideoCapture:
-    """A directory of images read as a video, in sorted file-name order
-    (reversed with ``reverse``); ``read()`` as ``cv2.VideoCapture.read``.
-    ``device`` decodes JPEG frames."""
+    """A video file or a directory of images read as a video (images in
+    sorted file-name order, reversed with ``reverse``; a file's frames in
+    its order, as the JAX package's); ``read()`` as
+    ``cv2.VideoCapture.read``. ``device`` runs the codecs' card stages."""
 
     def __init__(self, path, reverse=False, device="cuda"):
         path = Path(path)
         self.device = device
         self.image_inputs = path.is_dir()
-        if not self.image_inputs:
-            raise _no_codec(f"video file {path}")
         self.path = path
+        if not self.image_inputs:
+            if path.suffix.lower() not in MP4_SUFFIXES:
+                raise _unsupported(path)
+            self.video = read_mp4(path)
+            self.frames = decode_frames(self.video, device)
+            return
         self.images = sorted(p for p in path.iterdir()
                              if p.suffix.lower() in IMAGE_SUFFIXES)
         if reverse:
@@ -50,6 +66,9 @@ class GeneralVideoCapture:
         self.i = 0
 
     def read(self):
+        if not self.image_inputs:
+            frame = next(self.frames, None)
+            return frame is not None, frame
         if self.i >= len(self.images):
             return False, None
         image = self.images[self.i]
@@ -59,7 +78,8 @@ class GeneralVideoCapture:
         return True, img
 
     def release(self):
-        pass
+        if not self.image_inputs:
+            self.frames.close()
 
 
 def get_video_frames(path, reverse=False, device="cuda"):
@@ -76,31 +96,62 @@ def get_video_frames(path, reverse=False, device="cuda"):
 
 
 def get_video_length(path, device="cuda"):
-    return sum(1 for _ in get_video_frames(path, device=device))
+    """The number of frames: an MP4 file's coded VOPs that its edit list
+    shows (no pixels decoded), an image directory's images."""
+    path = Path(path)
+    if path.is_dir() or path.suffix.lower() not in MP4_SUFFIXES:
+        return sum(1 for _ in get_video_frames(path, device=device))
+    video = read_mp4(path)
+    vol = parse_config(video.config) if video.config else None
+    n = 0
+    for shown, data in zip(video.shown(), video.read_samples()):
+        new_vol = find_vop(data, vol)[1]
+        vol = new_vol or vol
+        if vol is None:
+            raise ValueError("MPEG-4 stream without a VOL header")
+        n += bool(shown and vop_coded(data, vol))
+    return n
 
 
 class VideoWriter:
-    """Image-sequence writer for visualizations: ``path`` without a suffix
-    is a directory that receives ``00000.jpg``, ``00001.jpg``, ... (JPEG at
-    quality 95, encoded for ``device``)."""
+    """Writer for visualizations: ``path`` with the suffix ``.mp4`` is an
+    MP4 file of one ``mp4v`` track at ``fps`` (the port's encoder,
+    :class:`mft_tpu_torch.io.mpeg4.Mp4vEncoder`, for ``device``); ``path``
+    without a suffix is a directory that receives ``00000.jpg``,
+    ``00001.jpg``, ... (JPEG at quality 95, encoded for ``device``)."""
 
     def __init__(self, path, fps=25.0, device="cuda"):
         self.path = Path(path)
         self.fps = fps
         self.device = device
-        if self.path.suffix != "":
-            raise _no_codec(f"video writer for {self.path}")
-        self.path.mkdir(parents=True, exist_ok=True)
-        self.i = 0
+        self.encoder = None
+        self.image_dir = self.path.suffix == ""
+        if self.image_dir:
+            self.path.mkdir(parents=True, exist_ok=True)
+            self.i = 0
+        elif self.path.suffix.lower() != ".mp4":
+            raise NotImplementedError(
+                f"video writer for {self.path}: the port writes .mp4 (mp4v) files and image "
+                "directories (ROADMAP A11, other containers)")
+        else:
+            self.path.parent.mkdir(parents=True, exist_ok=True)
 
     def write(self, frame):
         """frame: (H, W, 3) uint8 BGR."""
-        (self.path / f"{self.i:05d}.jpg").write_bytes(
-            encode_jpeg(np.asarray(frame), 95, self.device))
-        self.i += 1
+        frame = np.asarray(frame)
+        if self.image_dir:
+            (self.path / f"{self.i:05d}.jpg").write_bytes(encode_jpeg(frame, 95, self.device))
+            self.i += 1
+            return
+        if self.encoder is None:
+            H, W = frame.shape[:2]
+            self.encoder = Mp4vEncoder(self.path, self.fps, W, H, self.device)
+        self.encoder.write(frame)
 
     def close(self):
-        pass
+        if self.encoder is not None:
+            self.encoder.close()
+            self.encoder = None
 
     def __enter__(self):
         return self

@@ -20,6 +20,9 @@
 | jpeg_huff_decode, jpeg_huff_decode_progressive, jpeg_huff_encode (J1: host code, mft_jpeg_huff_decode / _decode_progressive / _encode) | no Pallas site: cv2/PIL on the host |
 | jpeg_decode_pixels (J2: mft_jpeg_decode_pixels) | no Pallas site: cv2/PIL on the host         |
 | jpeg_encode_pixels (J3: mft_jpeg_encode_pixels) | no Pallas site: cv2/PIL on the host         |
+| mpeg4_vlc_decode, mpeg4_vlc_encode (V1: host code, mft_mpeg4_vlc_decode / _encode) | no Pallas site: cv2 (libavcodec) on the host |
+| mpeg4_decode_pixels (V2: mft_mpeg4_decode_pixels) | no Pallas site: cv2 (libavcodec) on the host |
+| mpeg4_encode_pixels (V3: mft_mpeg4_encode_pixels) | no Pallas site: cv2 (libavcodec) on the host |
 
 A wrapper launches its kernel for CUDA tensors and uses the plain version for
 CPU tensors; it raises for anything else. Each wrapper counts its launches in
@@ -32,7 +35,8 @@ per pixel (:func:`lane_major_staged_counts`).
 
 JPEG's native stages (:mod:`mft_tpu_torch.ops.jpeg`: J1 entropy coding runs
 on the host and counts its native calls, J2/J3 the pixel stages on the card)
-count in the same registry.
+and the MPEG-4 Part 2 video codec's (:mod:`mft_tpu_torch.ops.mpeg4`: V1 on
+the host, V2/V3 on the card) count in the same registry.
 """
 
 from mft_tpu_torch.ops.chain_select import chain_select, chain_select_ref
@@ -46,6 +50,8 @@ from mft_tpu_torch.ops.corr_lookup import (
     corr_lookup_t_ref, lane_major_staged_counts)
 from mft_tpu_torch.ops.jpeg import (jpeg_decode_pixels, jpeg_encode_pixels, jpeg_huff_decode,
                                     jpeg_huff_decode_progressive, jpeg_huff_encode)
+from mft_tpu_torch.ops.mpeg4 import (mpeg4_decode_pixels, mpeg4_encode_pixels, mpeg4_vlc_decode,
+                                     mpeg4_vlc_encode)
 from mft_tpu_torch.ops.product import (conv_pallas, conv_pallas_magnitude, conv_pallas_ref,
                                        conv_weight_tiles, corr_build_folded,
                                        corr_build_folded_magnitude, corr_build_folded_ref,
@@ -59,7 +65,8 @@ KERNELS = (corr_lookup_fused, corr_lookup, corr_lookup_bwd, chain_select, corr_l
            corr_lookup_win, corr_lookup_q, corr_lookup_packed, corr_lookup_packed_i8,
            corr_lookup_t, corr_lookup_folded, corr_build_folded, corr_lookup_mixed,
            conv_pallas, bilinear_warp, jpeg_huff_decode, jpeg_huff_decode_progressive,
-           jpeg_huff_encode, jpeg_decode_pixels, jpeg_encode_pixels)
+           jpeg_huff_encode, jpeg_decode_pixels, jpeg_encode_pixels, mpeg4_vlc_decode,
+           mpeg4_vlc_encode, mpeg4_decode_pixels, mpeg4_encode_pixels)
 
 
 def launch_counts() -> dict:
@@ -96,6 +103,7 @@ __all__ = ["chain_select", "chain_select_ref", "corr_lookup", "corr_lookup_ref",
            "bilinear_warp_ref", "bilinear_warp_pallas", "bilinear_warp_banded",
            "bilinear_warp_blocked", "bilinear_warp_tiled", "snap256", "split_hi_lo",
            "jpeg_huff_decode", "jpeg_huff_decode_progressive", "jpeg_huff_encode",
-           "jpeg_decode_pixels", "jpeg_encode_pixels",
+           "jpeg_decode_pixels", "jpeg_encode_pixels", "mpeg4_vlc_decode", "mpeg4_vlc_encode",
+           "mpeg4_decode_pixels", "mpeg4_encode_pixels",
            "KERNELS",
            "launch_counts", "tensor_core_launch_counts", "reset_launch_counts"]

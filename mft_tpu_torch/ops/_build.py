@@ -61,6 +61,10 @@ SIGNATURES = {
     "mft_jpeg_huff_encode": [_P, _I, _P, _P, _I, _I, _I, _P, _L, _P],
     "mft_jpeg_decode_pixels": [_P, _I, _P, _P, _P, _P, _P],
     "mft_jpeg_encode_pixels": [_P, _I, _I, _P, _P, _P, _P],
+    "mft_mpeg4_vlc_decode": [_P, _L] + [_P] * 10,
+    "mft_mpeg4_vlc_encode": [_P] * 12 + [_L, _P],
+    "mft_mpeg4_decode_pixels": [_P] * 6 + [_I, _P, _P, _P],
+    "mft_mpeg4_encode_pixels": [_P, _P, _P, _I, _P, _P],
 }
 
 _lock = threading.Lock()

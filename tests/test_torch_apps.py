@@ -5,11 +5,12 @@ The forward splat (``bilinear_splat``, ``warp_forward_image``,
 OpenCV's filled circle, ``make_default_edit``'s rectangle) and its
 per-frame function against JAX's composition on the same FlowOU arrays,
 ``flow_panel``, the video I/O over PNG/JPEG directories (the writer's JPEG
-files byte for byte with JAX's ``cv2.imwrite``), and one JAX-free run of
-each app on ``demo_cpu`` at 128x128 against a direct run of the port's
-tracker / flow network (its JPEG frames against ``jpeg_roundtrip`` of the
-drawn ones). No JAX tracker runs here (``test_torch_mft.py`` holds the
-tracker's parity).
+files byte for byte with JAX's ``cv2.imwrite``), and JAX-free runs of each
+app on ``demo_cpu`` at 128x128 against a direct run of the port's tracker /
+flow network (its ``.mp4`` outputs byte for byte with the port's writer on
+the drawn frames, read back by cv2), the demo on an ``.mp4`` against the
+same frames as a PNG directory. No JAX tracker runs here
+(``test_torch_mft.py`` holds the tracker's parity).
 """
 
 import cv2
@@ -29,7 +30,6 @@ from mft_tpu_torch.apps import demo, flow_demo
 from mft_tpu_torch.config import demo_cpu_config
 from mft_tpu_torch.core import FlowOU, bilinear_splat, warp_forward_image
 from mft_tpu_torch.io import video
-from mft_tpu_torch.io.jpeg import jpeg_roundtrip
 from mft_tpu_torch.io.png import encode_png
 from mft_tpu_torch.tracker.point_tracking import convert_to_point_tracking
 
@@ -214,10 +214,6 @@ def _write_clip(path, n=3, H=128, W=128, seed=0):
     return frames
 
 
-def _read_dir(path):
-    return [cv2.imread(str(p)) for p in sorted(path.iterdir())]
-
-
 @pytest.fixture(scope="module")
 def demo_runs(tmp_path_factory):
     """Both apps on demo_cpu at 128x128, 3 frames, on the CPU."""
@@ -230,25 +226,48 @@ def demo_runs(tmp_path_factory):
     return frames, n, m, tmp
 
 
+def _mp4_bytes(path, frames, fps):
+    """The port's writer's bytes for ``frames`` at ``fps``."""
+    with video.VideoWriter(path, fps=fps, device="cpu") as w:
+        for f in frames:
+            w.write(f)
+    return path.read_bytes()
+
+
+def _cv2_read(path):
+    cap = cv2.VideoCapture(str(path))
+    out = []
+    while True:
+        ok, f = cap.read()
+        if not ok:
+            return out
+        out.append(f)
+
+
 def test_demo_run_matches_direct_tracker(demo_runs):
-    """The demo's JPEG frames, as cv2 reads them, equal a direct port MFT
-    run plus convert_to_point_tracking and the drawing functions, through
-    the codec at quality 95."""
+    """The demo's ``<name>_points.mp4`` and ``<name>_edit.mp4`` equal, byte
+    for byte, the port's writer on a direct port MFT run plus
+    convert_to_point_tracking and the drawing functions; cv2 reads both
+    back, 3 frames each."""
     frames, n, _, tmp = demo_runs
     assert n == 3
-    pts, edits = _read_dir(tmp / "out" / "clip_points"), _read_dir(tmp / "out" / "clip_edit")
-    assert len(pts) == len(edits) == 3
     conf = demo_cpu_config()
     tracker = conf.tracker_class(conf, device="cpu")
     queries = demo.get_queries(frames[0].shape, 20)
     edit = demo.make_default_edit(frames[0])
+    pts, edits = [], []
     for i, frame in enumerate(frames):
         result = (tracker.init(frame) if i == 0 else tracker.track(frame)).result
         coords, occl = convert_to_point_tracking(result, queries)
-        dots = demo.draw_dots(frame, coords, occl)
-        edited = demo.draw_edit(frame, result, edit, edit.any(axis=2))
-        assert np.array_equal(pts[i], jpeg_roundtrip(dots, 95, device="cpu")), i
-        assert np.array_equal(edits[i], jpeg_roundtrip(edited, 95, device="cpu")), i
+        pts.append(demo.draw_dots(frame, coords, occl))
+        edits.append(demo.draw_edit(frame, result, edit, edit.any(axis=2)))
+    for name, want in (("points", pts), ("edit", edits)):
+        path = tmp / "out" / f"clip_{name}.mp4"
+        assert path.read_bytes() == _mp4_bytes(tmp / f"want_{name}.mp4", want, 25.0), name
+        back = _cv2_read(path)
+        assert len(back) == 3 and back[0].shape == (128, 128, 3)
+        assert all(np.array_equal(a, b) for a, b in zip(
+            back, video.get_video_frames(path, device="cpu")))
 
 
 def test_flow_demo_run_matches_direct_flow(demo_runs):
@@ -256,15 +275,36 @@ def test_flow_demo_run_matches_direct_flow(demo_runs):
     assert m == 2
     conf = demo_cpu_config()
     flower = conf.flow_config.of_class(conf.flow_config, device="cpu")
-    copies = _read_dir(tmp / "flow" / "flow")
-    assert [p.name for p in sorted((tmp / "flow" / "flow").iterdir())] == ["00000.jpg",
-                                                                            "00001.jpg"]
+    panels = []
     for k in range(2):
         flow, extra = flower.compute_flow(frames[k], frames[k + 1], numpy_out=True)
         want = flow_demo.flow_panel(frames[k], flow, extra)
         assert want.shape == (3 * 128, 128, 3)
         assert np.array_equal(cv2.imread(str(tmp / "flow" / f"flow_{k:04d}.png")), want)
-        assert np.array_equal(copies[k], jpeg_roundtrip(want, 95, device="cpu"))
+        panels.append(want)
+    path = tmp / "flow" / "flow.mp4"
+    assert path.read_bytes() == _mp4_bytes(tmp / "want_flow.mp4", panels, 10.0)
+    assert len(_cv2_read(path)) == 2
+
+
+def test_demo_on_mp4_matches_png_directory(tmp_path):
+    """The demo on an ``.mp4`` (the port's writer) tracks and renders as on
+    the same decoded frames written as a PNG directory: equal output bytes,
+    which cv2 reads back."""
+    frames = _write_clip(tmp_path / "src")
+    (tmp_path / "clip.mp4").write_bytes(_mp4_bytes(tmp_path / "w.mp4", frames, 25.0))
+    decoded = list(video.get_video_frames(tmp_path / "clip.mp4", device="cpu"))
+    assert np.array_equal(decoded, list(jax_video.get_video_frames(tmp_path / "clip.mp4")))
+    (tmp_path / "dir").mkdir()
+    for k, f in enumerate(decoded):
+        (tmp_path / "dir" / f"{k:03d}.png").write_bytes(encode_png(f))
+    for src, out in ((tmp_path / "clip.mp4", "a"), (tmp_path / "dir", "b")):
+        assert demo.main(["--video", str(src), "--config", "demo_cpu", "--out",
+                          str(tmp_path / out), "--grid_spacing", "20", "--device", "cpu"]) == 3
+    for name in ("points", "edit"):
+        a = (tmp_path / "a" / f"clip_{name}.mp4").read_bytes()
+        assert a == (tmp_path / "b" / f"dir_{name}.mp4").read_bytes()
+        assert len(_cv2_read(tmp_path / "a" / f"clip_{name}.mp4")) == 3
 
 
 def _png_dir(path):
@@ -323,12 +363,28 @@ def test_video_writer_writes_png_frames(tmp_path):
 
 
 def test_video_codecs_raise(tmp_path):
-    clip = tmp_path / "clip.mp4"
-    clip.write_bytes(b"\x00" * 64)
+    """What the port's video I/O does not read yet raises, naming its ROADMAP
+    item: an H.264 ('avc1') track, an AVI file, a B-VOP."""
+    from mft_tpu_torch.io import mpeg4
+    from mft_tpu_torch.io.mp4 import Mp4Writer
+    data = _mp4_bytes(tmp_path / "ok.mp4", [np.zeros((16, 16, 3), np.uint8)] * 2, 25.0)
+    i = data.index(b"mp4v", data.index(b"stsd"))
+    (tmp_path / "h264.mp4").write_bytes(data[:i] + b"avc1" + data[i + 4:])
+    with pytest.raises(NotImplementedError, match="A11, H.264"):
+        video.GeneralVideoCapture(tmp_path / "h264.mp4", device="cpu")
+    (tmp_path / "clip.avi").write_bytes(b"RIFF" + bytes(60))
+    with pytest.raises(NotImplementedError, match="A11, MJPEG-in-AVI"):
+        video.GeneralVideoCapture(tmp_path / "clip.avi", device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
-        video.GeneralVideoCapture(clip)
-    with pytest.raises(NotImplementedError, match="A11"):
-        video.VideoWriter(tmp_path / "out.mp4")
+        video.VideoWriter(tmp_path / "out.avi", device="cpu")
+    vol = mpeg4.Vol(16, 16, 25)
+    bw = mpeg4.BitWriter()
+    mpeg4.write_vop_header(bw, vol, [2, 1, 0, 4, 1, 0, 0, 0])
+    bw.stuff()
+    with Mp4Writer(tmp_path / "b.mp4", 25.0, 16, 16, mpeg4.write_config(vol)) as w:
+        w.add(bw.getvalue(), False)
+    with pytest.raises(ValueError, match="B-VOPs.*A11"):
+        list(video.get_video_frames(tmp_path / "b.mp4", device="cpu"))
     d = tmp_path / "jpg"
     d.mkdir()
     rng = np.random.default_rng(8)

@@ -83,7 +83,8 @@ def test_port_modules_list_is_complete():
                  "mft_tpu_torch.train.generate_occlusions_ft3d",
                  "mft_tpu_torch.train.kubric_longflow", "mft_tpu_torch.io.jpeg",
                  "mft_tpu_torch.ops.jpeg", "mft_tpu_torch.io.image",
-                 "mft_tpu_torch.utils.flops", "mft_tpu_torch.models.raft.convert"):
+                 "mft_tpu_torch.utils.flops", "mft_tpu_torch.models.raft.convert",
+                 "mft_tpu_torch.io.mp4", "mft_tpu_torch.io.mpeg4", "mft_tpu_torch.ops.mpeg4"):
         assert want in mods
 
 

@@ -7,6 +7,9 @@ is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import time
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -1703,3 +1706,108 @@ def test_jpeg_bad_dc_table_raises(np_rng, cuda):
         with pytest.raises(ValueError, match="bad Huffman code"):
             OJ.jpeg_huff_decode(bad, np.zeros((J.parse_jpeg(data).geom.blocks, 64), np.int16),
                                 device)
+
+
+# --------------------------------------------------------------------------- #
+# the MPEG-4 Part 2 codec: V1 (host), V2 and V3 (card)
+# --------------------------------------------------------------------------- #
+MP4V_FIXTURES = Path(__file__).parent / "data" / "torch_fixtures" / "mp4v"
+
+
+@pytest.mark.parametrize("name", ["pan", "noise", "still", "odd"])
+def test_mpeg4_decode_matches_plain(cuda, name):
+    """V1 natively and V2 on the card bit for bit with their plain versions
+    on a committed fixture, one launch each a VOP, and the entry point's
+    frames equal the CPU's."""
+    from mft_tpu_torch.io import mpeg4 as M
+    from mft_tpu_torch.io import video
+    from mft_tpu_torch.io.mp4 import read_mp4
+    from mft_tpu_torch.ops import mpeg4 as OM
+    path = MP4V_FIXTURES / f"{name}.mp4"
+    v = read_mp4(path)
+    vol = M.parse_config(v.config)
+    geom = M.Geometry(vol.width, vol.height)
+    ref = ref_t = None
+    ops.reset_launch_counts()
+    n = 0
+    for data in v.read_samples():
+        payload = data[M.find_vop(data, vol)[0]:]
+        syn = OM.mpeg4_vlc_decode(payload, vol, cuda)
+        assert syn.equal(M.vlc_decode_ref(payload, vol))
+        p = syn.kind == M.P_VOP
+        want = M.decode_pixels_ref(syn.levels, syn.mode, syn.qp, syn.mv, ref if p else None,
+                                   geom, syn.rounding)
+        t = [torch.from_numpy(a).to(cuda) for a in (syn.levels, syn.mode, syn.qp, syn.mv)]
+        ref_t, img = OM.mpeg4_decode_pixels(*t, ref_t if p else None, geom, syn.rounding)
+        assert np.array_equal(ref_t.cpu().numpy(), want)
+        assert np.array_equal(img.cpu().numpy(), M.yuv_to_bgr_ref(want, geom))
+        ref = want
+        n += 1
+    assert ops.launch_counts() == {**{k: 0 for k in ops.launch_counts()},
+                                   "mpeg4_vlc_decode": n, "mpeg4_decode_pixels": n}
+    got = list(video.get_video_frames(path, device=cuda))
+    assert all(np.array_equal(a, b) for a, b in zip(
+        got, video.get_video_frames(path, device="cpu")))
+
+
+def test_mpeg4_reader_closed_early_launches_nothing_more(cuda):
+    """A reader closed after its first frame leaves V1 and V2 at one launch
+    each, then and after a pause: nothing decodes behind the caller."""
+    from mft_tpu_torch.io import video
+    ops.reset_launch_counts()
+    frames = video.get_video_frames(MP4V_FIXTURES / "pan.mp4", device=cuda)
+    next(frames)
+    frames.close()
+    want = {**{k: 0 for k in ops.launch_counts()}, "mpeg4_vlc_decode": 1,
+            "mpeg4_decode_pixels": 1}
+    assert ops.launch_counts() == want
+    time.sleep(0.2)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == want
+
+
+@pytest.mark.parametrize("seed,W,H", [(21, 128, 96), (22, 72, 40)])
+def test_mpeg4_random_syntax_matches_plain(cuda, seed, W, H):
+    """Random-syntax streams of the plain writer (1MV/4MV, dquant, ac_pred,
+    vectors past the edge): V1's native writer's bytes, its decode and V2
+    bit for bit with the plain versions."""
+    from mft_tpu_torch.io import mpeg4 as M
+    from mft_tpu_torch.ops import mpeg4 as OM
+    rng = np.random.default_rng(seed)
+    vol = M.Vol(W, H, 25)
+    geom = M.Geometry(W, H)
+    ref = ref_t = None
+    for i, kind in enumerate("0111101"):
+        syn = M.random_syntax(rng, vol, int(kind), 0, i)
+        data = M.vlc_encode_ref(syn, vol, (0,))
+        assert OM.mpeg4_vlc_encode(syn, vol, cuda, (0,)) == data
+        got = OM.mpeg4_vlc_decode(data[4:], vol, cuda)
+        assert got.equal(M.vlc_decode_ref(data[4:], vol))
+        p = got.kind == M.P_VOP
+        want = M.decode_pixels_ref(got.levels, got.mode, got.qp, got.mv, ref if p else None,
+                                   geom, got.rounding)
+        t = [torch.from_numpy(a).to(cuda) for a in (got.levels, got.mode, got.qp, got.mv)]
+        ref_t, _ = OM.mpeg4_decode_pixels(*t, ref_t if p else None, geom, got.rounding,
+                                          bgr=False)
+        assert np.array_equal(ref_t.cpu().numpy(), want)
+        ref = want
+
+
+@pytest.mark.parametrize("W,H", [(96, 64), (72, 40)])
+def test_mpeg4_encoder_matches_plain(cuda, tmp_path, W, H):
+    """V3 and V1's writer give the plain encoder's levels and bytes, I- and
+    P-VOPs, and the written file decodes on the card as on the CPU."""
+    from mft_tpu_torch.io import mpeg4 as M
+    from mft_tpu_torch.io import video
+    rng = np.random.default_rng(3)
+    tex = (rng.random((H + 30, W + 30, 3)) * 255).astype(np.uint8)
+    frames = [np.ascontiguousarray(tex[k:k + H, 2 * k:2 * k + W]) for k in range(14)]
+    for dev in (cuda, "cpu"):
+        enc = M.Mp4vEncoder(tmp_path / f"{dev}.mp4", 25.0, W, H, device=dev)
+        for f in frames:
+            enc.write(f)
+        enc.close()
+    assert (tmp_path / "cuda.mp4").read_bytes() == (tmp_path / "cpu.mp4").read_bytes()
+    got = list(video.get_video_frames(tmp_path / "cuda.mp4", device=cuda))
+    want = list(video.get_video_frames(tmp_path / "cuda.mp4", device="cpu"))
+    assert len(got) == 14 and all(np.array_equal(a, b) for a, b in zip(got, want))

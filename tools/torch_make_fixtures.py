@@ -13,10 +13,20 @@ on the card's machine, which has neither OpenCV nor PIL nor JAX:
 - ``png/*.png``: one file of each PNG kind that libpng expands for OpenCV
   (palettes with and without tRNS, 1/2/4-bit grey and palettes,
   grey+alpha at 8 and 16 bits, Adam7);
+- ``mp4v/*.mp4``: 26-frame scenes written by the JAX package's
+  ``mft_tpu.io.video.VideoWriter`` (cv2, fourcc ``mp4v``, 25 fps): a smooth
+  texture panning by fractional and diagonal amounts past the frame edge
+  (``pan``, 96x64), noise at high motion (``noise``, 48x32), a still
+  scene with a small moving patch (``still``, 96x64) and a pan at 72x40,
+  a size that is not a multiple of 16 (``odd``); beside each, ``.npz``
+  (``savez_compressed``) of cv2's BGR frames;
 - ``hashes.json``: ``chip_smoke.array_hash`` (dtype, shape, sha256) of
   every file's decode by cv2 (BGR; for a PNG ``IMREAD_UNCHANGED`` and
-  ``IMREAD_COLOR``) and PIL (``convert('RGB')``), and of every output of
-  ``chip_smoke.vis_cases`` under the JAX package's ``mft_tpu/utils/vis.py``.
+  ``IMREAD_COLOR``) and PIL (``convert('RGB')``), of every output of
+  ``chip_smoke.vis_cases`` under the JAX package's ``mft_tpu/utils/vis.py``,
+  and of each ``mp4v`` file's frames: cv2's Y planes
+  (``CAP_PROP_CONVERT_RGB`` 0) and BGR frames, its frame count, fps and
+  size.
 
 Needs cv2, PIL and the JAX package (``mft_tpu``); runs on the CPU.
 """
@@ -140,6 +150,73 @@ def png_kinds(rng):
     return out
 
 
+def video_scenes(rng):
+    """{name: 26 frames (H, W, 3) uint8} of the ``mp4v`` fixtures."""
+    n = 26
+
+    def pan(H, W, seed):
+        big = cv2.GaussianBlur((np.random.default_rng(seed).random((3 * H, 3 * W, 3)) * 255)
+                               .astype(np.uint8), (0, 0), 3.0).astype(np.float32)
+        out = []
+        for t in range(n):
+            dx, dy = 0.2 * W + 0.5 + 1.37 * t, 0.3 * H + 0.75 * t - 0.3 * (t % 3)
+            m = np.float32([[1, 0, dx], [0, 1, dy]])
+            out.append(cv2.warpAffine(big, m, (W, H), flags=cv2.INTER_LINEAR,
+                                      borderMode=cv2.BORDER_REPLICATE).clip(0, 255)
+                       .astype(np.uint8))
+        return out
+
+    noise = (rng.random((96, 144, 3)) * 255).astype(np.uint8)
+    still = blurred(rng, 64, 96)
+    patch = (rng.random((12, 12, 3)) * 255).astype(np.uint8)
+    stills = []
+    for t in range(n):
+        f = still.copy()
+        f[20 + t:32 + t, 10 + 2 * t:22 + 2 * t] = patch
+        stills.append(f)
+    return {"pan": pan(64, 96, 1),
+            "noise": [np.ascontiguousarray(noise[(7 * t) % 64:(7 * t) % 64 + 32,
+                                                 (11 * t) % 96:(11 * t) % 96 + 48])
+                      for t in range(n)],
+            "still": stills,
+            "odd": pan(40, 72, 2)}
+
+
+def write_mp4v(out, rng):
+    """The ``mp4v`` fixtures through the JAX package's writer (cv2), and
+    {name: cv2's frame count, fps, size, Y plane and BGR hashes}."""
+    from mft_tpu.io.video import VideoWriter as JaxVideoWriter
+    (out / "mp4v").mkdir()
+    info = {}
+    for name, frames in video_scenes(rng).items():
+        path = out / "mp4v" / f"{name}.mp4"
+        with JaxVideoWriter(path, fps=25.0) as w:
+            for f in frames:
+                w.write(f)
+        cap = cv2.VideoCapture(str(path))
+        fps = cap.get(cv2.CAP_PROP_FPS)
+        bgr = []
+        while True:
+            ok, f = cap.read()
+            if not ok:
+                break
+            bgr.append(f)
+        cap = cv2.VideoCapture(str(path))
+        cap.set(cv2.CAP_PROP_CONVERT_RGB, 0)
+        ys = []
+        while True:
+            ok, y = cap.read()
+            if not ok:
+                break
+            ys.append(y.copy())
+        np.savez_compressed(out / "mp4v" / f"{name}.npz", bgr=np.stack(bgr))
+        info[f"mp4v/{name}.mp4"] = {
+            "frames": len(bgr), "fps": fps, "size": [frames[0].shape[1], frames[0].shape[0]],
+            "y": [chip_smoke.array_hash(y) for y in ys],
+            "bgr": [chip_smoke.array_hash(f) for f in bgr]}
+    return info
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default=str(REPO / "tests" / "data" / "torch_fixtures"))
@@ -182,6 +259,7 @@ def main(argv=None) -> int:
     from mft_tpu.utils import vis as jax_vis
     hashes["vis"] = {k: chip_smoke.array_hash(v)
                      for k, v in chip_smoke.vis_cases(np, jax_vis).items()}
+    hashes["mp4v"] = write_mp4v(out, rng)
     (out / "hashes.json").write_text(json.dumps(hashes, indent=1, sort_keys=True) + "\n")
     size = sum(f.stat().st_size for f in out.rglob("*") if f.is_file())
     print(f"wrote {len(files) + len(pngs)} image files and hashes.json to {out}: "
