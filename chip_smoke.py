@@ -297,6 +297,25 @@ non-zero and prints no result line):
    frame, its tracks bit for bit with a fresh tracker's on the same decoded
    frames as arrays, ``_points.mp4`` and ``_edit.mp4`` read back, 12 frames
    each; ``apps.flow_demo --mp4`` on a 3-frame ``.mp4`` writes ``flow.mp4``.
+22. Video containers and Motion JPEG: (a) every committed fixture of
+   ``tests/data/torch_fixtures/video/`` (``mp4v`` in AVI under two tags and
+   in Matroska; MJPEG in AVI, Matroska, MP4 (C11) and QuickTime, at 4:2:0,
+   4:2:2, 4:4:4, grey and without DHT) read on the card through the entry
+   point (J1 natively and J4, or V1 and V2), every frame's sha256 and the
+   frame count and fps as cv2 gave them, J4 on each MJPEG file's batch of
+   frames bit for bit with its plain version; (b) J4 (``mjpeg.cu``:
+   dequantization with mjpegdec's DC offset, simple IDCT, swscale's
+   full-range conversion) bit for bit with its plain version at 512x512
+   (4:2:0, 4:2:2, 4:4:4, grey, a batch of 3) and 1080x1920 (4:2:0, 4:2:2),
+   timed by graph replay beside its bytes bound ((coefficient + table + BGR
+   bytes) / 3.35 TB/s) and its plain version's host time; (c) the writer
+   at ``.mp4 .mov .m4v .3gp .avi .mkv``, each file read back on the card
+   to the same 14 frames; (d) ``apps.demo.run`` with the default
+   configuration on a 12-frame 512x512 MJPEG ``.avi``, its writers writing
+   ``.avi``: J1 and J4 once a frame read, V3, V1
+   and V2 once a frame a file written, K1 11, K2 1, K3 1 a tracked frame,
+   its tracks bit for bit with a fresh tracker's on the same decoded frames
+   as arrays, ``_points.avi`` and ``_edit.avi`` read back, 12 frames each.
 
 Every bf16 launch of K1, #5, #13, K4 and K5 on the main path, conv_backend
 'pallas', 'alt' and 'win' at 512x512 and 2160x3840, 'auto' at 1080x1920
@@ -5567,6 +5586,277 @@ def run_video(torch, ops, dev, card):
                 bgr_gap=worst_bgr, vops=vops)
 
 
+# --------------------------------------------------------------------------- #
+# phase 22: video containers: the committed AVI, Matroska, MP4 and QuickTime
+# fixtures (mp4v and Motion JPEG) against cv2's recorded frames (a), J4 against
+# its plain version and timed at 512x512 and 1080x1920 (b), the writer at every
+# suffix (c), the default-config demo on a Motion JPEG .avi (d)
+# --------------------------------------------------------------------------- #
+MJPEG_SIZES = ((512, 512), (1080, 1920))
+MJPEG_SAMPLINGS = ("420", "422")        # timed; 4:4:4 and grey checked at MJPEG_KINDS
+MJPEG_KINDS = 512                       # px: the frames of 22b's other conversion paths
+WRITER_SUFFIXES = (".mp4", ".mov", ".m4v", ".3gp", ".avi", ".mkv")
+
+
+def mjpeg_coefs(J, MJ, path):
+    """(JpegFile, quantized coefficients) of every frame of an MJPEG file,
+    J1's plain version (the native one runs in the entry point)."""
+    import numpy as np
+    from mft_tpu_torch.io.container import open_track
+    huff, qt, out = MJ.default_tables(), {}, []
+    for data in open_track(path).read_samples():
+        if not data:
+            continue
+        jf = MJ.parse_frame(data, huff, qt)
+        co = np.zeros((jf.geom.blocks, 64), np.int16)
+        for scan in jf.scans:
+            J.huff_decode_ref(scan, co)
+        out.append((jf, co))
+    return out
+
+
+def check_container_fixtures(torch, ops, dev, card, hashes):
+    """22a: every committed container fixture read on the card through the
+    port's entry point (J1 natively + J4, or V1 + V2): each frame's hash
+    equal to the one recorded from cv2, the frame count and fps cv2 gave;
+    for the MJPEG ones J4 on the batch of the file's frames against its
+    plain version. returns (frames, J4's differing values, J4's largest gap)."""
+    import numpy as np
+    from mft_tpu_torch.io import jpeg as J
+    from mft_tpu_torch.io import mjpeg as MJ
+    from mft_tpu_torch.io import video
+    from mft_tpu_torch.io.container import open_track
+    from mft_tpu_torch.ops.mjpeg import mjpeg_decode_pixels
+    frames = n_diff = worst = 0
+    for key, want in sorted(hashes["video"].items()):
+        path = os.path.join(FIXTURES, key)
+        track = open_track(path)
+        ops.reset_launch_counts()
+        got = list(video.get_video_frames(path, device=dev))
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        bad = [k for k, f in enumerate(got) if array_hash(f) != want["bgr"][k]] \
+            if len(got) == want["frames"] else list(range(len(got)))
+        diff = ""
+        if track.codec == "mjpeg":
+            files = mjpeg_coefs(J, MJ, path)
+            co = np.stack([c for _, c in files])
+            q = np.stack([jf.qtabs for jf, _ in files]).astype(np.int32)
+            out = mjpeg_decode_pixels(torch.from_numpy(co).to(dev), torch.from_numpy(q).to(dev),
+                                      files[0][0].geom).cpu().numpy()
+            plain = MJ.decode_pixels_ref(co, q, files[0][0].geom)
+            d = int((out != plain).sum())
+            n_diff += d
+            worst = max(worst, array_gap(np, out, plain))
+            diff = f"; J4 on the batch against plain: {d} values differ"
+        log(f"22a {key} ({track.codec} '{track.fourcc}', {track.width}x{track.height}, "
+            f"{track.fps:g} fps): {len(got)} frames (cv2 {want['frames']}, {want['fps']:g} fps); "
+            f"frames whose sha256 differs from cv2's: {bad or 'none'}; launches {counts}{diff}")
+        check(len(got) == want["frames"] and not bad, f"{key}: frames differ from cv2's")
+        check(track.fps == want["fps"], f"{key}: fps {track.fps}, cv2 {want['fps']}")
+        frames += len(got)
+    check(n_diff == 0, f"J4 differs from its plain version in {n_diff} values on the fixtures")
+    return frames, n_diff, worst
+
+
+def time_mjpeg(torch, dev, card, J, MJ, H, W, sampling):
+    """22b: J4 on one frame of the moving clip (quantized by J3 at quality
+    95, 4:2:0 or 4:2:2) against its plain version, by graph replay, beside
+    its bytes bound ((coefficient + table + BGR bytes) / 3.35 TB/s) and the
+    plain version's host time."""
+    import numpy as np
+    from mft_tpu_torch.ops.jpeg import jpeg_encode_pixels
+    from mft_tpu_torch.ops.mjpeg import mjpeg_decode_pixels
+    img = jpeg_frames(1, H, W, seed=7)
+    geom = J.geometry_for(H, W, 3, sampling)
+    qtabs, recips = J._tables(geom, 95)
+    coefs = jpeg_encode_pixels(torch.from_numpy(img).to(dev), torch.from_numpy(recips).to(dev),
+                               geom)
+    q_t = torch.from_numpy(qtabs[None]).to(dev)
+    got = mjpeg_decode_pixels(coefs, q_t, geom).cpu().numpy()
+    coef_np = coefs.cpu().numpy()
+    t0 = time.perf_counter()
+    plain = MJ.decode_pixels_ref(coef_np, qtabs[None], geom)
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    diff = int((got != plain).sum())
+    ms = graph_ms(lambda: mjpeg_decode_pixels(coefs, q_t, geom))
+    nbytes = geom.blocks * 64 * 2 + qtabs.nbytes + H * W * 3
+    bound = 1e3 * nbytes / HBM_BYTES_PER_S
+    gap = int(np.abs(got.astype(np.int64) - img[0]).max())
+    log(f"22b J4 {H}x{W} {sampling} q95: {ms:.4f} ms by graph replay (bound {bound:.4f} ms, "
+        f"{bound / ms:.1%} of it; {nbytes} bytes), plain {plain_ms:.2f} ms; values differing "
+        f"from plain {diff}; largest gap to the source frame {gap} [{card}]")
+    check(diff == 0, f"J4 {H}x{W} {sampling}: {diff} values differ from its plain version")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                max_abs_err=float(array_gap(np, got, plain)))
+
+
+def check_mjpeg_kinds(torch, dev, card, J, MJ):
+    """22b: J4 against its plain version on 4:4:4 and grey frames of
+    MJPEG_KINDS x MJPEG_KINDS (the other two conversion paths) and on a
+    batch of 3 frames of 4:2:0."""
+    import numpy as np
+    from mft_tpu_torch.ops.jpeg import jpeg_encode_pixels
+    from mft_tpu_torch.ops.mjpeg import mjpeg_decode_pixels
+    worst = 0
+    for sampling, channels, n in (("444", 3, 1), ("420", 1, 1), ("420", 3, 3)):
+        img = jpeg_frames(n, MJPEG_KINDS, MJPEG_KINDS, seed=8, channels=channels)
+        geom = J.geometry_for(MJPEG_KINDS, MJPEG_KINDS, channels, sampling)
+        qtabs, recips = J._tables(geom, 80)
+        coefs = jpeg_encode_pixels(torch.from_numpy(img).to(dev),
+                                   torch.from_numpy(recips).to(dev), geom)
+        q = np.repeat(qtabs[None], n, 0)
+        got = mjpeg_decode_pixels(coefs, torch.from_numpy(q).to(dev), geom).cpu().numpy()
+        plain = MJ.decode_pixels_ref(coefs.cpu().numpy(), q, geom)
+        diff = int((got != plain).sum())
+        worst = max(worst, array_gap(np, got, plain))
+        kind = "grey" if channels == 1 else sampling
+        log(f"22b J4 {MJPEG_KINDS}x{MJPEG_KINDS} {kind} x{n}: values differing from plain "
+            f"{diff}")
+        check(diff == 0, f"J4 {kind}: {diff} values differ from its plain version")
+    return worst
+
+
+def check_writers(torch, ops, dev, card, tmp):
+    """22c: the writer at every suffix on 14 frames (an I-VOP, 11 P-VOPs, an
+    I-VOP, a P-VOP), read back by the port on the card: 14 frames each, the
+    same frames from every container (one encoder, one bitstream)."""
+    import numpy as np
+    from mft_tpu_torch.io import video
+    frames = synthetic_clip(13, 128, 160, seed=4)
+    decoded = {}
+    for suffix in WRITER_SUFFIXES:
+        path = tmp / f"w{suffix}"
+        with video.VideoWriter(path, fps=29.97, device=dev) as w:
+            for f in frames:
+                w.write(f)
+        decoded[suffix] = list(video.get_video_frames(path, device=dev))
+        n = video.get_video_length(path, device=dev)
+        check(len(decoded[suffix]) == n == len(frames), f"writer {suffix}: {n} frames")
+    ref = decoded[".mp4"]
+    differ = {s: sum(int((a != b).sum()) for a, b in zip(d, ref)) for s, d in decoded.items()}
+    psnr_db = psnr(np, np.stack(frames), np.stack(ref))
+    log(f"22c writer at {', '.join(WRITER_SUFFIXES)}: {len(frames)} frames each read back on "
+        f"the card; values differing from the .mp4's frames {differ}; PSNR to the source "
+        f"{psnr_db:.2f} dB")
+    check(not any(differ.values()), f"containers decode to different frames: {differ}")
+
+
+def run_mjpeg_demo(torch, ops, dev, card, tmp):
+    """22d: ``apps.demo.run`` with the default configuration (512x512, random
+    weights) on a 12-frame Motion JPEG ``.avi`` (J3 + J1's encoder on the
+    card's machine, the port's AVI muxer), its writers patched to write
+    ``.avi``: tracks bit for bit with a fresh tracker's on the same decoded
+    frames as arrays, J1 and J4 once a frame read, V3, V1 and V2 once a
+    frame a file written. returns (its launch counts,
+    frames/s)."""
+    import argparse
+    import numpy as np
+    from mft_tpu_torch.apps import demo
+    from mft_tpu_torch.config import default_config
+    from mft_tpu_torch.io import video as demo_video
+    from mft_tpu_torch.io.avi import AviWriter
+    from mft_tpu_torch.io.jpeg import encode_jpeg
+    from mft_tpu_torch.tracker import MFT
+    from mft_tpu_torch.tracker.point_tracking import convert_to_point_tracking
+    frames = synthetic_clip(DEMO_FRAMES - 1)
+    clip = tmp / "clip.avi"
+    H, W = frames[0].shape[:2]
+    with AviWriter(clip, 25.0, W, H, b"MJPG") as w:
+        for f in frames:
+            w.add(encode_jpeg(f, 95, dev), True)
+    tracks = []
+    render = demo.render_frame
+
+    class AviWriterOut(demo_video.VideoWriter):
+        def __init__(self, path, fps=25.0, device="cuda"):
+            super().__init__(os.path.splitext(str(path))[0] + ".avi", fps, device)
+
+    def recording_render(frame, result, queries, edit, edit_mask):
+        out = render(frame, result, queries, edit, edit_mask)
+        tracks.append((out[2], out[3]))
+        return out
+
+    out = tmp / "mjpeg_demo"
+    args = argparse.Namespace(video=str(clip), config="default", out=str(out), grid_spacing=30,
+                              fps=25.0, max_frames=None, device=str(dev))
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    saved = demo.VideoWriter, demo.render_frame
+    demo.VideoWriter, demo.render_frame = AviWriterOut, recording_render
+    try:
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        n = demo.run(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        counts = ops.launch_counts()
+        demo.VideoWriter, demo.render_frame = saved
+        decoded = list(demo_video.get_video_frames(clip, device=dev))
+        tracker = MFT(default_config(), device=dev)
+        queries = demo.get_queries(decoded[0].shape, 30)
+        mine = []
+        for i, frame in enumerate(decoded):
+            meta = tracker.init(frame) if i == 0 else tracker.track(frame)
+            mine.append(convert_to_point_tracking(meta.result, queries))
+    finally:
+        demo.VideoWriter, demo.render_frame = saved
+        torch.backends.cudnn.deterministic = False
+    tracked = DEMO_FRAMES - 1
+    want = expected_counts(ops, corr_lookup_fused=11 * tracked, corr_lookup=tracked,
+                           chain_select=tracked, bilinear_warp=DEMO_FRAMES,
+                           jpeg_huff_decode=DEMO_FRAMES, mjpeg_decode_pixels=DEMO_FRAMES,
+                           mpeg4_vlc_encode=2 * DEMO_FRAMES,
+                           mpeg4_encode_pixels=2 * DEMO_FRAMES,
+                           mpeg4_decode_pixels=2 * DEMO_FRAMES)
+    diff = sum(int((a[0] != b[0]).sum() + (a[1] != b[1]).sum()) for a, b in zip(tracks, mine))
+    finite = all(np.isfinite(c).all() and np.isfinite(o).all() for c, o in tracks)
+    log(f"22d demo (default config, 512x512, bf16) on a {DEMO_FRAMES}-frame MJPEG .avi "
+        f"({clip.stat().st_size} bytes): {n} frames in {seconds:.3f} s "
+        f"({n / seconds:.2f} frames/s, set-up and the first frame included); launches "
+        f"{counts}; its tracks of {len(queries)} queries against the same decoded frames as "
+        f"arrays: {diff} values differ; finite {finite} [{card}]")
+    check(n == DEMO_FRAMES, f"mjpeg demo wrote {n} frames, want {DEMO_FRAMES}")
+    check(counts == want, f"mjpeg demo launch counts {counts} != {want}")
+    check(len(tracks) == len(mine) and diff == 0 and finite,
+          f"mjpeg demo tracks differ from the arrays' in {diff} values")
+    for name in ("points", "edit"):
+        check_video_file(out / f"clip_{name}.avi", DEMO_FRAMES, (H, W, 3),
+                         f"mjpeg demo {name}", dev)
+    return counts, n / seconds
+
+
+def run_containers(torch, ops, dev, card):
+    """Phase 22: the container fixtures (a), J4 (b), the writers (c), the
+    demo on an MJPEG .avi (d)."""
+    import tempfile
+    from pathlib import Path
+    from mft_tpu_torch.io import jpeg as J
+    from mft_tpu_torch.io import mjpeg as MJ
+    with open(os.path.join(FIXTURES, "hashes.json")) as f:
+        hashes = json.load(f)
+    t0 = time.perf_counter()
+    frames, _, worst = check_container_fixtures(torch, ops, dev, card, hashes)
+    log(f"phase 22a seconds {time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    stats = {(H, W, s): time_mjpeg(torch, dev, card, J, MJ, H, W, s)
+             for H, W in MJPEG_SIZES for s in MJPEG_SAMPLINGS}
+    worst = max([worst, check_mjpeg_kinds(torch, dev, card, J, MJ)]
+                + [st["max_abs_err"] for st in stats.values()])
+    log(f"phase 22b seconds {time.perf_counter() - t0:.2f}")
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        t0 = time.perf_counter()
+        check_writers(torch, ops, dev, card, tmp)
+        log(f"phase 22c seconds {time.perf_counter() - t0:.2f}")
+        t0 = time.perf_counter()
+        counts, fps = run_mjpeg_demo(torch, ops, dev, card, tmp)
+        log(f"phase 22d seconds {time.perf_counter() - t0:.2f}")
+    log(f"22: {frames} fixture frames at cv2's hashes; J4's largest gap to its plain "
+        f"version {worst}")
+    return dict(stats=stats, demo=counts, fps=fps, max_abs_err=float(worst))
+
+
 def main() -> int:
     # a hang exits non-zero with a traceback instead of running out the clock
     faulthandler.dump_traceback_later(1100, exit=True)
@@ -5700,6 +5990,9 @@ def run() -> int:
         t = time.perf_counter()
         vid = run_video(torch, ops, dev, card)
         log(f"phase 21 seconds {time.perf_counter() - t:.2f}")
+        t = time.perf_counter()
+        con = run_containers(torch, ops, dev, card)
+        log(f"phase 22 seconds {time.perf_counter() - t:.2f}")
         for stats in (*lk.values(), cs, *fk.values(), *vk.values(), *fo.values(), cv,
                       *wk.values(), *bw.values(), *var["k2"].values(), *var["bwd"].values(),
                       *var["fk"].values()):
@@ -5865,6 +6158,30 @@ def run() -> int:
     for k in kernels:   # the mp4 demo (phase 21d): as the demo on PNG frames
         if k["name"] in ("corr_lookup_fused", "corr_lookup", "chain_select", "bilinear_warp"):
             k["launches_demo_mp4"] = vid["demo"][k["name"]]
+    # Motion JPEG (phase 22): no Pallas site, cv2 (libavcodec's mjpegdec,
+    # swscale) on the host in JAX; J4's launches from the default-config demo
+    # on a 12-frame MJPEG .avi (22d, its counts reset before it: one launch a
+    # frame); times at 512x512, "_hd" at 1080x1920, 4:2:0
+    # ("_422": 4:2:2); max_abs_err J4's largest gap to its plain version
+    # over 22a-22b
+    st = con["stats"]
+    kernels.append(dict(name="mjpeg_decode_pixels", route="cuda", source=src + "mjpeg.cu",
+                        replaces="mft_tpu/io/video.py:30",
+                        launches=con["demo"]["mjpeg_decode_pixels"],
+                        max_abs_err=con["max_abs_err"],
+                        **{k: st[(512, 512, "420")][k] for k in
+                           ("ms", "plain_ms", "bound_ms", "bound_by")},
+                        library_ms=None, ms_hd=st[(1080, 1920, "420")]["ms"],
+                        plain_ms_hd=st[(1080, 1920, "420")]["plain_ms"],
+                        bound_ms_hd=st[(1080, 1920, "420")]["bound_ms"],
+                        ms_422=st[(512, 512, "422")]["ms"],
+                        bound_ms_422=st[(512, 512, "422")]["bound_ms"],
+                        ms_hd_422=st[(1080, 1920, "422")]["ms"],
+                        bound_ms_hd_422=st[(1080, 1920, "422")]["bound_ms"],
+                        runs_on="card"))
+    for k in kernels:   # the MJPEG .avi demo (phase 22d): as the demo on PNG frames
+        if k["name"] in con["demo"]:
+            k["launches_demo_mjpeg"] = con["demo"][k["name"]]
     log(f"total seconds {time.perf_counter() - t_all:.2f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

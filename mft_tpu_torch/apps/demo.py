@@ -4,13 +4,13 @@ Port of ``mft_tpu/apps/demo.py`` (role parity with reference demo.py): a
 query grid is tracked from frame 0, drawn as occlusion-colored dots into
 ``<out>/<name>_points.mp4``, and an "edit" overlay drawn on the first frame
 is propagated to every frame by forward splatting into
-``<out>/<name>_edit.mp4``, as the JAX demo writes them. Input is an MP4
-file (MPEG-4 Part 2 video, as cv2's ``mp4v`` writer makes) or a PNG/JPEG
-image directory; the outputs are ``mp4v`` files
-(:mod:`mft_tpu_torch.io.video`: the port's codec, its pixel stages on the
-card).
+``<out>/<name>_edit.mp4``, as the JAX demo writes them. Input is a video
+file (MP4/QuickTime, AVI or Matroska, whatever its suffix, with MPEG-4
+Part 2 or Motion JPEG video, as cv2 reads it) or a PNG/JPEG image
+directory; the outputs are ``mp4v`` files (:mod:`mft_tpu_torch.io.video`:
+the port's codecs, their pixel stages on the card).
 
-    python -m mft_tpu_torch.apps.demo --video <clip.mp4 or image-dir>
+    python -m mft_tpu_torch.apps.demo --video <clip.mp4|.avi|.mkv|.mov or image-dir>
         [--config synth] [--out demo_out] [--grid_spacing 30] [--max_frames N]
         [--device cpu]
 
@@ -138,7 +138,8 @@ def run(args):
 def get_parser():
     parser = argparse.ArgumentParser(description="mft-tpu demo (PyTorch port)")
     parser.add_argument("--video", required=True,
-                        help="input .mp4 (mp4v) file or PNG/JPEG image directory")
+                        help="input video file (MP4/QuickTime, AVI or Matroska; MPEG-4 "
+                             "Part 2 or Motion JPEG) or PNG/JPEG image directory")
     parser.add_argument("--config", default="default",
                         help="tracker config: default, synth, fast, warm, demo_cpu "
                              "or a .py file building a port config")

@@ -2,13 +2,14 @@
 render flow-colorwheel panels.
 
 Port of ``mft_tpu/apps/flow_demo.py`` (role parity with the reference's RAFT
-demo, MFT/RAFT/demo.py:42-75): read an MP4 file (mp4v) or a PNG/JPEG image
-directory, compute flow for each consecutive pair, and write each panel
+demo, MFT/RAFT/demo.py:42-75): read a video file (MP4/QuickTime, AVI or
+Matroska; MPEG-4 Part 2 or Motion JPEG) or a PNG/JPEG image directory,
+compute flow for each consecutive pair, and write each panel
 (frame stacked over flow color, reference demo.py:33) to
 ``<out>/flow_XXXX.png``; ``--mp4`` also writes the panels to
 ``<out>/flow.mp4``, as the JAX demo does (the port's ``mp4v`` encoder).
 
-    python -m mft_tpu_torch.apps.flow_demo --video <clip.mp4 or image-dir>
+    python -m mft_tpu_torch.apps.flow_demo --video <clip.mp4|.avi|.mkv|.mov or image-dir>
         [--config synth] [--out flow_demo_out] [--show_ou] [--mp4] [--device cpu]
 """
 
@@ -70,7 +71,8 @@ def run(args):
 def get_parser():
     parser = argparse.ArgumentParser(description="pairwise-flow demo (PyTorch port)")
     parser.add_argument("--video", required=True,
-                        help=".mp4 (mp4v) file or PNG/JPEG image directory")
+                        help="video file (MP4/QuickTime, AVI or Matroska; MPEG-4 Part 2 or "
+                             "Motion JPEG) or PNG/JPEG image directory")
     parser.add_argument("--config", default="default",
                         help="tracker config (default, synth, fast, warm, demo_cpu or "
                              "a .py file); its flow_config selects the net")

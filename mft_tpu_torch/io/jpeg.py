@@ -371,21 +371,27 @@ def _scan_end(data: bytes, pos: int) -> int:
         return pos
 
 
-def parse_jpeg(data) -> JpegFile:
+def parse_jpeg(data, huff: dict = None, qt: dict = None) -> JpegFile:
     """Parse a baseline, extended sequential (8-bit Huffman) or progressive
-    (SOF2) JPEG file; ``ValueError`` for a file it cannot decode."""
+    (SOF2) JPEG file; ``ValueError`` for a file it cannot decode.
+
+    ``huff`` ({(class, slot): (bits, values)}) and ``qt`` ({slot: (64,)
+    natural-order table}), where given, are the tables in force before the
+    file's own DHT and DQT segments, which update them in place: a video
+    decoder keeps its tables from frame to frame (a Motion JPEG frame may
+    carry none)."""
     data = bytes(data)
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file (no SOI marker)")
     try:
-        return _parse(data)
+        return _parse(data, {} if huff is None else huff, {} if qt is None else qt)
     except (IndexError, struct.error):
         raise ValueError("corrupt JPEG: a marker segment is cut short") from None
 
 
-def _parse(data: bytes) -> JpegFile:
+def _parse(data: bytes, huff: dict, qt: dict) -> JpegFile:
     pos, n = 2, len(data)
-    qt, huff, restart = {}, {}, 0
+    restart = 0
     sof, jfif, adobe, orientation = None, False, None, 1
     scans, latched, progressive, coef_bits = [], {}, False, None
     while pos < n:
@@ -1196,22 +1202,12 @@ def _pool():
     return _POOL
 
 
-def decode_jpeg_frames(datas, device="cuda", orient: bool = True, rgb: bool = False,
-                       keep_grey: bool = False) -> list:
-    """Decode JPEG files (bytes). On CUDA each file's scans are
-    entropy-decoded natively on host threads and the files of one geometry
-    go through J2 in one launch; on the CPU the plain versions run.
-
-    returns: one uint8 array per file: (H, W, 3) BGR (``rgb``: RGB), grey
-    replicated, or (H, W) for a grey file with ``keep_grey``; turned by its
-    EXIF orientation with ``orient`` (``cv2.imdecode``'s rule; PIL's
-    ``Image.open`` does not turn)."""
+def decode_pixel_groups(files, dev, decode_pixels) -> list:
+    """J1 on each parsed file (natively on host threads for a CUDA ``dev``
+    when there is more than one file), then ``decode_pixels(coefs, qtabs,
+    geom)`` on ``dev`` once for the files of each geometry. returns one
+    uint8 array of its pixel stage per file, in order."""
     import torch
-
-    from mft_tpu_torch.core.device import resolve_device
-    from mft_tpu_torch.ops.jpeg import jpeg_decode_pixels
-    dev = resolve_device(device)
-    files = [parse_jpeg(d) for d in datas]
     if dev.type == "cuda" and len(files) > 1:
         coefs = list(_pool().map(lambda jf: _entropy_decode(jf, dev), files))
     else:
@@ -1224,16 +1220,35 @@ def decode_jpeg_frames(datas, device="cuda", orient: bool = True, rgb: bool = Fa
         with _device_work(dev):
             c = torch.from_numpy(np.stack([coefs[i] for i in idx])).to(dev)
             q = torch.from_numpy(np.stack([files[i].qtabs for i in idx])).to(dev)
-            pix = jpeg_decode_pixels(c, q, geom).cpu().numpy()
+            pix = decode_pixels(c, q, geom).cpu().numpy()
         for k, i in enumerate(idx):
-            img = pix[k]
-            if keep_grey and geom.color == GREY:
-                img = img[..., 0]
-            elif rgb:
-                img = img[..., ::-1]
-            if orient:
-                img = apply_orientation(img, files[i].orientation)
-            out[i] = np.ascontiguousarray(img)
+            out[i] = pix[k]
+    return out
+
+
+def decode_jpeg_frames(datas, device="cuda", orient: bool = True, rgb: bool = False,
+                       keep_grey: bool = False) -> list:
+    """Decode JPEG files (bytes). On CUDA each file's scans are
+    entropy-decoded natively on host threads and the files of one geometry
+    go through J2 in one launch; on the CPU the plain versions run.
+
+    returns: one uint8 array per file: (H, W, 3) BGR (``rgb``: RGB), grey
+    replicated, or (H, W) for a grey file with ``keep_grey``; turned by its
+    EXIF orientation with ``orient`` (``cv2.imdecode``'s rule; PIL's
+    ``Image.open`` does not turn)."""
+    from mft_tpu_torch.core.device import resolve_device
+    from mft_tpu_torch.ops.jpeg import jpeg_decode_pixels
+    files = [parse_jpeg(d) for d in datas]
+    out = []
+    for jf, img in zip(files, decode_pixel_groups(files, resolve_device(device),
+                                                  jpeg_decode_pixels)):
+        if keep_grey and jf.geom.color == GREY:
+            img = img[..., 0]
+        elif rgb:
+            img = img[..., ::-1]
+        if orient:
+            img = apply_orientation(img, jf.orientation)
+        out.append(np.ascontiguousarray(img))
     return out
 
 

@@ -1,21 +1,27 @@
-"""ISO-BMFF (MP4) files: the first video track's samples and one ``mp4v`` track written.
+"""ISO-BMFF (MP4/QuickTime) files: the first video track's samples and one
+``mp4v`` track written.
 
-The JAX package opens video files with ``cv2.VideoCapture`` and writes
-``.mp4`` with ``cv2.VideoWriter`` (fourcc ``mp4v``, ``mft_tpu/io/video.py``),
-i.e. libavformat's demuxer and muxer. This module is the port's own:
+The JAX package opens video files with ``cv2.VideoCapture`` and writes them
+with ``cv2.VideoWriter`` (fourcc ``mp4v``, ``mft_tpu/io/video.py``), i.e.
+libavformat's demuxer and muxer. This module is the port's own:
 
 - :func:`read_mp4` walks the boxes (``moov`` before or after ``mdat``),
   takes the first track whose handler is ``vide`` and builds its sample
   table from ``stsd``/``stts``/``stss``/``stsc``/``stsz``/``stco``/``co64``:
   (offset, size, sync) per sample, the frame rate from ``mdhd`` and
-  ``stts``, and for an ``mp4v`` sample entry the decoder-specific info of
-  its ``esds`` (the VOS/VOL headers). Samples before an edit list's media
-  time are dropped from the output, as libavformat drops them. Another
-  sample entry (``avc1``, ``hvc1``, ``av01``, ...) raises
+  ``stts``. Samples before an edit list's media time are dropped from the
+  output, as libavformat drops them. The codec comes from the sample entry
+  and, for ``mp4v``, from its ``esds`` objectTypeIndication as libavformat
+  reads it: 0x20 is MPEG-4 Part 2 (the decoder-specific info holds the
+  VOS/VOL), 0x6C is JPEG (cv2 writes Motion JPEG into ``.mp4`` so);
+  ``jpeg`` and ``mjpa`` (QuickTime Motion-JPEG A) entries are Motion JPEG.
+  Another sample entry or object type (``avc1``, ``mjpb``, ...) raises
   ``NotImplementedError`` naming its ROADMAP item.
 - :class:`Mp4Writer` writes ``ftyp``, ``mdat``, then ``moov`` with one
   ``mp4v`` track, a sync-sample table of its I-VOPs, and ``co64`` chunk
-  offsets once an offset passes 2**32.
+  offsets once an offset passes 2**32; the ``ftyp`` brands and, for
+  ``.mov``, the QuickTime boxes and fields are those libavformat writes for
+  the path's suffix (:data:`BRANDS`).
 """
 
 import struct
@@ -24,9 +30,17 @@ from pathlib import Path
 
 import numpy as np
 
-MP4_SUFFIXES = {".mp4", ".m4v", ".mov"}
+from mft_tpu_torch.io.container import (MJPEG, MPEG4, ROADMAP_CODECS, ROADMAP_H264,
+                                        VideoTrack, unsupported_codec)
+
 CONTAINERS = {b"moov", b"trak", b"mdia", b"minf", b"stbl", b"edts", b"dinf"}
-CODEC_ITEMS = {"avc1": "H.264", "avc3": "H.264"}
+CODEC_ITEMS = {"avc1": ROADMAP_H264, "avc3": ROADMAP_H264}
+MJPEG_ENTRIES = {"jpeg", "mjpa"}
+OBJECT_TYPES = {0x20: MPEG4, 0x6C: MJPEG}       # esds objectTypeIndication
+# ftyp (major brand, minor version, compatible brands) by suffix, as
+# libavformat's mov muxer writes them
+BRANDS = {".mp4": (b"isom", 512, b"isomiso2mp41"), ".m4v": (b"M4V ", 512, b"M4V isomiso2"),
+          ".3gp": (b"3gp4", 512, b"3gp4isomiso2"), ".mov": (b"qt  ", 512, b"qt  ")}
 
 
 def _boxes(f, start, end):
@@ -61,8 +75,9 @@ def _descriptor(buf, pos):
     return tag, pos, pos + n
 
 
-def _esds_config(esds: bytes) -> bytes:
-    """The DecoderSpecificInfo of an ``esds`` payload (after version/flags)."""
+def _esds_config(esds: bytes):
+    """(objectTypeIndication, DecoderSpecificInfo) of an ``esds`` payload
+    (after version/flags)."""
     tag, p, end = _descriptor(esds, 4)
     if tag != 3:
         raise ValueError("corrupt MP4: esds without an ES descriptor")
@@ -77,50 +92,36 @@ def _esds_config(esds: bytes) -> bytes:
     tag, p, end = _descriptor(esds, p)
     if tag != 4:
         raise ValueError("corrupt MP4: esds without a decoder config")
+    oti = esds[p]
     p += 13
     while p < end:
         tag, q, qend = _descriptor(esds, p)
         if tag == 5:
-            return bytes(esds[q:qend])
+            return oti, bytes(esds[q:qend])
         p = qend
-    return b""
+    return oti, b""
 
 
-class Mp4Video:
-    """The first video track of an MP4 file."""
+class Mp4Video(VideoTrack):
+    """The first video track of an MP4 file: its frame rate from the track's
+    time scale and most common sample duration, and its edit list's media
+    time."""
 
-    def __init__(self, path, fourcc, width, height, timescale, samples, config, deltas,
+    def __init__(self, path, codec, fourcc, width, height, timescale, samples, config, deltas,
                  media_time):
-        self.path = Path(path)
-        self.fourcc, self.width, self.height = fourcc, width, height
+        super().__init__(path, codec, fourcc, width, height, samples, config)
         self.timescale = timescale
-        self.samples = samples            # (n, 3) int64: offset, size, sync
-        self.config = config
         self.deltas = deltas              # (n,) int64 sample durations
         self.media_time = media_time
-
-    @property
-    def fps(self) -> float:
-        if len(self.deltas) == 0:
-            return 0.0
-        vals, counts = np.unique(self.deltas, return_counts=True)
-        return float(Fraction(self.timescale, int(vals[np.argmax(counts)])))
+        if len(deltas):
+            vals, counts = np.unique(deltas, return_counts=True)
+            self.rate = Fraction(timescale, int(vals[np.argmax(counts)]))
 
     def shown(self) -> np.ndarray:
         """Whether each decoded sample is output (the edit list's media time)."""
         start = np.concatenate([[0], np.cumsum(self.deltas)[:-1]])
         return start + self.deltas > self.media_time if self.media_time > 0 else \
             np.ones(len(self.deltas), bool)
-
-    def read_samples(self):
-        """Generator of each sample's bytes, in decode order."""
-        with open(self.path, "rb") as f:
-            for off, size, _ in self.samples:
-                f.seek(int(off))
-                data = f.read(int(size))
-                if len(data) != size:
-                    raise ValueError(f"corrupt MP4 {self.path}: a sample past the file's end")
-                yield data
 
 
 def read_mp4(path) -> Mp4Video:
@@ -161,19 +162,20 @@ def _track(f, s, e):
     timescale = struct.unpack(">I", mdhd[20:24] if mdhd[0] == 1 else mdhd[12:16])[0]
     stsd = boxes[b"stsd"]
     fourcc = stsd[12:16].decode("latin-1")
-    if fourcc != "mp4v":
-        item = CODEC_ITEMS.get(fourcc, "other codecs")
-        raise NotImplementedError(
-            f"video track codec '{fourcc}': the port decodes MPEG-4 Part 2 ('mp4v') only "
-            f"(ROADMAP A11, {item})")
+    if fourcc not in MJPEG_ENTRIES and fourcc != "mp4v":
+        raise unsupported_codec(f"'{fourcc}' in MP4", CODEC_ITEMS.get(fourcc, ROADMAP_CODECS))
+    codec = MJPEG if fourcc in MJPEG_ENTRIES else MPEG4
     entry = stsd[16:]
     width, height = struct.unpack(">HH", entry[24:28])
     config = b""
     p = 78
     while p + 8 <= len(entry):
         size, typ = struct.unpack(">I4s", entry[p:p + 8])
-        if typ == b"esds":
-            config = _esds_config(entry[p + 8:p + size])
+        if typ == b"esds" and fourcc == "mp4v":
+            oti, config = _esds_config(entry[p + 8:p + size])
+            if oti not in OBJECT_TYPES:
+                raise unsupported_codec(f"'mp4v' of object type 0x{oti:02X} in MP4")
+            codec = OBJECT_TYPES[oti]
         if size < 8:
             break
         p += size
@@ -231,8 +233,8 @@ def _track(f, s, e):
                 break
     deltas = np.array(deltas[:n] + [deltas[-1] if deltas else 1] * (n - len(deltas)),
                       np.int64)
-    return (fourcc, width, height, timescale, np.stack([offsets, sizes, sync], 1), config,
-            deltas, media_time)
+    return (codec, fourcc, width, height, timescale, np.stack([offsets, sizes, sync], 1),
+            config, deltas, media_time)
 
 
 # --------------------------------------------------------------------------- #
@@ -262,14 +264,19 @@ def frame_rate(fps: float):
 
 
 class Mp4Writer:
-    """One ``mp4v`` track; samples are written to ``mdat`` as they come."""
+    """One ``mp4v`` track; samples are written to ``mdat`` as they come. The
+    path's suffix (one of :data:`BRANDS`) picks the brands."""
 
     def __init__(self, path, fps, width, height, config: bytes):
         self.path = Path(path)
         self.timescale, self.delta = frame_rate(fps)
         self.width, self.height, self.config = width, height, config
+        major, minor, compatible = BRANDS[self.path.suffix.lower()]
+        self.qt = major == b"qt  "          # QuickTime's boxes and fields (.mov)
         self.f = open(self.path, "wb")
-        self.f.write(_box(b"ftyp", b"isom", struct.pack(">I", 512), b"isomiso2mp41"))
+        self.f.write(_box(b"ftyp", major, struct.pack(">I", minor), compatible))
+        if self.qt:
+            self.f.write(_box(b"wide"))
         self.mdat = self.f.tell()
         self.f.write(struct.pack(">I4sQ", 1, b"mdat", 0))   # 64-bit size, patched
         self.offsets, self.sizes, self.sync = [], [], []
@@ -303,14 +310,20 @@ class Mp4Writer:
                      struct.pack(">HHHH", 0, 0, 0, 0), matrix,
                      struct.pack(">II", self.width << 16, self.height << 16))
         mdhd = _full(b"mdhd", 0, 0, struct.pack(">IIII", 0, 0, self.timescale, duration),
-                     struct.pack(">HH", 0x55C4, 0))
-        hdlr = _full(b"hdlr", 0, 0, bytes(4), b"vide", bytes(12), b"VideoHandler\0")
+                     struct.pack(">HH", 0x7FFF if self.qt else 0x55C4, 0))
+        if self.qt:
+            hdlr = _full(b"hdlr", 0, 0, b"mhlr", b"vide", bytes(12), b"\x0cVideoHandler")
+            dhlr = _full(b"hdlr", 0, 0, b"dhlr", b"url ", bytes(12), b"\x0bDataHandler")
+        else:
+            hdlr = _full(b"hdlr", 0, 0, bytes(4), b"vide", bytes(12), b"VideoHandler\0")
+            dhlr = b""
         vmhd = _full(b"vmhd", 0, 1, bytes(8))
         dinf = _box(b"dinf", _full(b"dref", 0, 0, struct.pack(">I", 1), _full(b"url ", 0, 1)))
         dec = _desc(4, bytes([0x20, 0x11]) + bytes(3) + struct.pack(">II", 0, 0)
                     + _desc(5, self.config))
         esds = _full(b"esds", 0, 0, _desc(3, struct.pack(">HB", 1, 0) + dec + _desc(6, b"\x02")))
-        mp4v = _box(b"mp4v", bytes(6), struct.pack(">H", 1), bytes(16),
+        vendor = b"FFMP" + struct.pack(">II", 512, 512) if self.qt else bytes(12)
+        mp4v = _box(b"mp4v", bytes(6), struct.pack(">H", 1), bytes(4), vendor,
                     struct.pack(">HHIIIH", self.width, self.height, 0x480000, 0x480000, 0, 1),
                     bytes(32), struct.pack(">Hh", 24, -1), esds)
         stsd = _full(b"stsd", 0, 0, struct.pack(">I", 1), mp4v)
@@ -324,7 +337,7 @@ class Mp4Writer:
         else:
             stco = _full(b"stco", 0, 0, struct.pack(f">I{n}I", n, *self.offsets))
         stbl = _box(b"stbl", stsd, stts, stss, stsc, stsz, stco)
-        minf = _box(b"minf", vmhd, dinf, stbl)
+        minf = _box(b"minf", vmhd, dhlr, dinf, stbl)
         trak = _box(b"trak", tkhd, _box(b"mdia", mdhd, hdlr, minf))
         return _box(b"moov", mvhd, trak)
 

@@ -44,12 +44,12 @@ block's DC is its quantized DC level).
 
 import numpy as np
 
+from mft_tpu_torch.io.container import MPEG4
 from mft_tpu_torch.io.jpeg import _fdct_1d
 
 # ROADMAP items named by what raises
 ROADMAP_ER = "ROADMAP A11, MPEG-4 error resilience and MPEG quantization"
 ROADMAP_ASP = "ROADMAP A11, MPEG-4 Advanced Simple Profile"
-ROADMAP_H264 = "ROADMAP A11, H.264"
 
 NOT_CODED, INTER, INTER4V, INTRA = 0, 1, 2, 3
 I_VOP, P_VOP = 0, 1
@@ -1490,15 +1490,15 @@ def _to(dev, *arrays):
 
 def decode_frames(video, device="cuda"):
     """Generator of the (H, W, 3) uint8 BGR frames of an ``mp4v`` track
-    (:class:`mft_tpu_torch.io.mp4.Mp4Video`), as ``cv2.VideoCapture.read``
+    (:class:`mft_tpu_torch.io.container.VideoTrack`), as ``cv2.VideoCapture.read``
     gives them: V1 on the host (natively for a CUDA ``device``), then V2 on
     ``device``, a VOP after the other. A VOP with ``vop_coded`` 0 gives no
     frame, as libavcodec here."""
     from mft_tpu_torch.core.device import resolve_device
     from mft_tpu_torch.ops.mpeg4 import mpeg4_decode_pixels, mpeg4_vlc_decode
     dev = resolve_device(device)
-    if video.fourcc != "mp4v":
-        raise NotImplementedError(f"codec '{video.fourcc}' ({ROADMAP_H264})")
+    if video.codec != MPEG4:
+        raise ValueError(f"decode_frames: a '{video.codec}' track is not MPEG-4 Part 2")
     vol = parse_config(video.config) if video.config else None
     shown = video.shown()
 
@@ -1513,6 +1513,8 @@ def decode_frames(video, device="cuda"):
 
     ref, geom = None, None
     for k, data in enumerate(video.read_samples()):
+        if not data:            # an AVI's dropped frame: no packet, no frame
+            continue
         v, syn = vlc(data)
         if geom is None or (geom.W, geom.H) != (v.width, v.height):
             geom, ref = Geometry(v.width, v.height), None
@@ -1528,7 +1530,8 @@ def decode_frames(video, device="cuda"):
 
 
 class Mp4vEncoder:
-    """An ``.mp4`` with one ``mp4v`` track written through V3 (card), V1
+    """A file with one ``mp4v`` track, in the container that its suffix names
+    (:func:`mft_tpu_torch.io.container.open_writer`), written through V3 (card), V1
     (host) and V2 (card, the closed loop's reconstruction): an I-VOP every
     :data:`GOP` frames, between them P-VOPs of zero motion (each MB inter
     against the previous reconstruction, or not_coded where its residual
@@ -1537,12 +1540,13 @@ class Mp4vEncoder:
 
     def __init__(self, path, fps, width, height, device="cuda"):
         from mft_tpu_torch.core.device import resolve_device
-        from mft_tpu_torch.io.mp4 import Mp4Writer, frame_rate
+        from mft_tpu_torch.io.container import open_writer
+        from mft_tpu_torch.io.mp4 import frame_rate
         self.dev = resolve_device(device)
         self.time_res, self.incr = frame_rate(fps)
         self.vol = Vol(width, height, self.time_res)
         self.geom = Geometry(width, height)
-        self.writer = Mp4Writer(path, fps, width, height, write_config(self.vol))
+        self.writer = open_writer(path, fps, width, height, write_config(self.vol))
         self.ref = None
         self.n = 0
         self._mv = None

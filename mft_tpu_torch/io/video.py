@@ -1,25 +1,31 @@
-"""Video input/output: MP4 files and image directories, frame generators and
+"""Video input/output: video files and image directories, frame generators and
 a writer.
 
 A copy of ``mft_tpu/io/video.py`` (reference MFT/utils/io.py:566-615 and
 vis_utils.py:621-658) without OpenCV. Frames are (H, W, 3) uint8 BGR, as
 ``cv2.VideoCapture.read`` / ``cv2.imread`` give them.
 
-- A ``.mp4``, ``.m4v`` or ``.mov`` file is read through the port's MP4
-  reader (:mod:`mft_tpu_torch.io.mp4`) and its MPEG-4 Part 2 (``mp4v``)
-  codec (:mod:`mft_tpu_torch.io.mpeg4`: V1 on the host, V2 on the card
-  for a CUDA ``device``), as cv2's libavcodec decodes it. Another codec
-  (``avc1`` ...) or container (``.avi``, ``.mkv`` ...) raises
+- A video file is read through the container that its first bytes name,
+  whatever its suffix, as libavformat probes (:mod:`mft_tpu_torch.io.container`):
+  MP4/QuickTime (:mod:`.mp4`), AVI (:mod:`.avi`, OpenDML too) or Matroska
+  (:mod:`.mkv`). Its first video track's codec picks the decoder: MPEG-4
+  Part 2 (:mod:`mft_tpu_torch.io.mpeg4`: V1 on the host, V2 on the card
+  for a CUDA ``device``) or Motion JPEG (:mod:`mft_tpu_torch.io.mjpeg`: J1
+  on the host, J4 on the card), each as cv2's libavcodec decodes it.
+  Another codec (``avc1`` ...) or container (``.mpg``, ``.ts`` ...) raises
   ``NotImplementedError`` naming its ROADMAP item.
 - PNG and JPEG frames of a directory go through
   :func:`mft_tpu_torch.io.image.imread` (a JPEG through the port's codec,
   :mod:`mft_tpu_torch.io.jpeg`).
-- A writer for a path with the suffix ``.mp4`` writes an ``mp4v`` track
-  (V3 and V2 on the card, V1 on the host) at the given fps, as the JAX
-  package's ``cv2.VideoWriter`` with fourcc ``mp4v``; its bytes are the
-  port's own, not libavcodec's. A path without a suffix receives
-  ``00000.jpg``, ``00001.jpg``, ... at quality 95 (``cv2.imwrite``'s
-  default), through J3 and J1.
+- A writer for a path with the suffix ``.mp4``, ``.mov``, ``.m4v``,
+  ``.3gp``, ``.avi`` or ``.mkv`` (any case) writes an ``mp4v`` track (V3 and
+  V2 on the card, V1 on the host) at the given fps into that container, as
+  the JAX package's ``cv2.VideoWriter`` with fourcc ``mp4v``; its bytes
+  are the port's own, not libavcodec's. Other suffixes that cv2 opens
+  (``.mpg``, ``.ts``, ``.asf``, ``.nut``) raise naming "A11, other
+  containers". A path without a suffix receives ``00000.jpg``,
+  ``00001.jpg``, ... at quality 95 (``cv2.imwrite``'s default), through J3
+  and J1.
 """
 
 from collections import deque
@@ -27,19 +33,13 @@ from pathlib import Path
 
 import numpy as np
 
+from mft_tpu_torch.io.container import MJPEG, open_track
 from mft_tpu_torch.io.image import imread
 from mft_tpu_torch.io.jpeg import encode_jpeg
-from mft_tpu_torch.io.mp4 import MP4_SUFFIXES, read_mp4
+from mft_tpu_torch.io.mjpeg import decode_mjpeg_frames
 from mft_tpu_torch.io.mpeg4 import Mp4vEncoder, decode_frames, find_vop, parse_config, vop_coded
 
 IMAGE_SUFFIXES = {".jpg", ".jpeg", ".png"}
-
-
-def _unsupported(path):
-    item = "MJPEG-in-AVI" if path.suffix.lower() == ".avi" else "other containers"
-    return NotImplementedError(
-        f"video file {path}: the port reads MP4 files ({', '.join(sorted(MP4_SUFFIXES))}) "
-        f"with MPEG-4 Part 2 video and image directories (ROADMAP A11, {item})")
 
 
 class GeneralVideoCapture:
@@ -54,10 +54,9 @@ class GeneralVideoCapture:
         self.image_inputs = path.is_dir()
         self.path = path
         if not self.image_inputs:
-            if path.suffix.lower() not in MP4_SUFFIXES:
-                raise _unsupported(path)
-            self.video = read_mp4(path)
-            self.frames = decode_frames(self.video, device)
+            self.video = open_track(path)
+            decode = decode_mjpeg_frames if self.video.codec == MJPEG else decode_frames
+            self.frames = decode(self.video, device)
             return
         self.images = sorted(p for p in path.iterdir()
                              if p.suffix.lower() in IMAGE_SUFFIXES)
@@ -96,15 +95,21 @@ def get_video_frames(path, reverse=False, device="cuda"):
 
 
 def get_video_length(path, device="cuda"):
-    """The number of frames: an MP4 file's coded VOPs that its edit list
-    shows (no pixels decoded), an image directory's images."""
+    """The number of frames: an MPEG-4 track's coded VOPs that its edit list
+    shows (no pixels decoded), a Motion JPEG track's non-empty samples
+    shown, an image directory's images."""
     path = Path(path)
-    if path.is_dir() or path.suffix.lower() not in MP4_SUFFIXES:
+    if path.is_dir():
         return sum(1 for _ in get_video_frames(path, device=device))
-    video = read_mp4(path)
+    video = open_track(path)
+    if video.codec == MJPEG:
+        return int(sum(shown and size > 0 for shown, size in zip(video.shown(),
+                                                                 video.samples[:, 1])))
     vol = parse_config(video.config) if video.config else None
     n = 0
     for shown, data in zip(video.shown(), video.read_samples()):
+        if not data:
+            continue
         new_vol = find_vop(data, vol)[1]
         vol = new_vol or vol
         if vol is None:
@@ -114,11 +119,14 @@ def get_video_length(path, device="cuda"):
 
 
 class VideoWriter:
-    """Writer for visualizations: ``path`` with the suffix ``.mp4`` is an
-    MP4 file of one ``mp4v`` track at ``fps`` (the port's encoder,
+    """Writer for visualizations: ``path`` with a suffix of
+    :data:`mft_tpu_torch.io.container.WRITER_SUFFIXES` is a file of that
+    container with one ``mp4v`` track at ``fps`` (the port's encoder,
     :class:`mft_tpu_torch.io.mpeg4.Mp4vEncoder`, for ``device``); ``path``
     without a suffix is a directory that receives ``00000.jpg``,
-    ``00001.jpg``, ... (JPEG at quality 95, encoded for ``device``)."""
+    ``00001.jpg``, ... (JPEG at quality 95, encoded for ``device``). As in
+    the JAX package, the file is opened at the first frame: another suffix
+    raises there."""
 
     def __init__(self, path, fps=25.0, device="cuda"):
         self.path = Path(path)
@@ -129,10 +137,6 @@ class VideoWriter:
         if self.image_dir:
             self.path.mkdir(parents=True, exist_ok=True)
             self.i = 0
-        elif self.path.suffix.lower() != ".mp4":
-            raise NotImplementedError(
-                f"video writer for {self.path}: the port writes .mp4 (mp4v) files and image "
-                "directories (ROADMAP A11, other containers)")
         else:
             self.path.parent.mkdir(parents=True, exist_ok=True)
 

@@ -23,6 +23,7 @@
 | mpeg4_vlc_decode, mpeg4_vlc_encode (V1: host code, mft_mpeg4_vlc_decode / _encode) | no Pallas site: cv2 (libavcodec) on the host |
 | mpeg4_decode_pixels (V2: mft_mpeg4_decode_pixels) | no Pallas site: cv2 (libavcodec) on the host |
 | mpeg4_encode_pixels (V3: mft_mpeg4_encode_pixels) | no Pallas site: cv2 (libavcodec) on the host |
+| mjpeg_decode_pixels (J4: mft_mjpeg_decode_pixels) | no Pallas site: cv2 (libavcodec, swscale) on the host |
 
 A wrapper launches its kernel for CUDA tensors and uses the plain version for
 CPU tensors; it raises for anything else. Each wrapper counts its launches in
@@ -36,7 +37,9 @@ per pixel (:func:`lane_major_staged_counts`).
 JPEG's native stages (:mod:`mft_tpu_torch.ops.jpeg`: J1 entropy coding runs
 on the host and counts its native calls, J2/J3 the pixel stages on the card)
 and the MPEG-4 Part 2 video codec's (:mod:`mft_tpu_torch.ops.mpeg4`: V1 on
-the host, V2/V3 on the card) count in the same registry.
+the host, V2/V3 on the card) and Motion JPEG's pixel stage
+(:mod:`mft_tpu_torch.ops.mjpeg`: J4 on the card, after J1) count in the same
+registry.
 """
 
 from mft_tpu_torch.ops.chain_select import chain_select, chain_select_ref
@@ -50,6 +53,7 @@ from mft_tpu_torch.ops.corr_lookup import (
     corr_lookup_t_ref, lane_major_staged_counts)
 from mft_tpu_torch.ops.jpeg import (jpeg_decode_pixels, jpeg_encode_pixels, jpeg_huff_decode,
                                     jpeg_huff_decode_progressive, jpeg_huff_encode)
+from mft_tpu_torch.ops.mjpeg import mjpeg_decode_pixels
 from mft_tpu_torch.ops.mpeg4 import (mpeg4_decode_pixels, mpeg4_encode_pixels, mpeg4_vlc_decode,
                                      mpeg4_vlc_encode)
 from mft_tpu_torch.ops.product import (conv_pallas, conv_pallas_magnitude, conv_pallas_ref,
@@ -66,7 +70,7 @@ KERNELS = (corr_lookup_fused, corr_lookup, corr_lookup_bwd, chain_select, corr_l
            corr_lookup_t, corr_lookup_folded, corr_build_folded, corr_lookup_mixed,
            conv_pallas, bilinear_warp, jpeg_huff_decode, jpeg_huff_decode_progressive,
            jpeg_huff_encode, jpeg_decode_pixels, jpeg_encode_pixels, mpeg4_vlc_decode,
-           mpeg4_vlc_encode, mpeg4_decode_pixels, mpeg4_encode_pixels)
+           mpeg4_vlc_encode, mpeg4_decode_pixels, mpeg4_encode_pixels, mjpeg_decode_pixels)
 
 
 def launch_counts() -> dict:
@@ -104,6 +108,6 @@ __all__ = ["chain_select", "chain_select_ref", "corr_lookup", "corr_lookup_ref",
            "bilinear_warp_blocked", "bilinear_warp_tiled", "snap256", "split_hi_lo",
            "jpeg_huff_decode", "jpeg_huff_decode_progressive", "jpeg_huff_encode",
            "jpeg_decode_pixels", "jpeg_encode_pixels", "mpeg4_vlc_decode", "mpeg4_vlc_encode",
-           "mpeg4_decode_pixels", "mpeg4_encode_pixels",
+           "mpeg4_decode_pixels", "mpeg4_encode_pixels", "mjpeg_decode_pixels",
            "KERNELS",
            "launch_counts", "tensor_core_launch_counts", "reset_launch_counts"]

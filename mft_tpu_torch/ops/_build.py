@@ -65,6 +65,7 @@ SIGNATURES = {
     "mft_mpeg4_vlc_encode": [_P] * 12 + [_L, _P],
     "mft_mpeg4_decode_pixels": [_P] * 6 + [_I, _P, _P, _P],
     "mft_mpeg4_encode_pixels": [_P, _P, _P, _I, _P, _P],
+    "mft_mjpeg_decode_pixels": [_P, _I, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -364,7 +364,8 @@ def test_video_writer_writes_png_frames(tmp_path):
 
 def test_video_codecs_raise(tmp_path):
     """What the port's video I/O does not read yet raises, naming its ROADMAP
-    item: an H.264 ('avc1') track, an AVI file, a B-VOP."""
+    item: an H.264 ('avc1') track, a file of no container it knows (a RIFF
+    that is not AVI), a writer for an MPEG program stream, a B-VOP."""
     from mft_tpu_torch.io import mpeg4
     from mft_tpu_torch.io.mp4 import Mp4Writer
     data = _mp4_bytes(tmp_path / "ok.mp4", [np.zeros((16, 16, 3), np.uint8)] * 2, 25.0)
@@ -373,10 +374,10 @@ def test_video_codecs_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="A11, H.264"):
         video.GeneralVideoCapture(tmp_path / "h264.mp4", device="cpu")
     (tmp_path / "clip.avi").write_bytes(b"RIFF" + bytes(60))
-    with pytest.raises(NotImplementedError, match="A11, MJPEG-in-AVI"):
+    with pytest.raises(NotImplementedError, match="A11, other containers"):
         video.GeneralVideoCapture(tmp_path / "clip.avi", device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
-        video.VideoWriter(tmp_path / "out.avi", device="cpu")
+        video.VideoWriter(tmp_path / "out.mpg", device="cpu").write(np.zeros((16, 16, 3), np.uint8))
     vol = mpeg4.Vol(16, 16, 25)
     bw = mpeg4.BitWriter()
     mpeg4.write_vop_header(bw, vol, [2, 1, 0, 4, 1, 0, 0, 0])

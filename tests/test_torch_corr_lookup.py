@@ -201,9 +201,9 @@ def test_wrappers_use_plain_version_on_cpu(rng):
                                                    ops.corr_lookup_bwd_ref(g, tc, dims, R)))
     assert ops.launch_counts() == {k.__name__: 0 for k in ops.KERNELS}
     # the 14 kernels of the Pallas sites' paths, the backward, JPEG's J1 (decode,
-    # progressive decode, encode), J2 and J3, and the mp4v codec's V1 (decode,
-    # encode), V2 and V3
-    assert len(ops.KERNELS) == 24
+    # progressive decode, encode), J2 and J3, the mp4v codec's V1 (decode,
+    # encode), V2 and V3, and Motion JPEG's J4
+    assert len(ops.KERNELS) == 25
 
 
 @pytest.mark.parametrize("radius", [0, 1, 4, 5])

@@ -84,7 +84,9 @@ def test_port_modules_list_is_complete():
                  "mft_tpu_torch.train.kubric_longflow", "mft_tpu_torch.io.jpeg",
                  "mft_tpu_torch.ops.jpeg", "mft_tpu_torch.io.image",
                  "mft_tpu_torch.utils.flops", "mft_tpu_torch.models.raft.convert",
-                 "mft_tpu_torch.io.mp4", "mft_tpu_torch.io.mpeg4", "mft_tpu_torch.ops.mpeg4"):
+                 "mft_tpu_torch.io.mp4", "mft_tpu_torch.io.mpeg4", "mft_tpu_torch.ops.mpeg4",
+                 "mft_tpu_torch.io.container", "mft_tpu_torch.io.avi", "mft_tpu_torch.io.mkv",
+                 "mft_tpu_torch.io.mjpeg", "mft_tpu_torch.ops.mjpeg"):
         assert want in mods
 
 

@@ -1811,3 +1811,42 @@ def test_mpeg4_encoder_matches_plain(cuda, tmp_path, W, H):
     got = list(video.get_video_frames(tmp_path / "cuda.mp4", device=cuda))
     want = list(video.get_video_frames(tmp_path / "cuda.mp4", device="cpu"))
     assert len(got) == 14 and all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
+# --------------------------------------------------------------------------- #
+# Motion JPEG: J1 (host) and J4 (card)
+# --------------------------------------------------------------------------- #
+VIDEO_FIXTURES = Path(__file__).parent / "data" / "torch_fixtures" / "video"
+
+
+@pytest.mark.parametrize("name", ["mjpg.avi", "mjpg.mkv", "mjpg.mp4", "mjpg422.avi",
+                                  "mjpg444.avi", "grey.avi", "nodht.avi"])
+def test_mjpeg_decode_matches_plain(cuda, name):
+    """J4 on the card bit for bit with its plain version over a batch of a
+    fixture's frames, one launch; the entry point's frames equal the CPU's
+    (J1 natively and J4 once a frame, 6 each)."""
+    from mft_tpu_torch.io import jpeg as J
+    from mft_tpu_torch.io import mjpeg as MJ
+    from mft_tpu_torch.io import video
+    from mft_tpu_torch.io.container import open_track
+    from mft_tpu_torch.ops.mjpeg import mjpeg_decode_pixels
+    huff, qt, files, coefs = MJ.default_tables(), {}, [], []
+    for data in open_track(VIDEO_FIXTURES / name).read_samples():
+        jf = MJ.parse_frame(data, huff, qt)
+        co = np.zeros((jf.geom.blocks, 64), np.int16)
+        for scan in jf.scans:
+            J.huff_decode_ref(scan, co)
+        files.append(jf)
+        coefs.append(co)
+    co, q = np.stack(coefs), np.stack([jf.qtabs for jf in files]).astype(np.int32)
+    ops.reset_launch_counts()
+    got = mjpeg_decode_pixels(torch.from_numpy(co).to(cuda), torch.from_numpy(q).to(cuda),
+                              files[0].geom)
+    assert np.array_equal(got.cpu().numpy(), MJ.decode_pixels_ref(co, q, files[0].geom))
+    assert ops.launch_counts()["mjpeg_decode_pixels"] == 1
+    ops.reset_launch_counts()
+    frames = list(video.get_video_frames(VIDEO_FIXTURES / name, device=cuda))
+    counts = ops.launch_counts()
+    assert counts["mjpeg_decode_pixels"] == 6 and counts["jpeg_huff_decode"] == 6
+    assert all(np.array_equal(a, b) for a, b in zip(
+        frames, video.get_video_frames(VIDEO_FIXTURES / name, device="cpu")))

@@ -1,7 +1,10 @@
-"""Write the fixtures that ``chip_smoke.py`` phase 20 checks the port against
-on the card's machine, which has neither OpenCV nor PIL nor JAX:
+"""Write the fixtures that ``chip_smoke.py`` phases 20-22 check the port
+against on the card's machine, which has neither OpenCV nor PIL nor JAX:
 
-    python tools/torch_make_fixtures.py [--out tests/data/torch_fixtures]
+    python tools/torch_make_fixtures.py [--out tests/data/torch_fixtures] [--only video]
+
+(``--only video`` rewrites ``video/`` and its entry of ``hashes.json`` and
+leaves the other fixtures as they are.)
 
 - ``prog_512/0000k.jpg``: 8 progressive 512x512 frames of a moving
   synthetic scene (``chip_smoke.synthetic_clip``, 2 px right and 1 px down
@@ -20,13 +23,21 @@ on the card's machine, which has neither OpenCV nor PIL nor JAX:
   scene with a small moving patch (``still``, 96x64) and a pan at 72x40,
   a size that is not a multiple of 16 (``odd``); beside each, ``.npz``
   (``savez_compressed``) of cv2's BGR frames;
+- ``video/*``: 6-frame scenes in the other containers: the JAX package's
+  ``VideoWriter`` (cv2, ``mp4v``) into ``.avi`` and ``.mkv``, cv2's writer
+  with fourcc ``XVID`` (``.avi``) and ``MJPG`` (``.avi``, ``.mkv``, and
+  ``.mp4``/``.mov``, which cv2 writes under an ``mp4v`` entry of object
+  type 0x6C and a ``jpeg`` entry), and MJPEG AVIs that the port's muxer
+  packs from ``cv2.imencode`` frames: 4:2:2, 4:4:4, grey, and 4:2:0 with
+  its DHT segments removed (as camera MJPEG comes);
 - ``hashes.json``: ``chip_smoke.array_hash`` (dtype, shape, sha256) of
   every file's decode by cv2 (BGR; for a PNG ``IMREAD_UNCHANGED`` and
   ``IMREAD_COLOR``) and PIL (``convert('RGB')``), of every output of
   ``chip_smoke.vis_cases`` under the JAX package's ``mft_tpu/utils/vis.py``,
   and of each ``mp4v`` file's frames: cv2's Y planes
   (``CAP_PROP_CONVERT_RGB`` 0) and BGR frames, its frame count, fps and
-  size.
+  size; and under ``video`` each container fixture's BGR frames as cv2
+  decodes them, its frame count, fps and size.
 
 Needs cv2, PIL and the JAX package (``mft_tpu``); runs on the CPU.
 """
@@ -217,11 +228,96 @@ def write_mp4v(out, rng):
     return info
 
 
+def strip_dht(jpeg: bytes) -> bytes:
+    """A JPEG without its DHT segments (a decoder then takes Annex K's tables)."""
+    out, pos = bytearray(jpeg[:2]), 2
+    while jpeg[pos + 1] != 0xDA:
+        size = 2 + struct.unpack(">H", jpeg[pos + 2:pos + 4])[0]
+        if jpeg[pos + 1] != 0xC4:
+            out += jpeg[pos:pos + size]
+        pos += size
+    return bytes(out + jpeg[pos:])
+
+
+VIDEO_FRAMES = 6
+
+
+def container_scenes():
+    """{name: (writer, W, H, frames)} of the ``video/`` fixtures; writer:
+    'jax' (the JAX package's VideoWriter), a cv2 fourcc, or ('avi', sampling
+    or 'grey', strip DHT) for the port's AVI muxer over cv2.imencode."""
+    def pan(H, W, seed):
+        big = cv2.GaussianBlur((np.random.default_rng(seed).random((2 * H, 2 * W, 3)) * 255)
+                               .astype(np.uint8), (0, 0), 2.0)
+        return [np.ascontiguousarray(big[3 * t:3 * t + H, 5 * t:5 * t + W])
+                for t in range(VIDEO_FRAMES)]
+
+    return {"mp4v.avi": ("jax", pan(64, 96, 11)), "mp4v.mkv": ("jax", pan(64, 96, 12)),
+            "xvid.avi": ("XVID", pan(48, 80, 13)), "mjpg.avi": ("MJPG", pan(64, 96, 14)),
+            "mjpg.mkv": ("MJPG", pan(48, 64, 15)), "mjpg.mp4": ("MJPG", pan(48, 64, 16)),
+            "mjpg.mov": ("MJPG", pan(40, 56, 17)),
+            "mjpg422.avi": (("422", False), pan(48, 88, 18)),
+            "mjpg444.avi": (("444", False), pan(40, 72, 19)),
+            "grey.avi": (("grey", False), pan(48, 64, 20)),
+            "nodht.avi": (("420", True), pan(64, 96, 21))}
+
+
+def write_containers(out):
+    """The ``video/`` fixtures, and {name: cv2's frame count, fps, size and
+    BGR hashes}."""
+    from mft_tpu.io.video import VideoWriter as JaxVideoWriter
+    from mft_tpu_torch.io.avi import AviWriter
+    (out / "video").mkdir()
+    info = {}
+    for name, (writer, frames) in container_scenes().items():
+        path = out / "video" / name
+        H, W = frames[0].shape[:2]
+        if writer == "jax":
+            with JaxVideoWriter(path, fps=25.0) as w:
+                for f in frames:
+                    w.write(f)
+        elif isinstance(writer, str):
+            w = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*writer), 25.0, (W, H))
+            for f in frames:
+                w.write(f)
+            w.release()
+        else:
+            sampling, no_dht = writer
+            with AviWriter(path, 25.0, W, H, b"MJPG") as w:
+                for f in frames:
+                    if sampling == "grey":
+                        img, params = cv2.cvtColor(f, cv2.COLOR_BGR2GRAY), []
+                    else:
+                        img, params = f, [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING[sampling]]
+                    data = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, 90] + params)[1]
+                    w.add(strip_dht(data.tobytes()) if no_dht else data.tobytes(), True)
+        cap = cv2.VideoCapture(str(path))
+        fps, count = cap.get(cv2.CAP_PROP_FPS), cap.get(cv2.CAP_PROP_FRAME_COUNT)
+        bgr = []
+        while True:
+            ok, f = cap.read()
+            if not ok:
+                break
+            bgr.append(f)
+        assert len(bgr) == count == VIDEO_FRAMES, (name, len(bgr), count)
+        info[f"video/{name}"] = {"frames": len(bgr), "fps": fps, "size": [W, H],
+                                 "bgr": [chip_smoke.array_hash(f) for f in bgr]}
+    return info
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default=str(REPO / "tests" / "data" / "torch_fixtures"))
+    parser.add_argument("--only", choices=["video"], default=None)
     args = parser.parse_args(argv)
     out = Path(args.out)
+    if args.only == "video":
+        shutil.rmtree(out / "video", ignore_errors=True)
+        hashes = json.loads((out / "hashes.json").read_text())
+        hashes["video"] = write_containers(out)
+        (out / "hashes.json").write_text(json.dumps(hashes, indent=1, sort_keys=True) + "\n")
+        print(f"wrote {len(hashes['video'])} video files to {out / 'video'}")
+        return 0
     if out.exists():
         shutil.rmtree(out)
     for sub in (chip_smoke.PROG_DIR, "jpeg", "png"):
@@ -260,6 +356,7 @@ def main(argv=None) -> int:
     hashes["vis"] = {k: chip_smoke.array_hash(v)
                      for k, v in chip_smoke.vis_cases(np, jax_vis).items()}
     hashes["mp4v"] = write_mp4v(out, rng)
+    hashes["video"] = write_containers(out)
     (out / "hashes.json").write_text(json.dumps(hashes, indent=1, sort_keys=True) + "\n")
     size = sum(f.stat().st_size for f in out.rglob("*") if f.is_file())
     print(f"wrote {len(files) + len(pngs)} image files and hashes.json to {out}: "
